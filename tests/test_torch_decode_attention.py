@@ -1,0 +1,185 @@
+"""The port's paged decode attention (tony_tpu_torch.ops.decode_attention)
+against the JAX package's: the plain version the port runs for CPU tensors
+must match the reference's Pallas kernel (interpret mode on the CPU) and
+its repeat-expanded oracle, on the same numpy inputs.
+
+Tolerance: atol=2e-6, rtol=1e-5, the one the reference holds its own decode
+kernels to (tests/test_serve.py): float32 everywhere, only the order of the
+sums differs."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tony_tpu.ops.decode_attention import (
+    decode_attention as jax_decode_attention,
+    reference_decode_attention as jax_reference,
+)
+from tony_tpu_torch.ops.decode_attention import (
+    LAUNCHES, decode_attention, paged_decode_attention_plain,
+    reference_decode_attention, reset_launches,
+)
+
+B, H, HKV, HD, BLK, M = 5, 4, 2, 16, 8, 6
+# a length-1 row, an exact block boundary, a full row, two ragged rows
+LENGTHS = [1, 8, 48, 13, 27]
+TOL = dict(atol=2e-6, rtol=1e-5)
+
+
+def _case(G: int, seed: int = 0, garbage: bool = False):
+    """Pools, tables and queries from a numpy seed. Row 4 shares row 2's
+    first two physical blocks; table entries past each row's length point
+    at the scratch block 0. With ``garbage`` every pool position past its
+    row's length (and the whole scratch block) holds +-1e3."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([max(n, G) for n in LENGTHS], np.int32)
+    need = [math.ceil(n / BLK) for n in lengths]
+    own = need.copy()
+    own[4] -= 2                                   # row 4 reuses two of row 2's
+    P = 1 + sum(own)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((B, M), np.int32)
+    at = 0
+    for b in range(B):
+        if b == 4:
+            tables[b, :2] = tables[2, :2]
+            tables[b, 2:need[b]] = ids[at:at + own[b]]
+        else:
+            tables[b, :need[b]] = ids[at:at + own[b]]
+        at += own[b]
+    q = rng.standard_normal((B, G, H, HD)).astype(np.float32)
+    k = rng.standard_normal((P, HKV, BLK, HD)).astype(np.float32)
+    v = rng.standard_normal((P, HKV, BLK, HD)).astype(np.float32)
+    if garbage:
+        k[0], v[0] = 1e3, -1e3
+        for b in range(B):
+            last = tables[b, need[b] - 1]
+            tail = lengths[b] - (need[b] - 1) * BLK
+            k[last, :, tail:], v[last, :, tail:] = 1e3, -1e3
+    return q, k, v, lengths, tables
+
+
+def _port(q, k, v, lengths, tables):
+    return decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), tables=torch.from_numpy(tables),
+    ).numpy()
+
+
+def _contiguous(pool, tables):
+    """Gather through the table: [B, Hkv, M*blk, hd] contiguous caches."""
+    g = pool[tables]                                  # [B, M, Hkv, blk, hd]
+    return g.transpose(0, 2, 1, 3, 4).reshape(B, HKV, M * BLK, HD)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_plain_matches_jax_pallas_and_reference(G):
+    q, k, v, lengths, tables = _case(G)
+    got = _port(q, k, v, lengths, tables)
+    pallas = jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        tables=jnp.asarray(tables), impl="pallas",
+    )
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    kc, vc = _contiguous(k, tables), _contiguous(v, tables)
+    ref = jax_reference(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                        jnp.asarray(lengths))
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    port_ref = reference_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(lengths),
+    ).numpy()
+    np.testing.assert_allclose(port_ref, np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_garbage_past_length_does_not_leak(G):
+    """Stale cache content past a row's length (a previous tenant's K/V, or
+    the scratch block's) must not reach the output: the length mask is all
+    that stands between slot reuse and cross-request contamination."""
+    clean = _port(*_case(G, seed=1))
+    dirty = _port(*_case(G, seed=1, garbage=True))
+    np.testing.assert_allclose(dirty, clean, atol=1e-6)
+    assert np.isfinite(dirty).all()
+
+
+def test_one_query_form_squeezes():
+    q, k, v, lengths, tables = _case(1, seed=2)
+    four = _port(q, k, v, lengths, tables)
+    three = _port(q[:, 0], k, v, lengths, tables)
+    assert three.shape == (B, H, HD)
+    np.testing.assert_array_equal(three, four[:, 0])
+
+
+def test_cpu_tensors_never_count_a_kernel_launch():
+    reset_launches()
+    _port(*_case(1, seed=3))
+    _port(*_case(3, seed=3))
+    assert LAUNCHES["paged_decode_attention"] == 0
+    assert LAUNCHES["paged_decode_attention_plain"] == 2
+
+
+def test_wrapper_rejects_what_it_cannot_run():
+    q, k, v, lengths, tables = (torch.from_numpy(a) for a in _case(1, seed=4))
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        decode_attention(q, k, v, lengths)
+    with pytest.raises(ValueError, match="shapes"):
+        decode_attention(q, k[..., :8], v, lengths, tables=tables)
+    with pytest.raises(ValueError, match="batch"):
+        decode_attention(q, k, v, lengths, tables=tables[:2])
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention(q[:, :, :3], k, v, lengths, tables=tables)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """The CUDA kernel against its plain version on the card, both dtypes
+    (bf16: a few ulps of 2^-8, the output and p are rounded to bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    for G in (1, 3):
+        q, k, v, lengths, tables = (
+            torch.from_numpy(a).cuda() for a in _case(G, seed=5))
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2**-7)):
+            reset_launches()
+            out = decode_attention(q.to(dtype), k.to(dtype), v.to(dtype),
+                                   lengths, tables=tables)
+            torch.cuda.synchronize()
+            assert LAUNCHES["paged_decode_attention"] == 1
+            ref = paged_decode_attention_plain(
+                q.to(dtype).float(), k.to(dtype).float(), v.to(dtype).float(),
+                lengths, tables, scale=1.0 / math.sqrt(HD))
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_kernel_stages_large_blocks_in_chunks_on_card():
+    """float32 at block 128, head_dim 128: a block's K+V exceed the kernel's
+    64 KB staging budget, so it stages each block in two chunks. Lengths end
+    inside a first chunk, on a chunk boundary, and inside a second chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from tony_tpu_torch.ops.decode_attention import _chunk
+
+    blk, hd, lengths = 128, 128, np.array([1, 64, 128, 200, 300], np.int32)
+    assert _chunk(blk, hd, 4) < blk
+    rng = np.random.default_rng(6)
+    need = [math.ceil(n / blk) for n in lengths]
+    P = 1 + sum(need)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((len(lengths), max(need)), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[at:at + n]
+        at += n
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+               for s in ((len(lengths), 1, H, hd), (P, HKV, blk, hd),
+                         (P, HKV, blk, hd)))
+    lengths, tables = torch.from_numpy(lengths).cuda(), torch.from_numpy(tables).cuda()
+    out = decode_attention(q, k, v, lengths, tables=tables)
+    ref = paged_decode_attention_plain(q, k, v, lengths, tables,
+                                       scale=1.0 / math.sqrt(hd))
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)

@@ -1,0 +1,10 @@
+"""tony_tpu_torch: the PyTorch/CUDA port of tony_tpu for NVIDIA Hopper.
+
+A package of its own beside ``tony_tpu`` (the JAX reference, which stays as
+it is): it imports ``torch`` and numpy, never ``jax`` and nothing of
+``tony_tpu``. Module paths mirror the reference's. This slice serves
+Llama-family models through the continuous-batching paged-KV engine
+(``serve/engine.py``), whose decode attention is a hand-written CUDA kernel
+(``csrc/paged_decode_attention.cu``). Entry points run on CUDA unless the
+caller asks for the CPU.
+"""

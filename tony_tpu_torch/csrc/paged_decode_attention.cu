@@ -1,0 +1,269 @@
+// Paged GQA decode attention for Hopper (sm_90a): one decode step of
+// attention for every row of a batch, reading K/V through a block table.
+//
+// Replaces tony_tpu/ops/decode_attention.py::_paged_kernel (its tile body
+// is _paged_body): the TPU kernel that the serving engine's decode step
+// calls once per layer. It computes what that kernel computes:
+//   q      [B, G, H, hd]           G query positions per row (G = 1 when
+//                                  decoding one token)
+//   k, v   [P, Hkv, blk, hd]       physical-block pools of one layer
+//   lengths[B]   int32             cache length after this step's writes
+//   tables [B, M] int32            row b's logical block j lives at
+//                                  tables[b, j]
+//   out    [B, G, H, hd]
+// Query g of row b attends positions < lengths[b] - (G - 1) + g, with an
+// online softmax in float32 (m, l, acc), scores scaled after the dot, and
+// the probabilities cast to the cache dtype before P.V as the TPU kernel
+// does. Head h reads kv head h / (H / Hkv).
+//
+// Shape of the work. One CTA per (row b, kv head x): grid B * Hkv, 256
+// threads. The G * rep query rows that share kv head x are folded into
+// one tile (R = G * rep rows), so each K/V byte is read once per CTA. The
+// CTA reads its own row length and walks its table row for
+// j < ceil(len / blk): this takes the place of the TPU's scalar prefetch,
+// and table entries past the length are never read. Each logical block is
+// staged into shared memory with 16-byte loads, in chunks of `chunk`
+// positions (the whole block at the serving shapes); scores go warp per
+// position with the lanes across head_dim (rows reduced four at a time),
+// the softmax update warp per row, and P.V thread per (row, dim) with the
+// accumulator in shared memory and four independent partial sums.
+//
+// What bounds it on this card: bytes. A decode step does 4 * R * hd flops
+// per K/V position against 2 * hd * sizeof(T) bytes, far below the H100's
+// ~295 flop/byte ridge. The least time is the distinct K/V bytes up to
+// each row's length (a block shared by two rows counted once) plus q and
+// out, over the 3.35 TB/s of HBM3 (H100 SXM data sheet): at chip_smoke.py's
+// Llama-3-8B decode case (8 rows of 5..2048 positions, two rows sharing 8
+// blocks, 8 kv heads, hd 128, bf16) that is 28.7 MB, 8.6 us, as the script
+// computes it. The design reads every needed byte once per CTA (a block
+// shared by two rows is read by both) and nothing past a row's length; it
+// does not yet overlap loads with math (no cp.async/TMA pipeline), and
+// B * Hkv CTAs
+// (64 at 8 rows) fill under half of the 132 SMs: splitting the sequence
+// across CTAs (flash-decoding) is the known next step. Measured times
+// against this bound are in PERF.md.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxHeadDim = 256;
+// the TPU kernel's -0.7 * float32 max: finite, so exp(m_prev - m_new) of
+// two masked maxima is 1 and never NaN
+constexpr float kNeg = -0.7f * 3.4028234663852886e38f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    const int* __restrict__ tables, T* __restrict__ out,
+                    int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+                    float scale) {
+  const int b = blockIdx.x / Hkv;
+  const int x = blockIdx.x % Hkv;
+  const int rep = H / Hkv;
+  const int R = G * rep;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);                       // [chunk, hd]
+  T* v_s = k_s + chunk * hd;                                 // [chunk, hd]
+  float* q_s = reinterpret_cast<float*>(v_s + chunk * hd);   // [R, hd]
+  float* acc = q_s + R * hd;                                 // [R, hd]
+  float* s_s = acc + R * hd;                                 // [R, chunk]
+  float* m_s = s_s + R * chunk;                              // [R]
+  float* l_s = m_s + R;                                      // [R]
+  float* c_s = l_s + R;                                      // [R]
+
+  const int len = lengths[b];
+  // folded row r = g * rep + i is query g of head x * rep + i
+  for (int e = tid; e < R * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
+    const int g = r / rep, i = r % rep;
+    q_s[e] = to_f(q[((size_t)(b * G + g) * H + x * rep + i) * hd + d]);
+    acc[e] = 0.f;
+  }
+  for (int r = tid; r < R; r += kThreads) {
+    m_s[r] = kNeg;
+    l_s[r] = 0.f;
+  }
+
+  const int n_blocks = (len + blk - 1) / blk;
+  const int chunk_vec = chunk * hd * (int)sizeof(T) / 16;
+  for (int j = 0; j < n_blocks; ++j) {
+    const int pid = tables[(size_t)b * M + j];
+    const size_t block_off = ((size_t)pid * Hkv + x) * blk * hd;
+    for (int c0 = 0; c0 < blk; c0 += chunk) {
+      const int base = j * blk + c0;  // logical position of the chunk's first entry
+      if (base >= len) break;         // uniform across the CTA
+      __syncthreads();                // the previous chunk's readers are done
+      const int4* ksrc = reinterpret_cast<const int4*>(k + block_off + (size_t)c0 * hd);
+      const int4* vsrc = reinterpret_cast<const int4*>(v + block_off + (size_t)c0 * hd);
+      int4* kdst = reinterpret_cast<int4*>(k_s);
+      int4* vdst = reinterpret_cast<int4*>(v_s);
+      for (int i = tid; i < chunk_vec; i += kThreads) {
+        kdst[i] = ksrc[i];
+        vdst[i] = vsrc[i];
+      }
+      __syncthreads();
+
+      // scores: one warp per position, lanes across head_dim; the rows'
+      // dot products reduce in groups of 4 with interleaved shuffles, so
+      // the shuffle latency is paid once per group, not once per row
+      for (int t = warp; t < chunk; t += kWarps) {
+        const int pos = base + t;
+        float kr[kMaxHeadDim / 32];
+#pragma unroll
+        for (int u = 0; u < kMaxHeadDim / 32; ++u) {
+          const int d = lane + 32 * u;
+          kr[u] = d < hd ? to_f(k_s[t * hd + d]) : 0.f;
+        }
+        for (int r0 = 0; r0 < R; r0 += 4) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < kMaxHeadDim / 32; ++u) {
+            const int d = lane + 32 * u;
+            if (d < hd) {
+#pragma unroll
+              for (int w = 0; w < 4; ++w)
+                if (r0 + w < R) part[w] += q_s[(r0 + w) * hd + d] * kr[u];
+            }
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              part[w] += __shfl_xor_sync(0xffffffffu, part[w], o);
+          }
+          // lane w keeps row r0 + w (a select chain, not a dynamic index,
+          // so part[] stays in registers)
+          const float mine = lane == 0 ? part[0] : lane == 1 ? part[1]
+                           : lane == 2 ? part[2] : part[3];
+          const int r = r0 + lane;
+          if (lane < 4 && r < R) {
+            const bool ok = pos < len - (G - 1) + r / rep;
+            s_s[r * chunk + t] = ok ? mine * scale : kNeg;
+          }
+        }
+      }
+      __syncthreads();
+
+      // online softmax update: one warp per row
+      for (int r = warp; r < R; r += kWarps) {
+        const int lim = len - (G - 1) + r / rep;
+        float mx = kNeg;
+        for (int t = lane; t < chunk; t += 32) mx = fmaxf(mx, s_s[r * chunk + t]);
+        mx = warp_max(mx);
+        const float m_prev = m_s[r];
+        const float m_new = fmaxf(m_prev, mx);
+        float sum = 0.f;
+        for (int t = lane; t < chunk; t += 32) {
+          const float p = base + t < lim ? expf(s_s[r * chunk + t] - m_new) : 0.f;
+          sum += p;
+          // P.V takes p in the cache dtype, as the TPU kernel does
+          s_s[r * chunk + t] = to_f(from_f<T>(p));
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const float corr = expf(m_prev - m_new);
+          c_s[r] = corr;
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
+        }
+      }
+      __syncthreads();
+
+      // acc = acc * corr + P.V over the written positions only: entries
+      // past the length may hold anything and must not reach the sum
+      const int t_end = min(chunk, len - base);
+      for (int e = tid; e < R * hd; e += kThreads) {
+        const int r = e / hd, d = e % hd;
+        const float* pr = s_s + r * chunk;
+        // four independent partial sums: the FMAs do not wait on each other
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        int t = 0;
+        for (; t + 4 <= t_end; t += 4) {
+          a0 += pr[t] * to_f(v_s[t * hd + d]);
+          a1 += pr[t + 1] * to_f(v_s[(t + 1) * hd + d]);
+          a2 += pr[t + 2] * to_f(v_s[(t + 2) * hd + d]);
+          a3 += pr[t + 3] * to_f(v_s[(t + 3) * hd + d]);
+        }
+        for (; t < t_end; ++t) a0 += pr[t] * to_f(v_s[t * hd + d]);
+        acc[e] = acc[e] * c_s[r] + ((a0 + a1) + (a2 + a3));
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < R * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
+    const int g = r / rep, i = r % rep;
+    out[((size_t)(b * G + g) * H + x * rep + i) * hd + d] =
+        from_f<T>(acc[e] / fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const int* lengths,
+           const int* tables, void* out, int B, int G, int H, int Hkv, int hd,
+           int blk, int M, int chunk, float scale, int smem_bytes,
+           cudaStream_t stream) {
+  // past the default 48 KB the kernel must opt in; the attribute is per
+  // device, so it is set on every such launch rather than cached
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  paged_decode_kernel<T><<<B * Hkv, kThreads, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, tables, static_cast<T*>(out), G, H,
+      Hkv, hd, blk, M, chunk, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
+// Returns the cudaError_t of the launch (0 = launched).
+extern "C" int paged_decode_attention(
+    const void* q, const void* k, const void* v, const void* lengths,
+    const void* tables, void* out, int B, int G, int H, int Hkv, int hd,
+    int blk, int M, int chunk, float scale, int smem_bytes, int dtype,
+    void* stream) {
+  const int* len_p = static_cast<const int*>(lengths);
+  const int* tbl_p = static_cast<const int*>(tables);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, len_p, tbl_p, out, B, G, H, Hkv, hd,
+                                 blk, M, chunk, scale, smem_bytes, s);
+  return launch<float>(q, k, v, len_p, tbl_p, out, B, G, H, Hkv, hd, blk, M,
+                       chunk, scale, smem_bytes, s);
+}

@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels (CUDA C++ under ``csrc/``, built with nvcc at
+first use), each beside its plain PyTorch version for CPU tensors."""
+
+from tony_tpu_torch.ops.decode_attention import LAUNCHES, decode_attention
+
+__all__ = ["LAUNCHES", "decode_attention"]

@@ -1,0 +1,224 @@
+"""GQA decode attention over paged KV pools: one decode step per row, read
+at native ``n_kv_heads`` width through a block table.
+
+The counterpart of ``tony_tpu/ops/decode_attention.py``'s paged form. The
+serving engine calls :func:`decode_attention` once per layer per decode
+step (``serve/engine.py``). Layouts are the reference's:
+
+- ``q [B, G, H, hd]`` (or ``[B, H, hd]`` for one query per row): G query
+  positions per row, query g attends positions
+  ``< lengths[b] - (G - 1) + g`` (G = 1 is the one-token rule);
+- ``k``/``v`` pools ``[P, Hkv, block, hd]`` and ``tables [B, M]`` int32:
+  row b's logical block j is physical block ``tables[b, j]``; entries past
+  a row's length are never read by the kernel, and must still be valid ids
+  for the plain version (the engine points them at the scratch block 0);
+- ``lengths [B]`` int32, at least 1.
+
+Where it runs is decided by the tensors' device alone:
+
+- CUDA tensors launch the hand-written kernel
+  ``csrc/paged_decode_attention.cu`` (built with ``nvcc`` at first use,
+  ``ops/_build.py``), or raise. There is no fallback.
+- CPU tensors take :func:`paged_decode_attention_plain`, the plain PyTorch
+  version (a gather through the table and a masked float32 softmax) that
+  the tests hold against the reference.
+
+``LAUNCHES`` counts both, so a run can show which one its path went
+through. The contiguous-cache form of the reference (``tables=None``,
+its ``_decode_kernel``) is not ported yet (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+# one count per path, bumped where the path runs: the CUDA kernel's launch
+# and the plain version's CPU dispatch
+LAUNCHES: dict[str, int] = {
+    "paged_decode_attention": 0,
+    "paged_decode_attention_plain": 0,
+}
+
+_NEG = -0.7 * torch.finfo(torch.float32).max
+_KERNEL = "paged_decode_attention"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448          # bytes of shared memory a Hopper CTA may use
+_CHUNK_BYTES = 64 * 1024      # K+V staged per chunk at most
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def reference_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lengths: torch.Tensor, *,
+                               scale: float | None = None) -> torch.Tensor:
+    """Repeat-expanded contiguous oracle: q ``[B, H, hd]`` or
+    ``[B, G, H, hd]``; k/v ``[B, Hkv, T, hd]``; positions < lengths[b]
+    (minus G-1-g for query g) are attended."""
+    if q.dim() == 4:
+        G = q.shape[1]
+        return torch.stack([
+            reference_decode_attention(q[:, g], k, v, lengths - (G - 1) + g,
+                                       scale=scale)
+            for g in range(G)
+        ], dim=1)
+    B, H, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float())
+    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None].long()
+    s = torch.where(valid[:, None, :], s * scale, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhk,bhkd->bhd", p, v)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 lengths: torch.Tensor, tables: torch.Tensor, *,
+                                 scale: float) -> torch.Tensor:
+    """Plain PyTorch paged decode attention, q ``[B, G, H, hd]``: gather
+    every table entry's block, one masked float32 softmax over the
+    positions, probabilities cast to the cache dtype before P.V (the
+    reference's ``_paged_scan`` numerics, in one pass)."""
+    B, G, H, hd = q.shape
+    Hkv, blk = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    M = tables.shape[1]
+    T = M * blk
+    idx = tables.long()
+    # [B, M, Hkv, blk, hd] -> [B, Hkv, T, hd]
+    kb = k[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+    vb = v[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+    qg = q.reshape(B, G, Hkv, rep, hd).float()
+    s = torch.einsum("bgxrd,bxkd->bgxrk", qg, kb.float()) * scale
+    limit = lengths.long()[:, None] - (G - 1) + torch.arange(G, device=q.device)
+    valid = torch.arange(T, device=q.device)[None, None, :] < limit[:, :, None]
+    vmask = valid[:, :, None, None, :]                        # [B, G, 1, 1, T]
+    s = torch.where(vmask, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vmask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)
+    # p rounds to the cache dtype before P.V; the sum accumulates in fp32
+    acc = torch.einsum("bgxrk,bxkd->bgxrd", p.to(v.dtype).float(), vb.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, G, H, hd).to(q.dtype)
+
+
+def _chunk(blk: int, hd: int, itemsize: int) -> int:
+    """Positions staged per shared-memory chunk: the whole block when K+V
+    of it fit in ``_CHUNK_BYTES``, else the largest halving that does."""
+    chunk = blk
+    while 2 * chunk * hd * itemsize > _CHUNK_BYTES and chunk % 16 == 0:
+        chunk //= 2
+    return chunk
+
+
+def _smem_bytes(R: int, hd: int, chunk: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA (layout in the .cu source)."""
+    return 2 * chunk * hd * itemsize + 4 * (2 * R * hd + R * chunk + 3 * R)
+
+
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, built and bound on first use."""
+    from tony_tpu_torch.ops._build import load
+
+    fn = load(_KERNEL).lib.paged_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _paged_cuda(q, k, v, lengths, tables, *, scale: float) -> torch.Tensor:
+    B, G, H, hd = q.shape
+    _, Hkv, blk, _ = k.shape
+    M = tables.shape[1]
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged decode kernel takes float32 or bfloat16, not {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    if lengths.dtype != torch.int32 or tables.dtype != torch.int32:
+        raise TypeError("lengths and tables must be int32")
+    devs = {t.device for t in (q, k, v, lengths, tables)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths),
+                    ("tables", tables)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if hd > 256 or hd % 8:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8, at most 256")
+    if blk % 16 or not 16 <= blk <= 128:
+        raise ValueError(f"block {blk} must be a multiple of 16 in [16, 128]")
+    itemsize = q.element_size()
+    chunk = _chunk(blk, hd, itemsize)
+    smem = _smem_bytes(G * (H // Hkv), hd, chunk, itemsize)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"G={G} x rep={H // Hkv} query rows at head_dim {hd} need {smem} B "
+            f"of shared memory (limit {_SMEM_LIMIT})"
+        )
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        tables.data_ptr(), out.data_ptr(), B, G, H, Hkv, hd, blk, M, chunk,
+        scale, smem, _DTYPE_CODES[q.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {err}")
+    LAUNCHES[_KERNEL] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, tables: torch.Tensor | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """One decode step of attention over paged pools (see the module
+    docstring for shapes). Returns ``[B, G, H, hd]``, or ``[B, H, hd]`` for
+    a 3-D ``q``. CUDA tensors run the kernel; CPU tensors the plain
+    version."""
+    if tables is None:
+        raise NotImplementedError(
+            "contiguous-cache decode_attention is not ported yet (ROADMAP "
+            "queue 2, kernel 7); pass the paged form's tables"
+        )
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    B, G, H, hd = q.shape
+    if k.shape != v.shape or k.dim() != 4 or k.shape[3] != hd:
+        raise ValueError(f"paged decode_attention shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"tables {tuple(tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {B}")
+    if H % k.shape[1]:
+        raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {k.shape[1]}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if q.device.type == "cuda":
+        out = _paged_cuda(q, k, v, lengths, tables, scale=scale)
+    elif q.device.type == "cpu":
+        LAUNCHES["paged_decode_attention_plain"] += 1
+        out = paged_decode_attention_plain(q, k, v, lengths, tables, scale=scale)
+    else:
+        raise ValueError(f"no decode attention for device {q.device}")
+    return out[:, 0] if squeeze else out
+
+
+__all__ = [
+    "LAUNCHES", "decode_attention", "paged_decode_attention_plain",
+    "reference_decode_attention", "reset_launches",
+]

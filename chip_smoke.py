@@ -9,17 +9,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card: name and power limit, torch/CUDA versions, TF32 settings (matmul
    TF32 is turned off);
-2. build: every kernel of the serving path, compiled from ``csrc/`` with
-   nvcc;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   Llama-3-8B decode shapes, with its time beside the bytes bound, the plain
-   version's time and one PyTorch library call's time; then at block and
-   head sizes large enough that the kernel stages each block in chunks;
+2. build: every kernel source under ``csrc/``, one nvcc each, all started
+   together, with nvcc's ``-Xptxas -v`` lines;
+3. kernels: the paged decode kernel against its plain PyTorch version at
+   Llama-3-8B decode shapes and at block and head sizes where it stages
+   each block in chunks; then the flash-attention forward, dq and dk/dv
+   kernels against theirs at bench_1b4's training shape, a Llama-3-8B GQA
+   shape and one non-causal shape, in bf16 and fp32. Each with its time
+   beside its bound, the plain version's time and one PyTorch library
+   call's time;
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
    launch count must equal decode steps x layers. Then a few decode steps
    under torch.profiler: the device's busy share and the kernel's share of
-   device time.
+   device time;
+5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
+   batch 8 x 2048, the production recipe: flash attention, remat
+   ``save_attn_kernel``, scan CE, bf16 Adam first moment), 10 steps from
+   random weights; every loss finite and the last below the first, and
+   each flash kernel launched exactly 24 x 10 times (twice as many forward
+   launches would mean remat re-ran the forward kernel). Then one step
+   under torch.profiler, and a 2-layer cross-check of one train step with
+   the kernels against plain attention.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -27,11 +38,13 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +56,12 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # before P.V, so it cannot be held closer than a couple of bf16 ulps (2^-8
 # relative); fp32: only the order of the sums differs
 TOLERANCE = {torch.bfloat16: (2**-7, 2**-7), torch.float32: (1e-5, 1e-4)}
+# flash kernels against their plain versions on the same inputs. bf16: both
+# round their outputs to bf16, and the forward rounds p at its running max
+# where the plain version rounds it at the row's max, so a few ulps of 2^-8;
+# fp32: the same float32 sums in another order over up to 2048 positions
+FLASH_TOLERANCE = {torch.bfloat16: (2**-6, 2**-6), torch.float32: (1e-4, 1e-4)}
+KERNEL_SOURCES = ("paged_decode_attention", "flash_attention")
 
 
 def log(msg: str) -> None:
@@ -293,6 +312,250 @@ def decode_breakdown(engine, cfg, rng, steps: int = 8) -> dict:
     }
 
 
+# --- phase 3b: flash attention kernels against their plain versions -----------
+
+# (label, B, S, H, Hkv, hd, causal)
+FLASH_SHAPES = (
+    ("bench_1b4", 8, 2048, 16, 16, 128, True),
+    ("llama3_8b_gqa", 2, 2048, 32, 8, 128, True),
+    ("full", 2, 2048, 16, 16, 128, False),
+)
+
+
+def _pairs(B: int, S: int, H: int, causal: bool) -> int:
+    """(query, key) pairs attended, over every batch row and head."""
+    return B * H * (S * (S + 1) // 2 if causal else S * S)
+
+
+def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
+                S: int, H: int, Hkv: int, hd: int, causal: bool) -> list[dict]:
+    """flash_fwd, flash_dq and flash_dkv at one shape: each against its
+    plain version on the same inputs, its time, its bound, the plain
+    version's time, and SDPA's forward / backward time as the library
+    yardstick (the port never calls SDPA)."""
+    from tony_tpu_torch.ops.attention import (
+        _delta, _dkv, _dq, _fwd, flash_dkv_plain, flash_dq_plain, flash_fwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(S + H + Hkv)
+    q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(hd)
+    out, lse = _fwd(q, k, v, scale, causal)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, scale=scale, causal=causal)
+    delta = _delta(do, ref_out)
+    got = {
+        "flash_fwd": (out, lse),
+        "flash_dq": (_dq(q, k, v, do, ref_lse, delta, scale, causal),),
+        "flash_dkv": _dkv(q, k, v, do, ref_lse, delta, scale, causal),
+    }
+    torch.cuda.synchronize()
+    want = {
+        "flash_fwd": (ref_out, ref_lse),
+        "flash_dq": (flash_dq_plain(q, k, v, do, ref_lse, delta, scale=scale,
+                                    causal=causal),),
+        "flash_dkv": flash_dkv_plain(q, k, v, do, ref_lse, delta, scale=scale,
+                                     causal=causal),
+    }
+    runs = {
+        "flash_fwd": (lambda: _fwd(q, k, v, scale, causal),
+                      lambda: flash_fwd_plain(q, k, v, scale=scale, causal=causal)),
+        "flash_dq": (lambda: _dq(q, k, v, do, ref_lse, delta, scale, causal),
+                     lambda: flash_dq_plain(q, k, v, do, ref_lse, delta, scale=scale,
+                                            causal=causal)),
+        "flash_dkv": (lambda: _dkv(q, k, v, do, ref_lse, delta, scale, causal),
+                      lambda: flash_dkv_plain(q, k, v, do, ref_lse, delta,
+                                              scale=scale, causal=causal)),
+    }
+    # library yardstick: SDPA on [B, H, S, hd] views, forward and backward
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, is_causal=causal, scale=scale, enable_gqa=Hkv != H)
+    sdpa_out = sdpa()
+    dos = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, (qs, ks, vs), dos, retain_graph=True)
+    library = {"flash_fwd": time_ms(sdpa, flush, reps=10)}
+    library["flash_dq"] = library["flash_dkv"] = time_ms(sdpa_bwd, flush, reps=10)
+
+    item = q.element_size()
+    qb, kb = q.numel() * item, k.numel() * item
+    rows = B * H * S * 4                       # one float32 per (row, head)
+    pairs = _pairs(B, S, H, causal)
+    # matmuls over the attended pairs, 2 * hd operations each: fwd QK^T and
+    # P.V; dq QK^T, dO.V^T, dS.K; dk/dv QK^T, dO.V^T, P^T.dO, dS^T.Q
+    work = {
+        "flash_fwd": (4 * hd * pairs, 2 * qb + 2 * kb + rows),
+        "flash_dq": (6 * hd * pairs, 2 * qb + 2 * kb + 2 * rows + qb),
+        "flash_dkv": (8 * hd * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb),
+    }
+    atol, rtol = FLASH_TOLERANCE[dtype]
+    cases = []
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        errs, bad = [], False
+        for g, w in zip(got[name], want[name]):
+            e = (g.float() - w.float()).abs()
+            errs.append(e.max().item())
+            bad |= not bool(torch.isfinite(g).all()) or bool(
+                (e > atol + rtol * w.float().abs()).any())
+        ops, nbytes = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+        kernel, plain = runs[name]
+        cases.append({
+            "name": name, "shape": label, "dtype": str(dtype).replace("torch.", ""),
+            "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd, "causal": causal,
+            "max_abs_err": max(errs), "ok": not bad, "atol": atol, "rtol": rtol,
+            "ms": time_ms(kernel, flush, reps=10),
+            "plain_ms": time_ms(plain, flush, reps=5),
+            "library_ms": library[name],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops": ops, "bytes": nbytes,
+        })
+    return cases
+
+
+# --- phase 5: training at full width --------------------------------------------
+
+TRAIN_STEPS = 10
+
+
+def train_phase(card: str) -> dict:
+    """fit() on bench_1b4 with the production recipe; each step's metrics
+    through ``on_metrics``; the flash kernels' launches over the run."""
+    from tony_tpu_torch.models.llama import LlamaConfig, train_flops_per_token
+    from tony_tpu_torch.ops.attention import LAUNCHES, reset_launches
+    from tony_tpu_torch.ops.fused_ce import f32_matmul_route
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    cfg = LlamaConfig.bench_1b4(attention_impl="flash", remat=True,
+                                remat_policy="save_attn_kernel", ce_impl="scan")
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    steps: list[dict] = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    final = fit(FitConfig(model=cfg, data=data, steps=TRAIN_STEPS, log_every=1,
+                          lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
+                          on_metrics=steps.append), device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    losses = [m["loss"] for m in steps]
+    for m in steps:
+        log(f"train step {m['step']:2d}: loss {m['loss']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms  [{card}]")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = cfg.n_layers * TRAIN_STEPS
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times, not "
+                                 f"{cfg.n_layers} layers x {TRAIN_STEPS} steps")
+    if any(launches[f"{n}_plain"] for n in ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"a plain flash version ran on the card: {launches}")
+    timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
+    step_s = sum(timed) / len(timed)
+    tokens = data.global_batch * data.seq_len
+    flops = train_flops_per_token(cfg, data.seq_len)
+    return {
+        "losses": losses, "launches": launches, "wall_s": wall, "final": final,
+        "mean_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": tokens / step_s * flops / 989e12, "flops_per_token": flops,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "ce_matmul": f32_matmul_route("cuda", cfg.dtype),
+        **train_profile(cfg, data),
+    }
+
+
+def train_profile(cfg, data) -> dict:
+    """One bench_1b4 train step on the host clock, then one under
+    torch.profiler: the device's busy share (device time over the
+    unprofiled step's wall time) and each flash kernel's share of device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.train.data import make_batches
+    from tony_tpu_torch.train.trainer import (
+        default_optimizer, make_train_state, make_train_step,
+    )
+
+    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=TRAIN_STEPS,
+                            mu_dtype="bfloat16")
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    step = make_train_step(cfg, opt)
+    batches = make_batches(dataclasses.replace(data, prefetch=0), device="cuda")
+    for _ in range(2):
+        state, m = step(state, *next(batches))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, *next(batches))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, *next(batches))
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in dev)
+    if device_us == 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  profile: {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
+    share = {}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        us = sum(e.self_device_time_total for e in dev if f"{name}_kernel" in e.key)
+        share[name] = us / device_us
+    return {
+        "profile_step_ms": step_s * 1e3, "profile_device_ms": device_us / 1e3,
+        "profile_device_busy": device_us / 1e6 / step_s, "profile_share": share,
+    }
+
+
+def model_crosscheck(card: str) -> dict:
+    """bench_1b4 at 2 layers: one train step with the flash kernels against
+    one with plain attention ('dot'), from the same params and batch. Loss
+    and grad norm agree within bf16 tolerance: both run bf16 activations
+    with float32 softmax, and the two attentions round at other places."""
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.train.data import DataConfig, synthetic_batches
+    from tony_tpu_torch.train.trainer import (
+        default_optimizer, make_train_state, make_train_step, tree_map,
+    )
+
+    cfg = dataclasses.replace(
+        LlamaConfig.bench_1b4(attention_impl="flash", remat=True,
+                              remat_policy="save_attn_kernel", ce_impl="scan"),
+        n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    inputs, targets = (t.cuda() for t in next(synthetic_batches(
+        DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size))))
+    out = {}
+    for impl in ("flash", "dot"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        opt = default_optimizer(mu_dtype="bfloat16")
+        state = make_train_state(c, opt, params=tree_map(lambda p: p.detach().clone(),
+                                                        params))
+        _, m = make_train_step(c, opt)(state, inputs, targets)
+        out[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        del state
+    (lf, gf), (ld, gd) = out["flash"], out["dot"]
+    log(f"crosscheck 2 layers: loss flash {lf:.5f} dot {ld:.5f}; grad_norm flash "
+        f"{gf:.5f} dot {gd:.5f}  [{card}]")
+    # bf16 activations: a few ulps of 2^-8 on the loss, 2% on the grad norm
+    if abs(lf - ld) > 2e-2 or abs(gf - gd) > 2e-2 * abs(gd):
+        raise AssertionError(f"flash and dot disagree: {out}")
+    return {"loss_flash": lf, "loss_dot": ld, "grad_norm_flash": gf,
+            "grad_norm_dot": gd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -309,11 +572,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = load("paged_decode_attention")
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {built.seconds:.1f} s "
-        f"-> {built.path.name})")
-    for line in built.log.strip().splitlines():
-        log(f"    {line}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = list(pool.map(load, KERNEL_SOURCES))
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources in "
+        "parallel")
+    for name, built in zip(KERNEL_SOURCES, builds):
+        log(f"  {name}.cu: nvcc {built.seconds:.1f} s -> {built.path.name}")
+        for line in built.log.strip().splitlines():
+            if "Compile time" not in line:
+                log(f"    {line}")
 
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
     cases = []
@@ -334,6 +601,23 @@ def main() -> int:
             f"(max|err| {c['sdpa_max_abs_err']:.3e})  [{card}]")
     if not any(c["chunk"] < c["blk"] for c in cases):
         raise AssertionError("no case staged a block in chunks")
+
+    flash = []
+    for label, B, S, H, Hkv, hd, causal in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for c in flash_cases(dtype, flush, label, B, S, H, Hkv, hd, causal):
+                flash.append(c)
+                log(f"kernel {c['name']} {label} {c['dtype']} B={B} S={S} H={H} "
+                    f"Hkv={Hkv} hd={hd} causal={causal}: max|err| "
+                    f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
+                    f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms']:.3f} ms  "
+                    f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: "
+                    f"{c['ops']:.4g} ops, {c['bytes'] / 1e6:.1f} MB)  plain "
+                    f"{c['plain_ms']:.3f} ms  sdpa {c['library_ms']:.3f} ms  [{card}]")
+    bad = [c for c in flash if not c["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernels over tolerance: "
+                             f"{[(c['name'], c['shape'], c['dtype']) for c in bad]}")
     del flush
 
     s = serve_phase()
@@ -348,6 +632,26 @@ def main() -> int:
         f"{s['profile_device_busy']:.1%}), decode attention "
         f"{s['profile_attention_ms']:.2f} ms = "
         f"{s['profile_attention_share']:.1%} of device time  [{card}]")
+    torch.cuda.empty_cache()
+
+    t = train_phase(card)
+    log(f"train bench_1b4 (24 layers, 8 x 2048, flash + save_attn_kernel + scan "
+        f"CE, mu bf16): {TRAIN_STEPS} steps, loss {t['losses'][0]:.4f} -> "
+        f"{t['losses'][-1]:.4f}; mean step {t['mean_step_ms']:.1f} ms over steps "
+        f"3-{TRAIN_STEPS} (host clock), {t['tokens_per_s']:.0f} tok/s, MFU "
+        f"{t['mfu']:.2%} ({t['flops_per_token']:.4g} FLOPs/token over 989e12); "
+        f"fit(): {t['final']['tokens_per_sec_per_chip']:.0f} tok/s, p50 "
+        f"{t['final']['step_time_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{t['final']['step_time_p99_s'] * 1e3:.1f} ms; peak allocated "
+        f"{t['peak_allocated_gb']:.2f} GB; launches fwd "
+        f"{t['launches']['flash_fwd']} dq {t['launches']['flash_dq']} dkv "
+        f"{t['launches']['flash_dkv']}; CE matmuls: {t['ce_matmul']}  [{card}]")
+    log(f"train step under torch.profiler: {t['profile_step_ms']:.1f} ms wall, "
+        f"{t['profile_device_ms']:.1f} ms device (busy "
+        f"{t['profile_device_busy']:.1%}); share of device time: "
+        + ", ".join(f"{k} {v:.1%}" for k, v in t["profile_share"].items())
+        + f"  [{card}]")
+    model_crosscheck(card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -361,6 +665,19 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
+    replaces = {"flash_fwd": 44, "flash_dq": 138, "flash_dkv": 177}
+    for name, line in replaces.items():
+        # the training path's shape and dtype: bench_1b4, bf16
+        c = next(c for c in flash if c["name"] == name and c["shape"] == "bench_1b4"
+                 and c["dtype"] == "bfloat16")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tony_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"tony_tpu/ops/attention.py:{line}",
+            "launches": t["launches"][name], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -132,54 +132,3 @@ def test_wrapper_rejects_what_it_cannot_run():
         decode_attention(q, k, v, lengths, tables=tables[:2])
     with pytest.raises(ValueError, match="multiple"):
         decode_attention(q[:, :, :3], k, v, lengths, tables=tables)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card, both dtypes
-    (bf16: a few ulps of 2^-8, the output and p are rounded to bf16)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    for G in (1, 3):
-        q, k, v, lengths, tables = (
-            torch.from_numpy(a).cuda() for a in _case(G, seed=5))
-        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2**-7)):
-            reset_launches()
-            out = decode_attention(q.to(dtype), k.to(dtype), v.to(dtype),
-                                   lengths, tables=tables)
-            torch.cuda.synchronize()
-            assert LAUNCHES["paged_decode_attention"] == 1
-            ref = paged_decode_attention_plain(
-                q.to(dtype).float(), k.to(dtype).float(), v.to(dtype).float(),
-                lengths, tables, scale=1.0 / math.sqrt(HD))
-            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=atol)
-
-
-@pytest.mark.cuda
-def test_kernel_stages_large_blocks_in_chunks_on_card():
-    """float32 at block 128, head_dim 128: a block's K+V exceed the kernel's
-    64 KB staging budget, so it stages each block in two chunks. Lengths end
-    inside a first chunk, on a chunk boundary, and inside a second chunk."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    from tony_tpu_torch.ops.decode_attention import _chunk
-
-    blk, hd, lengths = 128, 128, np.array([1, 64, 128, 200, 300], np.int32)
-    assert _chunk(blk, hd, 4) < blk
-    rng = np.random.default_rng(6)
-    need = [math.ceil(n / blk) for n in lengths]
-    P = 1 + sum(need)
-    ids = rng.permutation(np.arange(1, P))
-    tables = np.zeros((len(lengths), max(need)), np.int32)
-    at = 0
-    for b, n in enumerate(need):
-        tables[b, :n] = ids[at:at + n]
-        at += n
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
-               for s in ((len(lengths), 1, H, hd), (P, HKV, blk, hd),
-                         (P, HKV, blk, hd)))
-    lengths, tables = torch.from_numpy(lengths).cuda(), torch.from_numpy(tables).cuda()
-    out = decode_attention(q, k, v, lengths, tables=tables)
-    ref = paged_decode_attention_plain(q, k, v, lengths, tables,
-                                       scale=1.0 / math.sqrt(hd))
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)

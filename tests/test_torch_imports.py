@@ -1,5 +1,6 @@
-"""Import hygiene of the PyTorch/CUDA port: no module of tony_tpu_torch, and
-not chip_smoke.py, imports jax or anything of the JAX package. Read from
+"""Import hygiene of the PyTorch/CUDA port: no module of tony_tpu_torch, not
+chip_smoke.py and not the card's test file imports jax or anything of the
+JAX package. Read from
 the source with ``ast`` (not ``sys.modules``: the interpreter may have
 imported jax before any test runs)."""
 
@@ -9,7 +10,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "tony_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the card's tests run where JAX is not installed, so their file is held
+# to the same rule
+FILES = sorted((ROOT / "tony_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests/test_torch_kernels_cuda.py"]
 
 
 def _banned(name: str) -> bool:
@@ -33,6 +37,13 @@ def test_module_imports_neither_jax_nor_the_reference(path):
 def test_every_port_module_is_checked():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for want in ("tony_tpu_torch/serve/engine.py",
-                 "tony_tpu_torch/ops/decode_attention.py", "chip_smoke.py"):
+                 "tony_tpu_torch/ops/decode_attention.py",
+                 "tony_tpu_torch/ops/attention.py", "tony_tpu_torch/ops/fused_ce.py",
+                 "tony_tpu_torch/obs/metrics.py", "tony_tpu_torch/train/trainer.py",
+                 "tony_tpu_torch/train/loop.py", "tony_tpu_torch/train/data.py",
+                 "tony_tpu_torch/train/prefetch.py",
+                 "tony_tpu_torch/train/checkpoint.py", "chip_smoke.py",
+                 "tests/test_torch_kernels_cuda.py"):
         assert want in names
-    assert (ROOT / "tony_tpu_torch/csrc/paged_decode_attention.cu").exists()
+    for src in ("paged_decode_attention", "flash_attention"):
+        assert (ROOT / f"tony_tpu_torch/csrc/{src}.cu").exists()

@@ -1,0 +1,203 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+This file imports neither jax nor tony_tpu, so it runs where the card is
+and JAX is not::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX for the reference's
+tests.) Every test is marked ``cuda`` and skips without a CUDA device.
+Inputs come from a numpy seed. Tolerances, and why, are in each test."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in true fp32
+    return torch.device("cuda")
+
+
+# --- paged decode attention ------------------------------------------------------
+
+# the kernel takes blocks of 16..128 positions: a length-1 row, an exact
+# block boundary, a full row, two ragged rows
+B, H, HKV, HD, BLK, M = 5, 4, 2, 16, 16, 4
+LENGTHS = [1, 16, 64, 13, 45]
+
+
+def _decode_case(G: int, seed: int):
+    """Pools, tables and queries from a numpy seed; row 4 shares row 2's
+    first two physical blocks, entries past a length point at block 0."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([max(n, G) for n in LENGTHS], np.int32)
+    need = [math.ceil(n / BLK) for n in lengths]
+    own = need.copy()
+    own[4] -= 2
+    P = 1 + sum(own)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((B, M), np.int32)
+    at = 0
+    for b in range(B):
+        if b == 4:
+            tables[b, :2] = tables[2, :2]
+            tables[b, 2:need[b]] = ids[at:at + own[b]]
+        else:
+            tables[b, :need[b]] = ids[at:at + own[b]]
+        at += own[b]
+    q = rng.standard_normal((B, G, H, HD)).astype(np.float32)
+    k = rng.standard_normal((P, HKV, BLK, HD)).astype(np.float32)
+    v = rng.standard_normal((P, HKV, BLK, HD)).astype(np.float32)
+    return q, k, v, lengths, tables
+
+
+@pytest.mark.cuda
+def test_decode_kernel_matches_plain_on_card(cuda):
+    """The CUDA kernel against its plain version on the card, both dtypes
+    (bf16: a few ulps of 2^-8, the output and p are rounded to bf16)."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, decode_attention, paged_decode_attention_plain, reset_launches,
+    )
+
+    for G in (1, 3):
+        q, k, v, lengths, tables = (torch.from_numpy(a).to(cuda)
+                                    for a in _decode_case(G, seed=5))
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2**-7)):
+            reset_launches()
+            out = decode_attention(q.to(dtype), k.to(dtype), v.to(dtype),
+                                   lengths, tables=tables)
+            torch.cuda.synchronize()
+            assert LAUNCHES["paged_decode_attention"] == 1
+            ref = paged_decode_attention_plain(
+                q.to(dtype).float(), k.to(dtype).float(), v.to(dtype).float(),
+                lengths, tables, scale=1.0 / math.sqrt(HD))
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_stages_large_blocks_in_chunks_on_card(cuda):
+    """float32 at block 128, head_dim 128: a block's K+V exceed the kernel's
+    64 KB staging budget, so it stages each block in two chunks. Lengths end
+    inside a first chunk, on a chunk boundary, and inside a second chunk."""
+    from tony_tpu_torch.ops.decode_attention import (
+        _chunk, decode_attention, paged_decode_attention_plain,
+    )
+
+    blk, hd, lengths = 128, 128, np.array([1, 64, 128, 200, 300], np.int32)
+    assert _chunk(blk, hd, 4) < blk
+    rng = np.random.default_rng(6)
+    need = [math.ceil(n / blk) for n in lengths]
+    P = 1 + sum(need)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((len(lengths), max(need)), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[at:at + n]
+        at += n
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+               for s in ((len(lengths), 1, H, hd), (P, HKV, blk, hd),
+                         (P, HKV, blk, hd)))
+    lengths, tables = torch.from_numpy(lengths).to(cuda), torch.from_numpy(tables).to(cuda)
+    out = decode_attention(q, k, v, lengths, tables=tables)
+    ref = paged_decode_attention_plain(q, k, v, lengths, tables,
+                                       scale=1.0 / math.sqrt(hd))
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+# --- flash attention ---------------------------------------------------------------
+
+# bf16: outputs are rounded to bf16 (2^-8 relative) and the forward rounds p
+# to bf16 at another running max than the one-pass plain version, so a few
+# ulps; fp32: only the order of the sums differs
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
+
+
+def _flash_case(dev, dtype, B, S, H, Hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hkv, hd)).astype(np.float32))
+            for _ in range(2))
+    return tuple(t.to(dev).to(dtype) for t in (q, k, v, do))
+
+
+def _close(got, want, dtype, what):
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("H,Hkv,hd,S", [(4, 2, 64, 200), (4, 4, 128, 192),
+                                        (8, 2, 128, 130)])
+def test_flash_kernels_match_plain_on_card(cuda, dtype, causal, H, Hkv, hd, S):
+    """flash_fwd, flash_dq and flash_dkv against their plain versions on the
+    same inputs: GQA and MHA, sequences that end inside a 64-row tile and
+    span several tiles, causal and not."""
+    from tony_tpu_torch.ops.attention import (
+        LAUNCHES, _dkv, _dq, _delta, _fwd, flash_dkv_plain, flash_dq_plain,
+        flash_fwd_plain, reset_launches,
+    )
+
+    q, k, v, do = _flash_case(cuda, dtype, 2, S, H, Hkv, hd, seed=S + hd)
+    scale = 1.0 / math.sqrt(hd)
+    reset_launches()
+    out, lse = _fwd(q, k, v, scale, causal)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, scale=scale, causal=causal)
+    _close(out, ref_out, dtype, "out")
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    delta = _delta(do, ref_out)
+    dq = _dq(q, k, v, do, ref_lse, delta, scale, causal)
+    dk, dv = _dkv(q, k, v, do, ref_lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    _close(dq, flash_dq_plain(q, k, v, do, ref_lse, delta, scale=scale,
+                              causal=causal), dtype, "dq")
+    ref_dk, ref_dv = flash_dkv_plain(q, k, v, do, ref_lse, delta, scale=scale,
+                                     causal=causal)
+    _close(dk, ref_dk, dtype, "dk")
+    _close(dv, ref_dv, dtype, "dv")
+    assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_dq"] == LAUNCHES["flash_dkv"] == 1
+    assert LAUNCHES["flash_fwd_plain"] == LAUNCHES["flash_dq_plain"] == 0
+
+
+@pytest.mark.cuda
+def test_flash_attention_grad_and_folded_layout_on_card(cuda):
+    """The autograd entry on the card (kernels) against the same entry on
+    the CPU (plain versions) in float32 within 1e-4, and the
+    explicit-residual passes in the folded [B*H, S, hd] layout against the
+    [B, S, H, hd] kernels (the same kernel on strided views: exact)."""
+    from tony_tpu_torch.ops.attention import (
+        LAUNCHES, flash_attention, flash_dkv_pass, flash_dq_pass,
+        flash_fwd_pass, reset_launches,
+    )
+
+    q, k, v, do = _flash_case("cpu", torch.float32, 2, 128, 4, 2, 64, seed=1)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xs = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*xs)
+        grads[str(dev)] = (out, *torch.autograd.grad(out, xs, do.to(dev)))
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=1e-4, rtol=1e-4)
+
+    qc, kc, vc, doc = (t.to(cuda) for t in (q, k, v, do))
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(-1, x.shape[1], x.shape[3])  # noqa: E731
+    kw = dict(scale=0.125, causal=True, heads=4, kv_heads=2)
+    reset_launches()
+    out, lse = flash_fwd_pass(fold(qc), fold(kc), fold(vc), **kw)
+    torch.testing.assert_close(out, fold(grads["cuda"][0].detach()), atol=0, rtol=0)
+    delta = (doc.float() * grads["cuda"][0].float()).sum(-1).transpose(1, 2)
+    delta = delta.reshape(-1, 1, q.shape[1])
+    dq = flash_dq_pass(fold(qc), fold(kc), fold(vc), fold(doc), lse, delta, **kw)
+    dk, dv = flash_dkv_pass(fold(qc), fold(kc), fold(vc), fold(doc), lse, delta, **kw)
+    for got, want in zip((dq, dk, dv), grads["cuda"][1:]):
+        torch.testing.assert_close(got, fold(want), atol=1e-6, rtol=1e-6)
+    assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_dq"] == LAUNCHES["flash_dkv"] == 1

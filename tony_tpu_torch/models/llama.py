@@ -10,19 +10,34 @@ that module's layout exactly, so one numpy tree loads into both packages
 - norm statistics and RoPE angles in float32, everything else in
   ``cfg.dtype``.
 
-This slice of the port serves (``serve/engine.py``); the training forward,
-the loss heads and the remat policies are not ported yet, so the
-training-only fields of :class:`LlamaConfig` are carried for parity of the
-config and read by nothing here.
+The serving path (``serve/engine.py``) uses the parameters and the rotary
+helpers; the training path (``train/trainer.py``) uses the forward below:
+the layer loop with its remat policies, the flash attention kernels
+(``ops/attention.py``) and the chunked CE head (``ops/fused_ce.py``).
+
+Remat. A layer under ``cfg.remat`` runs inside
+``torch.utils.checkpoint`` with a selective-checkpoint policy that keeps
+the reference's named save points: ``attn_qkv`` (q/k/v after rope),
+``flash_res`` (the flash kernel's out and lse, kept by saving the kernel's
+custom op), ``attn_out`` and ``ffn_gate``. Everything else is recomputed
+in the backward, so under ``save_attn_kernel`` the projections and the FFN
+run again but the flash forward kernel never does. MoE layers,
+``overlap_impl`` and the ring/Ulysses attentions are not ported yet and
+raise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from tony_tpu_torch._device import resolve_device
 
@@ -82,6 +97,15 @@ class LlamaConfig:
             ffn = 3 * d * self.ffn_dim
         per_layer = attn + ffn + 2 * d
         return self.vocab_size * d * 2 + self.n_layers * per_layer + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE: only top_k experts fire), the
+        N of 6 * N FLOPs accounting."""
+        if not self.is_moe:
+            return self.n_params
+        inactive = 3 * (self.n_experts - self.moe_top_k) * self.dim * self.ffn_dim
+        return self.n_params - self.n_layers * inactive
 
     # --- presets -----------------------------------------------------------
 
@@ -231,7 +255,237 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+# --- named save points ----------------------------------------------------------
+
+
+@torch.library.custom_op("tony_tpu_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    # a custom op's output may not alias its input: the tag is a copy
+    return x.clone()
+
+
+torch.library.register_autograd(
+    "tony_tpu_torch::checkpoint_name",
+    lambda ctx, grad: (grad, None),
+)
+
+CHECKPOINT_NAME_OP = torch.ops.tony_tpu_torch.checkpoint_name.default
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Tag ``x`` as the save point ``name`` (the reference's
+    ``jax.ad_checkpoint.checkpoint_name``): a remat policy that lists the
+    name keeps the tagged tensor instead of recomputing it."""
+    return _checkpoint_name(x, name)
+
+
+def _no_tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x
+
+
+# save points each policy keeps (the reference's save_only_these_names)
+_POLICY_NAMES: dict[str, tuple[str, ...]] = {
+    "nothing": (),
+    "save_attn": ("attn_out",),
+    "save_gate": ("ffn_gate",),
+    "save_attn_gate": ("attn_out", "ffn_gate"),
+    "save_attn_kernel": ("attn_qkv", "flash_res"),
+    "save_attn_kernel_gate": ("attn_qkv", "flash_res", "ffn_gate"),
+    "save_flash_gate": ("flash_res", "ffn_gate"),
+}
+
+
+def _remat_policy(name: str) -> Callable:
+    """The selective-checkpoint policy for ``cfg.remat_policy``: MUST_SAVE
+    for the tags it names (and for the flash forward op under
+    ``flash_res``), recompute for everything else."""
+    if name in ("dots", "checkpoint_dots"):
+        raise NotImplementedError(
+            f"remat_policy={name!r} is not ported yet (ROADMAP); use one of "
+            f"{sorted(_POLICY_NAMES)}"
+        )
+    if name not in _POLICY_NAMES:
+        raise ValueError(f"unknown remat_policy {name!r} (expected "
+                         f"{sorted(_POLICY_NAMES) + ['checkpoint_dots', 'dots']})")
+    names = frozenset(_POLICY_NAMES[name])
+    from tony_tpu_torch.ops.attention import FLASH_FWD_OP
+
+    def policy(ctx, op, *args, **kwargs):
+        if op == CHECKPOINT_NAME_OP and args[1] in names:
+            return CheckpointPolicy.MUST_SAVE
+        if op == FLASH_FWD_OP and "flash_res" in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+# --- training forward ---------------------------------------------------------
+
+
+def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: LlamaConfig | None = None) -> torch.Tensor:
+    """Plain causal attention, float32 softmax; q/k/v ``[B, S, H, hd]``
+    with as many kv heads as query heads."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    S = q.shape[1]
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(causal, scores * scale, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _get_attention(cfg: LlamaConfig) -> Callable:
+    if cfg.attention_impl == "dot":
+        return dot_attention
+    if cfg.attention_impl == "flash":
+        from tony_tpu_torch.ops.attention import sharded_flash_attention
+
+        return sharded_flash_attention
+    if cfg.attention_impl in ("ring", "ring_flash", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} is not ported yet (ROADMAP "
+            "queue 1, parallelism); use 'flash' or 'dot'"
+        )
+    raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """One trunk projection ``x [B, S, D] @ w``."""
+    if cfg.overlap_impl:
+        raise NotImplementedError(
+            f"overlap_impl={cfg.overlap_impl!r} needs the ring-chunk matmul "
+            "(TPU kernel 14), not ported yet (ROADMAP queue 1)"
+        )
+    return x @ w
+
+
+def attention_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
+                    cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    tag = checkpoint_name if cfg.remat else _no_tag
+    q = _proj(x, lp["wq"], cfg).reshape(B, S, cfg.n_heads, hd)
+    k = _proj(x, lp["wk"], cfg).reshape(B, S, cfg.n_kv_heads, hd)
+    v = _proj(x, lp["wv"], cfg).reshape(B, S, cfg.n_kv_heads, hd)
+    q = tag(apply_rope(q, cos, sin), "attn_qkv")
+    k = tag(apply_rope(k, cos, sin), "attn_qkv")
+    v = tag(v, "attn_qkv")
+    # GQA: the flash kernels read each kv head n_heads / n_kv_heads times by
+    # index; the plain impl gets the expanded tensors
+    if cfg.n_kv_heads != cfg.n_heads and cfg.attention_impl != "flash":
+        rep = cfg.n_heads // cfg.n_kv_heads
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    out = tag(_get_attention(cfg)(q, k, v, cfg), "attn_out")
+    return _proj(out.reshape(B, S, cfg.n_heads * hd), lp["wo"], cfg)
+
+
+def ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
+    tag = checkpoint_name if cfg.remat else _no_tag
+    gate = tag(F.silu(_proj(x, lp["w1"], cfg)) * _proj(x, lp["w3"], cfg),
+               "ffn_gate")
+    return _proj(gate, lp["w2"], cfg)
+
+
+def transformer_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
+                      cos: torch.Tensor, sin: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer: (x, lp) -> (x', aux_loss); aux is 0 for dense."""
+    h = x + attention_block(rms_norm(x, lp["attn_norm"], cfg.norm_eps), lp, cfg,
+                            cos, sin)
+    normed = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + ffn_block(normed, lp, cfg), aux
+
+
+def _check_trainable(cfg: LlamaConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "MoE layers (n_experts > 0) need the grouped GEMM kernels (TPU "
+            "kernels 11-13: _gmm_kernel, _gmm_dx_kernel, _gmm_dw_kernel), not "
+            "ported yet (ROADMAP queue 1)"
+        )
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding gather ``[B, S] -> [B, S, D]``."""
+    return F.embedding(tokens.long(), params["tok_emb"])
+
+
+def hidden_states_with_aux(params: Params, tokens: torch.Tensor,
+                           cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens ``[B, S]`` -> (post-final-norm hidden ``[B, S, D]``, aux
+    loss). The trunk without the vocab projection, which the fused CE head
+    consumes directly. Layer i reads the i-th slice of each stacked
+    parameter (one ``unbind`` per leaf, so the backward stacks the layer
+    grads once)."""
+    _check_trainable(cfg)
+    x = embed_tokens(params, tokens)
+    cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+    layers = {name: t.unbind(0) for name, t in params["layers"].items()}
+    block = transformer_block
+    if cfg.remat:
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _remat_policy(cfg.remat_policy))
+
+        def block(x, lp, cfg, cos, sin):
+            return checkpoint(transformer_block, x, lp, cfg, cos, sin,
+                              use_reentrant=False, context_fn=context)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = block(x, {name: t[i] for name, t in layers.items()}, cfg, cos, sin)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux / cfg.n_layers
+
+
+def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens ``[B, S]`` -> (logits ``[B, S, vocab]`` float32, aux loss)."""
+    x, aux = hidden_states_with_aux(params, tokens, cfg)
+    return (x @ params["lm_head"]).float(), aux
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """tokens ``[B, S]`` -> logits ``[B, S, vocab]`` float32."""
+    return forward_with_aux(params, tokens, cfg)[0]
+
+
+def ce_tokens(h: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+              cfg: LlamaConfig) -> torch.Tensor:
+    """Per-token CE ``[B, S]`` float32 from post-norm hidden states,
+    dispatched on ``cfg.ce_impl`` ('dense' is the full-logits oracle)."""
+    from tony_tpu_torch.ops.fused_ce import fused_ce_tokens, reference_ce_tokens
+
+    if cfg.ce_impl == "dense":
+        return reference_ce_tokens(h, lm_head, targets)
+    return fused_ce_tokens(h, lm_head, targets, cfg)
+
+
+def loss_from_pairs(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
+                    cfg: LlamaConfig) -> torch.Tensor:
+    """Mean cross-entropy (float32) of predicting ``targets [B, S]`` from
+    ``inputs [B, S]`` (pre-shifted pairs)."""
+    h, _ = hidden_states_with_aux(params, inputs, cfg)
+    return ce_tokens(h, params["lm_head"], targets, cfg).mean()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy over tokens ``[B, S+1]`` (shifts inside)."""
+    return loss_from_pairs(params, tokens[:, :-1], tokens[:, 1:], cfg)
+
+
+def train_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Approximate training FLOPs per token: 6 * N_active plus the causal
+    attention score/value matmuls (12 * L * D * S / 2)."""
+    return 6.0 * cfg.n_active_params + 6.0 * cfg.n_layers * cfg.dim * seq_len
+
+
 __all__ = [
-    "LlamaConfig", "Params", "apply_rope", "init_params", "param_shapes",
-    "rms_norm", "rope_freqs", "rope_table",
+    "CHECKPOINT_NAME_OP", "LlamaConfig", "Params", "apply_rope", "ce_tokens",
+    "checkpoint_name", "dot_attention", "embed_tokens", "forward",
+    "forward_with_aux", "hidden_states_with_aux", "init_params", "loss_fn",
+    "loss_from_pairs", "param_shapes", "rms_norm", "rope_freqs", "rope_table",
+    "train_flops_per_token", "transformer_block",
 ]

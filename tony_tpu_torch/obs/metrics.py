@@ -1,10 +1,85 @@
-"""Serving counters: the port's copy of ``DecodeMetrics`` from
-``tony_tpu/obs/metrics.py`` (without that module's JAX device lookup, which
-only its training timer uses)."""
+"""Throughput and MFU accounting: the port's copies of ``DecodeMetrics``,
+``StepTimer`` and ``chip_peak_flops`` from ``tony_tpu/obs/metrics.py``.
+
+MFU is achieved model FLOP/s over the card's peak. The peaks are NVIDIA's
+data-sheet dense bf16 tensor-core rates, keyed by the name
+``torch.cuda.get_device_name`` reports; a card not in the table raises
+rather than being guessed.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+
+# dense bf16 FLOP/s per card (NVIDIA H100 data sheet, without sparsity),
+# matched against the device name in this order
+PEAK_BF16_FLOPS: tuple[tuple[str, float], ...] = (
+    ("H100 PCIe", 756e12),
+    ("H100 80GB HBM3", 989e12),   # the SXM part's reported name
+    ("H100 SXM", 989e12),
+)
+
+
+def chip_peak_flops(device: torch.device | str | int | None = None) -> float:
+    """Peak dense bf16 FLOP/s of the CUDA device (the current one by
+    default). Raises for a card without a data-sheet entry here, and when
+    there is no CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_peak_flops needs a CUDA device")
+    name = torch.cuda.get_device_name(device)
+    for key, peak in PEAK_BF16_FLOPS:
+        if key in name:
+            return peak
+    raise ValueError(f"no peak FLOP/s known for {name!r}; add its data-sheet "
+                     "dense bf16 rate to PEAK_BF16_FLOPS")
+
+
+@dataclass
+class StepTimer:
+    """Accumulates steps and wall time to report tokens/s and MFU."""
+
+    flops_per_token: float
+    tokens_per_step: int
+    n_chips: int = 1
+    elapsed_s: float = 0.0
+    steps: int = 0
+    # wall time the host spent blocked producing/placing input batches
+    # (time inside next(batches))
+    host_blocked_s: float = 0.0
+
+    def record(self, dt_s: float, n_steps: int = 1, host_blocked_s: float = 0.0) -> None:
+        self.elapsed_s += dt_s
+        self.steps += n_steps
+        self.host_blocked_s += host_blocked_s
+
+    @property
+    def host_blocked_ms_per_step(self) -> float:
+        if self.steps == 0:
+            return 0.0
+        return self.host_blocked_s / self.steps * 1e3
+
+    @property
+    def host_blocked_frac(self) -> float:
+        """Fraction of wall time spent input-blocked (0 = stall-free loop)."""
+        if self.elapsed_s == 0:
+            return 0.0
+        return self.host_blocked_s / self.elapsed_s
+
+    @property
+    def tokens_per_sec(self) -> float:
+        if self.elapsed_s == 0:
+            return 0.0
+        return self.steps * self.tokens_per_step / self.elapsed_s
+
+    @property
+    def tokens_per_sec_per_chip(self) -> float:
+        return self.tokens_per_sec / self.n_chips
+
+    def mfu(self, peak_flops_per_chip: float | None = None) -> float:
+        peak = peak_flops_per_chip or chip_peak_flops()
+        return self.tokens_per_sec_per_chip * self.flops_per_token / peak
 
 
 @dataclass
@@ -137,4 +212,4 @@ class DecodeMetrics:
         return out
 
 
-__all__ = ["DecodeMetrics"]
+__all__ = ["DecodeMetrics", "PEAK_BF16_FLOPS", "StepTimer", "chip_peak_flops"]

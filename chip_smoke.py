@@ -14,10 +14,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: the paged decode kernel against its plain PyTorch version at
    Llama-3-8B decode shapes and at block and head sizes where it stages
    each block in chunks; then the flash-attention forward, dq and dk/dv
-   kernels against theirs at bench_1b4's training shape, a Llama-3-8B GQA
-   shape and one non-causal shape, in bf16 and fp32. Each with its time
-   beside its bound, the plain version's time and one PyTorch library
-   call's time;
+   kernels against theirs at bench_1b4's training shape, bench_moe's
+   (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
+   and fp32; then (3c) the grouped-matmul forward, dx and dW kernels
+   against theirs at bench_moe's shapes (33,792 buffer rows from a real
+   router draw with one expert forced empty, D 1024, F 2816, 8 experts),
+   in both directions of the SwiGLU and in bf16 and fp32, and one bench_moe
+   MoE block forward and backward under ``set_sync_debug_mode("error")``.
+   Each kernel with its time beside its bound, the plain version's time
+   and one PyTorch library call's time;
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
    launch count must equal decode steps x layers. Then a few decode steps
@@ -30,7 +35,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each flash kernel launched exactly 24 x 10 times (twice as many forward
    launches would mean remat re-ran the forward kernel). Then one step
    under torch.profiler, and a 2-layer cross-check of one train step with
-   the kernels against plain attention.
+   the kernels against plain attention;
+6. MoE training: ``fit()`` on bench_moe at full width and depth (24
+   layers, 8 experts top-2, batch 8 x 2048, the same recipe with the
+   grouped dispatch through the grouped-matmul kernels), 10 steps from
+   random weights; every loss finite and the last below the first, each
+   grouped-matmul kernel launched as often as remat implies (per layer and
+   step: forward 6, dx 3, dW 3) and each flash kernel once per layer and
+   step, no plain version on the card. Then one step under torch.profiler,
+   and a 2-layer cross-check of one train step with the kernels against
+   the plain grouped matmul.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -61,7 +75,15 @@ TOLERANCE = {torch.bfloat16: (2**-7, 2**-7), torch.float32: (1e-5, 1e-4)}
 # where the plain version rounds it at the row's max, so a few ulps of 2^-8;
 # fp32: the same float32 sums in another order over up to 2048 positions
 FLASH_TOLERANCE = {torch.bfloat16: (2**-6, 2**-6), torch.float32: (1e-4, 1e-4)}
-KERNEL_SOURCES = ("paged_decode_attention", "flash_attention")
+# grouped matmul against its plain version on the same inputs. y and dx,
+# bf16: both round float32 sums to bf16 (2^-8 relative) and the sums run in
+# another order, so an ulp or two; fp32: the same float32 sums over up to
+# 2816 terms in another order. dW is float32 from either input type, sums
+# of up to a group's ~5,000 row products that reach a few hundred, so its
+# absolute tolerance is larger
+GMM_TOLERANCE = {torch.bfloat16: (2**-6, 2**-6), torch.float32: (1e-4, 1e-4)}
+GMM_DW_TOLERANCE = (1e-2, 1e-4)
+KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm")
 
 
 def log(msg: str) -> None:
@@ -317,6 +339,7 @@ def decode_breakdown(engine, cfg, rng, steps: int = 8) -> dict:
 # (label, B, S, H, Hkv, hd, causal)
 FLASH_SHAPES = (
     ("bench_1b4", 8, 2048, 16, 16, 128, True),
+    ("bench_moe", 8, 2048, 16, 16, 64, True),
     ("llama3_8b_gqa", 2, 2048, 32, 8, 128, True),
     ("full", 2, 2048, 16, 16, 128, False),
 )
@@ -418,21 +441,179 @@ def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
     return cases
 
 
+# --- phase 3c: grouped matmul kernels against their plain versions ------------
+
+# bench_moe's MoE layer: 8 x 2048 tokens, top-2 of 8 experts, row tile 128
+MOE_T, MOE_D, MOE_F, MOE_E, MOE_K, MOE_BLOCK = 16384, 1024, 2816, 8, 2, 128
+
+
+def gmm_inputs() -> dict:
+    """bench_moe's grouped-matmul operands, float32 on the card: a real
+    router draw (normal activations, a float32 router scaled as
+    ``init_moe_params`` scales it) with expert 7 forced empty, its top-2
+    routes laid out as the MoE block lays them out (``route_rows``), the
+    buffer's routed rows normal and its padding rows zero; the weights and
+    the output grads of both SwiGLU directions (w1/w3: D -> F, w2: F -> D)."""
+    from tony_tpu_torch.parallel.moe import (
+        MoEConfig, _route_tokens, _top_k_select, route_rows,
+    )
+
+    T, D, F, E = MOE_T, MOE_D, MOE_F, MOE_E
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    flat = randn(T, D)
+    logits = flat @ (randn(D, E) / math.sqrt(D))
+    logits[:, E - 1] = -1e9                     # expert 7 receives no route
+    sel = _top_k_select(torch.softmax(logits, dim=-1),
+                        MoEConfig(dim=D, ffn_dim=F, n_experts=E, top_k=MOE_K))[0]
+    dst, sizes, tile_group = route_rows(sel.reshape(-1), E, MOE_BLOCK)
+    N, R = tile_group.shape[0] * MOE_BLOCK, dst.shape[0]
+
+    def rows(src: torch.Tensor) -> torch.Tensor:
+        return src.new_zeros((N, src.shape[1])).index_copy(0, dst, src)
+
+    groups = torch.arange(E, dtype=torch.int32, device="cuda")
+    ends = torch.searchsorted(tile_group, groups, right=True) * MOE_BLOCK
+    return {
+        "sizes": sizes.tolist(), "tile_group": tile_group, "rows": N, "routes": R,
+        # group g ends at offs[g] in the buffer (torch._grouped_mm's offsets)
+        "offs": ends.to(torch.int32),
+        "w1": (rows(flat.index_select(0, _route_tokens(T, MOE_K, "cuda"))),
+               randn(E, D, F) / math.sqrt(D), rows(randn(R, F))),
+        "w2": (rows(randn(R, F)), randn(E, F, D) / math.sqrt(F), rows(randn(R, D))),
+    }
+
+
+def grouped_library(name: str, a, w, dy, offs):
+    """``torch._grouped_mm`` computing the same function as ``name`` (the
+    yardstick; the port never calls it), or None and the reason."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this torch has no torch._grouped_mm"
+    fn = {"gmm_fwd": lambda: torch._grouped_mm(a, w, offs),
+          "gmm_dx": lambda: torch._grouped_mm(dy, w.transpose(-2, -1), offs),
+          "gmm_dw": lambda: torch._grouped_mm(a.t(), dy, offs)}[name]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
+        return None, f"torch._grouped_mm refused: {str(e).strip().splitlines()[0][:100]}"
+    return fn, ""
+
+
+def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dict]:
+    """gmm_fwd, gmm_dx and gmm_dw in both SwiGLU directions at one dtype:
+    each against its plain version on the same inputs, its time, its
+    bound, the plain version's time and torch._grouped_mm's."""
+    from tony_tpu_torch.ops.grouped_mm import (
+        gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
+    )
+
+    tg, offs, N, R = inputs["tile_group"], inputs["offs"], inputs["rows"], inputs["routes"]
+    empty = [g for g, n in enumerate(inputs["sizes"]) if n == 0]
+    if not empty:
+        raise AssertionError(f"no empty expert in the draw: {inputs['sizes']}")
+    cases = []
+    for label in ("w1", "w2"):
+        a, w, dy = (t.to(dtype) for t in inputs[label])
+        E, d_in, d_out = w.shape
+        runs = {
+            "gmm_fwd": (lambda: gmm_fwd(a, w, tg), lambda: gmm_fwd_plain(a, w, tg)),
+            "gmm_dx": (lambda: gmm_dx(dy, w, tg), lambda: gmm_dx_plain(dy, w, tg)),
+            "gmm_dw": (lambda: gmm_dw(a, dy, tg, E),
+                       lambda: gmm_dw_plain(a, dy, tg, E)),
+        }
+        item = a.element_size()
+        # the routed rows' products, 2 operations each (padding rows are
+        # zero and need none); each input read once, each output written once
+        ops = 2 * R * d_in * d_out
+        weights = E * d_in * d_out * item
+        nbytes = {"gmm_fwd": N * d_in * item + weights + N * d_out * item,
+                  "gmm_dx": N * d_out * item + weights + N * d_in * item,
+                  "gmm_dw": (N * d_in + N * d_out) * item + E * d_in * d_out * 4}
+        for name, (kernel, plain) in runs.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            atol, rtol = GMM_DW_TOLERANCE if name == "gmm_dw" else GMM_TOLERANCE[dtype]
+            err = (got.float() - want.float()).abs()
+            ok = bool(torch.isfinite(got).all()) and not bool(
+                (err > atol + rtol * want.float().abs()).any())
+            if name == "gmm_dw":            # a zero-load expert's dW is 0
+                ok &= int(torch.count_nonzero(got[empty])) == 0
+            lib, lib_note = grouped_library(name, a, w, dy, offs)
+            lib_err = None
+            if lib is not None:
+                lib_err = (lib().float() - want.float()).abs().max().item()
+            max_err = err.max().item()
+            del got, want, err
+            bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+            cases.append({
+                "name": name, "direction": label, "dtype": str(dtype).replace("torch.", ""),
+                "rows": N, "routes": R, "d_in": d_in, "d_out": d_out, "experts": E,
+                "max_abs_err": max_err, "ok": ok, "atol": atol, "rtol": rtol,
+                "ms": time_ms(kernel, flush, reps=10),
+                "plain_ms": time_ms(plain, flush, reps=3),
+                "library_ms": time_ms(lib, flush, reps=10) if lib else None,
+                "library_max_abs_err": lib_err, "library_note": lib_note,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "ops": ops, "bytes": nbytes[name],
+            })
+    return cases
+
+
+def moe_sync_check() -> dict:
+    """One bench_moe MoE block (16,384 tokens, bf16) forward and backward
+    through the kernels under ``set_sync_debug_mode("error")``: any op on
+    the path that waits for the device raises."""
+    from tony_tpu_torch.ops.grouped_mm import LAUNCHES, reset_launches
+    from tony_tpu_torch.parallel.moe import MoEConfig, init_moe_params, moe_block
+
+    cfg = MoEConfig(dim=MOE_D, ffn_dim=MOE_F, n_experts=MOE_E, top_k=MOE_K,
+                    group_block=MOE_BLOCK, gmm_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_moe_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    leaves = [p.requires_grad_(True) for p in params.values()]
+    x = torch.randn((8, MOE_T // 8, MOE_D), generator=gen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_block(params, x, cfg)
+        grads = torch.autograd.grad((y.float() ** 2).mean() + aux, leaves)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    if launches != {"gmm_fwd": 3, "gmm_dx": 3, "gmm_dw": 3}:
+        raise AssertionError(f"moe_block launches {launches}")
+    aux = float(aux.detach())
+    if not all(bool(torch.isfinite(g).all()) for g in grads) or not math.isfinite(aux):
+        raise AssertionError("non-finite moe_block grads or aux")
+    return {"aux": aux, "launches": launches}
+
+
 # --- phase 5: training at full width --------------------------------------------
 
 TRAIN_STEPS = 10
 
 
+def dense_train_config():
+    from tony_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.bench_1b4(attention_impl="flash", remat=True,
+                                 remat_policy="save_attn_kernel", ce_impl="scan")
+
+
 def train_phase(card: str) -> dict:
     """fit() on bench_1b4 with the production recipe; each step's metrics
     through ``on_metrics``; the flash kernels' launches over the run."""
-    from tony_tpu_torch.models.llama import LlamaConfig, train_flops_per_token
+    from tony_tpu_torch.models.llama import train_flops_per_token
     from tony_tpu_torch.ops.attention import LAUNCHES, reset_launches
     from tony_tpu_torch.ops.fused_ce import f32_matmul_route
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
-    cfg = LlamaConfig.bench_1b4(attention_impl="flash", remat=True,
-                                remat_policy="save_attn_kernel", ce_impl="scan")
+    cfg = dense_train_config()
     data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
     steps: list[dict] = []
     torch.cuda.synchronize()
@@ -469,15 +650,14 @@ def train_phase(card: str) -> dict:
         "mfu": tokens / step_s * flops / 989e12, "flops_per_token": flops,
         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "ce_matmul": f32_matmul_route("cuda", cfg.dtype),
-        **train_profile(cfg, data),
+        **train_profile(cfg, data, FLASH_KERNELS),
     }
 
 
-def train_profile(cfg, data) -> dict:
-    """One bench_1b4 train step on the host clock, then one under
-    torch.profiler: the device's busy share (device time over the
-    unprofiled step's wall time) and each flash kernel's share of device
-    time."""
+def train_profile(cfg, data, kernels: tuple[str, ...]) -> dict:
+    """One train step on the host clock, then one under torch.profiler:
+    the device's busy share (device time over the unprofiled step's wall
+    time) and each named kernel's share of device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from tony_tpu_torch.train.data import make_batches
@@ -485,7 +665,7 @@ def train_profile(cfg, data) -> dict:
         default_optimizer, make_train_state, make_train_step,
     )
 
-    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=TRAIN_STEPS,
+    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=10,
                             mu_dtype="bfloat16")
     state = make_train_state(cfg, opt, seed=0, device="cuda")
     step = make_train_step(cfg, opt)
@@ -509,7 +689,7 @@ def train_profile(cfg, data) -> dict:
         log(f"  profile: {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
             f"{e.key[:90]}")
     share = {}
-    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for name in kernels:
         us = sum(e.self_device_time_total for e in dev if f"{name}_kernel" in e.key)
         share[name] = us / device_us
     return {
@@ -518,42 +698,112 @@ def train_profile(cfg, data) -> dict:
     }
 
 
-def model_crosscheck(card: str) -> dict:
-    """bench_1b4 at 2 layers: one train step with the flash kernels against
-    one with plain attention ('dot'), from the same params and batch. Loss
-    and grad norm agree within bf16 tolerance: both run bf16 activations
-    with float32 softmax, and the two attentions round at other places."""
-    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+def model_crosscheck(card: str, cfg, field: str, kernel: str, plain: str) -> dict:
+    """``cfg`` at 2 layers: one train step with ``field=kernel`` (the CUDA
+    kernels) against one with ``field=plain``, from the same params and
+    batch. Loss and grad norm agree within bf16 tolerance: both run bf16
+    activations, and the two round at other places."""
+    from tony_tpu_torch.models.llama import init_params
     from tony_tpu_torch.train.data import DataConfig, synthetic_batches
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step, tree_map,
     )
 
-    cfg = dataclasses.replace(
-        LlamaConfig.bench_1b4(attention_impl="flash", remat=True,
-                              remat_policy="save_attn_kernel", ce_impl="scan"),
-        n_layers=2)
+    cfg = dataclasses.replace(cfg, n_layers=2)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
                          device="cuda")
     inputs, targets = (t.cuda() for t in next(synthetic_batches(
         DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size))))
     out = {}
-    for impl in ("flash", "dot"):
-        c = dataclasses.replace(cfg, attention_impl=impl)
+    for impl in (kernel, plain):
+        c = dataclasses.replace(cfg, **{field: impl})
         opt = default_optimizer(mu_dtype="bfloat16")
         state = make_train_state(c, opt, params=tree_map(lambda p: p.detach().clone(),
                                                         params))
         _, m = make_train_step(c, opt)(state, inputs, targets)
         out[impl] = (float(m["loss"]), float(m["grad_norm"]))
         del state
-    (lf, gf), (ld, gd) = out["flash"], out["dot"]
-    log(f"crosscheck 2 layers: loss flash {lf:.5f} dot {ld:.5f}; grad_norm flash "
-        f"{gf:.5f} dot {gd:.5f}  [{card}]")
+    (lk, gk), (lp, gp) = out[kernel], out[plain]
+    log(f"crosscheck 2 layers, {field}: loss {kernel} {lk:.5f} {plain} {lp:.5f}; "
+        f"grad_norm {kernel} {gk:.5f} {plain} {gp:.5f}  [{card}]")
     # bf16 activations: a few ulps of 2^-8 on the loss, 2% on the grad norm
-    if abs(lf - ld) > 2e-2 or abs(gf - gd) > 2e-2 * abs(gd):
-        raise AssertionError(f"flash and dot disagree: {out}")
-    return {"loss_flash": lf, "loss_dot": ld, "grad_norm_flash": gf,
-            "grad_norm_dot": gd}
+    if abs(lk - lp) > 2e-2 or abs(gk - gp) > 2e-2 * abs(gp):
+        raise AssertionError(f"{kernel} and {plain} disagree: {out}")
+    return {"loss_kernel": lk, "loss_plain": lp, "grad_norm_kernel": gk,
+            "grad_norm_plain": gp}
+
+
+# --- phase 6: MoE training at full width ----------------------------------------
+
+MOE_TRAIN_STEPS = 10
+GMM_KERNELS = ("gmm_fwd", "gmm_dx", "gmm_dw")
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# launches per layer and step under remat save_attn_kernel: the three
+# grouped matmuls run in the forward and again in the backward's
+# recompute, their dx and dW once; the flash forward's residuals are saved
+MOE_LAUNCHES_PER_LAYER_STEP = {"gmm_fwd": 6, "gmm_dx": 3, "gmm_dw": 3,
+                               "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+def moe_train_config():
+    from tony_tpu_torch.models.llama import LlamaConfig
+
+    # bench.py's moe_bench 'grouped_pallas' variant with the preset's own 8
+    # experts: flash attention, remat save_attn_kernel, scan CE
+    return LlamaConfig.bench_moe(
+        attention_impl="flash", remat=True, remat_policy="save_attn_kernel",
+        ce_impl="scan", moe_dispatch="grouped", moe_gmm_impl="pallas",
+        moe_group_block=128, moe_aux_coef=0.01)
+
+
+def train_moe_phase(card: str) -> dict:
+    """fit() on bench_moe through the grouped-matmul and flash kernels;
+    each step's metrics through ``on_metrics``; the kernels' launches."""
+    from tony_tpu_torch.models.llama import train_flops_per_token
+    from tony_tpu_torch.ops import attention, grouped_mm
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    cfg = moe_train_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    steps: list[dict] = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launches()
+    grouped_mm.reset_launches()
+    t0 = time.perf_counter()
+    final = fit(FitConfig(model=cfg, data=data, steps=MOE_TRAIN_STEPS, log_every=1,
+                          lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
+                          on_metrics=steps.append), device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {**attention.LAUNCHES, **grouped_mm.LAUNCHES}
+    losses = [m["loss"] for m in steps]
+    for m in steps:
+        log(f"moe step {m['step']:2d}: loss {m['loss']:.4f} aux {m['aux']:.5f} "
+            f"grad_norm {m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms  [{card}]")
+    if len(losses) != MOE_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, per in MOE_LAUNCHES_PER_LAYER_STEP.items():
+        want = per * cfg.n_layers * MOE_TRAIN_STEPS
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times, not {per} x "
+                                 f"{cfg.n_layers} layers x {MOE_TRAIN_STEPS} steps")
+    if any(launches[f"{n}_plain"] for n in MOE_LAUNCHES_PER_LAYER_STEP):
+        raise AssertionError(f"a plain version ran on the card: {launches}")
+    timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
+    step_s = sum(timed) / len(timed)
+    tokens = data.global_batch * data.seq_len
+    flops = train_flops_per_token(cfg, data.seq_len)
+    return {
+        "losses": losses, "aux": [m["aux"] for m in steps], "launches": launches,
+        "wall_s": wall, "final": final, "mean_step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "mfu": tokens / step_s * flops / 989e12,
+        "flops_per_token": flops, "n_params": cfg.n_params,
+        "n_active_params": cfg.n_active_params,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **train_profile(cfg, data, FLASH_KERNELS + GMM_KERNELS),
+    }
 
 
 def main() -> int:
@@ -618,7 +868,32 @@ def main() -> int:
     if bad:
         raise AssertionError(f"flash kernels over tolerance: "
                              f"{[(c['name'], c['shape'], c['dtype']) for c in bad]}")
-    del flush
+
+    inputs = gmm_inputs()
+    log(f"grouped matmul inputs: {MOE_T} tokens x top-{MOE_K} = {inputs['routes']} "
+        f"routes in {inputs['rows']} buffer rows; routes per expert {inputs['sizes']}")
+    gmm = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in gmm_cases(dtype, flush, inputs):
+            gmm.append(c)
+            lib = (f"{c['library_ms']:.3f} ms (max|err| {c['library_max_abs_err']:.3e})"
+                   if c["library_ms"] is not None else f"- ({c['library_note']})")
+            log(f"kernel {c['name']} {c['direction']} {c['dtype']} rows={c['rows']} "
+                f"{c['d_in']}->{c['d_out']} E={c['experts']}: max|err| "
+                f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
+                f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms']:.3f} ms  "
+                f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: {c['ops']:.4g} "
+                f"ops, {c['bytes'] / 1e6:.1f} MB)  plain {c['plain_ms']:.3f} ms  "
+                f"torch._grouped_mm {lib}  [{card}]")
+    bad = [c for c in gmm if not c["ok"]]
+    if bad:
+        raise AssertionError(f"grouped matmul kernels over tolerance: "
+                             f"{[(c['name'], c['direction'], c['dtype']) for c in bad]}")
+    del inputs, flush
+    torch.cuda.empty_cache()
+    sync = moe_sync_check()
+    log(f"moe_block at bench_moe's shape under set_sync_debug_mode('error'): no "
+        f"host sync; launches {sync['launches']}, aux {sync['aux']:.5f}  [{card}]")
 
     s = serve_phase()
     log(f"serve: {s['requests']} requests, {s['decode_steps']} decode steps, "
@@ -651,7 +926,30 @@ def main() -> int:
         f"{t['profile_device_busy']:.1%}); share of device time: "
         + ", ".join(f"{k} {v:.1%}" for k, v in t["profile_share"].items())
         + f"  [{card}]")
-    model_crosscheck(card)
+    model_crosscheck(card, dense_train_config(), "attention_impl", "flash", "dot")
+    torch.cuda.empty_cache()
+
+    m = train_moe_phase(card)
+    log(f"train bench_moe ({m['n_params']:,} params, {m['n_active_params']:,} active; "
+        f"24 layers, 8 experts top-2, 8 x 2048, grouped dispatch + flash + "
+        f"save_attn_kernel + scan CE, mu bf16): {MOE_TRAIN_STEPS} steps, loss "
+        f"{m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}; mean step "
+        f"{m['mean_step_ms']:.1f} ms over steps 3-{MOE_TRAIN_STEPS} (host clock), "
+        f"{m['tokens_per_s']:.0f} tok/s, MFU {m['mfu']:.2%} ({m['flops_per_token']:.4g} "
+        f"FLOPs/token from active params, over 989e12); fit(): "
+        f"{m['final']['tokens_per_sec_per_chip']:.0f} tok/s, p50 "
+        f"{m['final']['step_time_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{m['final']['step_time_p99_s'] * 1e3:.1f} ms; peak allocated "
+        f"{m['peak_allocated_gb']:.2f} GB; aux per step "
+        + ", ".join(f"{a:.5f}" for a in m["aux"]) + "; launches "
+        + ", ".join(f"{k} {m['launches'][k]}" for k in MOE_LAUNCHES_PER_LAYER_STEP)
+        + f"  [{card}]")
+    log(f"moe train step under torch.profiler: {m['profile_step_ms']:.1f} ms wall, "
+        f"{m['profile_device_ms']:.1f} ms device (busy "
+        f"{m['profile_device_busy']:.1%}); share of device time: "
+        + ", ".join(f"{k} {v:.1%}" for k, v in m["profile_share"].items())
+        + f"  [{card}]")
+    model_crosscheck(card, moe_train_config(), "moe_gmm_impl", "pallas", "scan")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -675,6 +973,19 @@ def main() -> int:
             "source": "tony_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"tony_tpu/ops/attention.py:{line}",
             "launches": t["launches"][name], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        })
+    replaces = {"gmm_fwd": 107, "gmm_dx": 141, "gmm_dw": 189}
+    for name, line in replaces.items():
+        # the training path's dtype, bf16, in the w1/w3 direction (D -> F)
+        c = next(c for c in gmm if c["name"] == name and c["direction"] == "w1"
+                 and c["dtype"] == "bfloat16")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tony_tpu_torch/csrc/grouped_mm.cu",
+            "replaces": f"tony_tpu/ops/grouped_mm.py:{line}",
+            "launches": m["launches"][name], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })

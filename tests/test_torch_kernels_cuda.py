@@ -201,3 +201,116 @@ def test_flash_attention_grad_and_folded_layout_on_card(cuda):
     for got, want in zip((dq, dk, dv), grads["cuda"][1:]):
         torch.testing.assert_close(got, fold(want), atol=1e-6, rtol=1e-6)
     assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_dq"] == LAUNCHES["flash_dkv"] == 1
+
+
+# --- grouped matmul ----------------------------------------------------------------
+
+# bf16: y and dx are rounded to bf16 (2^-8 relative) from float32 sums taken
+# in another order, so up to an ulp or two; fp32, and dW (float32 out of
+# either input type): only the order of the float32 sums differs
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
+
+
+def _gmm_case(dev, dtype, sizes, D, F, block, seed):
+    """x [N, D] laid out by grouped_layout (group rows normal, padding rows
+    zero), w [G, D, F] and dy [N, F] normal, from a numpy seed."""
+    from tony_tpu_torch.ops.grouped_mm import grouped_layout
+
+    rng = np.random.default_rng(seed)
+    sizes = np.asarray(sizes, np.int32)
+    n_tiles = -(-int(sizes.sum()) // block) + len(sizes)
+    starts, tg = grouped_layout(torch.from_numpy(sizes), block, n_tiles)
+    x = np.zeros((n_tiles * block, D), np.float32)
+    for s, n in zip(starts.tolist(), sizes):
+        x[s:s + n] = rng.standard_normal((n, D))
+    w = rng.standard_normal((len(sizes), D, F)).astype(np.float32) / np.sqrt(D)
+    dy = rng.standard_normal((n_tiles * block, F)).astype(np.float32)
+    x, w, dy = (torch.from_numpy(a).to(dev).to(dtype) for a in (x, w, dy))
+    return x, w, tg.to(dev), dy
+
+
+# (sizes, D, F, block): a width crossing the 128-column tile with ragged
+# edges on both dims and an empty expert; the 16-row tiles of the tests'
+# configs with two empty experts at the end; a row tile of 160 (two row
+# slices per tile, the second partial) with a width below one column tile
+GMM_CASES = [([130, 0, 77, 300], 136, 200, 128), ([5, 40, 0, 9, 0], 64, 72, 16),
+             ([200, 0, 3], 40, 256, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sizes,D,F,block", GMM_CASES, ids=["ragged", "block16", "block160"])
+def test_gmm_kernels_match_plain_on_card(cuda, dtype, sizes, D, F, block):
+    """gmm_fwd, gmm_dx and gmm_dw against their plain versions on the same
+    inputs, both directions of the SwiGLU (D -> F as w1/w3, F -> D as w2);
+    an empty expert's dW is exactly 0."""
+    from tony_tpu_torch.ops.grouped_mm import (
+        LAUNCHES, gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
+        reset_launches,
+    )
+
+    tol = GMM_TOL[dtype]
+    for d_in, d_out in ((D, F), (F, D)):
+        x, w, tg, dy = _gmm_case(cuda, dtype, sizes, d_in, d_out, block, seed=d_in)
+        G = w.shape[0]
+        reset_launches()
+        y, dx, dw = gmm_fwd(x, w, tg), gmm_dx(dy, w, tg), gmm_dw(x, dy, tg, G)
+        torch.cuda.synchronize()
+        assert LAUNCHES["gmm_fwd"] == LAUNCHES["gmm_dx"] == LAUNCHES["gmm_dw"] == 1
+        assert LAUNCHES["gmm_fwd_plain"] == LAUNCHES["gmm_dw_plain"] == 0
+        assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+        torch.testing.assert_close(y.float(), gmm_fwd_plain(x, w, tg).float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(dx.float(), gmm_dx_plain(dy, w, tg).float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(dw, gmm_dw_plain(x, dy, tg, G), atol=1e-4, rtol=1e-4)
+        for g, n in enumerate(sizes):
+            if n == 0:
+                assert torch.count_nonzero(dw[g]) == 0
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_autograd_on_card(cuda):
+    """grouped_matmul(impl='pallas') through the custom ops on the card
+    against the same entry on the CPU (plain versions), float32, within
+    1e-4: value, dx and dW, one launch of each kernel."""
+    from tony_tpu_torch.ops.grouped_mm import LAUNCHES, grouped_matmul, reset_launches
+
+    x, w, tg, dy = _gmm_case("cpu", torch.float32, [60, 0, 33, 100], 96, 160, 32, seed=9)
+    got = {}
+    for dev in ("cpu", cuda):
+        xs, ws = (t.to(dev).requires_grad_(True) for t in (x, w))
+        reset_launches()
+        y = grouped_matmul(xs, ws, tg.to(dev), impl="pallas")
+        got[str(dev)] = (y, *torch.autograd.grad(y, (xs, ws), dy.to(dev)))
+    assert LAUNCHES["gmm_fwd"] == LAUNCHES["gmm_dx"] == LAUNCHES["gmm_dw"] == 1
+    for a, b in zip(got["cpu"], got["cuda"]):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_block_step_has_no_host_sync_on_card(cuda):
+    """One bf16 moe_block forward and backward through the kernels under
+    ``torch.cuda.set_sync_debug_mode('error')``: any op that waits for the
+    device (``.item()``, ``nonzero``, a data-dependent shape) raises."""
+    from tony_tpu_torch.ops.grouped_mm import LAUNCHES, reset_launches
+    from tony_tpu_torch.parallel.moe import MoEConfig, init_moe_params, moe_block
+
+    cfg = MoEConfig(dim=128, ffn_dim=256, n_experts=8, gmm_impl="pallas")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_moe_params(cfg, gen, dtype=torch.bfloat16, device=cuda)
+    leaves = [p.requires_grad_(True) for p in params.values()]
+    x = torch.randn((4, 256, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    moe_block(params, x, cfg)                   # builds and loads the kernels
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_block(params, x, cfg)
+        grads = torch.autograd.grad((y.float() ** 2).sum() + aux, leaves)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gmm_fwd"] == LAUNCHES["gmm_dx"] == LAUNCHES["gmm_dw"] == 3
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert grads[0].dtype == torch.float32               # the router

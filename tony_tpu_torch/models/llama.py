@@ -21,9 +21,12 @@ the reference's named save points: ``attn_qkv`` (q/k/v after rope),
 ``flash_res`` (the flash kernel's out and lse, kept by saving the kernel's
 custom op), ``attn_out`` and ``ffn_gate``. Everything else is recomputed
 in the backward, so under ``save_attn_kernel`` the projections and the FFN
-run again but the flash forward kernel never does. MoE layers,
-``overlap_impl`` and the ring/Ulysses attentions are not ported yet and
-raise.
+run again but the flash forward kernel never does. MoE layers
+(``n_experts > 0``) run ``parallel/moe.py``'s ``moe_block`` in place of the
+dense FFN (its grouped matmuls recomputed in the backward, as the FFN is)
+and add ``moe_aux_coef`` times the layers' mean aux loss to the loss.
+``overlap_impl``, ``moe_overlap_impl`` and the ring/Ulysses attentions are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -389,6 +392,21 @@ def ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
     return _proj(gate, lp["w2"], cfg)
 
 
+def moe_ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN: (y, aux_loss). See ``tony_tpu_torch.parallel.moe``."""
+    from tony_tpu_torch.parallel.moe import MoEConfig, moe_block
+
+    mcfg = MoEConfig(
+        dim=cfg.dim, ffn_dim=cfg.ffn_dim, n_experts=cfg.n_experts,
+        top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+        dispatch=cfg.moe_dispatch, group_block=cfg.moe_group_block,
+        gmm_impl=cfg.moe_gmm_impl, overlap_impl=cfg.moe_overlap_impl,
+    )
+    return moe_block({name: lp[name] for name in ("router", "w1", "w3", "w2")},
+                     x, mcfg)
+
+
 def transformer_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
                       cos: torch.Tensor, sin: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -396,16 +414,20 @@ def transformer_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
     h = x + attention_block(rms_norm(x, lp["attn_norm"], cfg.norm_eps), lp, cfg,
                             cos, sin)
     normed = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return h + ffn_block(normed, lp, cfg), aux
+    if cfg.is_moe:
+        delta, aux = moe_ffn_block(normed, lp, cfg)
+    else:
+        delta = ffn_block(normed, lp, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + delta, aux
 
 
 def _check_trainable(cfg: LlamaConfig) -> None:
-    if cfg.is_moe:
+    if cfg.is_moe and cfg.moe_overlap_impl not in ("", "off"):
         raise NotImplementedError(
-            "MoE layers (n_experts > 0) need the grouped GEMM kernels (TPU "
-            "kernels 11-13: _gmm_kernel, _gmm_dx_kernel, _gmm_dw_kernel), not "
-            "ported yet (ROADMAP queue 1)"
+            f"moe_overlap_impl={cfg.moe_overlap_impl!r} overlaps the "
+            "expert-parallel combine on an ep mesh, not ported yet (ROADMAP "
+            "queue 1 item 8); use 'off'"
         )
 
 
@@ -463,12 +485,23 @@ def ce_tokens(h: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
     return fused_ce_tokens(h, lm_head, targets, cfg)
 
 
+def loss_and_aux(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
+                 cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, aux): the loss of :func:`loss_from_pairs` and the layers'
+    mean MoE aux loss inside it (0 for dense configs), both float32."""
+    h, aux = hidden_states_with_aux(params, inputs, cfg)
+    ce = ce_tokens(h, params["lm_head"], targets, cfg).mean()
+    if cfg.is_moe:
+        ce = ce + cfg.moe_aux_coef * aux
+    return ce, aux
+
+
 def loss_from_pairs(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
                     cfg: LlamaConfig) -> torch.Tensor:
     """Mean cross-entropy (float32) of predicting ``targets [B, S]`` from
-    ``inputs [B, S]`` (pre-shifted pairs)."""
-    h, _ = hidden_states_with_aux(params, inputs, cfg)
-    return ce_tokens(h, params["lm_head"], targets, cfg).mean()
+    ``inputs [B, S]`` (pre-shifted pairs), plus ``moe_aux_coef`` times the
+    layers' mean aux loss for MoE configs, as the reference adds it."""
+    return loss_and_aux(params, inputs, targets, cfg)[0]
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
@@ -485,7 +518,8 @@ def train_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
 __all__ = [
     "CHECKPOINT_NAME_OP", "LlamaConfig", "Params", "apply_rope", "ce_tokens",
     "checkpoint_name", "dot_attention", "embed_tokens", "forward",
-    "forward_with_aux", "hidden_states_with_aux", "init_params", "loss_fn",
-    "loss_from_pairs", "param_shapes", "rms_norm", "rope_freqs", "rope_table",
-    "train_flops_per_token", "transformer_block",
+    "forward_with_aux", "hidden_states_with_aux", "init_params", "loss_and_aux",
+    "loss_fn", "loss_from_pairs", "moe_ffn_block", "param_shapes",
+    "rms_norm", "rope_freqs", "rope_table", "train_flops_per_token",
+    "transformer_block",
 ]

@@ -9,10 +9,12 @@ loss, so each step's wall time is measured and the quantiles are exact;
 the first step (warm-up: kernel builds, allocator, cuBLAS handles) is left
 out of the throughput and step-time figures, as in the reference.
 
-Not ported yet, and raising when set to a non-default: meshes
-(``mesh_shape``), pipeline parallelism (``pp_*``), elastic training
-(``elastic_*``), bucketed gradient reduction (``grad_bucket_mb``),
-``overlap_impl`` and the MoE overrides (``moe_*``). The reference's
+The model overrides ``ce_impl``, ``moe_dispatch`` and ``moe_group_block``
+apply to ``cfg.model`` as in the reference. Not ported yet, and raising
+when set to a non-default: meshes (``mesh_shape``), pipeline parallelism
+(``pp_*``), elastic training (``elastic_*``), bucketed gradient reduction
+(``grad_bucket_mb``), ``overlap_impl`` and the expert-parallel overlap
+(``moe_overlap_impl``, ``moe_overlap_chunk``). The reference's
 observability hooks (``install_from_env``), the metrics push to a job's
 AM and compile-ahead (PyTorch runs eagerly, with nothing to compile) are
 left out.
@@ -76,11 +78,13 @@ class FitConfig:
 
 # fields this slice does not port: setting one to a non-default raises
 _UNPORTED = (
-    "mesh_shape", "pp_microbatches", "pp_schedule", "moe_dispatch",
-    "overlap_impl", "grad_bucket_mb", "moe_group_block", "moe_overlap_impl",
-    "moe_overlap_chunk", "elastic_members", "elastic_plan", "elastic_dir",
-    "elastic_shadow_steps",
+    "mesh_shape", "pp_microbatches", "pp_schedule", "overlap_impl",
+    "grad_bucket_mb", "moe_overlap_impl", "moe_overlap_chunk",
+    "elastic_members", "elastic_plan", "elastic_dir", "elastic_shadow_steps",
 )
+# FitConfig fields that override the model config's field of the same name
+# when set (the reference's overrides, tony_tpu/train/loop.py:411-420)
+_MODEL_OVERRIDES = ("ce_impl", "moe_dispatch", "moe_group_block")
 
 
 def _check_ported(cfg: FitConfig) -> None:
@@ -98,7 +102,8 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
     CUDA, and raises without it); returns the final metrics."""
     device = resolve_device(device)
     _check_ported(cfg)
-    model = replace(cfg.model, ce_impl=cfg.ce_impl) if cfg.ce_impl else cfg.model
+    model = replace(cfg.model, **{name: getattr(cfg, name) for name in _MODEL_OVERRIDES
+                                  if getattr(cfg, name)})
 
     optimizer = default_optimizer(
         lr=cfg.lr, warmup_steps=cfg.warmup_steps,
@@ -146,6 +151,8 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
                     "grad_norm": round(float(metrics["grad_norm"]), 4),
                     "step_time_s": dt, "host_blocked_s": fetch_s,
                 }
+                if "aux" in metrics:
+                    out["aux"] = float(metrics["aux"])
                 log.info("step %(step)d loss=%(loss)s", out)
                 if cfg.on_metrics:
                     cfg.on_metrics(out)

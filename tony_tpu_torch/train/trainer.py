@@ -17,7 +17,9 @@ on tensors, keeping its semantics:
 Arithmetic inside one update runs in float32 and rounds once into each
 stored tensor; parameters, grads and moments are updated in place. Grads
 come in the parameters' dtype and the loss is the float32 mean over
-``B * S`` tokens. Meshes (dp/fsdp/tp/pp), bucketed gradient reduction and
+``B * S`` tokens (plus the aux term for MoE configs). MoE trees go through
+the same chain leaf by leaf: the ``[L, E, D, F]`` expert weights and the
+float32 router, whose second moment is float32 with it. Meshes (dp/fsdp/tp/pp), bucketed gradient reduction and
 the numerics-health monitors are not ported yet and raise.
 """
 
@@ -177,7 +179,9 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh=None,
     """``(state, inputs [B, S], targets [B, S]) -> (state, metrics)``: the
     loss and its grads through autograd, then the optimizer in place.
     ``metrics`` holds ``loss`` and ``grad_norm`` (of the unclipped grads)
-    as 0-d float32 device tensors, and ``step``."""
+    as 0-d float32 device tensors, and ``step``; for MoE configs also
+    ``aux``, the layers' mean aux loss that the loss includes times
+    ``moe_aux_coef``."""
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r} (expected gpipe | 1f1b)")
     _single_device(mesh)
@@ -196,12 +200,15 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh=None,
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
         leaves = tree_leaves(state.params)
-        loss = llama.loss_from_pairs(state.params, inputs, targets, cfg)
+        loss, aux = llama.loss_and_aux(state.params, inputs, targets, cfg)
         grads = torch.autograd.grad(loss, leaves)
         gnorm = global_norm(grads)
         optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": gnorm, "step": state.step}
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "step": state.step}
+        if cfg.is_moe:
+            metrics["aux"] = aux.detach()
+        return state, metrics
 
     return step
 

@@ -20,14 +20,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against theirs at bench_moe's shapes (33,792 buffer rows from a real
    router draw with one expert forced empty, D 1024, F 2816, 8 experts),
    in both directions of the SwiGLU and in bf16 and fp32, and one bench_moe
-   MoE block forward and backward under ``set_sync_debug_mode("error")``.
-   Each kernel with its time beside its bound, the plain version's time
-   and one PyTorch library call's time;
+   MoE block forward and backward under ``set_sync_debug_mode("error")``;
+   then (3d) the quantized decode-attention kernel against its plain
+   version at Llama-3-8B decode shapes (8 rows of about 512 positions) over
+   int8 and fp8 e4m3 pools, G 1 and 5, bf16 queries, plus a float32-query
+   case, a case that stages blocks in chunks and a NaN-scale case; and the
+   int8 dequant-matmul kernel at each of the decode step's five weight
+   shapes, 8 slots, bf16 and fp32. Each kernel with its time beside its
+   bound, the plain version's time and one PyTorch library call's time;
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
    launch count must equal decode steps x layers. Then a few decode steps
-   under torch.profiler: the device's busy share and the kernel's share of
-   device time;
+   under torch.profiler: the device's busy share, the kernel's share of
+   device time, the kernel launches a step enqueues and the host ops that
+   take the most CPU time. Then (4b) the same weights and requests through the
+   quantized engine (int8 KV pools, int8 decode weights): each quantized
+   kernel's launches must equal decode steps x 32 (attention) and x 225
+   (7 matmuls x 32 layers + lm_head), no plain version and no bf16 decode
+   attention on the card, generate() equal to the engine; its profile
+   beside phase 4's. Then a 2-layer cross-check of the quantized engine on
+   the card against the same engine on the CPU (plain versions);
 5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
    batch 8 x 2048, the production recipe: flash attention, remat
    ``save_attn_kernel``, scan CE, bf16 Adam first moment), 10 steps from
@@ -46,8 +58,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul.
 
-The last three lines are the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last three lines are the ``kernels`` JSON (nine kernels; quant_mm's
+times are one decode step's 225 launches at their five shapes, summed),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -83,7 +96,14 @@ FLASH_TOLERANCE = {torch.bfloat16: (2**-6, 2**-6), torch.float32: (1e-4, 1e-4)}
 # absolute tolerance is larger
 GMM_TOLERANCE = {torch.bfloat16: (2**-6, 2**-6), torch.float32: (1e-4, 1e-4)}
 GMM_DW_TOLERANCE = (1e-2, 1e-4)
-KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm")
+# int8 dequant-matmul against its plain version on the same inputs (outputs
+# of about unit size): both round each weight to x's dtype and sum in
+# float32 in another order over up to 14,336 terms. bf16: one ulp of the
+# rounded output (2^-8 relative) plus the sums' difference; fp32: the
+# sums' order alone
+QUANT_MM_TOLERANCE = {torch.bfloat16: (1e-2, 2**-7), torch.float32: (1e-4, 1e-4)}
+KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
+                  "quant_mm")
 
 
 def log(msg: str) -> None:
@@ -207,14 +227,218 @@ def decode_case(G: int, dtype: torch.dtype, flush: torch.Tensor, *,
     }
 
 
+# --- phase 3d: quantized serving kernels against their plain versions ---------
+
+# 8 rows of about 512 positions (one short row); rows 0 and 7 share their
+# first 4 blocks, as a prefix match shares them
+QUANT_LENGTHS = (512, 448, 577, 5, 390, 640, 129, 520)
+
+
+def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, *,
+                      blk: int = 64, hd: int = 128, poison: bool = False) -> dict:
+    """The quantized paged decode kernel at Llama-3-8B decode shapes (32/8
+    heads) over ``kv`` pools quantized per block per kv head: against its
+    plain version on the same inputs, its time, its bound and SDPA over the
+    dequantized, gathered K/V (the dequant and gather not timed). With
+    ``poison`` only the NaN-scale check runs: row 0's sixth block (no other
+    row names it) gets a NaN K scale, and exactly the rows whose tables name
+    it must go non-finite."""
+    from tony_tpu_torch.ops.decode_attention import (
+        _chunk, decode_attention, paged_decode_attention_plain,
+    )
+    from tony_tpu_torch.serve.cache import kv_quant_spec, quantize_values
+
+    B, H, Hkv = 8, 32, 8
+    dev = "cuda"
+    rng = np.random.default_rng(300 + G)
+    lengths_np = np.array(QUANT_LENGTHS, np.int32)
+    need = [math.ceil(n / blk) for n in lengths_np]
+    M = max(need)
+    P = 1 + sum(need)
+    perm = rng.permutation(np.arange(1, P))
+    tables_np = np.zeros((B, M), np.int32)          # past the length: scratch
+    at = 0
+    for b in range(B):
+        tables_np[b, :need[b]] = perm[at:at + need[b]]
+        at += need[b]
+    shared = 256 // blk
+    tables_np[7, :shared] = tables_np[0, :shared]
+    gen = torch.Generator(device=dev).manual_seed(G + blk + hd)
+    q = torch.randn((B, G, H, hd), generator=gen, device=dev).to(dtype)
+    qdt, qmax = kv_quant_spec(kv)
+
+    def pool():
+        f = torch.randn((P, Hkv, blk, hd), generator=gen, device=dev)
+        sc = f.abs().amax(dim=(2, 3)) / qmax
+        return quantize_values(f, sc[..., None, None], qmax, qdt), sc
+
+    (kq, ks), (vq, vs) = pool(), pool()
+    lengths = torch.as_tensor(lengths_np, device=dev)
+    tables = torch.as_tensor(tables_np, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    run = lambda: decode_attention(q, kq, vq, lengths, tables=tables,  # noqa: E731
+                                   k_scale=ks, v_scale=vs)
+    if poison:
+        bad = int(tables_np[0, 5])
+        ks[bad] = float("nan")
+        out = run()
+        torch.cuda.synchronize()
+        hit = [bad in tables_np[b, :need[b]] for b in range(B)]
+        finite = [bool(torch.isfinite(out[b]).all()) for b in range(B)]
+        if finite != [not h for h in hit]:
+            raise AssertionError(f"NaN scale of block {bad}: rows finite {finite}, "
+                                 f"rows naming it {hit}")
+        return {"kv": kv, "poisoned_block": bad, "rows_hit": hit}
+
+    out = run()
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_plain(q, kq, vq, lengths, tables, scale=scale,
+                                       k_scale=ks, v_scale=vs)
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = TOLERANCE[dtype]
+    if not torch.isfinite(out).all() or bool((err > atol + rtol * ref.float().abs()).any()):
+        raise AssertionError(
+            f"paged_decode_attention_quant {kv} G={G} {dtype}: max |err| "
+            f"{err.max().item():.3e} over atol={atol} rtol={rtol}")
+
+    # library yardstick: SDPA over the dequantized, gathered, repeat-expanded
+    # K/V in q's dtype (the port never calls SDPA)
+    T = M * blk
+
+    def gathered(pq, sc):
+        d = (pq.float() * sc[..., None, None]).to(dtype)
+        g = d[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+        return g.repeat_interleave(H // Hkv, dim=1)
+
+    kg, vg = gathered(kq, ks), gathered(vq, vs)
+    qs = q.permute(0, 2, 1, 3).contiguous()
+    lim = lengths.long()[:, None] - (G - 1) + torch.arange(G, device=dev)
+    mask = (torch.arange(T, device=dev)[None, None, :] < lim[:, :, None])[:, None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qs, kg, vg, attn_mask=mask)
+    lib_err = (sdpa().permute(0, 2, 1, 3).float() - ref.float()).abs().max().item()
+
+    ms = time_ms(run, flush)
+    plain_ms = time_ms(lambda: paged_decode_attention_plain(
+        q, kq, vq, lengths, tables, scale=scale, k_scale=ks, v_scale=vs), flush)
+    library_ms = time_ms(sdpa, flush)
+
+    # payload bytes: each physical block's positions some row needs, once,
+    # one byte per element; two float32 scales per (block, kv head) read
+    used: dict[int, int] = {}
+    for b in range(B):
+        for j in range(need[b]):
+            pid = int(tables_np[b, j])
+            used[pid] = max(used.get(pid, 0), min(blk, int(lengths_np[b]) - j * blk))
+    kv_bytes = 2 * sum(used.values()) * Hkv * hd * kq.element_size()
+    scale_bytes = 2 * len(used) * Hkv * 4
+    io_bytes = 2 * q.numel() * q.element_size() + lengths.numel() * 4 + sum(need) * 4
+    attended = sum(int(n) - (G - 1) + g for n in lengths_np for g in range(G))
+    ops = 4 * attended * H * hd
+    nbytes = kv_bytes + scale_bytes + io_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {
+        "kv": kv, "G": G, "dtype": str(dtype).replace("torch.", ""), "blk": blk,
+        "hd": hd, "chunk": _chunk(blk, hd, q.element_size()),
+        "max_abs_err": err.max().item(), "sdpa_max_abs_err": lib_err,
+        "atol": atol, "rtol": rtol,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes,
+    }
+
+
+# the decode step's weight shapes (D, N) and how many of each a layer runs:
+# wq and wo 4096 -> 4096, wk and wv 4096 -> 1024, w1 and w3 4096 -> 14336,
+# w2 14336 -> 4096; lm_head 4096 -> 128256 once per step
+QUANT_MM_SHAPES = (("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2),
+                   ("w1/w3", 4096, 14336, 2), ("w2", 14336, 4096, 1),
+                   ("lm_head", 4096, 128256, 0))
+
+
+def quant_mm_library(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor):
+    """One PyTorch call computing the same product (the yardstick; the port
+    never calls it): ``torch._weight_int8pack_mm`` where this torch runs it
+    on CUDA for x's dtype, else ``torch.matmul`` against the weight
+    dequantized beforehand (not timed). Returns (fn, its name)."""
+    if hasattr(torch, "_weight_int8pack_mm"):
+        wt, sx = wq.t().contiguous(), s.to(x.dtype)
+        fn = lambda: torch._weight_int8pack_mm(x, wt, sx)  # noqa: E731
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn, "torch._weight_int8pack_mm"
+        except (RuntimeError, NotImplementedError, TypeError):
+            pass
+    wd = (wq.float() * s).to(x.dtype)
+    return (lambda: torch.matmul(x, wd)), "torch.matmul on the dequantized weight"
+
+
+def quant_mm_case(label: str, D: int, N: int, dtype: torch.dtype,
+                  flush: torch.Tensor, M: int = 8) -> dict:
+    """The int8 dequant-matmul kernel at one decode weight shape, 8 slots:
+    against its plain version on the same inputs, its time, its bound, the
+    plain version's time and one library call's (named)."""
+    from tony_tpu_torch.ops.quant_mm import (
+        quant_matmul, quant_matmul_plain, quantize_weights,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(D + N)
+    x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((D, N), generator=gen, device="cuda") / math.sqrt(D)
+    wq, s = quantize_weights(w)
+    del w
+    out = quant_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    ref = quant_matmul_plain(x, wq, s)
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = QUANT_MM_TOLERANCE[dtype]
+    ok = bool(torch.isfinite(out).all()) and not bool(
+        (err > atol + rtol * ref.float().abs()).any())
+    lib, lib_name = quant_mm_library(x, wq, s)
+    lib_err = (lib().float() - ref.float()).abs().max().item()
+    max_err = err.max().item()
+    del out, ref, err
+    nbytes = D * N + N * 4 + M * D * x.element_size() + M * N * x.element_size()
+    ops = 2 * M * D * N
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {
+        "label": label, "D": D, "N": N, "M": M, "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": max_err, "ok": ok, "atol": atol, "rtol": rtol,
+        "ms": time_ms(lambda: quant_matmul(x, wq, s), flush),
+        "plain_ms": time_ms(lambda: quant_matmul_plain(x, wq, s), flush, reps=10),
+        "library_ms": time_ms(lib, flush), "library": lib_name,
+        "library_max_abs_err": lib_err,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes,
+    }
+
+
+def quant_mm_step(cases: list[dict], n_layers: int = 32) -> dict:
+    """The bf16 cases summed as one decode step runs them: each layer shape
+    times its count per layer times the layers, lm_head once."""
+    per = {label: count for label, _, _, count in QUANT_MM_SHAPES}
+    bf = [c for c in cases if c["dtype"] == "bfloat16"]
+    weight = {c["label"]: (per[c["label"]] * n_layers or 1) for c in bf}
+    total = {k: sum(c[k] * weight[c["label"]] for c in bf)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
+    total["launches"] = sum(weight.values())
+    total["max_abs_err"] = max(c["max_abs_err"] for c in bf)
+    total["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes" for c in bf)
+                         else "operations")
+    return total
+
+
 # --- phase 4: serving at full width -------------------------------------------
 
 
-def serve_phase() -> dict:
-    from tony_tpu_torch.models.generate import generate
+def llama_params():
+    """Llama-3-8B at full width, random bf16 weights from seed 0."""
     from tony_tpu_torch.models.llama import LlamaConfig, init_params
-    from tony_tpu_torch.ops.decode_attention import LAUNCHES, reset_launches
-    from tony_tpu_torch.serve import Engine, Request, ServeConfig
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -223,8 +447,14 @@ def serve_phase() -> dict:
     torch.cuda.synchronize()
     log(f"serve: Llama-3-8B {cfg.n_params:,} params bf16 initialised in "
         f"{time.perf_counter() - t0:.1f} s")
-    sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True)
-    engine = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+    return cfg, params
+
+
+def serve_requests(cfg):
+    """The 16 serving requests (the same draws in phases 4 and 4b), half
+    greedy and half sampled, and the generator that goes on to draw the
+    warm-up and profile prompts."""
+    from tony_tpu_torch.serve import Request
 
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 1025, 16)
@@ -241,21 +471,33 @@ def serve_phase() -> dict:
         Request(prompt=p, max_new_tokens=64, temperature=0.8, top_k=50, rng=1000 + i)
         for i, p in enumerate(prompts)
     ]
+    return prompts, reqs, rng
+
+
+def serve_run(engine, cfg, reqs, rng) -> tuple[dict, dict, dict]:
+    """Warm up, zero every kernel count, serve ``reqs``, read the counts:
+    (completions by request index, counts, figures). Every request must
+    complete with 64 in-vocabulary tokens, and prefix reuse must fire."""
+    from tony_tpu_torch.ops.decode_attention import LAUNCHES as ATTN_LAUNCHES
+    from tony_tpu_torch.ops.decode_attention import reset_launches as reset_attn
+    from tony_tpu_torch.ops.quant_mm import LAUNCHES as MM_LAUNCHES
+    from tony_tpu_torch.ops.quant_mm import reset_launches as reset_mm
+    from tony_tpu_torch.serve import Request
 
     # warm-up (cuBLAS handles, allocator), then counters to zero
     engine.run([Request(prompt=rng.integers(0, cfg.vocab_size, 32), max_new_tokens=4)])
     engine.reset_metrics()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_attn()
+    reset_mm()
     t0 = time.perf_counter()
     ids = [engine.submit(r) for r in reqs]
     out = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = {**ATTN_LAUNCHES, **MM_LAUNCHES}
     m = engine.metrics
-
     if len(out) != len(reqs):
         raise AssertionError(f"{len(out)} of {len(reqs)} requests completed")
     for rid, c in out.items():
@@ -264,37 +506,186 @@ def serve_phase() -> dict:
                                  f"{c.finish_reason!r}")
         if not all(0 <= t < cfg.vocab_size for t in c.tokens):
             raise AssertionError(f"request {rid}: token outside the vocabulary")
-    want = m.decode_steps * cfg.n_layers
-    if launches["paged_decode_attention"] != want or want == 0:
-        raise AssertionError(f"kernel launches {launches} != decode steps "
-                             f"{m.decode_steps} x {cfg.n_layers} layers")
-    if launches["paged_decode_attention_plain"] != 0:
-        raise AssertionError("the plain decode attention ran on the card")
     if m.prefix_hit_tokens < 256:
         raise AssertionError(f"prefix reuse did not fire ({m.prefix_hit_tokens})")
-    peak = torch.cuda.max_memory_allocated()
-
-    solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
-                    device="cuda", serve=sv)
-    if solo[0, len(prompts[0]):].tolist() != out[ids[0]].tokens:
-        raise AssertionError("generate() differs from the engine on request 0")
-    result = {
+    figures = {
         "requests": len(out), "decode_steps": m.decode_steps,
-        "launches": launches["paged_decode_attention"],
         "decode_tokens_per_s": m.decode_tokens_per_sec,
         "mean_ttft_s": m.ttft_avg_s,
         "mean_decode_step_ms": m.decode_s / m.decode_steps * 1e3,
         "prefix_hit_tokens": m.prefix_hit_tokens,
-        "wall_s": wall, "peak_allocated_gb": peak / 1e9,
+        "kv_bytes_per_token": m.kv_bytes_per_token,
+        "wall_s": wall, "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    return {**result, **decode_breakdown(engine, cfg, rng)}
+    return {i: out[rid] for i, rid in enumerate(ids)}, launches, figures
 
 
-def decode_breakdown(engine, cfg, rng, steps: int = 8) -> dict:
+def serve_phase(cfg, params) -> dict:
+    """Phase 4: the bf16 engine, 16 requests; the paged decode kernel once
+    per layer and decode step, no plain version; generate() equal to the
+    engine on request 0; then the decode-step breakdown."""
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.serve import Engine, ServeConfig
+
+    sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True)
+    engine = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+    prompts, reqs, rng = serve_requests(cfg)
+    out, launches, figures = serve_run(engine, cfg, reqs, rng)
+    want = figures["decode_steps"] * cfg.n_layers
+    if launches["paged_decode_attention"] != want or want == 0:
+        raise AssertionError(f"kernel launches {launches} != decode steps "
+                             f"{figures['decode_steps']} x {cfg.n_layers} layers")
+    if launches["paged_decode_attention_plain"] != 0:
+        raise AssertionError("the plain decode attention ran on the card")
+    breakdown = decode_breakdown(engine, cfg, rng, {"attention": "paged_decode_kernel"})
+    del engine
+    solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
+                    device="cuda", serve=sv)
+    if solo[0, len(prompts[0]):].tolist() != out[0].tokens:
+        raise AssertionError("generate() differs from the engine on request 0")
+    return {**figures, **breakdown, "launches": launches["paged_decode_attention"],
+            "tokens": [c.tokens for c in out.values()]}
+
+
+def quant_serve_phase(cfg, params, bf16: dict) -> dict:
+    """Phase 4b: the same weights and requests through the quantized engine
+    (int8 KV pools, int8 decode weights). Per decode step the quantized
+    attention runs once per layer and the dequant-matmul 7 x 32 + 1 times;
+    no plain version and no bf16 decode attention on the card; generate()
+    equal to the engine on request 0; the breakdown; and, reported only,
+    the share of greedy tokens equal to phase 4's."""
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.serve import Engine, ServeConfig
+
+    sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True, quant_kv="int8",
+              quant_weights=True)
+    t0 = time.perf_counter()
+    engine = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts, reqs, rng = serve_requests(cfg)
+    out, launches, figures = serve_run(engine, cfg, reqs, rng)
+    steps = figures["decode_steps"]
+    want = {"paged_decode_attention_quant": steps * cfg.n_layers,
+            "quant_mm": steps * (7 * cfg.n_layers + 1),
+            "paged_decode_attention": 0, "paged_decode_attention_plain": 0,
+            "paged_decode_attention_quant_plain": 0, "quant_mm_plain": 0}
+    if steps == 0 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"quantized launches {launches} != {want} "
+                             f"({steps} decode steps)")
+    breakdown = decode_breakdown(engine, cfg, rng, {
+        "attention": "paged_decode_kernel", "quant_mm": "quant_mm_kernel"})
+    del engine
+    torch.cuda.empty_cache()
+    solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
+                    device="cuda", serve=sv)
+    if solo[0, len(prompts[0]):].tolist() != out[0].tokens:
+        raise AssertionError("generate() differs from the quantized engine on "
+                             "request 0")
+    greedy = [i for i in range(len(reqs)) if i % 2 == 0]
+    same = sum(a == b for i in greedy
+               for a, b in zip(out[i].tokens, bf16["tokens"][i]))
+    return {**figures, **breakdown, "build_s": build_s, "launches": launches,
+            "greedy_equal_share": same / (64 * len(greedy)),
+            "greedy_equal_requests": sum(out[i].tokens == bf16["tokens"][i]
+                                         for i in greedy)}
+
+
+def quant_crosscheck(card: str) -> dict:
+    """Llama-3-8B's width at 2 layers: the same 4 greedy requests through
+    the quantized engine (int8 KV, int8 weights, prefix reuse) on the card
+    (kernels) and on the CPU (plain versions), from the same weights.
+    Compared: each prefill's logits (bf16 masters on both), then the first
+    decode step's logits (both quantized kernels) for the rows whose first
+    token agreed, and the greedy tokens.
+
+    Tolerances. Logits: 5% of the card's largest |logit|. Both sides run
+    bf16 activations and round at the same ops, but cuBLAS, the kernels and
+    the CPU's matmuls sum in other orders, so any of the ~12 bf16 roundings
+    on a token's path (2^-9 relative each) can land one ulp apart, and a
+    K/V value that sits on an int8 rounding boundary can be stored one step
+    apart. Tokens: a greedy token may differ only where its logits' top-2
+    margin is under twice the measured max |diff| (a flip needs the two
+    logits to move by the margin together); everything after a flip is
+    reported, not held."""
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.serve import Engine, Request, ServeConfig
+    from tony_tpu_torch.serve import engine as engine_mod
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab_size, 128)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               for n in (72, 2, 40)] + [rng.integers(0, cfg.vocab_size, 100)]
+    sv = dict(slots=4, max_len=256, kv_block=64, prefix=True, quant_kv="int8",
+              quant_weights=True)
+    runs = {}
+    real = engine_mod.sample_tokens
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else {
+            k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in params.items()}
+        calls = []
+
+        def recording(logits, *a, **kw):
+            calls.append(logits.float().cpu())
+            return real(logits, *a, **kw)
+
+        engine_mod.sample_tokens = recording
+        try:
+            t0 = time.perf_counter()
+            eng = Engine(p, cfg, ServeConfig(**sv), device=dev)
+            out = eng.run([Request(prompt=q, max_new_tokens=4) for q in prompts])
+            secs = time.perf_counter() - t0
+        finally:
+            engine_mod.sample_tokens = real
+        # prefill calls sample one row each, in admission order; the first
+        # decode step samples every slot
+        prefill = [c[0] for c in calls if c.shape[0] == 1][:len(prompts)]
+        first_step = next(c for c in calls if c.shape[0] == sv["slots"])
+        runs[dev] = (prefill, first_step, [out[i].tokens for i in range(len(prompts))],
+                     eng.metrics.prefix_hit_tokens, secs)
+        del eng
+    (pc, dc, tc, hc, sc), (pp, dp, tp, hp, sp) = runs["cuda"], runs["cpu"]
+    scale = max(float(x.abs().max()) for x in pc)
+    pre_diff = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    agree = [tc[i][0] == tp[i][0] for i in range(len(prompts))]
+    rows = [i for i in range(len(prompts)) if agree[i]]
+    step_diff = max(float((dc[i] - dp[i]).abs().max()) for i in rows) if rows else 0.0
+    diff = max(pre_diff, step_diff)
+
+    def margin(x):
+        top = x.topk(2).values
+        return float(top[0] - top[1])
+
+    flips = [i for i in range(len(prompts)) if not agree[i] and margin(pc[i]) > 2 * diff]
+    flips += [i for i in rows if tc[i][1] != tp[i][1] and margin(dc[i]) > 2 * diff]
+    same = sum(a == b for x, y in zip(tc, tp) for a, b in zip(x, y))
+    log(f"quant crosscheck 2 layers at Llama-3-8B width (int8 KV + int8 weights): "
+        f"prefill logits max|diff| {pre_diff:.4e}, first decode step {step_diff:.4e} "
+        f"over {len(rows)} rows, limit {0.05 * scale:.4e} (5% of max|logit| "
+        f"{scale:.3f}); greedy tokens equal {same}/{4 * len(prompts)}; prefix hit "
+        f"{hc} card / {hp} cpu tokens; card {sc:.1f} s, cpu {sp:.1f} s  [{card}]")
+    if hc < 128 or hc != hp:
+        raise AssertionError(f"prefix reuse: card {hc}, cpu {hp} tokens")
+    if diff > 0.05 * scale:
+        raise AssertionError(f"card and CPU logits differ by {diff:.4e}")
+    if flips:
+        raise AssertionError(f"greedy tokens of rows {flips} differ beyond a near-tie")
+    return {"prefill_max_abs_diff": pre_diff, "first_step_max_abs_diff": step_diff,
+            "logit_scale": scale, "tokens_equal": same, "tokens": 4 * len(prompts)}
+
+
+def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
+                     steps: int = 8) -> dict:
     """Where a full decode step's time goes, at 8 live slots of ~512
     positions: ``steps`` steps timed on the host clock, then ``steps`` more
     under torch.profiler for the device time by kernel. The busy share is
-    device time per step over the unprofiled step's wall time."""
+    device time per step over the unprofiled step's wall time; each entry
+    of ``kernels`` (label: a substring of the kernel's name) gets its
+    device ms per step and its share of device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from tony_tpu_torch.serve import Request
@@ -318,20 +709,31 @@ def decode_breakdown(engine, cfg, rng, steps: int = 8) -> dict:
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in dev) / steps
-    attn_us = sum(e.self_device_time_total for e in dev
-                  if "paged_decode_kernel" in e.key) / steps
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  profile: {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
             f"x{e.count // steps:<4d} {e.key[:90]}")
     if device_us == 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return {
+    # the host side: CPU self time by op (under the profiler, so inflated),
+    # and the kernel launches one step enqueues
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]:
+        log(f"  host: {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
+            f"x{e.count // steps:<5d} {e.key[:60]}")
+    launches = sum(e.count for e in host
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    out = {
         "profile_step_ms": step_s * 1e3,
         "profile_device_ms": device_us / 1e3,
         "profile_device_busy": device_us / 1e6 / step_s,
-        "profile_attention_ms": attn_us / 1e3,
-        "profile_attention_share": attn_us / device_us,
+        "profile_launches_per_step": launches / steps,
     }
+    for label, pattern in kernels.items():
+        us = sum(e.self_device_time_total for e in dev if pattern in e.key) / steps
+        out[f"profile_{label}_ms"] = us / 1e3
+        out[f"profile_{label}_share"] = us / device_us
+    return out
 
 
 # --- phase 3b: flash attention kernels against their plain versions -----------
@@ -889,24 +1291,101 @@ def main() -> int:
     if bad:
         raise AssertionError(f"grouped matmul kernels over tolerance: "
                              f"{[(c['name'], c['direction'], c['dtype']) for c in bad]}")
-    del inputs, flush
+    del inputs
+
+    # 3d: the quantized serving kernels. Decode attention over int8 and fp8
+    # pools at the serving shapes, then float32 queries, then block 128 with
+    # float32 queries (its dequantized K+V exceed the staging budget: two
+    # chunks per block), then the NaN-scale rows
+    qcases = []
+    for kv, G, dtype, blk in (("int8", 1, torch.bfloat16, 64), ("int8", 5, torch.bfloat16, 64),
+                              ("fp8_e4m3", 1, torch.bfloat16, 64),
+                              ("fp8_e4m3", 5, torch.bfloat16, 64),
+                              ("int8", 1, torch.float32, 64), ("int8", 1, torch.float32, 128)):
+        c = quant_decode_case(kv, G, dtype, flush, blk=blk)
+        qcases.append(c)
+        log(f"kernel paged_decode_attention_quant {kv} G={G} {c['dtype']} blk={blk} "
+            f"hd={c['hd']} chunk={c['chunk']}: max|err| {c['max_abs_err']:.3e} "
+            f"(atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms'] * 1e3:.1f} us  "
+            f"(bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']}, "
+            f"{c['bytes'] / 1e6:.2f} MB)  plain {c['plain_ms'] * 1e3:.1f} us  sdpa on "
+            f"dequantized K/V {c['library_ms'] * 1e3:.1f} us (max|err| "
+            f"{c['sdpa_max_abs_err']:.3e})  [{card}]")
+    if not any(c["chunk"] < c["blk"] for c in qcases):
+        raise AssertionError("no quantized case staged a block in chunks")
+    for kv in ("int8", "fp8_e4m3"):
+        c = quant_decode_case(kv, 1, torch.bfloat16, flush, poison=True)
+        log(f"kernel paged_decode_attention_quant {kv}: NaN scale on block "
+            f"{c['poisoned_block']} reaches exactly rows "
+            f"{[b for b, h in enumerate(c['rows_hit']) if h]}  [{card}]")
+    mm = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, D, N, _ in QUANT_MM_SHAPES:
+            c = quant_mm_case(label, D, N, dtype, flush)
+            mm.append(c)
+            log(f"kernel quant_mm {label} {D}->{N} M={c['M']} {c['dtype']}: max|err| "
+                f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
+                f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms'] * 1e3:.1f} us  "
+                f"(bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']}, "
+                f"{c['bytes'] / 1e6:.2f} MB)  plain {c['plain_ms'] * 1e3:.1f} us  "
+                f"{c['library']} {c['library_ms'] * 1e3:.1f} us (max|err| "
+                f"{c['library_max_abs_err']:.3e})  [{card}]")
+    bad = [c for c in mm if not c["ok"]]
+    if bad:
+        raise AssertionError(f"quant_mm over tolerance: "
+                             f"{[(c['label'], c['dtype']) for c in bad]}")
+    step_mm = quant_mm_step(mm)
+    log(f"quant_mm over one Llama-3-8B decode step ({step_mm['launches']} launches, "
+        f"bf16, 8 slots): {step_mm['ms']:.3f} ms (bound {step_mm['bound_ms']:.3f} ms, "
+        f"{step_mm['bytes'] / 1e9:.3f} GB)  plain {step_mm['plain_ms']:.3f} ms  "
+        f"library {step_mm['library_ms']:.3f} ms  [{card}]")
+    del flush
     torch.cuda.empty_cache()
     sync = moe_sync_check()
     log(f"moe_block at bench_moe's shape under set_sync_debug_mode('error'): no "
         f"host sync; launches {sync['launches']}, aux {sync['aux']:.5f}  [{card}]")
 
-    s = serve_phase()
+    cfg, params = llama_params()
+    s = serve_phase(cfg, params)
     log(f"serve: {s['requests']} requests, {s['decode_steps']} decode steps, "
         f"{s['launches']} kernel launches; decode {s['decode_tokens_per_s']:.1f} "
         f"tok/s, mean TTFT {s['mean_ttft_s'] * 1e3:.1f} ms, mean decode step "
         f"{s['mean_decode_step_ms']:.2f} ms, prefix hit {s['prefix_hit_tokens']} "
-        f"tokens, peak allocated {s['peak_allocated_gb']:.2f} GB, wall "
-        f"{s['wall_s']:.1f} s  [{card}]")
+        f"tokens, {s['kv_bytes_per_token']:.0f} KV bytes/token, peak allocated "
+        f"{s['peak_allocated_gb']:.2f} GB, wall {s['wall_s']:.1f} s  [{card}]")
     log(f"decode step (8 slots, ~512 positions): {s['profile_step_ms']:.2f} ms "
         f"wall, {s['profile_device_ms']:.2f} ms device (busy "
-        f"{s['profile_device_busy']:.1%}), decode attention "
-        f"{s['profile_attention_ms']:.2f} ms = "
+        f"{s['profile_device_busy']:.1%}), {s['profile_launches_per_step']:.0f} kernel "
+        f"launches; decode attention {s['profile_attention_ms']:.2f} ms = "
         f"{s['profile_attention_share']:.1%} of device time  [{card}]")
+    torch.cuda.empty_cache()
+
+    qs = quant_serve_phase(cfg, params, s)
+    ql = qs["launches"]
+    log(f"serve quantized (int8 KV + int8 weights; phase 4 bf16 beside it): "
+        f"{qs['requests']} requests, {qs['decode_steps']} decode steps "
+        f"({s['decode_steps']}); launches paged_decode_attention_quant "
+        f"{ql['paged_decode_attention_quant']}, quant_mm {ql['quant_mm']}; decode "
+        f"{qs['decode_tokens_per_s']:.1f} tok/s ({s['decode_tokens_per_s']:.1f}), "
+        f"mean TTFT {qs['mean_ttft_s'] * 1e3:.1f} ms ({s['mean_ttft_s'] * 1e3:.1f}), "
+        f"mean decode step {qs['mean_decode_step_ms']:.2f} ms "
+        f"({s['mean_decode_step_ms']:.2f}), {qs['kv_bytes_per_token']:.0f} KV "
+        f"bytes/token ({s['kv_bytes_per_token']:.0f}), peak allocated "
+        f"{qs['peak_allocated_gb']:.2f} GB ({s['peak_allocated_gb']:.2f}), prefix hit "
+        f"{qs['prefix_hit_tokens']} tokens, int8 copy built in {qs['build_s']:.1f} s; "
+        f"greedy tokens equal to phase 4's: {qs['greedy_equal_share']:.1%} "
+        f"({qs['greedy_equal_requests']} of 8 requests whole)  [{card}]")
+    log(f"quantized decode step (8 slots, ~512 positions): {qs['profile_step_ms']:.2f} "
+        f"ms wall ({s['profile_step_ms']:.2f}), {qs['profile_device_ms']:.2f} ms device "
+        f"({s['profile_device_ms']:.2f}), busy {qs['profile_device_busy']:.1%} "
+        f"({s['profile_device_busy']:.1%}), {qs['profile_launches_per_step']:.0f} "
+        f"kernel launches ({s['profile_launches_per_step']:.0f}); decode attention "
+        f"{qs['profile_attention_ms']:.2f} ms = {qs['profile_attention_share']:.1%}, "
+        f"quant_mm {qs['profile_quant_mm_ms']:.2f} ms = "
+        f"{qs['profile_quant_mm_share']:.1%} of device time  [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    quant_crosscheck(card)
     torch.cuda.empty_cache()
 
     t = train_phase(card)
@@ -963,6 +1442,24 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
+    qmain = qcases[0]                               # int8 G=1 bf16 at the serving shapes
+    kernels.append({
+        "name": "paged_decode_attention_quant", "route": "cuda",
+        "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "tony_tpu/ops/decode_attention.py:358",
+        "launches": ql["paged_decode_attention_quant"],
+        "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
+        "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
+        "bound_by": qmain["bound_by"], "library_ms": qmain["library_ms"],
+    })
+    # one decode step's 225 launches at their five shapes, bf16, summed
+    kernels.append({
+        "name": "quant_mm", "route": "cuda", "source": "tony_tpu_torch/csrc/quant_mm.cu",
+        "replaces": "tony_tpu/ops/quant_mm.py:84", "launches": ql["quant_mm"],
+        "max_abs_err": step_mm["max_abs_err"], "ms": step_mm["ms"],
+        "plain_ms": step_mm["plain_ms"], "bound_ms": step_mm["bound_ms"],
+        "bound_by": step_mm["bound_by"], "library_ms": step_mm["library_ms"],
+    })
     replaces = {"flash_fwd": 44, "flash_dq": 138, "flash_dkv": 177}
     for name, line in replaces.items():
         # the training path's shape and dtype: bench_1b4, bf16

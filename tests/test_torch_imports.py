@@ -44,8 +44,9 @@ def test_every_port_module_is_checked():
                  "tony_tpu_torch/train/prefetch.py",
                  "tony_tpu_torch/train/checkpoint.py",
                  "tony_tpu_torch/ops/grouped_mm.py", "tony_tpu_torch/parallel/moe.py",
-                 "tony_tpu_torch/parallel/__init__.py", "chip_smoke.py",
+                 "tony_tpu_torch/parallel/__init__.py", "tony_tpu_torch/ops/quant_mm.py",
+                 "chip_smoke.py",
                  "tests/test_torch_kernels_cuda.py"):
         assert want in names
-    for src in ("paged_decode_attention", "flash_attention", "grouped_mm"):
+    for src in ("paged_decode_attention", "flash_attention", "grouped_mm", "quant_mm"):
         assert (ROOT / f"tony_tpu_torch/csrc/{src}.cu").exists()

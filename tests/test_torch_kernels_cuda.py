@@ -314,3 +314,118 @@ def test_moe_block_step_has_no_host_sync_on_card(cuda):
     assert LAUNCHES["gmm_fwd"] == LAUNCHES["gmm_dx"] == LAUNCHES["gmm_dw"] == 3
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert grads[0].dtype == torch.float32               # the router
+
+
+# --- quantized paged decode attention and the int8 dequant-matmul -------------------
+
+
+def _quantize_pool(pool: torch.Tensor, kv: str):
+    """[P, Hkv, blk, hd] float -> (payload pool, [P, Hkv] float32 scales),
+    one scale per block per kv head (the amax over the block / qmax)."""
+    from tony_tpu_torch.serve.cache import kv_quant_spec, quantize_values
+
+    dt, qmax = kv_quant_spec(kv)
+    scale = pool.float().abs().amax(dim=(2, 3)) / qmax
+    return quantize_values(pool, scale[..., None, None], qmax, dt), scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "fp8_e4m3"])
+def test_quant_decode_kernel_matches_plain_on_card(cuda, kv):
+    """The quantized form against its plain version on the same payloads
+    and scales, G in {1, 5}, bf16 and fp32 queries. Both dequantize to the
+    same values of q's dtype, so the tolerance is the unquantized kernel's
+    (bf16: a few ulps of 2^-8, the output and p are rounded to bf16)."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, decode_attention, paged_decode_attention_plain, reset_launches,
+    )
+
+    for G in (1, 5):
+        q, k, v, lengths, tables = (torch.from_numpy(a).to(cuda)
+                                    for a in _decode_case(G, seed=7 + G))
+        (kq, ks), (vq, vs) = _quantize_pool(k, kv), _quantize_pool(v, kv)
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2**-7)):
+            reset_launches()
+            out = decode_attention(q.to(dtype), kq, vq, lengths, tables=tables,
+                                   k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            assert LAUNCHES["paged_decode_attention_quant"] == 1
+            assert LAUNCHES["paged_decode_attention"] == 0
+            ref = paged_decode_attention_plain(
+                q.to(dtype), kq, vq, lengths, tables, scale=1.0 / math.sqrt(HD),
+                k_scale=ks, v_scale=vs)
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_quant_decode_kernel_stages_chunks_and_poisons_only_its_rows_on_card(cuda):
+    """int8 pools, float32 queries at block 128, head_dim 128: the
+    dequantized K+V of a block exceed the 64 KB staging budget, so blocks
+    stage in two chunks. Then a NaN scale on row 0's second block: row 0
+    goes non-finite, every other row stays finite and equal to before."""
+    from tony_tpu_torch.ops.decode_attention import (
+        _chunk, decode_attention, paged_decode_attention_plain,
+    )
+
+    blk, hd, lengths = 128, 128, np.array([200, 64, 128, 1, 300], np.int32)
+    assert _chunk(blk, hd, 4) < blk
+    rng = np.random.default_rng(8)
+    need = [math.ceil(n / blk) for n in lengths]
+    P = 1 + sum(need)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((len(lengths), max(need)), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[at:at + n]
+        at += n
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+               for s in ((len(lengths), 1, H, hd), (P, HKV, blk, hd),
+                         (P, HKV, blk, hd)))
+    (kq, ks), (vq, vs) = _quantize_pool(k, "int8"), _quantize_pool(v, "int8")
+    lengths_t, tables_t = (torch.from_numpy(a).to(cuda) for a in (lengths, tables))
+    out = decode_attention(q, kq, vq, lengths_t, tables=tables_t, k_scale=ks, v_scale=vs)
+    ref = paged_decode_attention_plain(q, kq, vq, lengths_t, tables_t,
+                                       scale=1.0 / math.sqrt(hd), k_scale=ks,
+                                       v_scale=vs)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    ks[int(tables[0, 1])] = float("nan")
+    bad = decode_attention(q, kq, vq, lengths_t, tables=tables_t, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(bad[0]).all())
+    assert bool(torch.isfinite(bad[1:]).all())
+    torch.testing.assert_close(bad[1:], out[1:], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,N", [
+    (8, 512, 1024),     # the decode batch, N a multiple of the CTA's 32 columns
+    (8, 4096, 1000),    # ragged N: not a multiple of 16, byte-wise loads
+    (11, 5000, 80),     # two slot tiles, two staged chunks of D
+    (1, 64, 48),
+])
+def test_quant_mm_kernel_matches_plain_on_card(cuda, M, D, N):
+    """The int8 dequant-matmul against its plain version, bf16 and fp32 x.
+    Both round each dequantized weight to x's dtype and sum in float32 in
+    another order, outputs of about unit size: fp32 within 1e-4, bf16
+    within one bf16 ulp (2^-8 relative) plus the sums' difference."""
+    from tony_tpu_torch.ops.quant_mm import (
+        LAUNCHES, quant_matmul, quant_matmul_plain, quantize_weights, reset_launches,
+    )
+
+    rng = np.random.default_rng(M + D + N)
+    x = torch.from_numpy(rng.standard_normal((M, D)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((D, N)) / np.sqrt(D)).astype(np.float32))
+    wq, s = (t.to(cuda) for t in quantize_weights(w))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2**-7)):
+        reset_launches()
+        out = quant_matmul(x.to(dtype), wq, s)
+        torch.cuda.synchronize()
+        assert LAUNCHES == {"quant_mm": 1, "quant_mm_plain": 0}
+        assert out.dtype == dtype and out.shape == (M, N)
+        ref = quant_matmul_plain(x.to(dtype), wq, s)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    s[7] = float("nan")
+    bad = quant_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(bad[:, 7]).any())
+    assert bool(torch.isfinite(torch.cat([bad[:, :7], bad[:, 8:]], dim=1)).all())

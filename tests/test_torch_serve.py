@@ -135,10 +135,7 @@ def test_freed_slots_return_blocks_and_table_shrinks(setup):
     assert int(eng.cache.lengths.sum()) == 0
 
 
-@pytest.mark.parametrize("knob", [
-    dict(spec=True), dict(quant_kv="int8"), dict(quant_weights=True),
-    dict(chunk_tokens=8),
-])
+@pytest.mark.parametrize("knob", [dict(spec=True), dict(chunk_tokens=8)])
 def test_unported_knobs_raise(setup, knob):
     _, _, cfg, params = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):

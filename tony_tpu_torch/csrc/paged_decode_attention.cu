@@ -43,9 +43,31 @@
 // across CTAs (flash-decoding) is the known next step. Measured times
 // against this bound are in PERF.md.
 
+// Quantized pools (the same kernel, templated on the payload type P).
+// Replaces tony_tpu/ops/decode_attention.py::_paged_quant_kernel (reached
+// through _paged_pallas): the step the engine runs when its KV pools are
+// block-scaled int8 or fp8 e4m3. The pools hold P, and two scale pools
+//   k_scale, v_scale [P, Hkv] float32
+// carry one scale per physical block per kv head. Each K/V element is
+// dequantized as float(payload) * scale[tables[b, j], x] and rounded to the
+// query's dtype, as the TPU kernel does, before the dot. The CTA loads the
+// two scales of a block beside its table entry, one load each per (block,
+// kv head), and dequantizes each 16-byte vector of payload in registers as
+// it stages the chunk into shared memory: shared memory holds the
+// dequantized values in the query's dtype, so the chunking rule is the
+// unquantized kernel's at that dtype, and the dequantized cache never
+// exists in device memory. Bound: the same as above with one byte per K/V
+// element plus two float32 scales per (block, kv head) read, about half the
+// bf16 pools' bytes. Scales are not clamped and no block past a row's length
+// is read, so a NaN scale reaches exactly the rows whose tables name its
+// block.
+
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,6 +80,8 @@ constexpr float kNeg = -0.7f * 3.4028234663852886e38f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -77,13 +101,33 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T>
+// One 16-byte vector of 1-byte payload -> 16 values of T in shared memory:
+// float(payload) * sc, rounded to T, stored with 16-byte writes.
+template <typename T, typename P>
+__device__ __forceinline__ void dequant16(const int4 raw, float sc, T* __restrict__ dst) {
+  static_assert(sizeof(P) == 1, "quantized payloads are one byte");
+  const P* b = reinterpret_cast<const P*>(&raw);
+  alignas(16) T vals[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) vals[i] = from_f<T>(to_f(b[i]) * sc);
+  const int4* src = reinterpret_cast<const int4*>(vals);
+  int4* d = reinterpret_cast<int4*>(dst);
+#pragma unroll
+  for (int u = 0; u < (int)(16 * sizeof(T) / 16); ++u) d[u] = src[u];
+}
+
+// T: the query's (and output's, and staged K/V's) dtype; P: the pools'
+// payload, T itself for unquantized pools (k_scale/v_scale unused, null).
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k,
+                    const P* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
                     int G, int H, int Hkv, int hd, int blk, int M, int chunk,
                     float scale) {
+  constexpr bool kQuant = !std::is_same<T, P>::value;
   const int b = blockIdx.x / Hkv;
   const int x = blockIdx.x % Hkv;
   const int rep = H / Hkv;
@@ -116,21 +160,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int n_blocks = (len + blk - 1) / blk;
-  const int chunk_vec = chunk * hd * (int)sizeof(T) / 16;
+  const int chunk_vec = chunk * hd * (int)sizeof(P) / 16;
   for (int j = 0; j < n_blocks; ++j) {
     const int pid = tables[(size_t)b * M + j];
     const size_t block_off = ((size_t)pid * Hkv + x) * blk * hd;
+    // the block's two scales ride with its table entry
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (kQuant) {
+      ksc = k_scale[(size_t)pid * Hkv + x];
+      vsc = v_scale[(size_t)pid * Hkv + x];
+    }
     for (int c0 = 0; c0 < blk; c0 += chunk) {
       const int base = j * blk + c0;  // logical position of the chunk's first entry
       if (base >= len) break;         // uniform across the CTA
       __syncthreads();                // the previous chunk's readers are done
       const int4* ksrc = reinterpret_cast<const int4*>(k + block_off + (size_t)c0 * hd);
       const int4* vsrc = reinterpret_cast<const int4*>(v + block_off + (size_t)c0 * hd);
-      int4* kdst = reinterpret_cast<int4*>(k_s);
-      int4* vdst = reinterpret_cast<int4*>(v_s);
-      for (int i = tid; i < chunk_vec; i += kThreads) {
-        kdst[i] = ksrc[i];
-        vdst[i] = vsrc[i];
+      if constexpr (kQuant) {
+        // dequantize in registers while staging: 16 payload bytes -> 16 T
+        for (int i = tid; i < chunk_vec; i += kThreads) {
+          dequant16<T, P>(ksrc[i], ksc, k_s + i * 16);
+          dequant16<T, P>(vsrc[i], vsc, v_s + i * 16);
+        }
+      } else {
+        int4* kdst = reinterpret_cast<int4*>(k_s);
+        int4* vdst = reinterpret_cast<int4*>(v_s);
+        for (int i = tid; i < chunk_vec; i += kThreads) {
+          kdst[i] = ksrc[i];
+          vdst[i] = vsrc[i];
+        }
       }
       __syncthreads();
 
@@ -229,30 +287,43 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           const int* tables, void* out, int B, int G, int H, int Hkv, int hd,
-           int blk, int M, int chunk, float scale, int smem_bytes,
-           cudaStream_t stream) {
+template <typename T, typename P>
+int launch(const void* q, const void* k, const void* v, const float* k_scale,
+           const float* v_scale, const int* lengths, const int* tables,
+           void* out, int B, int G, int H, int Hkv, int hd, int blk, int M,
+           int chunk, float scale, int smem_bytes, cudaStream_t stream) {
   // past the default 48 KB the kernel must opt in; the attribute is per
   // device, so it is set on every such launch rather than cached
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_decode_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_decode_kernel<T><<<B * Hkv, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, tables, static_cast<T*>(out), G, H,
-      Hkv, hd, blk, M, chunk, scale);
+  paged_decode_kernel<T, P><<<B * Hkv, kThreads, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k),
+      static_cast<const P*>(v), k_scale, v_scale, lengths, tables,
+      static_cast<T*>(out), G, H, Hkv, hd, blk, M, chunk, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_quant(const void* q, const void* k, const void* v, const float* ks,
+                 const float* vs, const int* len_p, const int* tbl_p, void* out,
+                 int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+                 float scale, int smem_bytes, int payload, cudaStream_t s) {
+  if (payload == 1)
+    return launch<T, __nv_fp8_e4m3>(q, k, v, ks, vs, len_p, tbl_p, out, B, G, H,
+                                    Hkv, hd, blk, M, chunk, scale, smem_bytes, s);
+  return launch<T, int8_t>(q, k, v, ks, vs, len_p, tbl_p, out, B, G, H, Hkv, hd,
+                           blk, M, chunk, scale, smem_bytes, s);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 = launched).
+// Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16
+// (q, out and the unquantized pools). Each returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int paged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* tables, void* out, int B, int G, int H, int Hkv, int hd,
@@ -262,8 +333,29 @@ extern "C" int paged_decode_attention(
   const int* tbl_p = static_cast<const int*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, len_p, tbl_p, out, B, G, H, Hkv, hd,
-                                 blk, M, chunk, scale, smem_bytes, s);
-  return launch<float>(q, k, v, len_p, tbl_p, out, B, G, H, Hkv, hd, blk, M,
-                       chunk, scale, smem_bytes, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, len_p, tbl_p, out, B, G, H, Hkv, hd, blk, M,
+        chunk, scale, smem_bytes, s);
+  return launch<float, float>(q, k, v, nullptr, nullptr, len_p, tbl_p, out, B,
+                              G, H, Hkv, hd, blk, M, chunk, scale, smem_bytes, s);
+}
+
+// Quantized pools: payload 0 = int8, 1 = fp8 e4m3; k_scale/v_scale
+// [P, Hkv] float32.
+extern "C" int paged_decode_attention_quant(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* lengths, const void* tables, void* out,
+    int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+    float scale, int smem_bytes, int dtype, int payload, void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* len_p = static_cast<const int*>(lengths);
+  const int* tbl_p = static_cast<const int*>(tables);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_quant<__nv_bfloat16>(q, k, v, ks, vs, len_p, tbl_p, out, B, G,
+                                       H, Hkv, hd, blk, M, chunk, scale,
+                                       smem_bytes, payload, s);
+  return launch_quant<float>(q, k, v, ks, vs, len_p, tbl_p, out, B, G, H, Hkv,
+                             hd, blk, M, chunk, scale, smem_bytes, payload, s);
 }

@@ -26,6 +26,16 @@ Where it runs is decided by the tensors' device alone:
 ``LAUNCHES`` counts both, so a run can show which one its path went
 through. The contiguous-cache form of the reference (``tables=None``,
 its ``_decode_kernel``) is not ported yet (ROADMAP queue 2).
+
+**Quantized pools** (``k_scale``/``v_scale [P, Hkv]`` float32 given, the
+paged form only): the pools hold int8 or ``float8_e4m3fn`` payloads with
+one scale per physical block per kv head (``serve/cache.py``). Each K/V
+element is dequantized as ``float(payload) * scale`` and rounded to
+``q.dtype`` before the dot, as the reference's ``_paged_quant_kernel``
+does. CUDA tensors launch the same kernel's quantized form (its CTA
+dequantizes each chunk in registers while staging it into shared memory);
+CPU tensors take the plain version with the scale rows gathered beside
+the blocks.
 """
 
 from __future__ import annotations
@@ -41,11 +51,14 @@ import torch
 LAUNCHES: dict[str, int] = {
     "paged_decode_attention": 0,
     "paged_decode_attention_plain": 0,
+    "paged_decode_attention_quant": 0,
+    "paged_decode_attention_quant_plain": 0,
 }
 
 _NEG = -0.7 * torch.finfo(torch.float32).max
 _KERNEL = "paged_decode_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PAYLOAD_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _SMEM_LIMIT = 232448          # bytes of shared memory a Hopper CTA may use
 _CHUNK_BYTES = 64 * 1024      # K+V staged per chunk at most
 
@@ -83,22 +96,37 @@ def reference_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.einsum("bhk,bhkd->bhd", p, v)
 
 
+def _gather_blocks(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]`` along the block axis; one-byte payloads move as raw
+    bytes, so float8 pools need no float8 indexing kernel."""
+    if pool.element_size() == 1 and pool.dtype != torch.uint8:
+        return pool.view(torch.uint8)[idx].view(pool.dtype)
+    return pool[idx]
+
+
 def paged_decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  lengths: torch.Tensor, tables: torch.Tensor, *,
-                                 scale: float) -> torch.Tensor:
+                                 scale: float, k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch paged decode attention, q ``[B, G, H, hd]``: gather
     every table entry's block, one masked float32 softmax over the
-    positions, probabilities cast to the cache dtype before P.V (the
-    reference's ``_paged_scan`` numerics, in one pass)."""
+    positions, probabilities cast to the K/V dtype before P.V (the
+    reference's ``_paged_scan`` numerics, in one pass). With
+    ``k_scale``/``v_scale`` the gathered blocks dequantize through their
+    scale rows to ``q.dtype`` first, ``(float(payload) * scale).to(q.dtype)``."""
     B, G, H, hd = q.shape
     Hkv, blk = k.shape[1], k.shape[2]
     rep = H // Hkv
     M = tables.shape[1]
     T = M * blk
     idx = tables.long()
+    kb, vb = _gather_blocks(k, idx), _gather_blocks(v, idx)    # [B, M, Hkv, blk, hd]
+    if k_scale is not None:
+        kb = (kb.float() * k_scale[idx][..., None, None]).to(q.dtype)
+        vb = (vb.float() * v_scale[idx][..., None, None]).to(q.dtype)
     # [B, M, Hkv, blk, hd] -> [B, Hkv, T, hd]
-    kb = k[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
-    vb = v[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+    kb = kb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+    vb = vb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
     qg = q.reshape(B, G, Hkv, rep, hd).float()
     s = torch.einsum("bgxrd,bxkd->bgxrk", qg, kb.float()) * scale
     limit = lengths.long()[:, None] - (G - 1) + torch.arange(G, device=q.device)
@@ -108,15 +136,18 @@ def paged_decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(vmask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1)
-    # p rounds to the cache dtype before P.V; the sum accumulates in fp32
-    acc = torch.einsum("bgxrk,bxkd->bgxrd", p.to(v.dtype).float(), vb.float())
+    # p rounds to the K/V dtype before P.V; the sum accumulates in fp32
+    acc = torch.einsum("bgxrk,bxkd->bgxrd", p.to(vb.dtype).float(), vb.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, G, H, hd).to(q.dtype)
 
 
 def _chunk(blk: int, hd: int, itemsize: int) -> int:
     """Positions staged per shared-memory chunk: the whole block when K+V
-    of it fit in ``_CHUNK_BYTES``, else the largest halving that does."""
+    of it fit in ``_CHUNK_BYTES``, else the largest halving that does.
+    ``itemsize`` is the staged dtype's, which is q's for quantized pools
+    too: their chunks are dequantized while staged, so a one-byte payload
+    takes as much shared memory as the query dtype's K/V would."""
     chunk = blk
     while 2 * chunk * hd * itemsize > _CHUNK_BYTES and chunk % 16 == 0:
         chunk //= 2
@@ -129,38 +160,61 @@ def _smem_bytes(R: int, hd: int, chunk: int, itemsize: int) -> int:
 
 
 @functools.cache
-def _kernel():
-    """The kernel's C entry point, built and bound on first use."""
+def _kernel(quant: bool = False):
+    """The kernel's C entry point (its quantized form with ``quant``),
+    built and bound on first use."""
     from tony_tpu_torch.ops._build import load
 
-    fn = load(_KERNEL).lib.paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = load(_KERNEL).lib
+    if quant:
+        fn = lib.paged_decode_attention_quant
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+    else:
+        fn = lib.paged_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _paged_cuda(q, k, v, lengths, tables, *, scale: float) -> torch.Tensor:
+def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
+                v_scale=None) -> torch.Tensor:
     B, G, H, hd = q.shape
     _, Hkv, blk, _ = k.shape
     M = tables.shape[1]
+    quant = k_scale is not None
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged decode kernel takes float32 or bfloat16, not {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    if quant:
+        if k.dtype not in _PAYLOAD_CODES or v.dtype != k.dtype:
+            raise TypeError(f"quantized pools must be int8 or float8_e4m3fn, not "
+                            f"{k.dtype} / {v.dtype}")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 or \
+                k_scale.shape != k.shape[:2] or v_scale.shape != k.shape[:2]:
+            raise ValueError(f"scales must be float32 {tuple(k.shape[:2])}, not "
+                             f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)}")
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     if lengths.dtype != torch.int32 or tables.dtype != torch.int32:
         raise TypeError("lengths and tables must be int32")
-    devs = {t.device for t in (q, k, v, lengths, tables)}
+    named = [("q", q), ("k", k), ("v", v), ("lengths", lengths), ("tables", tables)]
+    if quant:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    devs = {t.device for _, t in named}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths),
-                    ("tables", tables)):
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if hd > 256 or hd % 8:
-        raise ValueError(f"head_dim {hd} must be a multiple of 8, at most 256")
+    # the staging loads are 16 bytes of payload per thread
+    vec = max(8, 16 // k.element_size())
+    if hd > 256 or hd % vec:
+        raise ValueError(f"head_dim {hd} must be a multiple of {vec}, at most 256")
     if blk % 16 or not 16 <= blk <= 128:
         raise ValueError(f"block {blk} must be a multiple of 16 in [16, 128]")
+    # shared memory stages K/V in q's dtype (quantized pools dequantized)
     itemsize = q.element_size()
     chunk = _chunk(blk, hd, itemsize)
     smem = _smem_bytes(G * (H // Hkv), hd, chunk, itemsize)
@@ -171,24 +225,38 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float) -> torch.Tensor:
         )
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        tables.data_ptr(), out.data_ptr(), B, G, H, Hkv, hd, blk, M, chunk,
-        scale, smem, _DTYPE_CODES[q.dtype], stream,
-    )
+    shape = (B, G, H, Hkv, hd, blk, M, chunk, scale, smem, _DTYPE_CODES[q.dtype])
+    if quant:
+        err = _kernel(True)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), tables.data_ptr(),
+            out.data_ptr(), *shape, _PAYLOAD_CODES[k.dtype], stream,
+        )
+        name = "paged_decode_attention_quant"
+    else:
+        err = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            tables.data_ptr(), out.data_ptr(), *shape, stream,
+        )
+        name = _KERNEL
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {err}")
-    LAUNCHES[_KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, tables: torch.Tensor | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None, k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step of attention over paged pools (see the module
-    docstring for shapes). Returns ``[B, G, H, hd]``, or ``[B, H, hd]`` for
-    a 3-D ``q``. CUDA tensors run the kernel; CPU tensors the plain
-    version."""
+    docstring for shapes), quantized when ``k_scale``/``v_scale`` are
+    given. Returns ``[B, G, H, hd]``, or ``[B, H, hd]`` for a 3-D ``q``.
+    CUDA tensors run the kernel; CPU tensors the plain version."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    if k_scale is not None and tables is None:
+        raise ValueError("quantized decode_attention requires the paged form (tables)")
     if tables is None:
         raise NotImplementedError(
             "contiguous-cache decode_attention is not ported yet (ROADMAP "
@@ -209,10 +277,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     if q.device.type == "cuda":
-        out = _paged_cuda(q, k, v, lengths, tables, scale=scale)
+        out = _paged_cuda(q, k, v, lengths, tables, scale=scale,
+                          k_scale=k_scale, v_scale=v_scale)
     elif q.device.type == "cpu":
-        LAUNCHES["paged_decode_attention_plain"] += 1
-        out = paged_decode_attention_plain(q, k, v, lengths, tables, scale=scale)
+        plain = "paged_decode_attention" + ("_quant" if k_scale is not None else "")
+        LAUNCHES[plain + "_plain"] += 1
+        out = paged_decode_attention_plain(q, k, v, lengths, tables, scale=scale,
+                                           k_scale=k_scale, v_scale=v_scale)
     else:
         raise ValueError(f"no decode attention for device {q.device}")
     return out[:, 0] if squeeze else out

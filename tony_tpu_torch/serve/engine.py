@@ -21,15 +21,21 @@ configuration:
   in a busy engine.
 - **One host sync per decode step**: the sampled tokens come to the host
   once, to steer admission and finishing.
+- **Quantized serving** (``quant_kv``, ``quant_weights``): block-scaled
+  int8 or fp8 KV pools (``serve/cache.py``), written through a running
+  per-block scale and read by the decode-attention kernel's quantized form;
+  and an int8 copy of the decode weights, made once at build, that the
+  decode step's seven layer matmuls and ``lm_head`` read through the
+  dequant-matmul kernel (``ops/quant_mm.py``). Prefill keeps the bf16
+  master weights; a prefix match dequantizes the gathered blocks.
 
 What differs from the reference: PyTorch runs eagerly, so there are no jit
 or AOT caches and no compile ledger; prefill runs at the prompt's exact
 length (``prefill_buckets`` only bounds admissible prompt lengths, as in
 the reference). The pools are updated in place. Not ported yet, and
-refused rather than ignored: ``spec``, ``quant_kv``, ``quant_weights``,
-``chunk_tokens`` and the blockwise handoff between pools
-(ROADMAP queue 1), and the observability spine (tracing, registry
-histograms, health, series, profile, SLO).
+refused rather than ignored: ``spec``, ``chunk_tokens`` and the blockwise
+handoff between pools (ROADMAP queue 1), and the observability spine
+(tracing, registry histograms, health, series, profile, SLO).
 """
 
 from __future__ import annotations
@@ -51,9 +57,11 @@ from tony_tpu_torch.models.generate import (
 from tony_tpu_torch.models.llama import LlamaConfig, Params, rms_norm, rope_freqs
 from tony_tpu_torch.obs.metrics import DecodeMetrics
 from tony_tpu_torch.ops.decode_attention import decode_attention
+from tony_tpu_torch.ops.quant_mm import quant_matmul, quantize_weights
 from tony_tpu_torch.serve.cache import (
-    SCRATCH_BLOCK, BlockPool, block_bytes, blocks_for, create_cache,
-    grow_cache, scatter_block_kv, shrink_cache,
+    SCRATCH_BLOCK, BlockPool, block_bytes, blocks_for, copy_block, create_cache,
+    dequantize_values, gather_blocks, grow_cache, kv_quant_spec,
+    quant_scatter_span, scatter_block_kv, shrink_cache,
 )
 from tony_tpu_torch.serve.prefix import MatchResult, PrefixStore
 
@@ -84,17 +92,20 @@ class ServeConfig:
     prefix: bool = True
     # device memory the store may pin for prefixes no live slot references
     prefix_budget_mb: float = 64.0
-    # speculative decoding: not ported yet (ROADMAP queue 1, item 1)
+    # speculative decoding: not ported yet (ROADMAP queue 1, item 4)
     spec: bool = False
     spec_max_draft: int = 4
     spec_draft_source: str = "auto"
-    # quantized KV pools / weights: not ported yet (ROADMAP queue 1, item 2)
+    # quantized KV pools: '' = pools in the model dtype, 'int8' | 'fp8_e4m3'
+    # = block-scaled quantized pools (serve/cache.py)
     quant_kv: str = ""
+    # int8 weight-only decode matmuls (ops/quant_mm.py): an int8 copy of the
+    # decode weights made at build; prefill keeps the bf16 masters
     quant_weights: bool = False
-    # chunked prefill: not ported yet (ROADMAP queue 1, item 3)
+    # chunked prefill: not ported yet (ROADMAP queue 1, item 5)
     chunk_tokens: int = 0
     # pool label ('decode' | 'prefill'); the handoff between pools is not
-    # ported yet (ROADMAP queue 1, item 3)
+    # ported yet (ROADMAP queue 1, item 5)
     pool: str = "decode"
 
 
@@ -139,10 +150,8 @@ class _SlotState(NamedTuple):
 
 
 _UNPORTED = (
-    ("spec", "speculative decoding", 1),
-    ("quant_kv", "quantized KV pools", 2),
-    ("quant_weights", "int8 weight-only decode", 2),
-    ("chunk_tokens", "chunked prefill", 3),
+    ("spec", "speculative decoding", 4),
+    ("chunk_tokens", "chunked prefill", 5),
 )
 
 
@@ -186,6 +195,8 @@ class Engine:
                     f"ServeConfig.{name}: {what} is not ported yet (ROADMAP "
                     f"queue 1, item {item})"
                 )
+        # the quantized pools' largest stored magnitude; validates the knob
+        self._qmax = kv_quant_spec(serve.quant_kv)[1] if serve.quant_kv else 0.0
         max_len = serve.max_len or cfg.max_seq_len
         buckets = tuple(sorted(serve.prefill_buckets)) or _default_buckets(max_len)
         cap = blocks_for(max_len, serve.kv_block) * serve.kv_block
@@ -198,15 +209,19 @@ class Engine:
                                          prefill_buckets=buckets)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
-        # per-layer views of the stacked weights, made once
-        layers = self.params["layers"]
+        # the decode step's weights: the bf16 masters, or their int8 copy
+        # (made once here; prefill keeps the masters); per-layer views of
+        # the stacked weights, made once
+        self._decode_params = (_quantize_decode_params(self.params)
+                               if self.serve.quant_weights else self.params)
+        layers = self._decode_params["layers"]
         self._layers = [{k: t[l] for k, t in layers.items()}
                         for l in range(cfg.n_layers)]
         self._freqs = rope_freqs(cfg, self.device)
         S, B = self.serve.slots, self.serve.kv_block
         self.metrics = DecodeMetrics(n_chips=1)
         self._m_total = blocks_for(max_len, B)
-        self._blk_bytes = block_bytes(cfg, B)
+        self._blk_bytes = block_bytes(cfg, B, quant_kv=self.serve.quant_kv)
         self.metrics.kv_bytes_per_token = self._blk_bytes / B
         budget_bytes = int(self.serve.prefix_budget_mb * 2**20)
         budget_blocks = (max(1, -(-budget_bytes // self._blk_bytes))
@@ -218,7 +233,12 @@ class Engine:
         )
         self._p0 = max(2, min(1 + S, self._pool_cap))
         self._pool = BlockPool(self._p0)
-        self.cache = create_cache(cfg, S, self._p0, B, device=self.device)
+        self.cache = create_cache(cfg, S, self._p0, B, device=self.device,
+                                  quant_kv=self.serve.quant_kv)
+        # quantized pools: blocks whose scale rows must be zeroed before the
+        # next device write (a reused block must not keep its previous
+        # tenant's scale)
+        self._fresh_scale: list[int] = []
         self._store: PrefixStore | None = None
         if self.serve.prefix:
             self._store = PrefixStore(block=B, block_bytes=self._blk_bytes,
@@ -331,6 +351,9 @@ class Engine:
             "kv_bytes_per_token": round(self.metrics.kv_bytes_per_token, 2),
             "pool_blocks": float(self._pool.n_blocks),
         }
+        if self.serve.quant_kv:
+            snap["quant_pool_resident_bytes"] = float(self._pool.n_blocks
+                                                      * self._blk_bytes)
         if self._store is not None:
             snap.update(self._store.stats())
         return snap
@@ -346,13 +369,13 @@ class Engine:
     def export_prefix_blocks(self, tokens: Sequence[int]):
         raise NotImplementedError(
             "blockwise KV handoff (export_prefix_blocks) is not ported yet "
-            "(ROADMAP queue 1, item 3)"
+            "(ROADMAP queue 1, item 5)"
         )
 
     def adopt_blocks(self, tokens: Sequence[int], payload):
         raise NotImplementedError(
             "blockwise KV handoff (adopt_blocks) is not ported yet (ROADMAP "
-            "queue 1, item 3)"
+            "queue 1, item 5)"
         )
 
     # --- admission ------------------------------------------------------------
@@ -396,8 +419,9 @@ class Engine:
         """Prefill ``prompt[matched:]`` and sample the first token. With a
         prefix match, the matched K/V is gathered from the pool (through
         the slot's own table, COW copy included) into a contiguous context
-        that the tail attends; without one the context is just the prompt.
-        The new K/V is scattered into the slot's blocks."""
+        that the tail attends (quantized pools dequantize it to the model
+        dtype through the blocks' scale rows); without one the context is
+        just the prompt. The new K/V is scattered into the slot's blocks."""
         cfg, dev, B = self.cfg, self.device, self.serve.kv_block
         plen = len(prompt)
         if matched:
@@ -405,12 +429,16 @@ class Engine:
             ids = torch.as_tensor(self._table[slot, :n_have], dtype=torch.int64,
                                   device=dev)
 
-            def gather(pool: torch.Tensor) -> torch.Tensor:
-                g = pool[:, ids]                       # [L, n, Hkv, blk, hd]
+            def gather(pool: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+                g = gather_blocks(pool, ids, dim=1)    # [L, n, Hkv, blk, hd]
+                if scale is not None:
+                    sc = scale.index_select(1, ids)    # [L, n, Hkv]
+                    g = dequantize_values(g, sc[..., None, None], cfg.dtype)
                 L, n, Hkv, blk, hd = g.shape
                 return g.permute(0, 1, 3, 2, 4).reshape(L, 1, n * blk, Hkv, hd)
 
-            ctx = KVCache(gather(self.cache.k), gather(self.cache.v))
+            c = self.cache
+            ctx = KVCache(gather(c.k, c.k_scale), gather(c.v, c.v_scale))
         else:
             ctx = KVCache.create(cfg, 1, plen, device=dev)
         tail = torch.as_tensor(prompt[matched:], dtype=torch.int64, device=dev)[None]
@@ -431,17 +459,29 @@ class Engine:
     def _scatter_prompt(self, slot: int, k: torch.Tensor, v: torch.Tensor,
                         start: int, plen: int) -> None:
         """Write prefilled K/V (``[L, W, Hkv, hd]``, positions ``start + i``)
-        into the slot's blocks, in place."""
+        into the slot's blocks, in place. Quantized pools quantize the span
+        layer by layer, each touched block's running scale updated once."""
         B = self.serve.kv_block
         p = np.arange(start, plen)
-        pids = torch.as_tensor(self._table[slot, p // B], dtype=torch.int64,
-                               device=self.device)
+        pids_np = self._table[slot, p // B]
+        pids = torch.as_tensor(pids_np, dtype=torch.int64, device=self.device)
         offs = torch.as_tensor(p % B, dtype=torch.int64, device=self.device)
-        # advanced indices on dims 1 and 3 are not adjacent: the indexed
-        # view is [W, L, Hkv, hd]
-        self.cache.k[:, pids, :, offs, :] = k.permute(1, 0, 2, 3)
-        self.cache.v[:, pids, :, offs, :] = v.permute(1, 0, 2, 3)
-        self.cache.lengths[slot] = plen
+        c = self.cache
+        if c.quantized:
+            self._flush_fresh_scales()
+            ub = torch.as_tensor(np.unique(pids_np), dtype=torch.int64,
+                                 device=self.device)
+            for l in range(self.cfg.n_layers):
+                quant_scatter_span(c.k[l], c.k_scale[l], k[l].transpose(0, 1),
+                                   pids, offs, ub, self._qmax)
+                quant_scatter_span(c.v[l], c.v_scale[l], v[l].transpose(0, 1),
+                                   pids, offs, ub, self._qmax)
+        else:
+            # advanced indices on dims 1 and 3 are not adjacent: the
+            # indexed view is [W, L, Hkv, hd]
+            c.k[:, pids, :, offs, :] = k.permute(1, 0, 2, 3)
+            c.v[:, pids, :, offs, :] = v.permute(1, 0, 2, 3)
+        c.lengths[slot] = plen
 
     def _activate_slot(self, slot: int, rid: int, req: Request, prompt: np.ndarray,
                        tok: int, gen: torch.Generator | None, t0: float) -> None:
@@ -507,7 +547,23 @@ class Engine:
                     "cap: engine accounting bug)"
                 )
             pid = self._pool.alloc()
+        if self.cache.quantized:
+            # a reused block keeps its previous tenant's scale rows: queue
+            # them for the batched zeroing (scale 0 = nothing real stored,
+            # so the first write alone defines the scale)
+            self._fresh_scale.append(pid)
         return pid
+
+    def _flush_fresh_scales(self) -> None:
+        """Zero the scale rows of freshly allocated blocks, all layers, in
+        one indexed write per scale pool."""
+        if not self._fresh_scale:
+            return
+        pids = torch.as_tensor(self._fresh_scale, dtype=torch.int64,
+                               device=self.device)
+        self._fresh_scale = []
+        self.cache.k_scale[:, pids] = 0.0
+        self.cache.v_scale[:, pids] = 0.0
 
     def _plan_blocks(self, slot: int, plen: int, match: MatchResult | None) -> None:
         """Fill the slot's table row for a prompt: matched full blocks map
@@ -525,8 +581,11 @@ class Engine:
                 # COW: the unshared tail writes into this block, so the
                 # slot gets a private copy of the shared source first
                 dst = self._alloc_block()
-                self.cache.k[:, dst] = self.cache.k[:, match.partial]
-                self.cache.v[:, dst] = self.cache.v[:, match.partial]
+                if self.cache.quantized:
+                    # the copy carries the source's scale rows, which a
+                    # queued zeroing would erase
+                    self._fresh_scale.remove(dst)
+                copy_block(self.cache, match.partial, dst)
                 row[next_bi] = dst
                 next_bi += 1
                 self._cow_copies += 1
@@ -593,12 +652,15 @@ class Engine:
                 self._slot_blocks[s] += 1
                 self._table_dirty = True
             need = max(need, last // B + 1)
+        if self.cache.quantized:
+            self._flush_fresh_scales()
         self._set_attended(need)
         t0 = time.perf_counter()
         toks = _decode_step(
-            self.params, self._layers, self.cache, self._table_dev, self.state,
-            self._slot_gen, self._freqs, cfg=self.cfg, kv_block=B,
-            max_top_k=self.serve.max_top_k,
+            self._decode_params, self._layers, self.cache, self._table_dev,
+            self.state, self._slot_gen, self._freqs, cfg=self.cfg, kv_block=B,
+            max_top_k=self.serve.max_top_k, qmax=self._qmax,
+            quant_weights=self.serve.quant_weights,
         )
         # the engine's one host sync per decode step
         toks_np = toks.cpu().numpy()
@@ -615,6 +677,49 @@ class Engine:
                 self._finish(s, "length")
 
 
+_QUANT_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+# lm_head quantizes in column slices of this width: each output channel's
+# scale is its own column's, so the result is the same, with a bounded
+# float32 transient (Llama-3-8B's whole lm_head would be 2.1 GB a copy)
+_QUANT_COLUMNS = 16384
+
+
+def _quantize_decode_params(params: Params) -> Params:
+    """One-time int8 copy of the decode-path weights (``ops/quant_mm.py``):
+    every layer matmul and lm_head become ``<name>_q`` int8 /
+    ``<name>_s`` float32 pairs; norms and the embedding are shared with
+    the masters, which stay untouched for prefill. Stacked layer weights
+    quantize one layer at a time, lm_head one column slice at a time, so
+    the float32 transient stays small."""
+    layers = params["layers"]
+    out_layers = {k: t for k, t in layers.items() if k not in _QUANT_WEIGHT_NAMES}
+    for name in _QUANT_WEIGHT_NAMES:
+        w = layers[name]                                     # [L, D, N]
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        sc = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32,
+                         device=w.device)
+        for l in range(w.shape[0]):
+            q[l], sc[l] = quantize_weights(w[l])
+        out_layers[name + "_q"], out_layers[name + "_s"] = q, sc
+    head = params["lm_head"]                                 # [D, V]
+    q = torch.empty(head.shape, dtype=torch.int8, device=head.device)
+    sc = torch.empty(head.shape[1], dtype=torch.float32, device=head.device)
+    for c0 in range(0, head.shape[1], _QUANT_COLUMNS):
+        cols = slice(c0, c0 + _QUANT_COLUMNS)
+        q[:, cols], sc[cols] = quantize_weights(head[:, cols])
+    out = {k: t for k, t in params.items() if k not in ("layers", "lm_head")}
+    out.update(layers=out_layers, lm_head_q=q, lm_head_s=sc)
+    return out
+
+
+def _mm(h: torch.Tensor, lp: dict, name: str, quant_weights: bool) -> torch.Tensor:
+    """One decode matmul: the master weight, or its int8 copy through the
+    dequant-matmul kernel when quantized."""
+    if quant_weights:
+        return quant_matmul(h, lp[name + "_q"], lp[name + "_s"])
+    return h @ lp[name]
+
+
 def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Half-split RoPE of ``t [S, H', hd]`` with one angle row per slot
     (cos/sin ``[S, 1, hd/2]``)."""
@@ -625,12 +730,19 @@ def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def _decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
                  state: _SlotState, gens: Sequence[torch.Generator | None],
                  freqs: torch.Tensor, *, cfg: LlamaConfig, kv_block: int,
-                 max_top_k: int) -> torch.Tensor:
+                 max_top_k: int, qmax: float = 0.0,
+                 quant_weights: bool = False) -> torch.Tensor:
     """One token for every slot: write K/V at each row's position (into the
     physical block its table names; dead slots steer to the scratch block),
     attend over its written prefix through the table, sample with its own
-    generator. Updates ``cache`` (pools, lengths) and ``state.last_tok`` in
-    place; returns the sampled tokens ``[S]`` on the device."""
+    generator. Updates ``cache`` (pools, scales, lengths) and
+    ``state.last_tok`` in place; returns the sampled tokens ``[S]`` on the
+    device.
+
+    A quantized cache folds each write into the running block scale
+    (``qmax`` is its storage's largest magnitude) and attends through the
+    scale pools. ``quant_weights``: ``params``/``layers`` are the int8 copy,
+    and the seven layer matmuls and lm_head run the dequant-matmul."""
     S = state.last_tok.shape[0]
     hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     x = params["tok_emb"][state.last_tok]                  # [S, D]
@@ -644,19 +756,23 @@ def _decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
     pid = torch.where(state.live, table.gather(1, bi[:, None])[:, 0].long(),
                       SCRATCH_BLOCK)
     lengths = pos + 1                                      # attend after the write
-    for lp, k_pool, v_pool in zip(layers, cache.k, cache.v):
+    scales = (zip(cache.k_scale, cache.v_scale) if cache.quantized
+              else [(None, None)] * cfg.n_layers)
+    for lp, k_pool, v_pool, (k_sc, v_sc) in zip(layers, cache.k, cache.v, scales):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = _rope_rows((h @ lp["wq"]).view(S, H, hd), cos, sin)
-        k_new = _rope_rows((h @ lp["wk"]).view(S, Hkv, hd), cos, sin)
-        v_new = (h @ lp["wv"]).view(S, Hkv, hd)
-        scatter_block_kv(k_pool, k_new, pid, off)
-        scatter_block_kv(v_pool, v_new, pid, off)
-        attn = decode_attention(q, k_pool, v_pool, lengths, tables=table)
-        x = x + attn.reshape(S, H * hd) @ lp["wo"]
+        q = _rope_rows(_mm(h, lp, "wq", quant_weights).view(S, H, hd), cos, sin)
+        k_new = _rope_rows(_mm(h, lp, "wk", quant_weights).view(S, Hkv, hd), cos, sin)
+        v_new = _mm(h, lp, "wv", quant_weights).view(S, Hkv, hd)
+        scatter_block_kv(k_pool, k_new, pid, off, scale=k_sc, qmax=qmax)
+        scatter_block_kv(v_pool, v_new, pid, off, scale=v_sc, qmax=qmax)
+        attn = decode_attention(q, k_pool, v_pool, lengths, tables=table,
+                                k_scale=k_sc, v_scale=v_sc)
+        x = x + _mm(attn.reshape(S, H * hd), lp, "wo", quant_weights)
         h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + (F.silu(h2 @ lp["w1"]) * (h2 @ lp["w3"])) @ lp["w2"]
+        ffn = F.silu(_mm(h2, lp, "w1", quant_weights)) * _mm(h2, lp, "w3", quant_weights)
+        x = x + _mm(ffn, lp, "w2", quant_weights)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()              # [S, V]
+    logits = _mm(x, params, "lm_head", quant_weights).float()   # [S, V]
     nxt = sample_tokens(logits, state.temp, state.top_k, state.top_p, gens,
                         max_k=max_top_k)
     cache.lengths.add_(state.live.to(torch.int32))

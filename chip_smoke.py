@@ -26,8 +26,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    int8 and fp8 e4m3 pools, G 1 and 5, bf16 queries, plus a float32-query
    case, a case that stages blocks in chunks and a NaN-scale case; and the
    int8 dequant-matmul kernel at each of the decode step's five weight
-   shapes, 8 slots, bf16 and fp32. Each kernel with its time beside its
-   bound, the plain version's time and one PyTorch library call's time;
+   shapes, 8 slots, bf16 and fp32; then (3e) the fused cross-entropy
+   kernels (ce_fwd, ce_dh, ce_dw) against theirs at bench_1b4's loss head
+   (16,384 rows, D 2048, V 32,000) in bf16 and fp32, and at a ragged shape
+   (rows and vocab off the tiles) finite, with a NaN and an inf row and
+   with a NaN weight. Each kernel with its time beside its bound, the
+   plain version's time and one PyTorch library call's time (the scan CE
+   head's cuBLAS passes for the CE kernels);
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
    launch count must equal decode steps x layers. Then a few decode steps
@@ -47,7 +52,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each flash kernel launched exactly 24 x 10 times (twice as many forward
    launches would mean remat re-ran the forward kernel). Then one step
    under torch.profiler, and a 2-layer cross-check of one train step with
-   the kernels against plain attention;
+   the kernels against plain attention. Then (5b) the same fit() with
+   ``ce_impl="pallas"``: step 1 within 2e-2 of phase 5's, ce_fwd once a
+   step and ce_dh / ce_dw once per vocab chunk a step, no plain version;
+   its profile, and a 2-layer cross-check against the scan head;
 6. MoE training: ``fit()`` on bench_moe at full width and depth (24
    layers, 8 experts top-2, batch 8 x 2048, the same recipe with the
    grouped dispatch through the grouped-matmul kernels), 10 steps from
@@ -58,7 +66,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul.
 
-The last three lines are the ``kernels`` JSON (nine kernels; quant_mm's
+Every profile traces one warm-up step first and raises when it holds
+fewer events of a kernel than the launch counters say the profiled window
+launched.
+
+The last three lines are the ``kernels`` JSON (twelve kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -68,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -103,7 +116,22 @@ GMM_DW_TOLERANCE = (1e-2, 1e-4)
 # sums' order alone
 QUANT_MM_TOLERANCE = {torch.bfloat16: (1e-2, 2**-7), torch.float32: (1e-4, 1e-4)}
 KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
-                  "quant_mm")
+                  "quant_mm", "fused_ce")
+# each launch counter's CUDA kernels: one counted launch enqueues one of each
+# (a profile must hold at least that many events of each)
+KERNEL_EVENTS = {
+    "paged_decode_attention": ("paged_decode_kernel",),
+    "paged_decode_attention_quant": ("paged_decode_kernel",),
+    "quant_mm": ("quant_mm_kernel",),
+    "flash_fwd": ("flash_fwd_kernel",), "flash_dq": ("flash_dq_kernel",),
+    "flash_dkv": ("flash_dkv_kernel",),
+    "gmm_fwd": ("gmm_fwd_kernel",), "gmm_dx": ("gmm_dx_kernel",),
+    "gmm_dw": ("gmm_dw_kernel",),
+    "ce_fwd": ("ce_fwd_kernel", "ce_fwd_merge_kernel"),
+    "ce_dh": ("ce_dlogits_kernel", "ce_dh_kernel"), "ce_dw": ("ce_dw_kernel",),
+}
+# the CE head's profiler ranges (ops/fused_ce.py), one per pass
+CE_RANGES = ("fused_ce.fwd", "fused_ce.bwd")
 
 
 def log(msg: str) -> None:
@@ -678,21 +706,83 @@ def quant_crosscheck(card: str) -> dict:
             "logit_scale": scale, "tokens_equal": same, "tokens": 4 * len(prompts)}
 
 
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch counter, by name."""
+    import importlib
+
+    # (the package exports a function named decode_attention, so the
+    # modules are imported by name)
+    mods = [importlib.import_module(f"tony_tpu_torch.ops.{m}") for m in
+            ("attention", "decode_attention", "fused_ce", "grouped_mm", "quant_mm")]
+    return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+
+def has_kernel(key: str, kernel: str) -> bool:
+    """Whether a profiler event's name is ``kernel`` (a whole word of it:
+    ``ce_dh_kernel`` is not ``ce_dlogits_kernel``)."""
+    return re.search(rf"\b{kernel}\b", key) is not None
+
+
+def profile_window(run, steps: int) -> dict:
+    """``run()`` once under torch.profiler as its warm-up step (traced and
+    discarded: the events right after the profiler starts can be lost),
+    then ``steps`` times as the one active step. Returns the active
+    window's kernel events (device side; profiler ranges excluded), host
+    events, and each launch counter's delta over the window, and raises
+    when the trace holds fewer events of a kernel than the counters say
+    were launched in the window (``KERNEL_EVENTS``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    ready = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        before = launch_counts()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        prof.step()
+    if not ready:
+        raise AssertionError("torch.profiler delivered no trace")
+    avg = ready[0]
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    dev = [e for e in avg if e.device_type == cuda
+           and not getattr(e, "is_user_annotation", False)
+           and not e.key.startswith("ProfilerStep") and e.key not in CE_RANGES]
+    host = [e for e in avg if e.device_type == cpu]
+    delta = {k: after[k] - before[k] for k in after}
+    want: dict[str, int] = {}
+    for counter, names in KERNEL_EVENTS.items():
+        for name in names:
+            want[name] = want.get(name, 0) + delta.get(counter, 0)
+    got = {name: sum(e.count for e in dev if has_kernel(e.key, name)) for name in want}
+    counted = {name: (got[name], n) for name, n in want.items() if n}
+    log(f"  profile events / launches in the window: "
+        + ", ".join(f"{k} {a}/{b}" for k, (a, b) in counted.items()))
+    short = {k: v for k, v in counted.items() if v[0] < v[1]}
+    if short:
+        raise AssertionError(f"profiler events short of the launch counters "
+                             f"(events, launches): {short}")
+    return {"dev": dev, "host": host, "launches": delta}
+
+
 def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
                      steps: int = 8) -> dict:
     """Where a full decode step's time goes, at 8 live slots of ~512
     positions: ``steps`` steps timed on the host clock, then ``steps`` more
-    under torch.profiler for the device time by kernel. The busy share is
-    device time per step over the unprofiled step's wall time; each entry
-    of ``kernels`` (label: a substring of the kernel's name) gets its
-    device ms per step and its share of device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    under torch.profiler (after one warm-up step) for the device time by
+    kernel. The busy share is device time per step over the unprofiled
+    step's wall time; each entry of ``kernels`` (label: the kernel's name)
+    gets its device ms per step and its share of device time."""
     from tony_tpu_torch.serve import Request
 
     for _ in range(engine.serve.slots):
         engine.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 512),
-                              max_new_tokens=2 * steps + 2))
+                              max_new_tokens=2 * steps + 4))
     engine.step()                                 # admit all, first decode step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -700,14 +790,9 @@ def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
         engine.step()
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
+    window = profile_window(engine.step, steps)
     engine.run()
-    # device-side entries only: a CPU op's entry repeats its kernels' time
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev, host = window["dev"], window["host"]
     device_us = sum(e.self_device_time_total for e in dev) / steps
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  profile: {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
@@ -716,8 +801,6 @@ def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
         raise AssertionError("torch.profiler recorded no device time")
     # the host side: CPU self time by op (under the profiler, so inflated),
     # and the kernel launches one step enqueues
-    host = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]:
         log(f"  host: {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
             f"x{e.count // steps:<5d} {e.key[:60]}")
@@ -729,8 +812,8 @@ def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
         "profile_device_busy": device_us / 1e6 / step_s,
         "profile_launches_per_step": launches / steps,
     }
-    for label, pattern in kernels.items():
-        us = sum(e.self_device_time_total for e in dev if pattern in e.key) / steps
+    for label, kernel in kernels.items():
+        us = sum(e.self_device_time_total for e in dev if has_kernel(e.key, kernel)) / steps
         out[f"profile_{label}_ms"] = us / 1e3
         out[f"profile_{label}_share"] = us / device_us
     return out
@@ -995,6 +1078,139 @@ def moe_sync_check() -> dict:
     return {"aux": aux, "launches": launches}
 
 
+# --- phase 3e: the fused CE kernels against their plain versions --------------
+
+# bench_1b4's loss head: 8 x 2048 rows, dim 2048, vocab 32,000; the ragged
+# shape cuts rows and vocab off the 128-row and 128-column tiles
+CE_SHAPE = (16384, 2048, 32000)
+CE_RAGGED = (16300, 2048, 31992)
+CE_KERNELS = ("ce_fwd", "ce_dh", "ce_dw")
+# every CUDA kernel the CE launches enqueue (profile shares)
+CE_CUDA_KERNELS = ("ce_fwd", "ce_fwd_merge", "ce_dlogits", "ce_dh", "ce_dw")
+
+
+def ce_inputs(N: int, D: int, V: int, dtype: torch.dtype, poison: str = ""):
+    """h ~ N(0, 1) (post-norm scale), W ~ N(0, 1/D) (init_params' scale),
+    uniform targets with the first and last two columns pinned, and the
+    mean's cotangent g = 1/N, as the train step hands it back. ``poison``:
+    "rows" puts a NaN in row 5 and an inf in the last row of h, "weight"
+    a NaN in W[2, 9]."""
+    gen = torch.Generator(device="cuda").manual_seed(N + V)
+    h = torch.randn((N, D), generator=gen, device="cuda")
+    w = torch.randn((D, V), generator=gen, device="cuda") / math.sqrt(D)
+    tgt = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    tgt[:3] = torch.tensor([0, V - 1, V - 2], device="cuda")
+    if poison == "rows":
+        h[5] = float("nan")
+        h[N - 1, 3] = float("inf")
+    elif poison == "weight":
+        w[2, 9] = float("nan")
+    g = torch.full((N,), 1.0 / N, device="cuda")
+    return h.to(dtype), w.to(dtype), tgt, g
+
+
+def ce_close(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+             what: str) -> tuple[bool, float, float, float]:
+    """(ok, max |err| over finite entries, atol, rtol). The nonfinite masks
+    must be equal. lse and tl are float32 sums of exact products (bf16
+    inputs too) in another order, over 2048 terms per logit and 32,000
+    logits per row: 1e-3 absolute on values near 10. dh and dW: float32,
+    the same sums in another order (1e-4 relative); bf16, the kernel and
+    the plain version round dlogits to bf16 at the same place and the
+    result once, so an ulp or two of 2^-8, of the value or of the tensor's
+    largest entry."""
+    same_mask = torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    a, b = got[fin].float(), want[fin].float()
+    if what in ("lse", "tl"):
+        atol, rtol = 1e-3, 1e-5
+    else:
+        rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+        atol = rtol * (float(b.abs().max()) if b.numel() else 0.0) / 2
+    err = (a - b).abs()
+    ok = same_mask and not bool((err > atol + rtol * b.abs()).any())
+    return ok, (err.max().item() if err.numel() else 0.0), atol, rtol
+
+
+def ce_cases(dtype: torch.dtype, flush: torch.Tensor, shape=CE_SHAPE,
+             poison: str = "", timed: bool = True) -> list[dict]:
+    """ce_fwd, ce_dh and ce_dw against their plain versions on the same
+    inputs (the backward from the plain lse, so each kernel is held on its
+    own). ``timed``: each kernel's time beside its bound, its plain
+    version's time and the scan head's (cuBLAS) time as the library
+    yardstick: ``_scan_fwd`` for ce_fwd, the whole ``_scan_bwd`` for ce_dh
+    and ce_dw. ce_dh's time is the backward's dh half (its launches alone);
+    ce_dw's is its launches over every chunk from one chunk's real dlogits."""
+    from tony_tpu_torch.ops import fused_ce as ce
+
+    N, D, V = shape
+    h, w, tgt, g = ce_inputs(N, D, V, dtype, poison)
+    lse, tl = ce.ce_fwd(h, w, tgt)
+    ref_lse, ref_tl = ce.ce_fwd_plain(h, w, tgt)
+    dh, dw = ce.ce_bwd(h, w, tgt, ref_lse, g)
+    torch.cuda.synchronize()
+    held = {"ce_fwd": [("lse", lse, ref_lse), ("tl", tl, ref_tl)],
+            "ce_dh": [("dh", dh, ce.ce_dh_plain(h, w, tgt, ref_lse, g))],
+            "ce_dw": [("dW", dw, ce.ce_dw_plain(h, w, tgt, ref_lse, g))]}
+    poisoned = None
+    if poison == "rows":       # exactly the two poisoned rows' losses
+        poisoned = (~torch.isfinite(lse - tl)).nonzero().flatten().tolist() == [5, N - 1]
+    elif poison == "weight":   # every loss, dh and dW entry
+        poisoned = not bool(torch.isfinite(lse - tl).any() or torch.isfinite(dh).any()
+                            or torch.isfinite(dw).any())
+    cases = []
+    for name, pairs in held.items():
+        checks = [ce_close(a, b, dtype, what) for what, a, b in pairs]
+        cases.append({
+            "name": name, "dtype": str(dtype).replace("torch.", ""), "N": N, "D": D,
+            "V": V, "poison": poison, "ok": all(c[0] for c in checks) and poisoned
+            is not False, "max_abs_err": max(c[1] for c in checks),
+            "atol": max(c[2] for c in checks), "rtol": max(c[3] for c in checks),
+        })
+    del dh, dw, held
+    if not timed:
+        return cases
+    chunks = ce.dlogits_chunks(V)
+    s0, s1 = chunks[0]
+    dl = ce._dlogits(h.float() @ w[:, s0:s1].float(), ref_lse, tgt, g, s0,
+                     h.dtype).to(h.dtype)
+    dw_buf = torch.empty_like(w)
+
+    def dw_pass():
+        for a, b in chunks:
+            ce.ce_dw_chunk(h, dl, dw_buf, a, b)
+
+    runs = {
+        "ce_fwd": (lambda: ce.ce_fwd(h, w, tgt), lambda: ce.ce_fwd_plain(h, w, tgt)),
+        "ce_dh": (lambda: ce.ce_bwd(h, w, tgt, ref_lse, g, dw=False),
+                  lambda: ce.ce_dh_plain(h, w, tgt, ref_lse, g)),
+        "ce_dw": (dw_pass, lambda: ce.ce_dw_plain(h, w, tgt, ref_lse, g)),
+    }
+    scan_fwd = time_ms(lambda: ce._scan_fwd(h, w, tgt, 4096), flush, reps=5)
+    scan_bwd = time_ms(lambda: ce._scan_bwd(h, w, tgt, ref_lse, g, 4096), flush, reps=5)
+    whole_bwd = time_ms(lambda: ce.ce_bwd(h, w, tgt, ref_lse, g), flush, reps=5)
+    item, ndv = h.element_size(), N * D * V
+    hb, wb = N * D * item, D * V * item
+    work = {"ce_fwd": (2 * ndv, hb + wb + 4 * N + 8 * N),
+            "ce_dh": (4 * ndv, hb + wb + 12 * N + hb),
+            "ce_dw": (2 * ndv, hb + N * V * item + wb)}
+    for c in cases:
+        kernel, plain = runs[c["name"]]
+        ops, nbytes = work[c["name"]]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+        c.update({
+            "ms": time_ms(kernel, flush, reps=5),
+            "plain_ms": time_ms(plain, flush, reps=2),
+            "library_ms": scan_fwd if c["name"] == "ce_fwd" else scan_bwd,
+            "whole_bwd_ms": whole_bwd, "chunks": len(chunks),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops": ops, "bytes": nbytes,
+        })
+    return cases
+
+
 # --- phase 5: training at full width --------------------------------------------
 
 TRAIN_STEPS = 10
@@ -1056,12 +1272,65 @@ def train_phase(card: str) -> dict:
     }
 
 
-def train_profile(cfg, data, kernels: tuple[str, ...]) -> dict:
-    """One train step on the host clock, then one under torch.profiler:
-    the device's busy share (device time over the unprofiled step's wall
-    time) and each named kernel's share of device time."""
-    from torch.profiler import ProfilerActivity, profile
+def train_ce_phase(card: str, scan: dict) -> dict:
+    """Phase 5b: phase 5's fit() changed only by ``FitConfig(ce_impl=
+    "pallas")``: the same weights, batches and schedule through the CE
+    kernels. Every loss finite and the last below the first, step 1 within
+    2e-2 of phase 5's (the same bf16 model and batch; only the head's
+    sums differ), ce_fwd once a step and ce_dh / ce_dw once per vocab chunk
+    a step, no plain version, the flash kernels as in phase 5."""
+    from tony_tpu_torch.ops import attention, fused_ce
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
+    cfg = dense_train_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    steps: list[dict] = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launches()
+    fused_ce.reset_launches()
+    t0 = time.perf_counter()
+    final = fit(FitConfig(model=cfg, data=data, steps=TRAIN_STEPS, log_every=1,
+                          lr=3e-4, warmup_steps=2, mu_dtype="bfloat16", ce_impl="pallas",
+                          on_metrics=steps.append), device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {**attention.LAUNCHES, **fused_ce.LAUNCHES}
+    losses = [m["loss"] for m in steps]
+    for m in steps:
+        log(f"train ce=pallas step {m['step']:2d}: loss {m['loss']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms  [{card}]")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    if abs(losses[0] - scan["losses"][0]) > 2e-2:
+        raise AssertionError(f"step 1 loss {losses[0]} against the scan head's "
+                             f"{scan['losses'][0]}")
+    chunks = len(fused_ce.dlogits_chunks(cfg.vocab_size))
+    want = {"ce_fwd": TRAIN_STEPS, "ce_dh": TRAIN_STEPS * chunks,
+            "ce_dw": TRAIN_STEPS * chunks,
+            **{n: cfg.n_layers * TRAIN_STEPS for n in FLASH_KERNELS}}
+    want.update({f"{n}_plain": 0 for n in list(want)})
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"launches {launches} != {want}")
+    timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
+    step_s = sum(timed) / len(timed)
+    tokens = data.global_batch * data.seq_len
+    return {
+        "losses": losses, "launches": launches, "wall_s": wall, "final": final,
+        "chunks": chunks, "mean_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **train_profile(dataclasses.replace(cfg, ce_impl="pallas"), data,
+                        FLASH_KERNELS + CE_CUDA_KERNELS),
+    }
+
+
+def train_profile(cfg, data, kernels: tuple[str, ...]) -> dict:
+    """One train step on the host clock, then one under torch.profiler
+    (after a warm-up step): the device's busy share (device time over the
+    unprofiled step's wall time), each named kernel's share of device time
+    (``name`` matches ``name_kernel``), and the CE head's device time from
+    its profiler ranges and its CUDA kernels."""
     from tony_tpu_torch.train.data import make_batches
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step,
@@ -1079,11 +1348,13 @@ def train_profile(cfg, data, kernels: tuple[str, ...]) -> dict:
     state, m = step(state, *next(batches))
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, m = step(state, *next(batches))
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def run():
+        nonlocal state
+        state, _ = step(state, *next(batches))
+
+    window = profile_window(run, 1)
+    dev, host = window["dev"], window["host"]
     device_us = sum(e.self_device_time_total for e in dev)
     if device_us == 0:
         raise AssertionError("torch.profiler recorded no device time")
@@ -1092,11 +1363,19 @@ def train_profile(cfg, data, kernels: tuple[str, ...]) -> dict:
             f"{e.key[:90]}")
     share = {}
     for name in kernels:
-        us = sum(e.self_device_time_total for e in dev if f"{name}_kernel" in e.key)
+        us = sum(e.self_device_time_total for e in dev if has_kernel(e.key, f"{name}_kernel"))
         share[name] = us / device_us
+    # the CE head: the device time its ranges relate to the PyTorch ops
+    # inside them, plus its CUDA kernels' (a ctypes launch is no PyTorch
+    # op, so no range sees it)
+    ce_us = sum(getattr(e, "device_time_total", 0) for e in host if e.key in CE_RANGES)
+    ce_us += sum(e.self_device_time_total for e in dev
+                 if any(has_kernel(e.key, f"{n}_kernel") for n in CE_CUDA_KERNELS))
     return {
         "profile_step_ms": step_s * 1e3, "profile_device_ms": device_us / 1e3,
         "profile_device_busy": device_us / 1e6 / step_s, "profile_share": share,
+        "profile_ce_head_ms": ce_us / 1e3, "profile_ce_head_share": ce_us / device_us,
+        "profile_launches": {k: v for k, v in window["launches"].items() if v},
     }
 
 
@@ -1339,6 +1618,32 @@ def main() -> int:
         f"bf16, 8 slots): {step_mm['ms']:.3f} ms (bound {step_mm['bound_ms']:.3f} ms, "
         f"{step_mm['bytes'] / 1e9:.3f} GB)  plain {step_mm['plain_ms']:.3f} ms  "
         f"library {step_mm['library_ms']:.3f} ms  [{card}]")
+    # 3e: the fused CE kernels at bench_1b4's loss head, bf16 then fp32,
+    # then the ragged shape and its NaN-row and NaN-weight cases (bf16)
+    ce = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in ce_cases(dtype, flush):
+            ce.append(c)
+            lib = "_scan_fwd" if c["name"] == "ce_fwd" else "whole _scan_bwd"
+            log(f"kernel {c['name']} {c['dtype']} N={c['N']} D={c['D']} V={c['V']}: "
+                f"max|err| {c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
+                f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms']:.3f} ms "
+                f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: {c['ops']:.4g} ops, "
+                f"{c['bytes'] / 1e6:.1f} MB)  plain {c['plain_ms']:.3f} ms  {lib} "
+                f"{c['library_ms']:.3f} ms; whole kernel bwd ({c['chunks']} chunks) "
+                f"{c['whole_bwd_ms']:.3f} ms  [{card}]")
+        torch.cuda.empty_cache()
+    for poison in ("", "rows", "weight"):
+        for c in ce_cases(torch.bfloat16, flush, CE_RAGGED, poison, timed=False):
+            ce.append(c)
+            log(f"kernel {c['name']} bf16 ragged N={c['N']} V={c['V']} "
+                f"{poison or 'finite'}: max|err| {c['max_abs_err']:.3e} "
+                f"({'ok' if c['ok'] else 'OVER'} atol={c['atol']:.3g} "
+                f"rtol={c['rtol']:.3g})  [{card}]")
+    bad = [c for c in ce if not c["ok"]]
+    if bad:
+        raise AssertionError(f"CE kernels over tolerance or masks: "
+                             f"{[(c['name'], c['dtype'], c['N'], c['poison']) for c in bad]}")
     del flush
     torch.cuda.empty_cache()
     sync = moe_sync_check()
@@ -1404,8 +1709,29 @@ def main() -> int:
         f"{t['profile_device_ms']:.1f} ms device (busy "
         f"{t['profile_device_busy']:.1%}); share of device time: "
         + ", ".join(f"{k} {v:.1%}" for k, v in t["profile_share"].items())
-        + f"  [{card}]")
+        + f"; scan CE head {t['profile_ce_head_ms']:.2f} ms = "
+        f"{t['profile_ce_head_share']:.1%}  [{card}]")
     model_crosscheck(card, dense_train_config(), "attention_impl", "flash", "dot")
+    torch.cuda.empty_cache()
+
+    tc = train_ce_phase(card, t)
+    lc = tc["launches"]
+    log(f"train bench_1b4 with ce_impl=pallas (phase 5 beside it): {TRAIN_STEPS} steps, "
+        f"loss {tc['losses'][0]:.4f} -> {tc['losses'][-1]:.4f} ({t['losses'][0]:.4f} -> "
+        f"{t['losses'][-1]:.4f}); mean step {tc['mean_step_ms']:.1f} ms "
+        f"({t['mean_step_ms']:.1f}), {tc['tokens_per_s']:.0f} tok/s "
+        f"({t['tokens_per_s']:.0f}); peak allocated {tc['peak_allocated_gb']:.2f} GB "
+        f"({t['peak_allocated_gb']:.2f}); launches ce_fwd {lc['ce_fwd']}, ce_dh "
+        f"{lc['ce_dh']}, ce_dw {lc['ce_dw']} ({tc['chunks']} vocab chunks a step), "
+        f"flash {lc['flash_fwd']}/{lc['flash_dq']}/{lc['flash_dkv']}  [{card}]")
+    log(f"train step ce=pallas under torch.profiler: {tc['profile_step_ms']:.1f} ms "
+        f"wall, {tc['profile_device_ms']:.1f} ms device (busy "
+        f"{tc['profile_device_busy']:.1%}); share of device time: "
+        + ", ".join(f"{k} {v:.1%}" for k, v in tc["profile_share"].items())
+        + f"; CE head {tc['profile_ce_head_ms']:.2f} ms = "
+        f"{tc['profile_ce_head_share']:.1%} (phase 5's scan head "
+        f"{t['profile_ce_head_ms']:.2f} ms = {t['profile_ce_head_share']:.1%})  [{card}]")
+    model_crosscheck(card, dense_train_config(), "ce_impl", "pallas", "scan")
     torch.cuda.empty_cache()
 
     m = train_moe_phase(card)
@@ -1483,6 +1809,18 @@ def main() -> int:
             "source": "tony_tpu_torch/csrc/grouped_mm.cu",
             "replaces": f"tony_tpu/ops/grouped_mm.py:{line}",
             "launches": m["launches"][name], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        })
+    replaces = {"ce_fwd": 164, "ce_dh": 204, "ce_dw": 236}
+    for name, line in replaces.items():
+        # the training path's shape and dtype: bench_1b4's head, bf16
+        c = next(c for c in ce if c["name"] == name and c["dtype"] == "bfloat16"
+                 and "ms" in c)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tony_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"tony_tpu/ops/fused_ce.py:{line}",
+            "launches": tc["launches"][name], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })

@@ -48,5 +48,6 @@ def test_every_port_module_is_checked():
                  "chip_smoke.py",
                  "tests/test_torch_kernels_cuda.py"):
         assert want in names
-    for src in ("paged_decode_attention", "flash_attention", "grouped_mm", "quant_mm"):
+    for src in ("paged_decode_attention", "flash_attention", "grouped_mm", "quant_mm",
+                "fused_ce"):
         assert (ROOT / f"tony_tpu_torch/csrc/{src}.cu").exists()

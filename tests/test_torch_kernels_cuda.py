@@ -110,6 +110,25 @@ def test_decode_kernel_stages_large_blocks_in_chunks_on_card(cuda):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_block", [8, 256])
+def test_engine_refuses_a_block_the_kernel_refuses_on_card(cuda, kv_block):
+    """The decode kernel takes blocks that are multiples of 16 in [16, 128]:
+    an engine on the card with block 8 or 256 raises at construction,
+    before it admits a request; one with block 16 serves."""
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.serve import Engine, Request, ServeConfig
+
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device=cuda)
+    with pytest.raises(ValueError, match=f"block {kv_block} must be"):
+        Engine(params, cfg, ServeConfig(slots=2, max_len=64, kv_block=kv_block),
+               device=cuda)
+    engine = Engine(params, cfg, ServeConfig(slots=2, max_len=64, kv_block=16), device=cuda)
+    out = engine.run([Request(prompt=np.arange(5), max_new_tokens=3)])
+    assert [len(c.tokens) for c in out.values()] == [3]
+
+
 # --- flash attention ---------------------------------------------------------------
 
 # bf16: outputs are rounded to bf16 (2^-8 relative) and the forward rounds p
@@ -429,3 +448,102 @@ def test_quant_mm_kernel_matches_plain_on_card(cuda, M, D, N):
     torch.cuda.synchronize()
     assert not bool(torch.isfinite(bad[:, 7]).any())
     assert bool(torch.isfinite(torch.cat([bad[:, :7], bad[:, 8:]], dim=1)).all())
+
+
+# --- fused cross-entropy head -------------------------------------------------------
+
+# (N, D, V): rows not a multiple of the 128-row tile and a vocab not a
+# multiple of the 128-column tile; then a vocab of three backward chunks
+# (4096 columns each, the last ragged)
+CE_SHAPES = [(300, 64, 1000), (200, 128, 8200)]
+
+
+def _ce_case(dev, dtype, N, D, V, seed, poison=""):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((N, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) / np.sqrt(D)).astype(np.float32)
+    t = rng.integers(0, V, N)
+    t[:3] = [0, V - 1, V - 2]
+    g = rng.standard_normal(N).astype(np.float32)
+    if poison == "rows":
+        h[5] = np.nan
+        h[N - 1, 3] = np.inf
+    elif poison == "weight":
+        w[2, 9] = np.nan
+    h, w = (torch.from_numpy(a).to(dev).to(dtype) for a in (h, w))
+    return h, w, torch.from_numpy(t).to(dev), torch.from_numpy(g).to(dev)
+
+
+def _ce_close(got, want, dtype, what):
+    """Nonfinite masks equal; finite values within tolerance. lse and tl
+    are float32 sums of exact products (bf16 inputs too) in another order:
+    1e-5 relative. dh and dW: float32, the same sums in another order; bf16,
+    both round dlogits to bf16 at the same place and the result once, so a
+    couple of bf16 ulps (2^-8) of the value or of the tensor's largest."""
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want)), what
+    fin = torch.isfinite(want)
+    got, want = got[fin].float(), want[fin].float()
+    if what in ("lse", "tl"):
+        atol, rtol = 1e-4, 1e-5
+    else:
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        rel = 2**-7 if dtype == torch.bfloat16 else 1e-4
+        atol, rtol = rel * scale / 2, rel
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N,D,V", CE_SHAPES, ids=["ragged", "three-chunks"])
+@pytest.mark.parametrize("poison", ["", "rows", "weight"])
+def test_ce_kernels_match_plain_on_card(cuda, dtype, N, D, V, poison):
+    """ce_fwd, ce_dh and ce_dw against their plain versions on the same
+    inputs: ragged rows and vocab, a NaN and an inf row (only those rows go
+    nonfinite), a NaN weight (every loss, dh and dW goes nonfinite)."""
+    from tony_tpu_torch.ops.fused_ce import (
+        LAUNCHES, ce_bwd, ce_dh_plain, ce_dw_plain, ce_fwd, ce_fwd_plain,
+        dlogits_chunks, reset_launches,
+    )
+
+    h, w, t, g = _ce_case(cuda, dtype, N, D, V, seed=N + V, poison=poison)
+    reset_launches()
+    lse, tl = ce_fwd(h, w, t)
+    dh, dw = ce_bwd(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    chunks = len(dlogits_chunks(V))
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "ce_fwd": 1, "ce_dh": chunks, "ce_dw": chunks}
+    ref_lse, ref_tl = ce_fwd_plain(h, w, t)
+    _ce_close(lse, ref_lse, dtype, "lse")
+    _ce_close(tl, ref_tl, dtype, "tl")
+    # the backward from the plain lse, so each kernel is held on its own
+    dh, dw = ce_bwd(h, w, t, ref_lse, g)
+    _ce_close(dh, ce_dh_plain(h, w, t, ref_lse, g), dtype, "dh")
+    _ce_close(dw, ce_dw_plain(h, w, t, ref_lse, g), dtype, "dW")
+    assert dh.dtype == h.dtype and dw.dtype == w.dtype
+    if poison == "rows":
+        assert torch.isfinite(lse).sum() == N - 2
+    elif poison == "weight":
+        assert not torch.isfinite(lse).any() and not torch.isfinite(dw).any()
+
+
+@pytest.mark.cuda
+def test_fused_ce_pallas_autograd_on_card(cuda):
+    """``fused_ce_tokens(impl="pallas")`` through autograd on the card: the
+    kernels only (no plain version), and the losses and grads of the scan
+    head within bf16 tolerance (the scan head's logits come from cuBLAS)."""
+    from tony_tpu_torch.ops.fused_ce import LAUNCHES, fused_ce_tokens, reset_launches
+
+    h, w, t, _ = _ce_case(cuda, torch.bfloat16, 256, 64, 5000, seed=9)
+    h, t = h.reshape(2, 128, 64), t.reshape(2, 128)
+    grads = {}
+    for impl in ("pallas", "scan"):
+        hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        reset_launches()
+        loss = fused_ce_tokens(hh, ww, t, impl=impl)
+        grads[impl] = (loss.detach(), *torch.autograd.grad(loss.mean(), (hh, ww)))
+        if impl == "pallas":
+            assert {k: v for k, v in LAUNCHES.items() if v} == {
+                "ce_fwd": 1, "ce_dh": 2, "ce_dw": 2}
+    for a, b, what in zip(grads["pallas"], grads["scan"], ("loss", "dh", "dW")):
+        _ce_close(a, b, torch.bfloat16, what if what != "loss" else "lse")

@@ -179,3 +179,30 @@ def test_submit_validates_like_reference(setup):
     assert eng.run()[0].tokens and eng.close()["requests_finished"] == 1
     snap = eng.stats_snapshot()
     assert snap["requests_finished"] == 1 and snap["live_slots"] == 0
+
+
+@pytest.mark.parametrize("blk,hd,payload", [(8, 128, 2), (24, 128, 2), (144, 128, 2),
+                                            (256, 128, 2), (64, 12, 2), (64, 24, 1),
+                                            (16, 128, 2), (128, 128, 1), (64, 16, 4)])
+def test_engine_and_kernel_share_the_block_rule(blk, hd, payload):
+    """The engine checks the decode kernel's shape rule at construction
+    through ``check_kernel_shape``; the kernel's wrapper refuses exactly
+    what that function refuses, with the same message, before it would
+    build or launch anything."""
+    from tony_tpu_torch.ops.decode_attention import _paged_cuda, check_kernel_shape
+
+    dtype = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[payload]
+    qdt = torch.bfloat16 if payload == 1 else dtype
+    q = torch.zeros((1, 1, 4, hd), dtype=qdt)
+    k = torch.zeros((2, 2, blk, hd), dtype=dtype)
+    scales = dict(k_scale=torch.ones(2, 2), v_scale=torch.ones(2, 2)) if payload == 1 else {}
+    lengths, tables = torch.ones(1, dtype=torch.int32), torch.ones((1, 1), dtype=torch.int32)
+    try:
+        check_kernel_shape(1, 4, 2, hd, blk, payload, q.element_size())
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            _paged_cuda(q, k, k.clone(), lengths, tables, scale=1.0, **scales)
+        assert str(got.value) == str(e)
+        assert blk % 16 or not 16 <= blk <= 128 or hd % max(8, 16 // payload)
+    else:
+        assert blk % 16 == 0 and 16 <= blk <= 128 and hd % max(8, 16 // payload) == 0

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``, built with nvcc at
 first use), each beside its plain PyTorch version for CPU tensors, and the
-plain-PyTorch chunked CE head."""
+chunked CE head (the scan head in plain PyTorch, the pallas head on its
+kernels)."""
 
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.decode_attention import LAUNCHES, decode_attention

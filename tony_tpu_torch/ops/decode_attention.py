@@ -159,6 +159,30 @@ def _smem_bytes(R: int, hd: int, chunk: int, itemsize: int) -> int:
     return 2 * chunk * hd * itemsize + 4 * (2 * R * hd + R * chunk + 3 * R)
 
 
+def check_kernel_shape(G: int, H: int, Hkv: int, hd: int, blk: int,
+                       payload_itemsize: int, q_itemsize: int) -> tuple[int, int]:
+    """The CUDA kernel's shape rule, shared by its wrapper and by the
+    engine (which checks it at construction, before any request is
+    admitted): returns ``(chunk, shared-memory bytes)`` or raises
+    ValueError. ``payload_itemsize`` is the pools' element size (1 for
+    quantized pools), ``q_itemsize`` the queries' (K/V are staged in q's
+    dtype)."""
+    # the staging loads are 16 bytes of payload per thread
+    vec = max(8, 16 // payload_itemsize)
+    if hd > 256 or hd % vec:
+        raise ValueError(f"head_dim {hd} must be a multiple of {vec}, at most 256")
+    if blk % 16 or not 16 <= blk <= 128:
+        raise ValueError(f"block {blk} must be a multiple of 16 in [16, 128]")
+    chunk = _chunk(blk, hd, q_itemsize)
+    smem = _smem_bytes(G * (H // Hkv), hd, chunk, q_itemsize)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"G={G} x rep={H // Hkv} query rows at head_dim {hd} need {smem} B "
+            f"of shared memory (limit {_SMEM_LIMIT})"
+        )
+    return chunk, smem
+
+
 @functools.cache
 def _kernel(quant: bool = False):
     """The kernel's C entry point (its quantized form with ``quant``),
@@ -208,21 +232,8 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # the staging loads are 16 bytes of payload per thread
-    vec = max(8, 16 // k.element_size())
-    if hd > 256 or hd % vec:
-        raise ValueError(f"head_dim {hd} must be a multiple of {vec}, at most 256")
-    if blk % 16 or not 16 <= blk <= 128:
-        raise ValueError(f"block {blk} must be a multiple of 16 in [16, 128]")
-    # shared memory stages K/V in q's dtype (quantized pools dequantized)
-    itemsize = q.element_size()
-    chunk = _chunk(blk, hd, itemsize)
-    smem = _smem_bytes(G * (H // Hkv), hd, chunk, itemsize)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"G={G} x rep={H // Hkv} query rows at head_dim {hd} need {smem} B "
-            f"of shared memory (limit {_SMEM_LIMIT})"
-        )
+    chunk, smem = check_kernel_shape(G, H, Hkv, hd, blk, k.element_size(),
+                                     q.element_size())
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     shape = (B, G, H, Hkv, hd, blk, M, chunk, scale, smem, _DTYPE_CODES[q.dtype])
@@ -290,6 +301,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "LAUNCHES", "decode_attention", "paged_decode_attention_plain",
+    "LAUNCHES", "check_kernel_shape", "decode_attention", "paged_decode_attention_plain",
     "reference_decode_attention", "reset_launches",
 ]

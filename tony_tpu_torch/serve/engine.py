@@ -56,7 +56,7 @@ from tony_tpu_torch.models.generate import (
 )
 from tony_tpu_torch.models.llama import LlamaConfig, Params, rms_norm, rope_freqs
 from tony_tpu_torch.obs.metrics import DecodeMetrics
-from tony_tpu_torch.ops.decode_attention import decode_attention
+from tony_tpu_torch.ops.decode_attention import check_kernel_shape, decode_attention
 from tony_tpu_torch.ops.quant_mm import quant_matmul, quantize_weights
 from tony_tpu_torch.serve.cache import (
     SCRATCH_BLOCK, BlockPool, block_bytes, blocks_for, copy_block, create_cache,
@@ -197,6 +197,13 @@ class Engine:
                 )
         # the quantized pools' largest stored magnitude; validates the knob
         self._qmax = kv_quant_spec(serve.quant_kv)[1] if serve.quant_kv else 0.0
+        if self.device.type == "cuda":
+            # the card's decode kernel refuses some block and head sizes:
+            # refuse them here, before any request is admitted
+            check_kernel_shape(1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                               serve.kv_block,
+                               1 if serve.quant_kv else cfg.dtype.itemsize,
+                               cfg.dtype.itemsize)
         max_len = serve.max_len or cfg.max_seq_len
         buckets = tuple(sorted(serve.prefill_buckets)) or _default_buckets(max_len)
         cap = blocks_for(max_len, serve.kv_block) * serve.kv_block

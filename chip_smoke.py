@@ -12,7 +12,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: every kernel source under ``csrc/``, one nvcc each, all started
    together, with nvcc's ``-Xptxas -v`` lines;
 3. kernels: the paged decode kernel against its plain PyTorch version at
-   Llama-3-8B decode shapes and at block and head sizes where it stages
+   Llama-3-8B decode shapes (G 1 and 5, and the verify step's G 16 with
+   rows whose lengths run past their written positions and past the
+   table) and at block and head sizes where it stages
    each block in chunks; then the flash-attention forward, dq and dk/dv
    kernels against theirs at bench_1b4's training shape, bench_moe's
    (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
@@ -23,16 +25,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MoE block forward and backward under ``set_sync_debug_mode("error")``;
    then (3d) the quantized decode-attention kernel against its plain
    version at Llama-3-8B decode shapes (8 rows of about 512 positions) over
-   int8 and fp8 e4m3 pools, G 1 and 5, bf16 queries, plus a float32-query
+   int8 and fp8 e4m3 pools, G 1 and 5 and the verify step's G 16 (rows
+   whose lengths run past their written positions and past the table),
+   bf16 queries, plus a float32-query
    case, a case that stages blocks in chunks and a NaN-scale case; and the
    int8 dequant-matmul kernel at each of the decode step's five weight
    shapes, 8 slots, bf16 and fp32; then (3e) the fused cross-entropy
    kernels (ce_fwd, ce_dh, ce_dw) against theirs at bench_1b4's loss head
    (16,384 rows, D 2048, V 32,000) in bf16 and fp32, and at a ragged shape
    (rows and vocab off the tiles) finite, with a NaN and an inf row and
-   with a NaN weight. Each kernel with its time beside its bound, the
-   plain version's time and one PyTorch library call's time (the scan CE
-   head's cuBLAS passes for the CE kernels);
+   with a NaN weight; then (3f) the contiguous-cache decode kernel
+   (kernel 7) against its plain version at the reference bench's decode
+   case (bench_1b4 with 4 kv heads: 8 rows of a full 1024-position cache,
+   block 128) in bf16 and fp32 and at Llama-3-8B's shape (T 2048) at G 1
+   and at G 5 with ragged rows, beside the repeat-expanded
+   ``reference_decode_attention``; and the bench's layer-scanned loop (24
+   calls, each output the next query), whose 24 launches are the kernel's
+   path. Each kernel with its time beside its bound, the plain version's
+   time and one PyTorch library call's time (the scan CE head's cuBLAS
+   passes for the CE kernels, SDPA over the repeat-expanded cache for the
+   decode kernels);
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
    launch count must equal decode steps x layers. Then a few decode steps
@@ -43,8 +55,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's launches must equal decode steps x 32 (attention) and x 225
    (7 matmuls x 32 layers + lm_head), no plain version and no bf16 decode
    attention on the card, generate() equal to the engine; its profile
-   beside phase 4's. Then a 2-layer cross-check of the quantized engine on
-   the card against the same engine on the CPU (plain versions);
+   beside phase 4's. Then (4c) bench.py's speculative trace: a 64-token
+   prompt, 769 new tokens, 15 drafts a step, greedy, prefix store on, at
+   batch 1 and at batch 8 (one prompt for every row), spec off and then
+   on, the spec-on engine's store seeded with the whole repeat (one
+   prefill of the prompt and spec off's tokens) before its timed pass;
+   then the quantized engine at batch 8 over 193 new tokens. The decode
+   kernel (its quantized form when quantized) must run once per layer and
+   step and the dequant-matmul 225 times a step, with no plain version;
+   every run's emitted tokens are fed back through a plain float32
+   forward, and each must be within a limit of that reference's top logit
+   (the limit from the bf16 noise and the spec-off run's own trail,
+   ``spec_serve_phase``); tokens/s per slot, tokens per step, accept rate
+   and the on/off ratio are printed, and the batch-8 verify step's
+   breakdown. Then a 2-layer
+   cross-check of the quantized engine on the card against the same
+   engine on the CPU (plain versions);
 5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
    batch 8 x 2048, the production recipe: flash attention, remat
    ``save_attn_kernel``, scan CE, bf16 Adam first moment), 10 steps from
@@ -66,11 +92,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul.
 
-Every profile traces one warm-up step first and raises when it holds
-fewer events of a kernel than the launch counters say the profiled window
-launched.
+Every profile traces one warm-up step first; a window holding fewer
+events of a kernel than the launch counters say it launched is traced
+again, and the script raises after three such windows.
 
-The last three lines are the ``kernels`` JSON (twelve kernels; quant_mm's
+The last three lines are the ``kernels`` JSON (thirteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -120,6 +146,7 @@ KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
 # (a profile must hold at least that many events of each)
 KERNEL_EVENTS = {
+    "decode_attention": ("decode_kernel",),
     "paged_decode_attention": ("paged_decode_kernel",),
     "paged_decode_attention_quant": ("paged_decode_kernel",),
     "quant_mm": ("quant_mm_kernel",),
@@ -134,8 +161,12 @@ KERNEL_EVENTS = {
 CE_RANGES = ("fused_ce.fwd", "fused_ce.bwd")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -169,8 +200,54 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
 # --- phase 3: kernels against their plain versions ----------------------------
 
 
+def verify_lengths(written: np.ndarray, past: tuple[int, ...], M: int, blk: int
+                   ) -> tuple[np.ndarray, list[int], list[int]]:
+    """Row lengths as a verify step passes them: row b has written
+    ``written[b]`` positions and its length runs ``past[b]`` (< G) beyond
+    them, the padding positions of a draft shorter than G - 1 (no
+    ``past``: the lengths are the written counts). Returns the lengths, the
+    blocks each row's written positions fill (its table entries; later
+    entries name scratch block 0) and the blocks the kernel reads for it,
+    ``min(ceil(length / blk), M)``."""
+    lengths = written + np.array(past or [0] * len(written), np.int32)
+    need = [math.ceil(n / blk) for n in written]
+    read = [min(math.ceil(n / blk), M) for n in lengths]
+    return lengths, need, read
+
+
+def decode_bound(lengths: np.ndarray, tables: np.ndarray, read: list[int], G: int,
+                 H: int, Hkv: int, hd: int, blk: int, kv_itemsize: int) -> tuple[int, int]:
+    """(K/V bytes, operations) of one decode call: each physical block's
+    positions that some row reads, once (rows 0 and 7 share blocks: their
+    positions are read once, not twice), none past a row's length or the
+    table's width; QK^T and P.V, 2 operations each per (query, head,
+    position, dim), query g of row b attending ``len_b - (G - 1) + g``
+    positions, at most the table's width."""
+    T = tables.shape[1] * blk
+    used: dict[int, int] = {}
+    for b, n in enumerate(lengths):
+        for j in range(read[b]):
+            pid = int(tables[b, j])
+            used[pid] = max(used.get(pid, 0), min(blk, min(int(n), T) - j * blk))
+    kv_bytes = 2 * sum(used.values()) * Hkv * hd * kv_itemsize
+    attended = sum(min(max(int(n) - (G - 1) + g, 0), T) for n in lengths for g in range(G))
+    return kv_bytes, 4 * attended * H * hd
+
+
+# a verify step's rows at G 16: how far each row's length runs past its
+# last written position (row 0, written to the table's end, then runs past
+# the table's M blocks; every row's first query still sees at least one
+# position, as in the engine, where it sees ``pos + 1``)
+VERIFY_PAST = (15, 15, 8, 0, 3, 15, 1, 12)
+QUANT_VERIFY_PAST = (3, 0, 9, 15, 15, 15, 7, 12)
+
+
 def decode_case(G: int, dtype: torch.dtype, flush: torch.Tensor, *,
-                blk: int = 64, hd: int = 128) -> dict:
+                blk: int = 64, hd: int = 128, past: tuple[int, ...] = ()) -> dict:
+    """The paged decode kernel at Llama-3-8B decode shapes (32/8 heads, 8
+    rows up to 2048 positions): against its plain version on the same
+    inputs, its time, its bound and SDPA's. With ``past``, the rows of a
+    verify step (``verify_lengths``)."""
     from tony_tpu_torch.ops.decode_attention import (
         _chunk, decode_attention, paged_decode_attention_plain,
     )
@@ -178,9 +255,9 @@ def decode_case(G: int, dtype: torch.dtype, flush: torch.Tensor, *,
     B, H, Hkv = 8, 32, 8
     dev = "cuda"
     rng = np.random.default_rng(100 + G)
-    lengths_np = np.array([2048, 5, 64, 1000, 1537, 700, 133, 1999], np.int32)
     M = 2048 // blk
-    need = [math.ceil(n / blk) for n in lengths_np]
+    lengths_np, need, read = verify_lengths(
+        np.array([2048, 5, 64, 1000, 1537, 700, 133, 1999], np.int32), past, M, blk)
     P = 1 + sum(need)
     perm = rng.permutation(np.arange(1, P))
     tables_np = np.zeros((B, M), np.int32)          # past the length: scratch
@@ -229,24 +306,14 @@ def decode_case(G: int, dtype: torch.dtype, flush: torch.Tensor, *,
     library_ms = time_ms(sdpa, flush)
 
     itemsize = q.element_size()
-    # K/V bytes: each physical block's positions that some row needs, once
-    # (rows 0 and 7 share blocks: their positions are read once, not twice)
-    used: dict[int, int] = {}
-    for b in range(B):
-        for j in range(need[b]):
-            pid = int(tables_np[b, j])
-            used[pid] = max(used.get(pid, 0), min(blk, int(lengths_np[b]) - j * blk))
-    kv_bytes = 2 * sum(used.values()) * Hkv * hd * itemsize
-    io_bytes = 2 * q.numel() * itemsize + lengths.numel() * 4 + sum(need) * 4
-    # QK^T and P.V, 2 operations each per (query, head, position, dim);
-    # query g of row b attends len_b - (G - 1) + g positions
-    attended = sum(int(n) - (G - 1) + g for n in lengths_np for g in range(G))
-    ops = 4 * attended * H * hd
+    kv_bytes, ops = decode_bound(lengths_np, tables_np, read, G, H, Hkv, hd, blk,
+                                 itemsize)
+    io_bytes = 2 * q.numel() * itemsize + lengths.numel() * 4 + sum(read) * 4
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {
         "G": G, "dtype": str(dtype).replace("torch.", ""), "blk": blk, "hd": hd,
-        "chunk": _chunk(blk, hd, itemsize),
+        "past": past, "chunk": _chunk(blk, hd, itemsize),
         "max_abs_err": err.max().item(), "sdpa_max_abs_err": lib_err,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -263,14 +330,16 @@ QUANT_LENGTHS = (512, 448, 577, 5, 390, 640, 129, 520)
 
 
 def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, *,
-                      blk: int = 64, hd: int = 128, poison: bool = False) -> dict:
+                      blk: int = 64, hd: int = 128, poison: bool = False,
+                      past: tuple[int, ...] = ()) -> dict:
     """The quantized paged decode kernel at Llama-3-8B decode shapes (32/8
     heads) over ``kv`` pools quantized per block per kv head: against its
     plain version on the same inputs, its time, its bound and SDPA over the
     dequantized, gathered K/V (the dequant and gather not timed). With
     ``poison`` only the NaN-scale check runs: row 0's sixth block (no other
     row names it) gets a NaN K scale, and exactly the rows whose tables name
-    it must go non-finite."""
+    it must go non-finite. With ``past``, the rows of a verify step
+    (``verify_lengths``)."""
     from tony_tpu_torch.ops.decode_attention import (
         _chunk, decode_attention, paged_decode_attention_plain,
     )
@@ -279,9 +348,9 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
     B, H, Hkv = 8, 32, 8
     dev = "cuda"
     rng = np.random.default_rng(300 + G)
-    lengths_np = np.array(QUANT_LENGTHS, np.int32)
-    need = [math.ceil(n / blk) for n in lengths_np]
-    M = max(need)
+    written = np.array(QUANT_LENGTHS, np.int32)
+    M = max(math.ceil(n / blk) for n in written)
+    lengths_np, need, read = verify_lengths(written, past, M, blk)
     P = 1 + sum(need)
     perm = rng.permutation(np.arange(1, P))
     tables_np = np.zeros((B, M), np.int32)          # past the length: scratch
@@ -351,24 +420,19 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
         q, kq, vq, lengths, tables, scale=scale, k_scale=ks, v_scale=vs), flush)
     library_ms = time_ms(sdpa, flush)
 
-    # payload bytes: each physical block's positions some row needs, once,
-    # one byte per element; two float32 scales per (block, kv head) read
-    used: dict[int, int] = {}
-    for b in range(B):
-        for j in range(need[b]):
-            pid = int(tables_np[b, j])
-            used[pid] = max(used.get(pid, 0), min(blk, int(lengths_np[b]) - j * blk))
-    kv_bytes = 2 * sum(used.values()) * Hkv * hd * kq.element_size()
-    scale_bytes = 2 * len(used) * Hkv * 4
-    io_bytes = 2 * q.numel() * q.element_size() + lengths.numel() * 4 + sum(need) * 4
-    attended = sum(int(n) - (G - 1) + g for n in lengths_np for g in range(G))
-    ops = 4 * attended * H * hd
+    # payload bytes: one byte per element; two float32 scales per (block,
+    # kv head) read
+    kv_bytes, ops = decode_bound(lengths_np, tables_np, read, G, H, Hkv, hd, blk,
+                                 kq.element_size())
+    blocks = len({int(tables_np[b, j]) for b in range(B) for j in range(read[b])})
+    scale_bytes = 2 * blocks * Hkv * 4
+    io_bytes = 2 * q.numel() * q.element_size() + lengths.numel() * 4 + sum(read) * 4
     nbytes = kv_bytes + scale_bytes + io_bytes
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {
         "kv": kv, "G": G, "dtype": str(dtype).replace("torch.", ""), "blk": blk,
-        "hd": hd, "chunk": _chunk(blk, hd, q.element_size()),
+        "hd": hd, "past": past, "chunk": _chunk(blk, hd, q.element_size()),
         "max_abs_err": err.max().item(), "sdpa_max_abs_err": lib_err,
         "atol": atol, "rtol": rtol,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -706,15 +770,273 @@ def quant_crosscheck(card: str) -> dict:
             "logit_scale": scale, "tokens_equal": same, "tokens": 4 * len(prompts)}
 
 
-def launch_counts() -> dict[str, int]:
-    """Every kernel wrapper's launch counter, by name."""
+# --- phase 4c: speculative serving at full width --------------------------------
+
+# bench.py's speculative trace (:778-836): a prompt of one kv block of seeded
+# tokens, 12 blocks + 1 new tokens (so the generation's K/V fills whole
+# blocks and the store holds the entire repeat), 15 draft tokens a step
+SPEC_BLOCK = 64
+SPEC_DRAFT = 15
+SPEC_NEW = 12 * SPEC_BLOCK + 1
+# the store's budget: the repeat's 13 blocks of 8 MiB at this width (the
+# default 64 MB holds 8, so the path would end 448 tokens in)
+SPEC_STORE_MB = 128.0
+
+
+class Layerwise:
+    """A stacked ``[L, ...]`` weight that hands out layer ``l`` through
+    ``fn`` when indexed: a float32 forward reads float32 weights one layer
+    at a time, with no float32 copy of the model."""
+
+    def __init__(self, stacked: torch.Tensor, fn):
+        self.stacked, self.fn = stacked, fn
+
+    def __getitem__(self, l: int) -> torch.Tensor:
+        return self.fn(self.stacked[l])
+
+
+def reference_weights(params, quant: bool) -> tuple[dict, dict]:
+    """(prompt weights, decode weights) of the float32 teacher-forced
+    forward: the masters in float32 for the prompt, which the engine's
+    prefill runs through the masters; for the emitted tokens the masters
+    again, or with ``quant`` the int8 copy that the quantized engine's
+    decode step runs (``quantize_weights`` per layer matrix and on
+    lm_head, as the engine builds it), dequantized in float32."""
+    from tony_tpu_torch.ops.quant_mm import quantize_weights
+
+    def deq(w):
+        wq, s = quantize_weights(w)
+        return wq.float() * s
+
+    def f32(w):
+        return w.float()
+
+    shared = {"tok_emb": params["tok_emb"].float(),
+              "final_norm": params["final_norm"].float()}
+    master = {**shared, "lm_head": params["lm_head"].float(),
+              "layers": {k: Layerwise(t, f32) for k, t in params["layers"].items()}}
+    if not quant:
+        return master, master
+    # the layer matrices are [L, D, N]; the norms [L, D] stay masters
+    return master, {**shared, "lm_head": deq(params["lm_head"]), "layers": {
+        k: Layerwise(t, deq if t.dim() == 3 else f32) for k, t in params["layers"].items()}}
+
+
+def teacher_forced(params, cfg, prompt: np.ndarray, seqs: list[list[int]],
+                   quant: bool) -> tuple[list[np.ndarray], float]:
+    """Each distinct emitted sequence fed back through the plain float32
+    forward of ``models/generate.py`` (``forward_with_cache``, no kernel):
+    the prompt through the prompt weights, the emitted tokens after it
+    through the decode weights (``reference_weights``). Returns, per
+    sequence and emitted token, the reference's top logit less that
+    token's logit (0 where the token is the reference's argmax); and,
+    without ``quant``, the noise of one bf16 path: the same forward in
+    bf16 through the masters as they are, its largest difference from the
+    float32 logits over their top 8 at any emitted position."""
+    from tony_tpu_torch.models.generate import KVCache, forward_with_cache
+
+    dev = params["lm_head"].device
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    first, rest = reference_weights(params, quant)
+    runs = [(cfg32, first, rest)] + ([] if quant else [(cfg, params, params)])
+    P = len(prompt)
+    gaps, noise = {}, 0.0
+    for seq in {tuple(s) for s in seqs}:
+        toks = torch.as_tensor(np.concatenate([prompt, seq[:-1]]), device=dev)[None]
+        logits = []
+        for c, head_w, tail_w in runs:
+            cache = KVCache.create(c, 1, toks.shape[1], device=dev)
+            head, _ = forward_with_cache(head_w, toks[:, :P], cache, 0, c, last_only=True)
+            tail, _ = forward_with_cache(tail_w, toks[:, P:], cache, P, c)
+            logits.append(torch.cat([head, tail], dim=1)[0])       # [N, V]
+            del cache, head, tail
+        ref = logits[0]
+        t = torch.as_tensor(seq, device=dev)[:, None]
+        gaps[seq] = (ref.amax(-1) - ref.gather(1, t)[:, 0]).cpu().numpy()
+        if not quant:
+            top = ref.topk(8, dim=-1).indices
+            noise = max(noise, float((logits[1].gather(1, top) - ref.gather(1, top))
+                                     .abs().max()))
+        del logits, ref
+    return [gaps[tuple(s)] for s in seqs], noise
+
+
+def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
+              seed: list[int] | None = None, profile: bool = False, **quant) -> dict:
+    """One engine with spec on or off, ``batch`` slots, greedy, prefix store
+    on: a warm-up, then the timed pass of the requests, with every launch
+    counter zeroed just before it and read just after. Spec off warms with
+    4 tokens a row. Spec on seeds its store with ``seed``, the spec-off
+    run's tokens: one request whose prompt is the prompt and the first
+    ``new - 1`` of them registers the whole repeat at admission (the path
+    a first pass would register at finish). bench.py seeds with a whole
+    spec-on pass and warms again to pay XLA's compiles; eager PyTorch has
+    none, and a pass of 769 tokens would cost as much as the timed one.
+    With ``profile``, then the breakdown of a few verify steps of the same
+    requests, cut to as many tokens as those steps may emit."""
+    from tony_tpu_torch.serve import Engine, Request, ServeConfig
+
+    sv = dict(slots=batch, max_len=1024, kv_block=SPEC_BLOCK, prefix=True, spec=on,
+              spec_max_draft=SPEC_DRAFT, prefix_budget_mb=SPEC_STORE_MB, **quant)
+    engine = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+
+    def reqs(n=new):
+        return [Request(prompt=prompt, max_new_tokens=n, rng=i) for i in range(batch)]
+
+    if on:
+        path = np.concatenate([prompt, np.asarray(seed[:new - 1])])
+        engine.run([Request(prompt=path, max_new_tokens=1)])
+    else:
+        engine.run(reqs(4))
+    engine.reset_metrics()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.run(reqs())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    m = engine.metrics
+    tokens = [out[rid].tokens for rid in sorted(out)]
+    for t, rid in zip(tokens, sorted(out)):
+        if len(t) != new or out[rid].finish_reason != "length":
+            raise AssertionError(f"spec={on} batch {batch}: {len(t)} tokens, "
+                                 f"{out[rid].finish_reason!r}")
+        if not all(0 <= x < cfg.vocab_size for x in t):
+            raise AssertionError(f"spec={on} batch {batch}: token outside the vocabulary")
+    r = {"tokens": tokens, "steps": m.decode_steps,
+         "launches": launches, "tok_s_slot": m.tokens_per_sec_per_chip / batch,
+         "tokens_per_step": m.tokens_per_step, "accept_rate": m.draft_accept_rate,
+         "proposed": m.draft_proposed, "accepted": m.draft_accepted, "wall_s": wall,
+         "mean_step_ms": m.decode_s / max(m.decode_steps, 1) * 1e3}
+    if profile:
+        # 1 + 4 timed steps, then 1 + 4 a traced window, each up to G tokens
+        n = ((PROFILE_ATTEMPTS + 1) * (4 + 1) + 1) * (SPEC_DRAFT + 1)
+        r.update(decode_breakdown(engine, cfg, None, {"attention": "paged_decode_kernel"},
+                                  steps=4, requests=reqs(n)))
+    del engine
+    torch.cuda.empty_cache()
+    return r
+
+
+def spec_serve_phase(cfg, params, card: str) -> dict:
+    """Phase 4c: bench.py's speculative trace on Llama-3-8B at full width,
+    batch 1 and batch 8 (every row the same prompt), spec on and off; then
+    the quantized engine (int8 KV, int8 weights) at batch 8 over 3 blocks +
+    1 new tokens. Held: the paged kernel (kernel 9 when quantized) launched
+    once per layer and decode step, the dequant-matmul 7 x 32 + 1 times a
+    step, no plain version; and every emitted token, teacher-forced
+    (``teacher_forced``), within the limit of the plain float32 reference's
+    top logit.
+
+    The limit. Spec-on and spec-off tokens are not held equal: the verify
+    step's matmuls run G rows a slot where the one-token step runs one, so
+    cuBLAS sums them in another order, the random model's bf16 logits tie
+    within a rounding step often, and the first such tie that flips makes
+    the two runs' contexts differ from there on. A correct bf16 path's
+    emitted token can trail the reference's top logit by at most twice its
+    own logit error, which the bf16 forward's largest difference from the
+    float32 one measures (``noise``, over the bf16 modes' sequences); the
+    spec-off run of the same mode, the one-token step phases 4 and 4b
+    hold, shows how far its path's tokens trail (``off``: for the
+    quantized mode its int8 KV and weights add their rounding). The limit
+    is twice the larger of 2 x noise and off, so a correct verify step
+    sits at half of it or below, and a wrong one, whose tokens are the
+    argmax of other logits, trails by whole units of the logits' spread.
+
+    Reported: tokens/s per slot, tokens per step, accept rate, the on/off
+    ratio, tokens equal on/off, the share of emitted tokens that are the
+    reference's argmax, the largest trail on and off, and the batch-8
+    verify step's breakdown."""
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, SPEC_BLOCK)
+    L = cfg.n_layers
+    res = {}
+    modes = [(f"b{b}", b, SPEC_NEW, {}) for b in (1, 8)]
+    modes.append(("b8_int8", 8, 3 * SPEC_BLOCK + 1,
+                  dict(quant_kv="int8", quant_weights=True)))
+    for label, batch, new, quant in modes:
+        off = spec_mode(cfg, params, prompt, False, batch, new, **quant)
+        on = spec_mode(cfg, params, prompt, True, batch, new, seed=off["tokens"][0],
+                       profile=label == "b8", **quant)
+        for r in (on, off):
+            la, steps = r["launches"], r["steps"]
+            if quant:
+                want = {"paged_decode_attention_quant": steps * L,
+                        "quant_mm": steps * (7 * L + 1), "paged_decode_attention": 0}
+            else:
+                want = {"paged_decode_attention": steps * L,
+                        "paged_decode_attention_quant": 0, "quant_mm": 0}
+            want.update({k: 0 for k in la if k.endswith("_plain")})
+            if steps == 0 or any(la[k] != v for k, v in want.items()):
+                raise AssertionError(f"spec {label}: launches {la} != {want} "
+                                     f"({steps} decode steps)")
+        if on["accepted"] == 0:
+            raise AssertionError(f"spec {label}: no draft was accepted")
+        res[label] = {"on": on, "off": off, "quant": bool(quant), "new": new,
+                      "batch": batch}
+    t0 = time.perf_counter()
+    noise = 0.0
+    for r in res.values():
+        seqs = r["on"]["tokens"] + r["off"]["tokens"]
+        gaps, n = teacher_forced(params, cfg, prompt, seqs, r["quant"])
+        r["gaps_on"], r["gaps_off"] = gaps[:r["batch"]], gaps[r["batch"]:]
+        noise = max(noise, n)
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    for label, r in res.items():
+        on, off, batch, new = r["on"], r["off"], r["batch"], r["new"]
+        trail_on = max(float(g.max()) for g in r["gaps_on"])
+        trail_off = max(float(g.max()) for g in r["gaps_off"])
+        limit = 2 * max(2 * noise, trail_off)
+        top_on = sum(int((g == 0).sum()) for g in r["gaps_on"])
+        top_off = sum(int((g == 0).sum()) for g in r["gaps_off"])
+        same = sum(a == b for x, y in zip(on["tokens"], off["tokens"])
+                   for a, b in zip(x, y))
+        log(f"serve spec {label} (Llama-3-8B, {new} new tokens, draft {SPEC_DRAFT}): "
+            f"on {on['tok_s_slot']:.1f} tok/s/slot, {on['tokens_per_step']:.3f} "
+            f"tokens/step, accept {on['accept_rate']:.4f} ({on['accepted']}/"
+            f"{on['proposed']}), {on['steps']} steps of {on['mean_step_ms']:.2f} ms; "
+            f"off {off['tok_s_slot']:.1f} tok/s/slot, {off['steps']} steps of "
+            f"{off['mean_step_ms']:.2f} ms; on/off {on['tok_s_slot'] / off['tok_s_slot']:.3f}; "
+            f"tokens equal on/off {same}/{batch * new}  [{card}]")
+        log(f"serve spec {label} teacher-forced (float32 plain forward over each run's "
+            f"tokens): the reference's argmax at {top_on}/{batch * new} positions on, "
+            f"{top_off}/{batch * new} off; largest trail on {trail_on:.4e}, off "
+            f"{trail_off:.4e}; bf16 noise {noise:.4e}; limit {limit:.4e} = 2 x max(2 x "
+            f"noise, off)  [{card}]")
+        if not trail_on <= limit:
+            raise AssertionError(f"spec {label}: an emitted token trails the reference's "
+                                 f"top logit by {trail_on:.4e}, over the limit {limit:.4e}")
+        r.update(trail_on=trail_on, trail_off=trail_off, limit=limit, noise=noise)
+    b8 = res["b8"]["on"]
+    log(f"teacher-forced references: {ref_s:.1f} s")
+    log(f"verify step (batch 8, G {SPEC_DRAFT + 1}, store warm): "
+        f"{b8['profile_step_ms']:.2f} ms wall, {b8['profile_device_ms']:.2f} ms device "
+        f"(busy {b8['profile_device_busy']:.1%}), {b8['profile_launches_per_step']:.0f} "
+        f"kernel launches; decode attention {b8['profile_attention_ms']:.2f} ms = "
+        f"{b8['profile_attention_share']:.1%} of device time  [{card}]")
+    return res
+
+
+def kernel_modules() -> list:
+    """Every module of ``tony_tpu_torch.ops`` that holds a kernel wrapper
+    (the package exports a function named decode_attention, so the modules
+    are imported by name)."""
     import importlib
 
-    # (the package exports a function named decode_attention, so the
-    # modules are imported by name)
-    mods = [importlib.import_module(f"tony_tpu_torch.ops.{m}") for m in
+    return [importlib.import_module(f"tony_tpu_torch.ops.{m}") for m in
             ("attention", "decode_attention", "fused_ce", "grouped_mm", "quant_mm")]
-    return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch counter, by name."""
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    for mod in kernel_modules():
+        mod.reset_launches()
 
 
 def has_kernel(key: str, kernel: str) -> bool:
@@ -723,66 +1045,80 @@ def has_kernel(key: str, kernel: str) -> bool:
     return re.search(rf"\b{kernel}\b", key) is not None
 
 
+# traced windows a profile may take: CUPTI drops an event now and then (2
+# of 1800 quant_mm events once), and a window short of any is traced again
+# rather than read
+PROFILE_ATTEMPTS = 3
+
+
 def profile_window(run, steps: int) -> dict:
     """``run()`` once under torch.profiler as its warm-up step (traced and
     discarded: the events right after the profiler starts can be lost),
     then ``steps`` times as the one active step. Returns the active
     window's kernel events (device side; profiler ranges excluded), host
-    events, and each launch counter's delta over the window, and raises
-    when the trace holds fewer events of a kernel than the counters say
-    were launched in the window (``KERNEL_EVENTS``)."""
+    events, and each launch counter's delta over the window. A window
+    whose trace holds fewer events of a kernel than the counters say were
+    launched in it (``KERNEL_EVENTS``) is traced again, ``run()`` 1 +
+    ``steps`` more times; after ``PROFILE_ATTEMPTS`` such windows it
+    raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    ready = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
-        run()
-        torch.cuda.synchronize()
-        prof.step()
-        before = launch_counts()
-        for _ in range(steps):
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        ready = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
             run()
-        torch.cuda.synchronize()
-        after = launch_counts()
-        prof.step()
-    if not ready:
-        raise AssertionError("torch.profiler delivered no trace")
-    avg = ready[0]
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    dev = [e for e in avg if e.device_type == cuda
-           and not getattr(e, "is_user_annotation", False)
-           and not e.key.startswith("ProfilerStep") and e.key not in CE_RANGES]
-    host = [e for e in avg if e.device_type == cpu]
-    delta = {k: after[k] - before[k] for k in after}
-    want: dict[str, int] = {}
-    for counter, names in KERNEL_EVENTS.items():
-        for name in names:
-            want[name] = want.get(name, 0) + delta.get(counter, 0)
-    got = {name: sum(e.count for e in dev if has_kernel(e.key, name)) for name in want}
-    counted = {name: (got[name], n) for name, n in want.items() if n}
-    log(f"  profile events / launches in the window: "
-        + ", ".join(f"{k} {a}/{b}" for k, (a, b) in counted.items()))
-    short = {k: v for k, v in counted.items() if v[0] < v[1]}
-    if short:
-        raise AssertionError(f"profiler events short of the launch counters "
-                             f"(events, launches): {short}")
-    return {"dev": dev, "host": host, "launches": delta}
+            torch.cuda.synchronize()
+            prof.step()
+            before = launch_counts()
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+            after = launch_counts()
+            prof.step()
+        if not ready:
+            raise AssertionError("torch.profiler delivered no trace")
+        avg = ready[0]
+        cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        dev = [e for e in avg if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("ProfilerStep") and e.key not in CE_RANGES]
+        host = [e for e in avg if e.device_type == cpu]
+        delta = {k: after[k] - before[k] for k in after}
+        want: dict[str, int] = {}
+        for counter, names in KERNEL_EVENTS.items():
+            for name in names:
+                want[name] = want.get(name, 0) + delta.get(counter, 0)
+        got = {name: sum(e.count for e in dev if has_kernel(e.key, name)) for name in want}
+        counted = {name: (got[name], n) for name, n in want.items() if n}
+        log(f"  profile events / launches in window {attempt}: "
+            + ", ".join(f"{k} {a}/{b}" for k, (a, b) in counted.items()))
+        short = {k: v for k, v in counted.items() if v[0] < v[1]}
+        if not short:
+            return {"dev": dev, "host": host, "launches": delta}
+    raise AssertionError(f"profiler events short of the launch counters in "
+                         f"{PROFILE_ATTEMPTS} windows (events, launches): {short}")
 
 
 def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
-                     steps: int = 8) -> dict:
+                     steps: int = 8, requests=None) -> dict:
     """Where a full decode step's time goes, at 8 live slots of ~512
-    positions: ``steps`` steps timed on the host clock, then ``steps`` more
-    under torch.profiler (after one warm-up step) for the device time by
-    kernel. The busy share is device time per step over the unprofiled
-    step's wall time; each entry of ``kernels`` (label: the kernel's name)
-    gets its device ms per step and its share of device time."""
+    positions (or over ``requests``, which must outlast every window
+    ``profile_window`` may trace): ``steps`` steps timed on the host
+    clock, then ``steps`` more under torch.profiler (after one warm-up
+    step) for the device time by kernel. The busy share is device time per
+    step over the unprofiled step's wall time; each entry of ``kernels``
+    (label: the kernel's name) gets its device ms per step and its share of
+    device time."""
     from tony_tpu_torch.serve import Request
 
-    for _ in range(engine.serve.slots):
-        engine.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 512),
-                              max_new_tokens=2 * steps + 4))
+    if requests is None:
+        requests = [Request(prompt=rng.integers(0, cfg.vocab_size, 512),
+                            max_new_tokens=(PROFILE_ATTEMPTS + 1) * (steps + 1) + 4)
+                    for _ in range(engine.serve.slots)]
+    for r in requests:
+        engine.submit(r)
     engine.step()                                 # admit all, first decode step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1211,6 +1547,132 @@ def ce_cases(dtype: torch.dtype, flush: torch.Tensor, shape=CE_SHAPE,
     return cases
 
 
+# --- phase 3f: contiguous-cache decode attention (kernel 7) ---------------------
+
+# bench.py's decode-kernel section: bench_1b4 with n_kv_heads 4 (H 16, Hkv 4,
+# hd 128), 8 rows of a full 1024-position cache, block 128, as many layers
+# as bench_1b4 has; then Llama-3-8B's shape (H 32, Hkv 8, hd 128, T 2048)
+BENCH_KERN = dict(B=8, H=16, Hkv=4, hd=128, T=1024, block=128, layers=24)
+LLAMA_LENGTHS = (2048, 5, 64, 1000, 1537, 700, 133, 1999)
+
+
+def contiguous_case(label: str, B: int, H: int, Hkv: int, hd: int, T: int, G: int,
+                    lengths_np: np.ndarray, dtype: torch.dtype, flush: torch.Tensor,
+                    block: int = 128) -> dict:
+    """Kernel 7 against its plain version on the same inputs (held to
+    ``TOLERANCE``), beside the repeat-expanded ``reference_decode_attention``
+    and SDPA over the repeat-expanded cache (both timed and compared only;
+    the port calls neither), with its bound."""
+    from tony_tpu_torch.ops.decode_attention import (
+        _chunk, decode_attention, decode_attention_plain, reference_decode_attention,
+    )
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(700 + G + T + H)
+    q = torch.randn((B, G, H, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, T, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, T, hd), generator=gen, device=dev).to(dtype)
+    lengths = torch.as_tensor(lengths_np, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    run = lambda: decode_attention(q, k, v, lengths, block=block)  # noqa: E731
+    out = run()
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), lengths, scale=scale)
+    err = (out.float() - ref).abs()
+    atol, rtol = TOLERANCE[dtype]
+    if not torch.isfinite(out).all() or bool((err > atol + rtol * ref.abs()).any()):
+        raise AssertionError(f"decode_attention {label} G={G} {dtype}: max |err| "
+                             f"{err.max().item():.3e} over atol={atol} rtol={rtol}")
+    oracle = lambda: reference_decode_attention(q, k, v, lengths)  # noqa: E731
+    oracle_err = (oracle().float() - ref).abs().max().item()
+    rep = H // Hkv
+    ke, ve = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    qs = q.permute(0, 2, 1, 3).contiguous()                  # [B, H, G, hd]
+    lim = lengths.long()[:, None] - (G - 1) + torch.arange(G, device=dev)
+    mask = (torch.arange(T, device=dev)[None, None, :] < lim[:, :, None])[:, None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qs, ke, ve, attn_mask=mask)
+    lib_err = (sdpa().permute(0, 2, 1, 3).float() - ref).abs().max().item()
+    ms = time_ms(run, flush)
+    plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, lengths, scale=scale),
+                       flush)
+    oracle_ms = time_ms(oracle, flush)
+    library_ms = time_ms(sdpa, flush)
+    itemsize = q.element_size()
+    # K/V up to each row's length, q, out and the lengths, each once
+    kv_bytes = 2 * int(lengths_np.sum()) * Hkv * hd * itemsize
+    io_bytes = 2 * q.numel() * itemsize + B * 4
+    attended = sum(int(n) - (G - 1) + g for n in lengths_np for g in range(G))
+    ops = 4 * attended * H * hd
+    bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {
+        "label": label, "G": G, "dtype": str(dtype).replace("torch.", ""), "T": T,
+        "block": min(block, T), "chunk": _chunk(min(block, T), hd, itemsize),
+        "max_abs_err": err.max().item(), "oracle_max_abs_err": oracle_err,
+        "sdpa_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+        "oracle_ms": oracle_ms, "library_ms": library_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": kv_bytes + io_bytes,
+    }
+
+
+def contiguous_bench_loop(flush: torch.Tensor) -> dict:
+    """bench.py's layer-scanned decode-kernel loop (:1046-1057) at its
+    case in bf16: ``layers`` calls, each output the next call's query.
+    The launch counters are zeroed just before one pass and read just
+    after it (the path's launches); then the pass is timed, and the same
+    loop through the plain version and through the repeat-expanded
+    reference beside it."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, decode_attention, decode_attention_plain, reference_decode_attention,
+        reset_launches,
+    )
+
+    c = BENCH_KERN
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((c["B"], c["H"], c["hd"]), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((c["B"], c["Hkv"], c["T"], c["hd"]), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.full((c["B"],), c["T"], dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(c["hd"])
+
+    def loop(fn):
+        def run():
+            o = q
+            for _ in range(c["layers"]):
+                o = fn(o)
+            return o
+        return run
+
+    kernel = loop(lambda a: decode_attention(a, k, v, lengths, block=c["block"]))
+    plain = loop(lambda a: decode_attention_plain(a[:, None], k, v, lengths,
+                                                  scale=scale)[:, 0])
+    oracle = loop(lambda a: reference_decode_attention(a, k, v, lengths))
+    reset_launches()
+    out = kernel()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["decode_attention"] != c["layers"] or launches["decode_attention_plain"]:
+        raise AssertionError(f"bench loop launches {launches}, want {c['layers']} "
+                             "kernel launches and no plain one")
+    # each call rounds its output to bf16 and feeds it on, so the two loops
+    # are held to one call's tolerance: the outputs, means of ~1e3 values
+    # of v, are small, and a q that moved by an ulp moves the scores less
+    want = plain().float()
+    diff = (out.float() - want).abs()
+    err = diff.max().item()
+    atol, rtol = TOLERANCE[torch.bfloat16]
+    if not torch.isfinite(out).all() or bool((diff > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"bench loop output differs from the plain loop's by {err}")
+    return {"launches": launches["decode_attention"], "max_abs_err": err,
+            "ms": time_ms(kernel, flush, reps=10), "plain_ms": time_ms(plain, flush, reps=10),
+            "oracle_ms": time_ms(oracle, flush, reps=10)}
+
+
 # --- phase 5: training at full width --------------------------------------------
 
 TRAIN_STEPS = 10
@@ -1515,17 +1977,19 @@ def main() -> int:
 
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
     cases = []
-    # the serving shapes (blk 64, hd 128: each block staged whole), then two
-    # whose K+V per block exceed the 64 KB staging budget, so the kernel
-    # stages each block in chunks
-    shapes = [(torch.bfloat16, 1, 64, 128), (torch.bfloat16, 5, 64, 128),
-              (torch.float32, 1, 64, 128), (torch.float32, 5, 64, 128),
-              (torch.float32, 1, 128, 128), (torch.float32, 5, 128, 256)]
-    for dtype, G, blk, hd in shapes:
-        c = decode_case(G, dtype, flush, blk=blk, hd=hd)
+    # the serving shapes (blk 64, hd 128: each block staged whole), the
+    # verify step's (G 16, rows running past their written positions and
+    # past the table), then two whose K+V per block exceed the 64 KB staging
+    # budget, so the kernel stages each block in chunks
+    shapes = [(torch.bfloat16, 1, 64, 128, ()), (torch.bfloat16, 5, 64, 128, ()),
+              (torch.bfloat16, SPEC_DRAFT + 1, 64, 128, VERIFY_PAST),
+              (torch.float32, 1, 64, 128, ()), (torch.float32, 5, 64, 128, ()),
+              (torch.float32, 1, 128, 128, ()), (torch.float32, 5, 128, 256, ())]
+    for dtype, G, blk, hd, past in shapes:
+        c = decode_case(G, dtype, flush, blk=blk, hd=hd, past=past)
         cases.append(c)
         log(f"kernel paged_decode_attention G={G} {c['dtype']} blk={blk} hd={hd} "
-            f"chunk={c['chunk']}: max|err| {c['max_abs_err']:.3e}  "
+            f"chunk={c['chunk']}{f' past={past}' if past else ''}: max|err| {c['max_abs_err']:.3e}  "
             f"{c['ms'] * 1e3:.1f} us  (bound {c['bound_ms'] * 1e3:.1f} us by "
             f"{c['bound_by']}, {c['bytes'] / 1e6:.2f} MB)  plain "
             f"{c['plain_ms'] * 1e3:.1f} us  sdpa {c['library_ms'] * 1e3:.1f} us "
@@ -1577,14 +2041,16 @@ def main() -> int:
     # float32 queries (its dequantized K+V exceed the staging budget: two
     # chunks per block), then the NaN-scale rows
     qcases = []
-    for kv, G, dtype, blk in (("int8", 1, torch.bfloat16, 64), ("int8", 5, torch.bfloat16, 64),
-                              ("fp8_e4m3", 1, torch.bfloat16, 64),
-                              ("fp8_e4m3", 5, torch.bfloat16, 64),
-                              ("int8", 1, torch.float32, 64), ("int8", 1, torch.float32, 128)):
-        c = quant_decode_case(kv, G, dtype, flush, blk=blk)
+    G16, vp = SPEC_DRAFT + 1, QUANT_VERIFY_PAST
+    for kv, G, dtype, blk, past in (
+            ("int8", 1, torch.bfloat16, 64, ()), ("int8", 5, torch.bfloat16, 64, ()),
+            ("int8", G16, torch.bfloat16, 64, vp), ("fp8_e4m3", 1, torch.bfloat16, 64, ()),
+            ("fp8_e4m3", 5, torch.bfloat16, 64, ()), ("fp8_e4m3", G16, torch.bfloat16, 64, vp),
+            ("int8", 1, torch.float32, 64, ()), ("int8", 1, torch.float32, 128, ())):
+        c = quant_decode_case(kv, G, dtype, flush, blk=blk, past=past)
         qcases.append(c)
         log(f"kernel paged_decode_attention_quant {kv} G={G} {c['dtype']} blk={blk} "
-            f"hd={c['hd']} chunk={c['chunk']}: max|err| {c['max_abs_err']:.3e} "
+            f"hd={c['hd']} chunk={c['chunk']}{f' past={past}' if past else ''}: max|err| {c['max_abs_err']:.3e} "
             f"(atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms'] * 1e3:.1f} us  "
             f"(bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']}, "
             f"{c['bytes'] / 1e6:.2f} MB)  plain {c['plain_ms'] * 1e3:.1f} us  sdpa on "
@@ -1644,6 +2110,31 @@ def main() -> int:
     if bad:
         raise AssertionError(f"CE kernels over tolerance or masks: "
                              f"{[(c['name'], c['dtype'], c['N'], c['poison']) for c in bad]}")
+    # 3f: kernel 7 at the reference bench's case (bf16 and fp32), its
+    # layer-scanned loop, then Llama-3-8B's shape at G 1 (full rows) and
+    # G 5 (ragged rows)
+    bk = BENCH_KERN
+    full = np.full(bk["B"], bk["T"], np.int32)
+    contig = [contiguous_case("bench_1b4_kv4", bk["B"], bk["H"], bk["Hkv"], bk["hd"],
+                              bk["T"], 1, full, dtype, flush, bk["block"])
+              for dtype in (torch.bfloat16, torch.float32)]
+    contig += [contiguous_case("llama3_8b", 8, 32, 8, 128, 2048, G, lens,
+                               torch.bfloat16, flush)
+               for G, lens in ((1, np.full(8, 2048, np.int32)),
+                               (5, np.array(LLAMA_LENGTHS, np.int32)))]
+    for c in contig:
+        log(f"kernel decode_attention {c['label']} G={c['G']} {c['dtype']} T={c['T']} "
+            f"block={c['block']} chunk={c['chunk']}: max|err| {c['max_abs_err']:.3e}  "
+            f"{c['ms'] * 1e3:.1f} us  (bound {c['bound_ms'] * 1e3:.1f} us by "
+            f"{c['bound_by']}, {c['bytes'] / 1e6:.2f} MB)  plain {c['plain_ms'] * 1e3:.1f} "
+            f"us  reference_decode_attention {c['oracle_ms'] * 1e3:.1f} us (max|err| "
+            f"{c['oracle_max_abs_err']:.3e})  sdpa {c['library_ms'] * 1e3:.1f} us "
+            f"(max|err| {c['sdpa_max_abs_err']:.3e})  [{card}]")
+    loop = contiguous_bench_loop(flush)
+    log(f"decode_attention bench loop ({bk['layers']} layers, each output the next "
+        f"query, bf16): {loop['launches']} launches; {loop['ms']:.3f} ms  plain "
+        f"{loop['plain_ms']:.3f} ms  reference_decode_attention {loop['oracle_ms']:.3f} "
+        f"ms; max|err| against the plain loop {loop['max_abs_err']:.3e}  [{card}]")
     del flush
     torch.cuda.empty_cache()
     sync = moe_sync_check()
@@ -1688,6 +2179,7 @@ def main() -> int:
         f"{qs['profile_attention_ms']:.2f} ms = {qs['profile_attention_share']:.1%}, "
         f"quant_mm {qs['profile_quant_mm_ms']:.2f} ms = "
         f"{qs['profile_quant_mm_share']:.1%} of device time  [{card}]")
+    spec_serve_phase(cfg, params, card)
     del params
     torch.cuda.empty_cache()
     quant_crosscheck(card)
@@ -1758,7 +2250,15 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
+    c7 = contig[0]                                  # the bench case, bf16
     kernels = [{
+        "name": "decode_attention", "route": "cuda",
+        "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "tony_tpu/ops/decode_attention.py:214",
+        "launches": loop["launches"], "max_abs_err": c7["max_abs_err"],
+        "ms": c7["ms"], "plain_ms": c7["plain_ms"], "bound_ms": c7["bound_ms"],
+        "bound_by": c7["bound_by"], "library_ms": c7["library_ms"],
+    }, {
         "name": "paged_decode_attention", "route": "cuda",
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:346",

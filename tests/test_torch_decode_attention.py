@@ -1,7 +1,8 @@
-"""The port's paged decode attention (tony_tpu_torch.ops.decode_attention)
-against the JAX package's: the plain version the port runs for CPU tensors
-must match the reference's Pallas kernel (interpret mode on the CPU) and
-its repeat-expanded oracle, on the same numpy inputs.
+"""The port's decode attention (tony_tpu_torch.ops.decode_attention),
+paged and contiguous, against the JAX package's: the plain versions the
+port runs for CPU tensors must match the reference's Pallas kernels
+(interpret mode on the CPU), its scan form and its repeat-expanded oracle,
+on the same numpy inputs.
 
 Tolerance: atol=2e-6, rtol=1e-5, the one the reference holds its own decode
 kernels to (tests/test_serve.py): float32 everywhere, only the order of the
@@ -19,7 +20,7 @@ from tony_tpu.ops.decode_attention import (
     reference_decode_attention as jax_reference,
 )
 from tony_tpu_torch.ops.decode_attention import (
-    LAUNCHES, decode_attention, paged_decode_attention_plain,
+    LAUNCHES, decode_attention, decode_attention_plain, paged_decode_attention_plain,
     reference_decode_attention, reset_launches,
 )
 
@@ -124,7 +125,8 @@ def test_cpu_tensors_never_count_a_kernel_launch():
 
 def test_wrapper_rejects_what_it_cannot_run():
     q, k, v, lengths, tables = (torch.from_numpy(a) for a in _case(1, seed=4))
-    with pytest.raises(NotImplementedError, match="contiguous"):
+    # without tables the pools are read as contiguous [B, Hkv, T, hd] caches
+    with pytest.raises(ValueError, match="shapes"):
         decode_attention(q, k, v, lengths)
     with pytest.raises(ValueError, match="shapes"):
         decode_attention(q, k[..., :8], v, lengths, tables=tables)
@@ -132,3 +134,73 @@ def test_wrapper_rejects_what_it_cannot_run():
         decode_attention(q, k, v, lengths, tables=tables[:2])
     with pytest.raises(ValueError, match="multiple"):
         decode_attention(q[:, :, :3], k, v, lengths, tables=tables)
+
+
+# --- contiguous form ------------------------------------------------------------
+
+# ragged lengths: a length-1 row, an exact tile boundary, two ragged rows and
+# one at the cache's end (each at least G, and at most T)
+C_LENGTHS = [1, 16, 48, 13, 27]
+
+
+def _contiguous_case(G: int, rep: int, T: int, seed: int = 0):
+    rng = np.random.default_rng(seed + 10 * G + rep + T)
+    hkv = 2
+    lengths = np.array([min(max(n, G), T) for n in C_LENGTHS], np.int32)
+    lengths[2] = T
+    q = rng.standard_normal((B, G, hkv * rep, HD)).astype(np.float32)
+    k = rng.standard_normal((B, hkv, T, HD)).astype(np.float32)
+    v = rng.standard_normal((B, hkv, T, HD)).astype(np.float32)
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("rep", [1, 4])
+# T = 48 in tiles of 16 (an exact multiple), and T = 24 under the default
+# block of 128 (one tile of the whole cache)
+@pytest.mark.parametrize("T,block", [(48, 16), (24, 128)])
+def test_contiguous_plain_matches_jax_pallas_and_scan(G, rep, T, block):
+    q, k, v, lengths = _contiguous_case(G, rep, T)
+    reset_launches()
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), torch.from_numpy(lengths),
+                           block=block).numpy()
+    assert LAUNCHES["decode_attention_plain"] == 1
+    assert LAUNCHES["decode_attention"] == 0
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths))
+    for impl in ("pallas", "scan"):
+        want = jax_decode_attention(*jargs, impl=impl, block=block)
+        np.testing.assert_allclose(got, np.asarray(want), **TOL, err_msg=impl)
+    ref = jax_reference(*jargs)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    port_ref = reference_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(port_ref, np.asarray(ref), **TOL)
+
+
+def test_contiguous_one_query_form_and_garbage_past_length():
+    """The 3-D query form squeezes G; cache content past a row's length
+    never reaches the output."""
+    q, k, v, lengths = _contiguous_case(1, 4, 48, seed=5)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    four = decode_attention(t(q), t(k), t(v), t(lengths), block=16)
+    three = decode_attention(t(q[:, 0]), t(k), t(v), t(lengths), block=16)
+    np.testing.assert_array_equal(three.numpy(), four[:, 0].numpy())
+    kd, vd = k.copy(), v.copy()
+    for b, n in enumerate(lengths):
+        kd[b, :, n:], vd[b, :, n:] = 1e3, -1e3
+    dirty = decode_attention_plain(t(q), t(kd), t(vd), t(lengths), scale=HD ** -0.5)
+    np.testing.assert_allclose(dirty.numpy(), four.numpy(), atol=1e-6)
+
+
+def test_contiguous_form_keeps_the_reference_shape_rules():
+    q, k, v, lengths = (torch.from_numpy(a) for a in _contiguous_case(1, 1, 48))
+    with pytest.raises(ValueError, match="multiple of block 32"):
+        decode_attention(q, k, v, lengths, block=32)
+    with pytest.raises(ValueError, match="paged form"):
+        decode_attention(q, k, v, lengths, k_scale=torch.ones(1), v_scale=torch.ones(1))
+    with pytest.raises(ValueError, match="shapes"):
+        decode_attention(q, k[:2], v[:2], lengths)
+    with pytest.raises(ValueError, match="batch"):
+        decode_attention(q, k, v, lengths[:2])

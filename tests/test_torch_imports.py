@@ -36,7 +36,7 @@ def test_module_imports_neither_jax_nor_the_reference(path):
 
 def test_every_port_module_is_checked():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for want in ("tony_tpu_torch/serve/engine.py",
+    for want in ("tony_tpu_torch/serve/engine.py", "tony_tpu_torch/serve/spec.py",
                  "tony_tpu_torch/ops/decode_attention.py",
                  "tony_tpu_torch/ops/attention.py", "tony_tpu_torch/ops/fused_ce.py",
                  "tony_tpu_torch/obs/metrics.py", "tony_tpu_torch/train/trainer.py",

@@ -129,6 +129,93 @@ def test_engine_refuses_a_block_the_kernel_refuses_on_card(cuda, kv_block):
     assert [len(c.tokens) for c in out.values()] == [3]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_contiguous_decode_kernel_matches_plain_on_card(cuda, G, dtype):
+    """Kernel 7 (the contiguous form) against its plain version: rep 4, T
+    160 in tiles of 32 (a whole number of tiles), ragged lengths with a
+    short row, one on a tile boundary and one at the end; and T 48 under
+    the default block (one tile). Positions past each row's length hold
+    1e3, which must not reach the output. Tolerance as the paged kernel's."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, decode_attention, decode_attention_plain, reset_launches,
+    )
+
+    rng = np.random.default_rng(20 + G)
+    atol = 1e-5 if dtype == torch.float32 else 2**-7
+    for T, block in ((160, 32), (48, 128)):
+        lengths = np.array([max(n, G) for n in (1, 32, T, 77, 45)], np.int32)
+        q = rng.standard_normal((5, G, 8, 64)).astype(np.float32)
+        k, v = (rng.standard_normal((5, 2, T, 64)).astype(np.float32) for _ in range(2))
+        for b, n in enumerate(lengths):
+            k[b, :, n:], v[b, :, n:] = 1e3, -1e3
+        q, k, v = (torch.from_numpy(a).to(cuda).to(dtype) for a in (q, k, v))
+        lengths = torch.from_numpy(lengths).to(cuda)
+        reset_launches()
+        out = decode_attention(q, k, v, lengths, block=block)
+        torch.cuda.synchronize()
+        assert LAUNCHES["decode_attention"] == 1 and LAUNCHES["decode_attention_plain"] == 0
+        ref = decode_attention_plain(q.float(), k.float(), v.float(), lengths,
+                                     scale=1.0 / math.sqrt(64))
+        torch.testing.assert_close(out.float(), ref, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_engine_refuses_a_draft_width_the_kernel_refuses_on_card(cuda):
+    """With spec on, the engine checks the decode kernel's shape rule at the
+    verify step's G = spec_max_draft + 1 at construction: a width whose
+    query rows overflow the kernel's shared memory raises there, before a
+    request is admitted (tiny config: 2 rows per kv head, hd 16)."""
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.serve import Engine, ServeConfig
+
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        Engine(params, cfg, ServeConfig(slots=2, max_len=64, kv_block=16, spec=True,
+                                        spec_max_draft=600), device=cuda)
+    Engine(params, cfg, ServeConfig(slots=2, max_len=64, kv_block=16, spec=True,
+                                    spec_max_draft=15), device=cuda)
+
+
+@pytest.mark.cuda
+def test_spec_engine_tokens_equal_spec_off_on_card(cuda):
+    """The speculative engine on the card (the paged kernel at G = 5):
+    greedy and sampled requests, two rounds so the second drafts along the
+    first's generated blocks, emit the same tokens with spec on as off, in
+    float32 (bf16 would let the verify step's wider matmuls round a logit
+    differently from the one-token step's)."""
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.ops.decode_attention import LAUNCHES, reset_launches
+    from tony_tpu_torch.serve import Engine, Request, ServeConfig
+
+    cfg = LlamaConfig.tiny()                          # float32
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device=cuda)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 20, 33)]
+    kwargs = [dict(), dict(temperature=0.9, top_k=20), dict()]
+
+    def run(**sv):
+        eng = Engine(params, cfg, ServeConfig(slots=2, max_len=64, kv_block=16, **sv),
+                     device=cuda)
+        out = []
+        for _ in range(2):
+            ids = [eng.submit(Request(prompt=p, max_new_tokens=30, rng=3 + i, **kw))
+                   for i, (p, kw) in enumerate(zip(prompts, kwargs))]
+            res = eng.run()
+            out.append([res[i].tokens for i in ids])
+        return out, eng.metrics
+
+    off, _ = run()
+    reset_launches()
+    on, m = run(spec=True, spec_max_draft=4)
+    assert on == off
+    assert m.draft_accepted > 0
+    assert LAUNCHES["paged_decode_attention"] == m.decode_steps * cfg.n_layers
+    assert LAUNCHES["paged_decode_attention_plain"] == 0
+
+
 # --- flash attention ---------------------------------------------------------------
 
 # bf16: outputs are rounded to bf16 (2^-8 relative) and the forward rounds p
@@ -374,6 +461,50 @@ def test_quant_decode_kernel_matches_plain_on_card(cuda, kv):
                 q.to(dtype), kq, vq, lengths, tables, scale=1.0 / math.sqrt(HD),
                 k_scale=ks, v_scale=vs)
             torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["", "int8", "fp8_e4m3"], ids=["bf16", "int8", "fp8"])
+def test_decode_kernel_verify_rows_on_card(cuda, kv):
+    """A verify step's rows at G 16 (kernel 9 over quantized pools): each
+    row's length runs up to G - 1 positions past its last written one, the
+    padding of a draft shorter than G - 1. Those positions' table entries
+    name scratch block 0, which holds values of its own, and row 2, written
+    to the table's end, runs 15 positions past its M blocks. Every row's
+    first query sees at least one position, as in the engine. Against the
+    plain version on the same inputs, bf16 queries, the G 1/3 tolerance."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, decode_attention, paged_decode_attention_plain, reset_launches,
+    )
+
+    G = 16
+    rng = np.random.default_rng(16)
+    written = np.array([1, 16, M * BLK, 13, 45], np.int32)
+    lengths = written + np.array([15, 9, 15, 3, 0], np.int32)
+    need = [math.ceil(n / BLK) for n in written]
+    P = 1 + sum(need)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((B, M), np.int32)
+    at = 0
+    for b in range(B):
+        tables[b, :need[b]] = ids[at:at + need[b]]
+        at += need[b]
+    q = rng.standard_normal((B, G, H, HD)).astype(np.float32)
+    k, v = (rng.standard_normal((P, HKV, BLK, HD)).astype(np.float32) for _ in range(2))
+    q, k, v, lengths, tables = (torch.from_numpy(a).to(cuda)
+                                for a in (q, k, v, lengths, tables))
+    q = q.to(torch.bfloat16)
+    if kv:
+        (k, ks), (v, vs) = _quantize_pool(k, kv), _quantize_pool(v, kv)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    reset_launches()
+    out = decode_attention(q, k, v, lengths, tables=tables, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_attention_quant" if kv else "paged_decode_attention"] == 1
+    ref = paged_decode_attention_plain(q, k, v, lengths, tables, scale=1.0 / math.sqrt(HD),
+                                       k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2**-7, rtol=2**-7)
 
 
 @pytest.mark.cuda

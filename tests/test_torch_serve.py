@@ -8,6 +8,9 @@ package's, on the tiny float32 config with the reference's weights:
   request samples the same alone and in a busy engine;
 - knobs that are not ported raise; the default device is CUDA."""
 
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -135,7 +138,9 @@ def test_freed_slots_return_blocks_and_table_shrinks(setup):
     assert int(eng.cache.lengths.sum()) == 0
 
 
-@pytest.mark.parametrize("knob", [dict(spec=True), dict(chunk_tokens=8)])
+# chunked prefill is refused alone and beside speculative decoding (which
+# serves: tests/test_torch_spec.py)
+@pytest.mark.parametrize("knob", [dict(chunk_tokens=8), dict(spec=True, chunk_tokens=8)])
 def test_unported_knobs_raise(setup, knob):
     _, _, cfg, params = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -151,6 +156,34 @@ def test_pool_handoff_raises(setup):
         eng.adopt_blocks(list(range(8)), None)
     with pytest.raises(TypeError):
         ServeConfig(decode_impl="pallas")
+
+
+def test_roadmap_items_the_port_cites_name_their_headings(setup):
+    """The port's refusals point at ROADMAP.md's queue 1 by item number:
+    each number a refusal cites is the queue-1 heading of what it refuses,
+    and every ``queue 1, item N`` in the package's source is a heading."""
+    _, _, cfg, params = setup
+    root = Path(__file__).resolve().parent.parent
+    text = (root / "ROADMAP.md").read_text()
+    queue1 = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    headings = {int(n): h.lower()
+                for n, h in re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue1, re.M)}
+    eng = Engine(params, cfg, ServeConfig(**SERVE), device="cpu")
+    refusals = [
+        ("chunked prefill",
+         lambda: Engine(params, cfg, ServeConfig(**SERVE, chunk_tokens=8), device="cpu")),
+        ("handoff", lambda: eng.export_prefix_blocks(list(range(8)))),
+        ("handoff", lambda: eng.adopt_blocks(list(range(8)), None)),
+    ]
+    for topic, call in refusals:
+        with pytest.raises(NotImplementedError) as err:
+            call()
+        item = int(re.search(r"queue 1, item (\d+)", str(err.value)).group(1))
+        assert topic in headings[item], (str(err.value), headings.get(item))
+    cited = [(path.name, int(n)) for path in (root / "tony_tpu_torch").rglob("*.py")
+             for n in re.findall(r"queue 1,?\s+item (\d+)", path.read_text())]
+    assert len(cited) >= 5
+    assert all(n in headings for _, n in cited), (cited, sorted(headings))
 
 
 def test_default_device_is_cuda_and_raises_without_it(setup, monkeypatch):

@@ -1,5 +1,6 @@
-// Paged GQA decode attention for Hopper (sm_90a): one decode step of
-// attention for every row of a batch, reading K/V through a block table.
+// GQA decode attention for Hopper (sm_90a): one decode step of attention
+// for every row of a batch, reading K/V through a block table (kernels 8
+// and 9 of PERF.md's table) or from a contiguous cache (kernel 7).
 //
 // Replaces tony_tpu/ops/decode_attention.py::_paged_kernel (its tile body
 // is _paged_body): the TPU kernel that the serving engine's decode step
@@ -62,6 +63,31 @@
 // is read, so a NaN scale reaches exactly the rows whose tables name its
 // block.
 
+// Contiguous caches (the same CTA body, templated on how a block's address
+// is found). Replaces tony_tpu/ops/decode_attention.py::_decode_kernel
+// (reached through _decode_pallas): decode attention over a contiguous
+// head-major cache
+//   k, v   [B, Hkv, T, hd]         T = M * blk (blk = min(block, T))
+// with no table: logical block j of row b, kv head x starts at position
+// (b * Hkv + x) * T + j * blk. The grid, the folding of the G * rep query
+// rows, the G mask and the numerics are kernel 8's. Bound: the K/V bytes
+// up to each row's length plus q and out, over HBM's 3.35 TB/s (bytes:
+// 4 * R * hd flops per position against 2 * hd * sizeof(T) bytes). The
+// reference bench's case (8 rows of 1024 positions, 4 kv heads, hd 128,
+// bf16) moves 16.8 MB: 5.0 us; chip_smoke.py prints the measured time
+// beside it.
+//
+// Both forms read no K/V position at or past a row's length: a CTA walks
+// blocks j < min(ceil(len / blk), M) and stages only the chunk's positions
+// below the length, so neither the tail of a row's last block nor anything
+// past the table's M blocks is read. The rest of the chunk's shared memory
+// keeps stale values; their scores are replaced by the length mask and
+// P.V stops at the staged positions, so none reaches the output. (A branch
+// that set those scores masked instead spilled registers and ran slower on
+// the card; PERF.md section 6 has the times.) A speculative verify step's padding
+// rows ask for up to G - 1 positions past their written length; with the
+// clamp to M they see at most the table's width, as the plain version does.
+
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -116,18 +142,20 @@ __device__ __forceinline__ void dequant16(const int4 raw, float sc, T* __restric
   for (int u = 0; u < (int)(16 * sizeof(T) / 16); ++u) d[u] = src[u];
 }
 
-// T: the query's (and output's, and staged K/V's) dtype; P: the pools'
-// payload, T itself for unquantized pools (k_scale/v_scale unused, null).
-template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k,
-                    const P* __restrict__ v, const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ lengths,
-                    const int* __restrict__ tables, T* __restrict__ out,
-                    int G, int H, int Hkv, int hd, int blk, int M, int chunk,
-                    float scale) {
+// The CTA body of both forms. T: the query's (and output's, and staged
+// K/V's) dtype; P: the cache's payload, T itself for unquantized caches
+// (k_scale/v_scale unused, null). kPaged: block j of row b is physical
+// block tables[b, j] of the pools; otherwise it is block j of row b's
+// contiguous cache (tables unused, null; M = T / blk).
+template <typename T, typename P, bool kPaged>
+__device__ __forceinline__ void decode_cta(
+    const T* __restrict__ q, const P* __restrict__ k, const P* __restrict__ v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ lengths, const int* __restrict__ tables,
+    T* __restrict__ out, int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+    float scale) {
   constexpr bool kQuant = !std::is_same<T, P>::value;
+  static_assert(kPaged || !kQuant, "quantized caches are paged");
   const int b = blockIdx.x / Hkv;
   const int x = blockIdx.x % Hkv;
   const int rep = H / Hkv;
@@ -159,33 +187,41 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k,
     l_s[r] = 0.f;
   }
 
-  const int n_blocks = (len + blk - 1) / blk;
-  const int chunk_vec = chunk * hd * (int)sizeof(P) / 16;
+  const int n_blocks = min((len + blk - 1) / blk, M);
   for (int j = 0; j < n_blocks; ++j) {
-    const int pid = tables[(size_t)b * M + j];
-    const size_t block_off = ((size_t)pid * Hkv + x) * blk * hd;
+    size_t block_off;
     // the block's two scales ride with its table entry
     float ksc = 1.f, vsc = 1.f;
-    if constexpr (kQuant) {
-      ksc = k_scale[(size_t)pid * Hkv + x];
-      vsc = v_scale[(size_t)pid * Hkv + x];
+    if constexpr (kPaged) {
+      const int pid = tables[(size_t)b * M + j];
+      block_off = ((size_t)pid * Hkv + x) * blk * hd;
+      if constexpr (kQuant) {
+        ksc = k_scale[(size_t)pid * Hkv + x];
+        vsc = v_scale[(size_t)pid * Hkv + x];
+      }
+    } else {
+      block_off = (((size_t)b * Hkv + x) * M + j) * blk * hd;
     }
     for (int c0 = 0; c0 < blk; c0 += chunk) {
       const int base = j * blk + c0;  // logical position of the chunk's first entry
       if (base >= len) break;         // uniform across the CTA
+      // positions of the chunk below the length: the only ones loaded (the
+      // mask below covers the rest, whose shared memory is stale)
+      const int n_valid = min(chunk, len - base);
+      const int n_vec = n_valid * hd * (int)sizeof(P) / 16;
       __syncthreads();                // the previous chunk's readers are done
       const int4* ksrc = reinterpret_cast<const int4*>(k + block_off + (size_t)c0 * hd);
       const int4* vsrc = reinterpret_cast<const int4*>(v + block_off + (size_t)c0 * hd);
       if constexpr (kQuant) {
         // dequantize in registers while staging: 16 payload bytes -> 16 T
-        for (int i = tid; i < chunk_vec; i += kThreads) {
+        for (int i = tid; i < n_vec; i += kThreads) {
           dequant16<T, P>(ksrc[i], ksc, k_s + i * 16);
           dequant16<T, P>(vsrc[i], vsc, v_s + i * 16);
         }
       } else {
         int4* kdst = reinterpret_cast<int4*>(k_s);
         int4* vdst = reinterpret_cast<int4*>(v_s);
-        for (int i = tid; i < chunk_vec; i += kThreads) {
+        for (int i = tid; i < n_vec; i += kThreads) {
           kdst[i] = ksrc[i];
           vdst[i] = vsrc[i];
         }
@@ -258,22 +294,21 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k,
       }
       __syncthreads();
 
-      // acc = acc * corr + P.V over the written positions only: entries
-      // past the length may hold anything and must not reach the sum
-      const int t_end = min(chunk, len - base);
+      // acc = acc * corr + P.V over the staged positions only: the rest of
+      // the chunk was never loaded and must not reach the sum
       for (int e = tid; e < R * hd; e += kThreads) {
         const int r = e / hd, d = e % hd;
         const float* pr = s_s + r * chunk;
         // four independent partial sums: the FMAs do not wait on each other
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
         int t = 0;
-        for (; t + 4 <= t_end; t += 4) {
+        for (; t + 4 <= n_valid; t += 4) {
           a0 += pr[t] * to_f(v_s[t * hd + d]);
           a1 += pr[t + 1] * to_f(v_s[(t + 1) * hd + d]);
           a2 += pr[t + 2] * to_f(v_s[(t + 2) * hd + d]);
           a3 += pr[t + 3] * to_f(v_s[(t + 3) * hd + d]);
         }
-        for (; t < t_end; ++t) a0 += pr[t] * to_f(v_s[t * hd + d]);
+        for (; t < n_valid; ++t) a0 += pr[t] * to_f(v_s[t * hd + d]);
         acc[e] = acc[e] * c_s[r] + ((a0 + a1) + (a2 + a3));
       }
     }
@@ -287,24 +322,66 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k,
   }
 }
 
+// Kernels 8 and 9: paged pools (P = T unquantized).
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k,
+                    const P* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ lengths,
+                    const int* __restrict__ tables, T* __restrict__ out,
+                    int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+                    float scale) {
+  decode_cta<T, P, true>(q, k, v, k_scale, v_scale, lengths, tables, out, G, H,
+                         Hkv, hd, blk, M, chunk, scale);
+}
+
+// Kernel 7: a contiguous cache of M blocks of blk positions per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ lengths,
+              T* __restrict__ out, int G, int H, int Hkv, int hd, int blk, int M,
+              int chunk, float scale) {
+  decode_cta<T, T, false>(q, k, v, nullptr, nullptr, lengths, nullptr, out, G, H,
+                          Hkv, hd, blk, M, chunk, scale);
+}
+
+// One CTA per (row, kv head). Past the default 48 KB of shared memory the
+// kernel must opt in; the attribute is per device, so it is set on every
+// such launch rather than cached.
+template <typename Kernel, typename... Args>
+int launch_cta(Kernel kernel, int B, int Hkv, int smem_bytes, cudaStream_t stream,
+               Args... args) {
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B * Hkv, kThreads, smem_bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename P>
 int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* lengths, const int* tables,
            void* out, int B, int G, int H, int Hkv, int hd, int blk, int M,
            int chunk, float scale, int smem_bytes, cudaStream_t stream) {
-  // past the default 48 KB the kernel must opt in; the attribute is per
-  // device, so it is set on every such launch rather than cached
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  paged_decode_kernel<T, P><<<B * Hkv, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(k),
-      static_cast<const P*>(v), k_scale, v_scale, lengths, tables,
-      static_cast<T*>(out), G, H, Hkv, hd, blk, M, chunk, scale);
-  return (int)cudaGetLastError();
+  return launch_cta(paged_decode_kernel<T, P>, B, Hkv, smem_bytes, stream,
+                    static_cast<const T*>(q), static_cast<const P*>(k),
+                    static_cast<const P*>(v), k_scale, v_scale, lengths, tables,
+                    static_cast<T*>(out), G, H, Hkv, hd, blk, M, chunk, scale);
+}
+
+template <typename T>
+int launch_contiguous(const void* q, const void* k, const void* v,
+                      const int* lengths, void* out, int B, int G, int H, int Hkv,
+                      int hd, int blk, int M, int chunk, float scale,
+                      int smem_bytes, cudaStream_t stream) {
+  return launch_cta(decode_kernel<T>, B, Hkv, smem_bytes, stream,
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), lengths, static_cast<T*>(out), G, H,
+                    Hkv, hd, blk, M, chunk, scale);
 }
 
 template <typename T>
@@ -358,4 +435,18 @@ extern "C" int paged_decode_attention_quant(
                                        smem_bytes, payload, s);
   return launch_quant<float>(q, k, v, ks, vs, len_p, tbl_p, out, B, G, H, Hkv,
                              hd, blk, M, chunk, scale, smem_bytes, payload, s);
+}
+
+// Contiguous caches k/v [B, Hkv, M * blk, hd] in q's dtype.
+extern "C" int decode_attention_contiguous(
+    const void* q, const void* k, const void* v, const void* lengths, void* out,
+    int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk, float scale,
+    int smem_bytes, int dtype, void* stream) {
+  const int* len_p = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_contiguous<__nv_bfloat16>(q, k, v, len_p, out, B, G, H, Hkv, hd,
+                                            blk, M, chunk, scale, smem_bytes, s);
+  return launch_contiguous<float>(q, k, v, len_p, out, B, G, H, Hkv, hd, blk, M,
+                                  chunk, scale, smem_bytes, s);
 }

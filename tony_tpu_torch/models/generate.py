@@ -158,6 +158,12 @@ def generate(params: Params, prompt, cfg: LlamaConfig, *, max_new_tokens: int = 
     return torch.from_numpy(np.stack(rows))
 
 
+def draw_uniform(gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    """The one uniform a sampling row draws from its generator per sampled
+    token (the speculative step replays draws through this too)."""
+    return torch.rand((), generator=gen, device=device)
+
+
 def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
                   top_k: torch.Tensor, top_p: torch.Tensor,
                   generators: Sequence[torch.Generator | None], *,
@@ -190,10 +196,8 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     masked = torch.full_like(scaled, float("-inf")).scatter(1, idx, vals)
     masked = torch.where(truncate[:, None], masked, scaled)
     zero = torch.zeros((), device=dev)
-    u = torch.stack([
-        torch.rand((), generator=g, device=dev) if g is not None else zero
-        for g in generators
-    ])
+    u = torch.stack([draw_uniform(g, dev) if g is not None else zero
+                     for g in generators])
     dist = torch.softmax(masked.float(), dim=-1).cumsum(dim=-1)
     sampled = torch.searchsorted(dist, (u * dist[:, -1])[:, None], right=True)[:, 0]
     sampled = torch.clamp(sampled, max=V - 1)
@@ -201,6 +205,6 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
 
 
 __all__ = [
-    "DEFAULT_NUCLEUS_K", "KVCache", "forward_with_cache", "generate",
-    "sample_tokens",
+    "DEFAULT_NUCLEUS_K", "KVCache", "draw_uniform", "forward_with_cache",
+    "generate", "sample_tokens",
 ]

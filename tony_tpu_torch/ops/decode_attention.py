@@ -1,31 +1,37 @@
-"""GQA decode attention over paged KV pools: one decode step per row, read
-at native ``n_kv_heads`` width through a block table.
+"""GQA decode attention: one decode step per row, read at native
+``n_kv_heads`` width, over paged KV pools through a block table or over a
+contiguous cache.
 
-The counterpart of ``tony_tpu/ops/decode_attention.py``'s paged form. The
-serving engine calls :func:`decode_attention` once per layer per decode
-step (``serve/engine.py``). Layouts are the reference's:
+The counterpart of ``tony_tpu/ops/decode_attention.py``. The serving
+engine calls :func:`decode_attention` in its paged form once per layer per
+decode step (``serve/engine.py``). Layouts are the reference's:
 
 - ``q [B, G, H, hd]`` (or ``[B, H, hd]`` for one query per row): G query
   positions per row, query g attends positions
-  ``< lengths[b] - (G - 1) + g`` (G = 1 is the one-token rule);
-- ``k``/``v`` pools ``[P, Hkv, block, hd]`` and ``tables [B, M]`` int32:
-  row b's logical block j is physical block ``tables[b, j]``; entries past
-  a row's length are never read by the kernel, and must still be valid ids
-  for the plain version (the engine points them at the scratch block 0);
+  ``< lengths[b] - (G - 1) + g`` (G = 1 is the one-token rule; the
+  speculative verify step feeds G = draft + 1);
+- paged form: ``k``/``v`` pools ``[P, Hkv, block, hd]`` and ``tables [B,
+  M]`` int32: row b's logical block j is physical block ``tables[b, j]``;
+  entries past a row's length are never read by the kernel, and must still
+  be valid ids for the plain version (the engine points them at the
+  scratch block 0);
+- contiguous form (``tables=None``): ``k``/``v [B, Hkv, T, hd]``, ``T`` a
+  multiple of ``min(block, T)``;
 - ``lengths [B]`` int32, at least 1.
 
 Where it runs is decided by the tensors' device alone:
 
 - CUDA tensors launch the hand-written kernel
   ``csrc/paged_decode_attention.cu`` (built with ``nvcc`` at first use,
-  ``ops/_build.py``), or raise. There is no fallback.
-- CPU tensors take :func:`paged_decode_attention_plain`, the plain PyTorch
-  version (a gather through the table and a masked float32 softmax) that
-  the tests hold against the reference.
+  ``ops/_build.py``), or raise. There is no fallback. Both forms share the
+  kernel's CTA body and its shape rule (:func:`check_kernel_shape`).
+- CPU tensors take the plain PyTorch versions that the tests hold against
+  the reference: :func:`decode_attention_plain` (a masked float32 softmax)
+  and :func:`paged_decode_attention_plain` (a gather through the table,
+  then the same).
 
 ``LAUNCHES`` counts both, so a run can show which one its path went
-through. The contiguous-cache form of the reference (``tables=None``,
-its ``_decode_kernel``) is not ported yet (ROADMAP queue 2).
+through.
 
 **Quantized pools** (``k_scale``/``v_scale [P, Hkv]`` float32 given, the
 paged form only): the pools hold int8 or ``float8_e4m3fn`` payloads with
@@ -49,6 +55,8 @@ import torch
 # one count per path, bumped where the path runs: the CUDA kernel's launch
 # and the plain version's CPU dispatch
 LAUNCHES: dict[str, int] = {
+    "decode_attention": 0,
+    "decode_attention_plain": 0,
     "paged_decode_attention": 0,
     "paged_decode_attention_plain": 0,
     "paged_decode_attention_quant": 0,
@@ -104,31 +112,17 @@ def _gather_blocks(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return pool[idx]
 
 
-def paged_decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 lengths: torch.Tensor, tables: torch.Tensor, *,
-                                 scale: float, k_scale: torch.Tensor | None = None,
-                                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch paged decode attention, q ``[B, G, H, hd]``: gather
-    every table entry's block, one masked float32 softmax over the
-    positions, probabilities cast to the K/V dtype before P.V (the
-    reference's ``_paged_scan`` numerics, in one pass). With
-    ``k_scale``/``v_scale`` the gathered blocks dequantize through their
-    scale rows to ``q.dtype`` first, ``(float(payload) * scale).to(q.dtype)``."""
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Plain PyTorch decode attention over a contiguous cache: q ``[B, G,
+    H, hd]``, k/v ``[B, Hkv, T, hd]``. One masked float32 softmax over the
+    positions under the G rule, scores scaled after the dot, probabilities
+    cast to the K/V dtype before P.V with a float32 sum (the reference's
+    ``_decode_kernel`` numerics, in one pass)."""
     B, G, H, hd = q.shape
-    Hkv, blk = k.shape[1], k.shape[2]
-    rep = H // Hkv
-    M = tables.shape[1]
-    T = M * blk
-    idx = tables.long()
-    kb, vb = _gather_blocks(k, idx), _gather_blocks(v, idx)    # [B, M, Hkv, blk, hd]
-    if k_scale is not None:
-        kb = (kb.float() * k_scale[idx][..., None, None]).to(q.dtype)
-        vb = (vb.float() * v_scale[idx][..., None, None]).to(q.dtype)
-    # [B, M, Hkv, blk, hd] -> [B, Hkv, T, hd]
-    kb = kb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
-    vb = vb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
-    qg = q.reshape(B, G, Hkv, rep, hd).float()
-    s = torch.einsum("bgxrd,bxkd->bgxrk", qg, kb.float()) * scale
+    Hkv, T = k.shape[1], k.shape[2]
+    qg = q.reshape(B, G, Hkv, H // Hkv, hd).float()
+    s = torch.einsum("bgxrd,bxkd->bgxrk", qg, k.float()) * scale
     limit = lengths.long()[:, None] - (G - 1) + torch.arange(G, device=q.device)
     valid = torch.arange(T, device=q.device)[None, None, :] < limit[:, :, None]
     vmask = valid[:, :, None, None, :]                        # [B, G, 1, 1, T]
@@ -137,9 +131,33 @@ def paged_decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     p = torch.where(vmask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1)
     # p rounds to the K/V dtype before P.V; the sum accumulates in fp32
-    acc = torch.einsum("bgxrk,bxkd->bgxrd", p.to(vb.dtype).float(), vb.float())
+    acc = torch.einsum("bgxrk,bxkd->bgxrd", p.to(v.dtype).float(), v.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, G, H, hd).to(q.dtype)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 lengths: torch.Tensor, tables: torch.Tensor, *,
+                                 scale: float, k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch paged decode attention, q ``[B, G, H, hd]``: gather
+    every table entry's block into a contiguous ``[B, Hkv, M * block, hd]``
+    cache, then :func:`decode_attention_plain` (the reference's
+    ``_paged_scan`` numerics, in one pass). With ``k_scale``/``v_scale``
+    the gathered blocks dequantize through their scale rows to ``q.dtype``
+    first, ``(float(payload) * scale).to(q.dtype)``."""
+    B, hd = q.shape[0], q.shape[3]
+    Hkv, blk = k.shape[1], k.shape[2]
+    T = tables.shape[1] * blk
+    idx = tables.long()
+    kb, vb = _gather_blocks(k, idx), _gather_blocks(v, idx)    # [B, M, Hkv, blk, hd]
+    if k_scale is not None:
+        kb = (kb.float() * k_scale[idx][..., None, None]).to(q.dtype)
+        vb = (vb.float() * v_scale[idx][..., None, None]).to(q.dtype)
+    # [B, M, Hkv, blk, hd] -> [B, Hkv, T, hd]
+    kb = kb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+    vb = vb.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+    return decode_attention_plain(q, kb, vb, lengths, scale=scale)
 
 
 def _chunk(blk: int, hd: int, itemsize: int) -> int:
@@ -184,23 +202,37 @@ def check_kernel_shape(G: int, H: int, Hkv: int, hd: int, blk: int,
 
 
 @functools.cache
-def _kernel(quant: bool = False):
-    """The kernel's C entry point (its quantized form with ``quant``),
-    built and bound on first use."""
+def _kernel(form: str):
+    """One of the kernel's C entry points, built and bound on first use:
+    ``"paged"``, its quantized form ``"quant"``, or ``"contiguous"``."""
     from tony_tpu_torch.ops._build import load
 
     lib = load(_KERNEL).lib
-    if quant:
+    if form == "quant":
         fn = lib.paged_decode_attention_quant
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
-    else:
+    elif form == "paged":
         fn = lib.paged_decode_attention
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = lib.decode_attention_contiguous
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_operands(named: list[tuple[str, torch.Tensor]]) -> None:
+    """One device for every operand, each contiguous."""
+    devs = {t.device for _, t in named}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
@@ -226,26 +258,21 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
     named = [("q", q), ("k", k), ("v", v), ("lengths", lengths), ("tables", tables)]
     if quant:
         named += [("k_scale", k_scale), ("v_scale", v_scale)]
-    devs = {t.device for _, t in named}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    for name, t in named:
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_operands(named)
     chunk, smem = check_kernel_shape(G, H, Hkv, hd, blk, k.element_size(),
                                      q.element_size())
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     shape = (B, G, H, Hkv, hd, blk, M, chunk, scale, smem, _DTYPE_CODES[q.dtype])
     if quant:
-        err = _kernel(True)(
+        err = _kernel("quant")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), lengths.data_ptr(), tables.data_ptr(),
             out.data_ptr(), *shape, _PAYLOAD_CODES[k.dtype], stream,
         )
         name = "paged_decode_attention_quant"
     else:
-        err = _kernel()(
+        err = _kernel("paged")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             tables.data_ptr(), out.data_ptr(), *shape, stream,
         )
@@ -256,51 +283,91 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
     return out
 
 
+def _contiguous_cuda(q, k, v, lengths, *, block: int, scale: float) -> torch.Tensor:
+    B, G, H, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"decode kernel takes float32 or bfloat16, not {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    if lengths.dtype != torch.int32:
+        raise TypeError("lengths must be int32")
+    _check_operands([("q", q), ("k", k), ("v", v), ("lengths", lengths)])
+    chunk, smem = check_kernel_shape(G, H, Hkv, hd, block, k.element_size(),
+                                     q.element_size())
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel("contiguous")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, G, H, Hkv, hd, block, T // block, chunk, scale, smem,
+        _DTYPE_CODES[q.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, tables: torch.Tensor | None = None,
-                     scale: float | None = None, k_scale: torch.Tensor | None = None,
+                     block: int = 128, scale: float | None = None,
+                     k_scale: torch.Tensor | None = None,
                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """One decode step of attention over paged pools (see the module
-    docstring for shapes), quantized when ``k_scale``/``v_scale`` are
-    given. Returns ``[B, G, H, hd]``, or ``[B, H, hd]`` for a 3-D ``q``.
-    CUDA tensors run the kernel; CPU tensors the plain version."""
+    """One decode step of attention (see the module docstring for shapes):
+    over paged pools when ``tables`` is given (quantized when
+    ``k_scale``/``v_scale`` are), else over a contiguous cache read in
+    tiles of ``min(block, T)`` positions. Returns ``[B, G, H, hd]``, or
+    ``[B, H, hd]`` for a 3-D ``q``. CUDA tensors run the kernel; CPU
+    tensors the plain version."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     if k_scale is not None and tables is None:
         raise ValueError("quantized decode_attention requires the paged form (tables)")
-    if tables is None:
-        raise NotImplementedError(
-            "contiguous-cache decode_attention is not ported yet (ROADMAP "
-            "queue 2, kernel 7); pass the paged form's tables"
-        )
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
     B, G, H, hd = q.shape
-    if k.shape != v.shape or k.dim() != 4 or k.shape[3] != hd:
-        raise ValueError(f"paged decode_attention shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
-        raise ValueError(f"tables {tuple(tables.shape)} / lengths "
-                         f"{tuple(lengths.shape)} do not match batch {B}")
+    if tables is None:
+        if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B or k.shape[3] != hd:
+            raise ValueError(f"decode_attention shapes q={tuple(q.shape)} "
+                             f"k={tuple(k.shape)} v={tuple(v.shape)}")
+        T = k.shape[2]
+        blk = min(block, T)
+        if T % blk:
+            raise ValueError(f"cache length {T} must be a multiple of block {blk}")
+    else:
+        if k.shape != v.shape or k.dim() != 4 or k.shape[3] != hd:
+            raise ValueError(f"paged decode_attention shapes q={tuple(q.shape)} "
+                             f"k={tuple(k.shape)} v={tuple(v.shape)}")
+        if tables.dim() != 2 or tables.shape[0] != B:
+            raise ValueError(f"tables {tuple(tables.shape)} do not match batch {B}")
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} do not match batch {B}")
     if H % k.shape[1]:
         raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {k.shape[1]}")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     if q.device.type == "cuda":
-        out = _paged_cuda(q, k, v, lengths, tables, scale=scale,
-                          k_scale=k_scale, v_scale=v_scale)
+        if tables is None:
+            out = _contiguous_cuda(q, k, v, lengths, block=blk, scale=scale)
+        else:
+            out = _paged_cuda(q, k, v, lengths, tables, scale=scale,
+                              k_scale=k_scale, v_scale=v_scale)
     elif q.device.type == "cpu":
-        plain = "paged_decode_attention" + ("_quant" if k_scale is not None else "")
-        LAUNCHES[plain + "_plain"] += 1
-        out = paged_decode_attention_plain(q, k, v, lengths, tables, scale=scale,
-                                           k_scale=k_scale, v_scale=v_scale)
+        if tables is None:
+            LAUNCHES["decode_attention_plain"] += 1
+            out = decode_attention_plain(q, k, v, lengths, scale=scale)
+        else:
+            plain = "paged_decode_attention" + ("_quant" if k_scale is not None else "")
+            LAUNCHES[plain + "_plain"] += 1
+            out = paged_decode_attention_plain(q, k, v, lengths, tables, scale=scale,
+                                               k_scale=k_scale, v_scale=v_scale)
     else:
         raise ValueError(f"no decode attention for device {q.device}")
     return out[:, 0] if squeeze else out
 
 
 __all__ = [
-    "LAUNCHES", "check_kernel_shape", "decode_attention", "paged_decode_attention_plain",
-    "reference_decode_attention", "reset_launches",
+    "LAUNCHES", "check_kernel_shape", "decode_attention", "decode_attention_plain",
+    "paged_decode_attention_plain", "reference_decode_attention", "reset_launches",
 ]

@@ -28,14 +28,23 @@ configuration:
   decode step's seven layer matmuls and ``lm_head`` read through the
   dequant-matmul kernel (``ops/quant_mm.py``). Prefill keeps the bf16
   master weights; a prefix match dequantizes the gathered blocks.
+- **Speculative decoding** (``spec``, ``serve/spec.py``): each live slot
+  drafts up to ``spec_max_draft`` tokens on the host (the prefix store's
+  longest extension, or the slot's own n-gram lookup), and one verify step
+  feeds each row its last token and its drafts, G = ``spec_max_draft`` + 1
+  positions, writes their K/V, attends with the paged kernel at G query
+  rows and keeps the longest prefix the model agrees with, plus one token.
+  Output is draw-for-draw the one-token engine's. Finished requests also
+  register their generated blocks in the prefix store, the drafts' corpus.
 
 What differs from the reference: PyTorch runs eagerly, so there are no jit
 or AOT caches and no compile ledger; prefill runs at the prompt's exact
 length (``prefill_buckets`` only bounds admissible prompt lengths, as in
 the reference). The pools are updated in place. Not ported yet, and
-refused rather than ignored: ``spec``, ``chunk_tokens`` and the blockwise
-handoff between pools (ROADMAP queue 1), and the observability spine
-(tracing, registry histograms, health, series, profile, SLO).
+refused rather than ignored: ``chunk_tokens`` and the blockwise handoff
+between pools (ROADMAP queue 1, item 4), and the observability spine
+(tracing, registry histograms, health, series, profile, SLO; queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -64,6 +73,9 @@ from tony_tpu_torch.serve.cache import (
     quant_scatter_span, scatter_block_kv, shrink_cache,
 )
 from tony_tpu_torch.serve.prefix import MatchResult, PrefixStore
+from tony_tpu_torch.serve.spec import (
+    DRAFT_SOURCES, SpecRows, advance_generators, propose_drafts, verify_and_accept,
+)
 
 
 @dataclass(frozen=True)
@@ -92,9 +104,12 @@ class ServeConfig:
     prefix: bool = True
     # device memory the store may pin for prefixes no live slot references
     prefix_budget_mb: float = 64.0
-    # speculative decoding: not ported yet (ROADMAP queue 1, item 4)
+    # speculative decoding (serve/spec.py): each slot drafts up to
+    # spec_max_draft tokens a step, and one verify step scores them all
     spec: bool = False
+    # draft tokens per slot per step (k; the verify step feeds k + 1)
     spec_max_draft: int = 4
+    # 'auto' (prefix store, then n-gram) | 'prefix' | 'ngram'
     spec_draft_source: str = "auto"
     # quantized KV pools: '' = pools in the model dtype, 'int8' | 'fp8_e4m3'
     # = block-scaled quantized pools (serve/cache.py)
@@ -102,10 +117,10 @@ class ServeConfig:
     # int8 weight-only decode matmuls (ops/quant_mm.py): an int8 copy of the
     # decode weights made at build; prefill keeps the bf16 masters
     quant_weights: bool = False
-    # chunked prefill: not ported yet (ROADMAP queue 1, item 5)
+    # chunked prefill: not ported yet (ROADMAP queue 1, item 4)
     chunk_tokens: int = 0
     # pool label ('decode' | 'prefill'); the handoff between pools is not
-    # ported yet (ROADMAP queue 1, item 5)
+    # ported yet (ROADMAP queue 1, item 4)
     pool: str = "decode"
 
 
@@ -146,12 +161,13 @@ class _SlotState(NamedTuple):
     temp: torch.Tensor       # [S] float32
     top_k: torch.Tensor      # [S] int64
     top_p: torch.Tensor      # [S] float32
+    eos: torch.Tensor        # [S] int64, -1 = none
     live: torch.Tensor       # [S] bool, slot owned by a request
 
 
+# ServeConfig knobs not ported yet: (field, what, ROADMAP queue 1 item)
 _UNPORTED = (
-    ("spec", "speculative decoding", 4),
-    ("chunk_tokens", "chunked prefill", 5),
+    ("chunk_tokens", "chunked prefill", 4),
 )
 
 
@@ -195,12 +211,19 @@ class Engine:
                     f"ServeConfig.{name}: {what} is not ported yet (ROADMAP "
                     f"queue 1, item {item})"
                 )
+        if serve.spec_draft_source not in DRAFT_SOURCES:
+            raise ValueError(f"spec_draft_source {serve.spec_draft_source!r} not in "
+                             f"{DRAFT_SOURCES}")
+        if serve.spec and serve.spec_max_draft < 1:
+            raise ValueError("spec_max_draft must be >= 1 with spec on")
         # the quantized pools' largest stored magnitude; validates the knob
         self._qmax = kv_quant_spec(serve.quant_kv)[1] if serve.quant_kv else 0.0
         if self.device.type == "cuda":
-            # the card's decode kernel refuses some block and head sizes:
-            # refuse them here, before any request is admitted
-            check_kernel_shape(1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            # the card's decode kernel refuses some block and head sizes, and
+            # query counts (the verify step's G) whose rows overflow its
+            # shared memory: refuse them here, before any request is admitted
+            G = serve.spec_max_draft + 1 if serve.spec else 1
+            check_kernel_shape(G, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                serve.kv_block,
                                1 if serve.quant_kv else cfg.dtype.itemsize,
                                cfg.dtype.itemsize)
@@ -262,6 +285,7 @@ class Engine:
             temp=torch.zeros(S, dtype=torch.float32, device=dev),
             top_k=torch.zeros(S, dtype=torch.int64, device=dev),
             top_p=torch.zeros(S, dtype=torch.float32, device=dev),
+            eos=torch.full((S,), -1, dtype=torch.int64, device=dev),
             live=torch.zeros(S, dtype=torch.bool, device=dev),
         )
         self._queue: deque[tuple[int, Request]] = deque()
@@ -271,6 +295,9 @@ class Engine:
         self._slot_len = [0] * S            # host mirror of cache.lengths
         self._slot_eos = [-1] * S
         self._slot_gen: list[torch.Generator | None] = [None] * S
+        # with spec on, each slot's context (prompt + every emitted token,
+        # the next input token last): what the draft sources extend
+        self._slot_ctx: list[list[int]] = [[] for _ in range(S)]
         self._submit_t: dict[int, float] = {}
         self._next_rid = 0
 
@@ -376,13 +403,13 @@ class Engine:
     def export_prefix_blocks(self, tokens: Sequence[int]):
         raise NotImplementedError(
             "blockwise KV handoff (export_prefix_blocks) is not ported yet "
-            "(ROADMAP queue 1, item 5)"
+            "(ROADMAP queue 1, item 4)"
         )
 
     def adopt_blocks(self, tokens: Sequence[int], payload):
         raise NotImplementedError(
             "blockwise KV handoff (adopt_blocks) is not ported yet (ROADMAP "
-            "queue 1, item 5)"
+            "queue 1, item 4)"
         )
 
     # --- admission ------------------------------------------------------------
@@ -506,6 +533,9 @@ class Engine:
         st.top_p[slot] = req.top_p
         st.live[slot] = True
         eos = -1 if req.eos_id is None else int(req.eos_id)
+        st.eos[slot] = eos
+        if self.serve.spec:
+            self._slot_ctx[slot] = prompt.tolist() + [tok]
         self._slot_rid[slot] = rid
         self._slot_len[slot] = plen
         self._slot_eos[slot] = eos
@@ -521,6 +551,18 @@ class Engine:
 
     def _finish(self, slot: int, reason: str) -> None:
         self._completions[self._slot_rid[slot]].finish_reason = reason
+        if self._store is not None and self.serve.spec:
+            # the drafts' corpus: the generated tokens' full blocks join the
+            # store too (the prompt's joined at admission). The K/V written
+            # is the context less its last token (sampled, never fed)
+            B = self.serve.kv_block
+            seq = self._slot_ctx[slot][:self._slot_len[slot]]
+            n_full = len(seq) // B
+            if n_full:
+                self._store.insert(seq[:n_full * B], self._table[slot, :n_full].tolist(),
+                                   self._pool.retain)
+                self._store.evict_to_budget(self._pool.release)
+        self._slot_ctx[slot] = []
         self.metrics.requests_finished += 1
         self._slot_rid[slot] = None
         self._slot_remaining[slot] = 0
@@ -646,14 +688,37 @@ class Engine:
 
     # --- decode loop ----------------------------------------------------------
 
+    def _propose_step_drafts(self, live: list[int]) -> tuple[np.ndarray | None, list[int]]:
+        """With spec on, up to ``spec_max_draft`` draft tokens for each live
+        slot, on the host; each is capped at ``remaining - 1`` so the
+        emitted count (drafts plus the bonus token) never overruns the
+        slot's budget. Returns ``(drafts [S, k], draft lengths)``."""
+        k = self.serve.spec_max_draft if self.serve.spec else 0
+        dlens = [0] * self.serve.slots
+        if not k:
+            return None, dlens
+        drafts = np.zeros((self.serve.slots, k), np.int64)
+        for s in live:
+            cap = min(k, self._slot_remaining[s] - 1)
+            if cap <= 0:
+                continue
+            prop = propose_drafts(self._slot_ctx[s], self._store, cap,
+                                  self.serve.spec_draft_source)
+            dlens[s] = len(prop)
+            drafts[s, :len(prop)] = prop
+        return drafts, dlens
+
     def _decode_once(self) -> None:
-        # a live row allocates the block its next position lands in now,
-        # on the host, before the step runs
+        # a live row allocates, on the host and before the step runs, the
+        # blocks of every position the step may write: its next position,
+        # and with drafts the draft positions after it
         B = self.serve.kv_block
         live = [s for s, r in enumerate(self._slot_rid) if r is not None]
+        drafts, dlens = self._propose_step_drafts(live)
+        spec_step = any(dlens)
         need = 1
         for s in live:
-            last = self._slot_len[s]
+            last = self._slot_len[s] + dlens[s]
             while self._slot_blocks[s] * B <= last:
                 self._table[s, self._slot_blocks[s]] = self._alloc_block()
                 self._slot_blocks[s] += 1
@@ -663,22 +728,38 @@ class Engine:
             self._flush_fresh_scales()
         self._set_attended(need)
         t0 = time.perf_counter()
-        toks = _decode_step(
-            self._decode_params, self._layers, self.cache, self._table_dev,
-            self.state, self._slot_gen, self._freqs, cfg=self.cfg, kv_block=B,
-            max_top_k=self.serve.max_top_k, qmax=self._qmax,
-            quant_weights=self.serve.quant_weights,
-        )
-        # the engine's one host sync per decode step
-        toks_np = toks.cpu().numpy()
+        common = (self._decode_params, self._layers, self.cache, self._table_dev,
+                  self.state, self._slot_gen, self._freqs)
+        opts = dict(cfg=self.cfg, kv_block=B, max_top_k=self.serve.max_top_k,
+                    qmax=self._qmax, quant_weights=self.serve.quant_weights)
+        if spec_step:
+            dev = self.device
+            toks, n_emit, rng_saved = _spec_decode_step(
+                *common, torch.as_tensor(drafts, device=dev),
+                torch.as_tensor(dlens, dtype=torch.int64, device=dev), **opts)
+            # the engine's one host sync per decode step
+            both = torch.cat([toks, n_emit[:, None]], dim=1).cpu().numpy()
+            toks_np, emit_np = both[:, :-1], both[:, -1]
+            advance_generators(self._slot_gen, rng_saved, emit_np)
+        else:
+            # no live slot drafted: the one-token step (the only step with
+            # spec off)
+            toks = _decode_step(*common, **opts)
+            toks_np = toks.cpu().numpy()[:, None]     # the one host sync
+            emit_np = np.ones(self.serve.slots, np.int64)
         dt = time.perf_counter() - t0
-        self.metrics.record_decode(dt, len(live), len(live), self.serve.slots)
+        new_total = int(sum(emit_np[s] for s in live))
+        if spec_step:
+            self.metrics.record_spec(sum(dlens[s] for s in live), new_total - len(live))
+        self.metrics.record_decode(dt, new_total, len(live), self.serve.slots)
         for s in live:
-            tok = int(toks_np[s])
-            self._slot_len[s] += 1
-            self._completions[self._slot_rid[s]].tokens.append(tok)
-            self._slot_remaining[s] -= 1
-            if tok == self._slot_eos[s]:
+            new_toks = [int(t) for t in toks_np[s, :emit_np[s]]]
+            self._slot_len[s] += len(new_toks)
+            self._completions[self._slot_rid[s]].tokens.extend(new_toks)
+            if self.serve.spec:
+                self._slot_ctx[s].extend(new_toks)
+            self._slot_remaining[s] -= len(new_toks)
+            if new_toks[-1] == self._slot_eos[s]:
                 self._finish(s, "eos")
             elif self._slot_remaining[s] <= 0:
                 self._finish(s, "length")
@@ -728,10 +809,52 @@ def _mm(h: torch.Tensor, lp: dict, name: str, quant_weights: bool) -> torch.Tens
 
 
 def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Half-split RoPE of ``t [S, H', hd]`` with one angle row per slot
-    (cos/sin ``[S, 1, hd/2]``)."""
+    """Half-split RoPE of ``t [..., H', hd]`` with one angle per position
+    (cos/sin ``[..., 1, hd/2]``: one row per slot, or per slot and fed
+    position)."""
     t1, t2 = t.float().chunk(2, dim=-1)
     return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], dim=-1).to(t.dtype)
+
+
+def _forward_positions(params: Params, layers: list[dict], cache, table: torch.Tensor,
+                       tokens: torch.Tensor, pos: torch.Tensor, pid: torch.Tensor,
+                       off: torch.Tensor, lengths: torch.Tensor, freqs: torch.Tensor, *,
+                       cfg: LlamaConfig, qmax: float,
+                       quant_weights: bool) -> torch.Tensor:
+    """The decode forward over fed ``tokens`` ``[S]`` or ``[S, G]`` at
+    absolute positions ``pos`` (the same shape): each layer writes the new
+    K/V at ``(pid, off)`` in place, then attends through the table with the
+    paged kernel, ``lengths`` counting each row's cache after the writes
+    (query g of G sees positions ``< lengths - (G - 1) + g``). Returns
+    float32 logits ``[S, V]`` or ``[S, G, V]``.
+
+    A quantized cache folds each write into the running block scale
+    (``qmax`` is its storage's largest magnitude) and attends through the
+    scale pools. ``quant_weights``: ``params``/``layers`` are the int8 copy,
+    and the seven layer matmuls and lm_head run the dequant-matmul."""
+    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    lead = tokens.shape
+    x = params["tok_emb"][tokens]                          # [*lead, D]
+    ang = pos.float()[..., None] * freqs
+    cos = torch.cos(ang)[..., None, :]                     # [*lead, 1, hd/2]
+    sin = torch.sin(ang)[..., None, :]
+    scales = (zip(cache.k_scale, cache.v_scale) if cache.quantized
+              else [(None, None)] * cfg.n_layers)
+    for lp, k_pool, v_pool, (k_sc, v_sc) in zip(layers, cache.k, cache.v, scales):
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q = _rope_rows(_mm(h, lp, "wq", quant_weights).view(*lead, H, hd), cos, sin)
+        k_new = _rope_rows(_mm(h, lp, "wk", quant_weights).view(*lead, Hkv, hd), cos, sin)
+        v_new = _mm(h, lp, "wv", quant_weights).view(*lead, Hkv, hd)
+        scatter_block_kv(k_pool, k_new, pid, off, scale=k_sc, qmax=qmax)
+        scatter_block_kv(v_pool, v_new, pid, off, scale=v_sc, qmax=qmax)
+        attn = decode_attention(q, k_pool, v_pool, lengths, tables=table,
+                                k_scale=k_sc, v_scale=v_sc)
+        x = x + _mm(attn.reshape(*lead, H * hd), lp, "wo", quant_weights)
+        h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        ffn = F.silu(_mm(h2, lp, "w1", quant_weights)) * _mm(h2, lp, "w3", quant_weights)
+        x = x + _mm(ffn, lp, "w2", quant_weights)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mm(x, params, "lm_head", quant_weights).float()
 
 
 def _decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
@@ -744,47 +867,66 @@ def _decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
     attend over its written prefix through the table, sample with its own
     generator. Updates ``cache`` (pools, scales, lengths) and
     ``state.last_tok`` in place; returns the sampled tokens ``[S]`` on the
-    device.
-
-    A quantized cache folds each write into the running block scale
-    (``qmax`` is its storage's largest magnitude) and attends through the
-    scale pools. ``quant_weights``: ``params``/``layers`` are the int8 copy,
-    and the seven layer matmuls and lm_head run the dequant-matmul."""
-    S = state.last_tok.shape[0]
-    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    x = params["tok_emb"][state.last_tok]                  # [S, D]
+    device."""
     pos = cache.lengths                                    # [S] int32
-    ang = pos.float()[:, None] * freqs[None, :]
-    cos = torch.cos(ang)[:, None, :]
-    sin = torch.sin(ang)[:, None, :]
     # row s writes position pos into block table[s, pos // block]
     bi = (pos // kv_block).long()
     off = (pos % kv_block).long()
     pid = torch.where(state.live, table.gather(1, bi[:, None])[:, 0].long(),
                       SCRATCH_BLOCK)
-    lengths = pos + 1                                      # attend after the write
-    scales = (zip(cache.k_scale, cache.v_scale) if cache.quantized
-              else [(None, None)] * cfg.n_layers)
-    for lp, k_pool, v_pool, (k_sc, v_sc) in zip(layers, cache.k, cache.v, scales):
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = _rope_rows(_mm(h, lp, "wq", quant_weights).view(S, H, hd), cos, sin)
-        k_new = _rope_rows(_mm(h, lp, "wk", quant_weights).view(S, Hkv, hd), cos, sin)
-        v_new = _mm(h, lp, "wv", quant_weights).view(S, Hkv, hd)
-        scatter_block_kv(k_pool, k_new, pid, off, scale=k_sc, qmax=qmax)
-        scatter_block_kv(v_pool, v_new, pid, off, scale=v_sc, qmax=qmax)
-        attn = decode_attention(q, k_pool, v_pool, lengths, tables=table,
-                                k_scale=k_sc, v_scale=v_sc)
-        x = x + _mm(attn.reshape(S, H * hd), lp, "wo", quant_weights)
-        h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        ffn = F.silu(_mm(h2, lp, "w1", quant_weights)) * _mm(h2, lp, "w3", quant_weights)
-        x = x + _mm(ffn, lp, "w2", quant_weights)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x, params, "lm_head", quant_weights).float()   # [S, V]
+    logits = _forward_positions(                           # [S, V]
+        params, layers, cache, table, state.last_tok, pos, pid, off,
+        pos + 1, freqs, cfg=cfg, qmax=qmax, quant_weights=quant_weights)
     nxt = sample_tokens(logits, state.temp, state.top_k, state.top_p, gens,
                         max_k=max_top_k)
     cache.lengths.add_(state.live.to(torch.int32))
     state.last_tok.copy_(nxt)
     return nxt
+
+
+def _spec_decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
+                      state: _SlotState, gens: Sequence[torch.Generator | None],
+                      freqs: torch.Tensor, drafts: torch.Tensor,
+                      draft_len: torch.Tensor, *, cfg: LlamaConfig, kv_block: int,
+                      max_top_k: int, qmax: float = 0.0, quant_weights: bool = False):
+    """The speculative verify step: feed every row G = k + 1 tokens (its
+    last sampled token and its ``drafts [S, k]``, of which ``draft_len``
+    are real), write their K/V at positions ``pos .. pos + k``, attend all
+    G query positions in one call of the paged kernel per layer, and run
+    the rejection rule (``serve/spec.py``). Dead rows, and a row's padding
+    positions past its draft length, write into the scratch block.
+
+    Updates ``cache`` in place (its lengths advance by the emitted count
+    only, so rejected positions lie past them and later steps overwrite
+    them; on a quantized cache their amaxes stay folded into the block
+    scales, which only grow, so a rollback never leaves a payload over its
+    scale) and ``state.last_tok``. Returns ``(toks [S, G], n_emit [S],
+    rng_saved)`` with toks and n_emit on the device; the caller brings
+    them to the host and hands ``n_emit`` to ``advance_generators``."""
+    S, k = drafts.shape
+    G = k + 1
+    dev = drafts.device
+    tokens = torch.cat([state.last_tok[:, None], drafts], dim=1)   # [S, G]
+    pos0 = cache.lengths                                   # [S] int32
+    goff = torch.arange(G, dtype=torch.int32, device=dev)
+    pos = pos0[:, None] + goff[None, :]                    # [S, G]
+    # position g of row s lands in block table[s, pos // block]
+    bi = (pos // kv_block).long()
+    write_ok = state.live[:, None] & (goff[None, :] <= draft_len[:, None])
+    M = table.shape[1]
+    pid = torch.where(write_ok, table.gather(1, bi.clamp(max=M - 1)).long(),
+                      SCRATCH_BLOCK)
+    off = torch.where(write_ok, (pos % kv_block).long(), 0)
+    logits = _forward_positions(                           # [S, G, V]
+        params, layers, cache, table, tokens, pos, pid, off, pos0 + G, freqs,
+        cfg=cfg, qmax=qmax, quant_weights=quant_weights)
+    rows = SpecRows(state.temp, state.top_k, state.top_p, state.eos,
+                    torch.zeros_like(state.live), gens)
+    toks, n_emit, _, last_tok, rng_saved, _ = verify_and_accept(
+        logits, drafts, draft_len, rows, max_top_k=max_top_k)
+    cache.lengths.add_((n_emit * state.live).to(torch.int32))
+    state.last_tok.copy_(torch.where(state.live, last_tok, state.last_tok))
+    return toks, n_emit, rng_saved
 
 
 __all__ = [

@@ -18,7 +18,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each block in chunks; then the flash-attention forward, dq and dk/dv
    kernels against theirs at bench_1b4's training shape, bench_moe's
    (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
-   and fp32; then (3c) the grouped-matmul forward, dx and dW kernels
+   and fp32, each case logged with the instance that ran (the bf16
+   forward and dk/dv on the tensor cores, wgmma with TMA staging; fp32
+   and dq scalar), and the tensor-core instances' registers and spills
+   from the build log; then (3c) the grouped-matmul forward, dx and dW kernels
    against theirs at bench_moe's shapes (33,792 buffer rows from a real
    router draw with one expert forced empty, D 1024, F 2816, 8 experts),
    in both directions of the SwiGLU and in bf16 and fp32, and one bench_moe
@@ -1171,6 +1174,30 @@ def _pairs(B: int, S: int, H: int, causal: bool) -> int:
     return B * H * (S * (S + 1) // 2 if causal else S * S)
 
 
+def tensor_core_resources(log: str) -> list[dict]:
+    """Registers, stack and spills of each tensor-core flash instance
+    (namespace ``tc``, e.g. ``flash_fwd_kernel<128>``) from nvcc's
+    ``-Xptxas -v`` lines."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"tc\d+(flash_\w+?_kernel)ILi(\d+)E", m.group(1))
+            cur = {"kernel": f"{k.group(1)}<{k.group(2)}>"} if k else None
+            if cur:
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
                 S: int, H: int, Hkv: int, hd: int, causal: bool) -> list[dict]:
     """flash_fwd, flash_dq and flash_dkv at one shape: each against its
@@ -1179,6 +1206,7 @@ def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
     yardstick (the port never calls SDPA)."""
     from tony_tpu_torch.ops.attention import (
         _delta, _dkv, _dq, _fwd, flash_dkv_plain, flash_dq_plain, flash_fwd_plain,
+        kernel_instance,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(S + H + Hkv)
@@ -1250,6 +1278,7 @@ def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
         kernel, plain = runs[name]
         cases.append({
             "name": name, "shape": label, "dtype": str(dtype).replace("torch.", ""),
+            "instance": kernel_instance(name, dtype, hd),
             "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd, "causal": causal,
             "max_abs_err": max(errs), "ok": not bad, "atol": atol, "rtol": rtol,
             "ms": time_ms(kernel, flush, reps=10),
@@ -2002,8 +2031,8 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             for c in flash_cases(dtype, flush, label, B, S, H, Hkv, hd, causal):
                 flash.append(c)
-                log(f"kernel {c['name']} {label} {c['dtype']} B={B} S={S} H={H} "
-                    f"Hkv={Hkv} hd={hd} causal={causal}: max|err| "
+                log(f"kernel {c['name']} {label} {c['dtype']} ({c['instance']}) B={B} "
+                    f"S={S} H={H} Hkv={Hkv} hd={hd} causal={causal}: max|err| "
                     f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
                     f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms']:.3f} ms  "
                     f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: "
@@ -2013,6 +2042,24 @@ def main() -> int:
     if bad:
         raise AssertionError(f"flash kernels over tolerance: "
                              f"{[(c['name'], c['shape'], c['dtype']) for c in bad]}")
+    # the bf16 forward and dk/dv run on the tensor cores; fp32 and dq scalar
+    wrong = [(c["name"], c["dtype"], c["instance"]) for c in flash
+             if (c["instance"] == "tensor cores") != (c["dtype"] == "bfloat16"
+                                                      and c["name"] != "flash_dq")]
+    if wrong:
+        raise AssertionError(f"flash cases on an unexpected instance: {wrong}")
+    built = builds[KERNEL_SOURCES.index("flash_attention")]
+    resources = tensor_core_resources(built.log)
+    if built.seconds and len(resources) != 4:
+        raise AssertionError(f"expected 4 tensor-core flash instances in the build log, "
+                             f"found {resources}")
+    if not built.seconds:
+        log("flash tensor-core instances: loaded from csrc/build/, no build log this run")
+    for r in resources:
+        spill = r["spill_stores"] + r["spill_loads"]
+        log(f"flash tensor-core instance {r['kernel']}: {r['registers']} registers, "
+            f"{r['stack']} bytes stack, {'SPILLS ' if spill else ''}{r['spill_stores']} / "
+            f"{r['spill_loads']} bytes spill stores / loads")
 
     inputs = gmm_inputs()
     log(f"grouped matmul inputs: {MOE_T} tokens x top-{MOE_K} = {inputs['routes']} "

@@ -16,8 +16,8 @@ import torch
 
 from tony_tpu.ops import attention as ja
 from tony_tpu_torch.ops.attention import (
-    LAUNCHES, flash_attention, flash_dkv_pass, flash_dq_pass, flash_fwd_pass,
-    reset_launches, sharded_flash_attention,
+    LAUNCHES, _tma_aligned, _tma_ready, flash_attention, flash_dkv_pass, flash_dq_pass,
+    flash_fwd_pass, reset_launches, sharded_flash_attention,
 )
 
 B, S, HD = 2, 64, 16
@@ -115,3 +115,32 @@ def test_contract_errors_match_the_reference():
 
     with pytest.raises(NotImplementedError, match="mesh"):
         sharded_flash_attention(q, q, q, mesh=Mesh())
+
+
+def test_tma_rule_copies_unaligned_inputs():
+    """The host rule in front of the bf16 tensor-core kernels: TMA reads a
+    tensor only from a 16-byte-aligned start with 16-byte strides. Aligned
+    tensors pass as they are (strides of size-1 dimensions and the unit
+    head_dim stride aside); a misaligned storage offset or an odd stride
+    gets aligned contiguous copies of every tensor passed together (so k
+    and v keep sharing strides), equal in value."""
+    base = torch.arange(4 * 64 * 4 * 64 + 8, dtype=torch.float32).to(torch.bfloat16)
+    shape = (4, 64, 4, 64)
+    aligned = base[:-8].view(shape)
+    assert _tma_aligned(aligned)
+    assert _tma_ready(aligned)[0] is aligned
+    # storage offset 3 elements = 6 bytes past an aligned start
+    shifted = base[3:3 + aligned.numel()].view(shape)
+    assert not _tma_aligned(shifted)
+    # an odd head stride (65 elements = 130 bytes)
+    odd = torch.as_strided(base, (1, 64, 4, 64), (64 * 4 * 65, 4 * 65, 65, 1))
+    assert not _tma_aligned(odd)
+    # a size-1 batch dimension with an odd stride needs no copy
+    single = torch.as_strided(base, (1, 64, 4, 64), (7, 4 * 64, 64, 1))
+    assert _tma_aligned(single)
+    for bad in (shifted, odd):
+        k, v = _tma_ready(bad, aligned[:bad.shape[0]])
+        for got, want in ((k, bad), (v, aligned[:bad.shape[0]])):
+            assert got is not want and _tma_aligned(got) and got.is_contiguous()
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+        assert k.stride() == v.stride()

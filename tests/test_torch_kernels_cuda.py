@@ -239,21 +239,17 @@ def _close(got, want, dtype, what):
                                msg=lambda m: f"{what}: {m}")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("H,Hkv,hd,S", [(4, 2, 64, 200), (4, 4, 128, 192),
-                                        (8, 2, 128, 130)])
-def test_flash_kernels_match_plain_on_card(cuda, dtype, causal, H, Hkv, hd, S):
-    """flash_fwd, flash_dq and flash_dkv against their plain versions on the
-    same inputs: GQA and MHA, sequences that end inside a 64-row tile and
-    span several tiles, causal and not."""
+def _flash_against_plain(q, k, v, do, causal):
+    """flash_fwd, flash_dq and flash_dkv on ``[B, S, H, hd]`` views against
+    their plain versions on the same inputs; each kernel launched once, no
+    plain version run, and each bf16 fwd / dkv through its tensor-core
+    instance."""
     from tony_tpu_torch.ops.attention import (
         LAUNCHES, _dkv, _dq, _delta, _fwd, flash_dkv_plain, flash_dq_plain,
-        flash_fwd_plain, reset_launches,
+        flash_fwd_plain, kernel_instance, reset_launches,
     )
 
-    q, k, v, do = _flash_case(cuda, dtype, 2, S, H, Hkv, hd, seed=S + hd)
+    dtype, hd = q.dtype, q.shape[3]
     scale = 1.0 / math.sqrt(hd)
     reset_launches()
     out, lse = _fwd(q, k, v, scale, causal)
@@ -272,6 +268,41 @@ def test_flash_kernels_match_plain_on_card(cuda, dtype, causal, H, Hkv, hd, S):
     _close(dv, ref_dv, dtype, "dv")
     assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_dq"] == LAUNCHES["flash_dkv"] == 1
     assert LAUNCHES["flash_fwd_plain"] == LAUNCHES["flash_dq_plain"] == 0
+    assert LAUNCHES["flash_dkv_plain"] == 0
+    want = "tensor cores" if dtype == torch.bfloat16 else "scalar"
+    assert kernel_instance("flash_fwd", dtype, hd) == want
+    assert kernel_instance("flash_dkv", dtype, hd) == want
+    assert kernel_instance("flash_dq", dtype, hd) == "scalar"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("H,Hkv,hd,S", [(4, 2, 64, 200), (4, 4, 128, 192),
+                                        (8, 2, 128, 130), (4, 2, 64, 40),
+                                        (2, 2, 128, 2048), (16, 4, 128, 320)])
+def test_flash_kernels_match_plain_on_card(cuda, dtype, causal, H, Hkv, hd, S):
+    """flash_fwd, flash_dq and flash_dkv against their plain versions on the
+    same inputs: GQA (rep 2 and 4) and MHA, sequences shorter than one
+    tile, ending inside a 64- or 128-row tile and an exact multiple of 128
+    (S 2048), causal and not."""
+    q, k, v, do = _flash_case(cuda, dtype, 2, S, H, Hkv, hd, seed=S + hd)
+    _flash_against_plain(q, k, v, do, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_kernels_follow_permuted_layout_on_card(cuda, dtype):
+    """Dense ``[B, H, S, hd]`` storage seen as ``[B, S, H, hd]`` views
+    (head stride S * hd, position stride hd): the kernels, and the bf16
+    instances' tensor maps, follow the caller's strides without a copy."""
+    from tony_tpu_torch.ops.attention import _dense, _tma_ready
+
+    q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _flash_case(cuda, dtype, 2, 320, 8, 2, 128, seed=3))
+    assert q.stride() == (8 * 320 * 128, 128, 320 * 128, 1)
+    assert _dense(q) is q and _tma_ready(q, do)[0] is q
+    _flash_against_plain(q, k, v, do, causal=True)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,12 @@ kernels (``csrc/flash_attention.cu``, built with ``nvcc`` at first use by
 - ``flash_dq``: dq from explicit lse and ``delta = rowsum(dO * out)``;
 - ``flash_dkv``: dk/dv ``[B, S, Hkv, hd]``, summed over each GQA group.
 
+bf16 ``flash_fwd`` and ``flash_dkv`` run on the tensor cores (wgmma, with
+tiles staged by TMA); float32 inputs, and ``flash_dq``, run scalar float32
+instances (:func:`kernel_instance` says which). TMA reads a tensor only
+from a 16-byte-aligned start with 16-byte strides, so the wrapper hands
+those kernels aligned copies of tensors that are not (:func:`_tma_ready`).
+
 K/V may carry fewer heads than Q: head h reads kv head ``h // (H / Hkv)``
 by index, never through a repeat in memory. ``delta`` is computed here in
 float32 outside the kernels, as the reference's ``_flash_bwd`` computes it
@@ -49,6 +55,11 @@ _NEG = -0.7 * torch.finfo(torch.float32).max
 _SOURCE = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_KERNEL_CODES = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
+# the C entry points' own codes (other nonzero returns are cudaError_t)
+_ERRORS = {-1: "no instance for this dtype / head_dim",
+           -2: "libcuda has no cuTensorMapEncodeTiled",
+           -3: "cuTensorMapEncodeTiled refused a tensor map (base or stride not 16-byte aligned)"}
 
 
 def reset_launches() -> None:
@@ -156,7 +167,21 @@ def _kernels():
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
         fn.restype = ctypes.c_int
         fns[name] = fn
+    lib.flash_route.argtypes = [ctypes.c_int] * 3
+    lib.flash_route.restype = ctypes.c_int
+    fns["flash_route"] = lib.flash_route
     return fns
+
+
+def kernel_instance(name: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Which CUDA instance ``name`` (flash_fwd, flash_dq or flash_dkv) runs
+    for ``dtype`` and ``head_dim``, as the built library dispatches it:
+    ``"tensor cores"`` (wgmma + TMA) or ``"scalar"`` (float32 FMA). Builds
+    the library on first use, so it needs nvcc."""
+    route = _kernels()["flash_route"](_KERNEL_CODES[name], _DTYPE_CODES[dtype], head_dim)
+    if route < 0:
+        raise ValueError(f"{name} has no instance for {dtype}, head_dim {head_dim}")
+    return "tensor cores" if route == 1 else "scalar"
 
 
 def _strides(x: torch.Tensor) -> tuple[int, int, int]:
@@ -178,6 +203,29 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     if torch.empty_like(x).stride() == x.stride():
         return x
     return x.contiguous()
+
+
+def _tma_aligned(x: torch.Tensor) -> bool:
+    """Whether TMA can read ``x`` as it lies: a 16-byte-aligned start and a
+    multiple of 16 bytes for the stride of every dimension longer than 1
+    (the kernels give a dimension of size 1 a stride of their own), the
+    unit-stride head_dim aside."""
+    item = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st == 1 or st * item % 16 == 0 for n, st in zip(x.shape, x.stride()))
+
+
+def _tma_ready(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The tensors themselves when TMA can read all of them as they lie,
+    else contiguous copies of all of them (a fresh allocation is aligned,
+    and tensors that shared strides keep sharing them). Raises if a copy
+    is still not readable: the kernels never fall back to another path."""
+    if all(map(_tma_aligned, xs)):
+        return xs
+    out = tuple(x.clone(memory_format=torch.contiguous_format) for x in xs)
+    if not all(map(_tma_aligned, out)):
+        raise ValueError("flash kernels: no 16-byte-aligned copy of the inputs for TMA")
+    return out
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -206,7 +254,7 @@ def _launch(name: str, *ptrs: int, q: torch.Tensor, k: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: {_ERRORS.get(err, f'cudaError {err}')}")
     LAUNCHES[name] += 1
 
 
@@ -220,6 +268,8 @@ def _fwd(q, k, v, scale: float, causal: bool):
         raise ValueError(f"no flash attention for device {q.device}")
     q, k, v = _dense(q), _dense(k), _dense(v)
     _check_cuda(q, k, v)
+    if q.dtype == torch.bfloat16:
+        (q,), (k, v) = _tma_ready(q), _tma_ready(k, v)
     B, S, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -254,6 +304,8 @@ def _dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     q, k, v = _dense(q), _dense(k), _dense(v)
     _check_cuda(q, k, v)
     do = _like(do.to(q.dtype), q)
+    if q.dtype == torch.bfloat16:
+        (q, do), (k, v) = _tma_ready(q, do), _tma_ready(k, v)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -404,5 +456,6 @@ def sharded_flash_attention(q, k, v, cfg=None, *, mesh=None, **kwargs) -> torch.
 __all__ = [
     "FLASH_FWD_OP", "LAUNCHES", "flash_attention", "flash_dkv_pass",
     "flash_dkv_plain", "flash_dq_pass", "flash_dq_plain", "flash_fwd_pass",
-    "flash_fwd_plain", "reset_launches", "sharded_flash_attention",
+    "flash_fwd_plain", "kernel_instance", "reset_launches",
+    "sharded_flash_attention",
 ]

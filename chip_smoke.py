@@ -18,13 +18,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each block in chunks; then the flash-attention forward, dq and dk/dv
    kernels against theirs at bench_1b4's training shape, bench_moe's
    (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
-   and fp32, each case logged with the instance that ran (the bf16
-   forward and dk/dv on the tensor cores, wgmma with TMA staging; fp32
-   and dq scalar), and the tensor-core instances' registers and spills
-   from the build log; then (3c) the grouped-matmul forward, dx and dW kernels
-   against theirs at bench_moe's shapes (33,792 buffer rows from a real
-   router draw with one expert forced empty, D 1024, F 2816, 8 experts),
-   in both directions of the SwiGLU and in bf16 and fp32, and one bench_moe
+   and fp32, each case logged with the instance that ran (every bf16
+   kernel on the tensor cores, wgmma with TMA staging; fp32 scalar), and
+   the six tensor-core instances' registers and spills from the build log;
+   then (3c) the grouped-matmul forward, dx and dW kernels against theirs
+   at bench_moe's shapes (33,792 buffer rows from a real router draw with
+   one expert forced empty, D 1024, F 2816, 8 experts, row tile 128), in
+   both directions of the SwiGLU and in bf16 and fp32, each with its
+   instance (the bf16 forward on wgmma with TMA staging, its registers and
+   spills; bf16 dx and dW on mma.sync; fp32 scalar) and the forward's
+   padding rows exactly 0, and one bench_moe
    MoE block forward and backward under ``set_sync_debug_mode("error")``;
    then (3d) the quantized decode-attention kernel against its plain
    version at Llama-3-8B decode shapes (8 rows of about 512 positions) over
@@ -79,7 +82,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``save_attn_kernel``, scan CE, bf16 Adam first moment), 10 steps from
    random weights; every loss finite and the last below the first, and
    each flash kernel launched exactly 24 x 10 times (twice as many forward
-   launches would mean remat re-ran the forward kernel). Then one step
+   launches would mean remat re-ran the forward kernel), on its
+   tensor-core instance. Then one step
    under torch.profiler, and a 2-layer cross-check of one train step with
    the kernels against plain attention. Then (5b) the same fit() with
    ``ce_impl="pallas"``: step 1 within 2e-2 of phase 5's, ce_fwd once a
@@ -91,13 +95,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    random weights; every loss finite and the last below the first, each
    grouped-matmul kernel launched as often as remat implies (per layer and
    step: forward 6, dx 3, dW 3) and each flash kernel once per layer and
-   step, no plain version on the card. Then one step under torch.profiler,
+   step, no plain version on the card, the forward and the flash kernels
+   on their tensor-core instances. Then one step under torch.profiler,
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
-again, and the script raises after three such windows.
+again, and the script raises after three such windows. The flash kernels'
+and the grouped-matmul forward's launches are matched by their
+tensor-core kernels' names (``tc::``), so a window in which one ran
+another instance is short of events.
 
 The last three lines are the ``kernels`` JSON (thirteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed),
@@ -147,15 +155,17 @@ QUANT_MM_TOLERANCE = {torch.bfloat16: (1e-2, 2**-7), torch.float32: (1e-4, 1e-4)
 KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
                   "quant_mm", "fused_ce")
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
-# (a profile must hold at least that many events of each)
+# (a profile must hold at least that many events of each). The profiles run
+# bf16 training and serving, so the flash kernels and the grouped-matmul
+# forward are named by their tensor-core instances (namespace tc).
 KERNEL_EVENTS = {
     "decode_attention": ("decode_kernel",),
     "paged_decode_attention": ("paged_decode_kernel",),
     "paged_decode_attention_quant": ("paged_decode_kernel",),
     "quant_mm": ("quant_mm_kernel",),
-    "flash_fwd": ("flash_fwd_kernel",), "flash_dq": ("flash_dq_kernel",),
-    "flash_dkv": ("flash_dkv_kernel",),
-    "gmm_fwd": ("gmm_fwd_kernel",), "gmm_dx": ("gmm_dx_kernel",),
+    "flash_fwd": ("tc::flash_fwd_kernel",), "flash_dq": ("tc::flash_dq_kernel",),
+    "flash_dkv": ("tc::flash_dkv_kernel",),
+    "gmm_fwd": ("tc::gmm_fwd_kernel",), "gmm_dx": ("gmm_dx_kernel",),
     "gmm_dw": ("gmm_dw_kernel",),
     "ce_fwd": ("ce_fwd_kernel", "ce_fwd_merge_kernel"),
     "ce_dh": ("ce_dlogits_kernel", "ce_dh_kernel"), "ce_dw": ("ce_dw_kernel",),
@@ -1044,8 +1054,9 @@ def reset_counts() -> None:
 
 def has_kernel(key: str, kernel: str) -> bool:
     """Whether a profiler event's name is ``kernel`` (a whole word of it:
-    ``ce_dh_kernel`` is not ``ce_dlogits_kernel``)."""
-    return re.search(rf"\b{kernel}\b", key) is not None
+    ``ce_dh_kernel`` is not ``ce_dlogits_kernel``; ``tc::flash_dq_kernel``
+    is the tensor-core instance only)."""
+    return re.search(rf"\b{re.escape(kernel)}\b", key) is not None
 
 
 # traced windows a profile may take: CUPTI drops an event now and then (2
@@ -1175,15 +1186,17 @@ def _pairs(B: int, S: int, H: int, causal: bool) -> int:
 
 
 def tensor_core_resources(log: str) -> list[dict]:
-    """Registers, stack and spills of each tensor-core flash instance
-    (namespace ``tc``, e.g. ``flash_fwd_kernel<128>``) from nvcc's
-    ``-Xptxas -v`` lines."""
+    """Registers, stack and spills of each tensor-core instance (namespace
+    ``tc``, e.g. ``flash_fwd_kernel<128>``, ``gmm_fwd_kernel``) from
+    nvcc's ``-Xptxas -v`` lines."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"tc\d+(flash_\w+?_kernel)ILi(\d+)E", m.group(1))
-            cur = {"kernel": f"{k.group(1)}<{k.group(2)}>"} if k else None
+            k = re.search(r"2tc\d+(\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            cur = None
+            if k:
+                cur = {"kernel": k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")}
             if cur:
                 out.append(cur)
         elif cur is not None:
@@ -1196,6 +1209,25 @@ def tensor_core_resources(log: str) -> list[dict]:
             if m:
                 cur["registers"] = int(m.group(1))
     return out
+
+
+def log_resources(builds: list, source: str, expected: int) -> list[dict]:
+    """Log the registers and spills of the tensor-core instances of
+    ``source`` from this run's build log; raises unless there are
+    ``expected`` of them (a library loaded from csrc/build/ has no log)."""
+    built = builds[KERNEL_SOURCES.index(source)]
+    resources = tensor_core_resources(built.log)
+    if not built.seconds:
+        log(f"{source} tensor-core instances: loaded from csrc/build/, no build log this run")
+    elif len(resources) != expected:
+        raise AssertionError(f"expected {expected} tensor-core instances of {source} in "
+                             f"the build log, found {resources}")
+    for r in resources:
+        spill = r["spill_stores"] + r["spill_loads"]
+        log(f"{source} tensor-core instance {r['kernel']}: {r['registers']} registers, "
+            f"{r['stack']} bytes stack, {'SPILLS ' if spill else ''}{r['spill_stores']} / "
+            f"{r['spill_loads']} bytes spill stores / loads")
+    return resources
 
 
 def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
@@ -1356,6 +1388,7 @@ def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dic
     bound, the plain version's time and torch._grouped_mm's."""
     from tony_tpu_torch.ops.grouped_mm import (
         gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
+        kernel_instance,
     )
 
     tg, offs, N, R = inputs["tile_group"], inputs["offs"], inputs["rows"], inputs["routes"]
@@ -1389,6 +1422,10 @@ def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dic
                 (err > atol + rtol * want.float().abs()).any())
             if name == "gmm_dw":            # a zero-load expert's dW is 0
                 ok &= int(torch.count_nonzero(got[empty])) == 0
+            if name == "gmm_fwd":           # padding rows (zero x) give y exactly 0
+                padding = (a == 0).all(dim=1)
+                ok &= int(padding.sum()) == N - R
+                ok &= int(torch.count_nonzero(got[padding])) == 0
             lib, lib_note = grouped_library(name, a, w, dy, offs)
             lib_err = None
             if lib is not None:
@@ -1399,6 +1436,7 @@ def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dic
             ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
             cases.append({
                 "name": name, "direction": label, "dtype": str(dtype).replace("torch.", ""),
+                "instance": kernel_instance(name, dtype, MOE_BLOCK),
                 "rows": N, "routes": R, "d_in": d_in, "d_out": d_out, "experts": E,
                 "max_abs_err": max_err, "ok": ok, "atol": atol, "rtol": rtol,
                 "ms": time_ms(kernel, flush, reps=10),
@@ -1749,12 +1787,14 @@ def train_phase(card: str) -> dict:
                                  f"{cfg.n_layers} layers x {TRAIN_STEPS} steps")
     if any(launches[f"{n}_plain"] for n in ("flash_fwd", "flash_dq", "flash_dkv")):
         raise AssertionError(f"a plain flash version ran on the card: {launches}")
+    instances = check_tensor_core_path(cfg)
     timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
     step_s = sum(timed) / len(timed)
     tokens = data.global_batch * data.seq_len
     flops = train_flops_per_token(cfg, data.seq_len)
     return {
         "losses": losses, "launches": launches, "wall_s": wall, "final": final,
+        "instances": instances,
         "mean_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "mfu": tokens / step_s * flops / 989e12, "flops_per_token": flops,
         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1804,6 +1844,7 @@ def train_ce_phase(card: str, scan: dict) -> dict:
     want.update({f"{n}_plain": 0 for n in list(want)})
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"launches {launches} != {want}")
+    check_tensor_core_path(cfg)
     timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
     step_s = sum(timed) / len(timed)
     tokens = data.global_batch * data.seq_len
@@ -1814,6 +1855,22 @@ def train_ce_phase(card: str, scan: dict) -> dict:
         **train_profile(dataclasses.replace(cfg, ce_impl="pallas"), data,
                         FLASH_KERNELS + CE_CUDA_KERNELS),
     }
+
+
+def check_tensor_core_path(cfg) -> dict[str, str]:
+    """The instance each flash kernel (and, for a MoE config, the grouped
+    matmul's forward) runs at ``cfg``'s dtype, head_dim and row tile, as
+    the built libraries dispatch it; raises unless each is the
+    tensor-core one (wgmma + TMA). The profiles then find every counted
+    launch of these kernels among ``tc::`` events (``KERNEL_EVENTS``)."""
+    from tony_tpu_torch.ops import attention, grouped_mm
+
+    got = {n: attention.kernel_instance(n, cfg.dtype, cfg.head_dim) for n in FLASH_KERNELS}
+    if cfg.n_experts:
+        got["gmm_fwd"] = grouped_mm.kernel_instance("gmm_fwd", cfg.dtype, cfg.moe_group_block)
+    if any(v != "tensor cores" for v in got.values()):
+        raise AssertionError(f"the training path is off its tensor-core instances: {got}")
+    return got
 
 
 def train_profile(cfg, data, kernels: tuple[str, ...]) -> dict:
@@ -1963,12 +2020,14 @@ def train_moe_phase(card: str) -> dict:
                                  f"{cfg.n_layers} layers x {MOE_TRAIN_STEPS} steps")
     if any(launches[f"{n}_plain"] for n in MOE_LAUNCHES_PER_LAYER_STEP):
         raise AssertionError(f"a plain version ran on the card: {launches}")
+    instances = check_tensor_core_path(cfg)
     timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
     step_s = sum(timed) / len(timed)
     tokens = data.global_batch * data.seq_len
     flops = train_flops_per_token(cfg, data.seq_len)
     return {
         "losses": losses, "aux": [m["aux"] for m in steps], "launches": launches,
+        "instances": instances,
         "wall_s": wall, "final": final, "mean_step_ms": step_s * 1e3,
         "tokens_per_s": tokens / step_s, "mfu": tokens / step_s * flops / 989e12,
         "flops_per_token": flops, "n_params": cfg.n_params,
@@ -2042,24 +2101,12 @@ def main() -> int:
     if bad:
         raise AssertionError(f"flash kernels over tolerance: "
                              f"{[(c['name'], c['shape'], c['dtype']) for c in bad]}")
-    # the bf16 forward and dk/dv run on the tensor cores; fp32 and dq scalar
+    # every bf16 kernel runs on the tensor cores, fp32 scalar
     wrong = [(c["name"], c["dtype"], c["instance"]) for c in flash
-             if (c["instance"] == "tensor cores") != (c["dtype"] == "bfloat16"
-                                                      and c["name"] != "flash_dq")]
+             if (c["instance"] == "tensor cores") != (c["dtype"] == "bfloat16")]
     if wrong:
         raise AssertionError(f"flash cases on an unexpected instance: {wrong}")
-    built = builds[KERNEL_SOURCES.index("flash_attention")]
-    resources = tensor_core_resources(built.log)
-    if built.seconds and len(resources) != 4:
-        raise AssertionError(f"expected 4 tensor-core flash instances in the build log, "
-                             f"found {resources}")
-    if not built.seconds:
-        log("flash tensor-core instances: loaded from csrc/build/, no build log this run")
-    for r in resources:
-        spill = r["spill_stores"] + r["spill_loads"]
-        log(f"flash tensor-core instance {r['kernel']}: {r['registers']} registers, "
-            f"{r['stack']} bytes stack, {'SPILLS ' if spill else ''}{r['spill_stores']} / "
-            f"{r['spill_loads']} bytes spill stores / loads")
+    log_resources(builds, "flash_attention", 6)
 
     inputs = gmm_inputs()
     log(f"grouped matmul inputs: {MOE_T} tokens x top-{MOE_K} = {inputs['routes']} "
@@ -2070,8 +2117,8 @@ def main() -> int:
             gmm.append(c)
             lib = (f"{c['library_ms']:.3f} ms (max|err| {c['library_max_abs_err']:.3e})"
                    if c["library_ms"] is not None else f"- ({c['library_note']})")
-            log(f"kernel {c['name']} {c['direction']} {c['dtype']} rows={c['rows']} "
-                f"{c['d_in']}->{c['d_out']} E={c['experts']}: max|err| "
+            log(f"kernel {c['name']} {c['direction']} {c['dtype']} ({c['instance']}) "
+                f"rows={c['rows']} {c['d_in']}->{c['d_out']} E={c['experts']}: max|err| "
                 f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
                 f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms']:.3f} ms  "
                 f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: {c['ops']:.4g} "
@@ -2081,6 +2128,15 @@ def main() -> int:
     if bad:
         raise AssertionError(f"grouped matmul kernels over tolerance: "
                              f"{[(c['name'], c['direction'], c['dtype']) for c in bad]}")
+    # the bf16 forward at row tile 128 runs on wgmma + TMA, bf16 dx and dW
+    # on mma.sync, fp32 scalar
+    want = {("gmm_fwd", "bfloat16"): "tensor cores", ("gmm_dx", "bfloat16"): "mma.sync",
+            ("gmm_dw", "bfloat16"): "mma.sync"}
+    wrong = [(c["name"], c["dtype"], c["instance"]) for c in gmm
+             if c["instance"] != want.get((c["name"], c["dtype"]), "scalar")]
+    if wrong:
+        raise AssertionError(f"grouped matmul cases on an unexpected instance: {wrong}")
+    log_resources(builds, "grouped_mm", 1)
     del inputs
 
     # 3d: the quantized serving kernels. Decode attention over int8 and fp8
@@ -2243,7 +2299,8 @@ def main() -> int:
         f"{t['final']['step_time_p99_s'] * 1e3:.1f} ms; peak allocated "
         f"{t['peak_allocated_gb']:.2f} GB; launches fwd "
         f"{t['launches']['flash_fwd']} dq {t['launches']['flash_dq']} dkv "
-        f"{t['launches']['flash_dkv']}; CE matmuls: {t['ce_matmul']}  [{card}]")
+        f"{t['launches']['flash_dkv']} (instances {t['instances']}); CE matmuls: "
+        f"{t['ce_matmul']}  [{card}]")
     log(f"train step under torch.profiler: {t['profile_step_ms']:.1f} ms wall, "
         f"{t['profile_device_ms']:.1f} ms device (busy "
         f"{t['profile_device_busy']:.1%}); share of device time: "
@@ -2287,7 +2344,7 @@ def main() -> int:
         f"{m['peak_allocated_gb']:.2f} GB; aux per step "
         + ", ".join(f"{a:.5f}" for a in m["aux"]) + "; launches "
         + ", ".join(f"{k} {m['launches'][k]}" for k in MOE_LAUNCHES_PER_LAYER_STEP)
-        + f"  [{card}]")
+        + f" (instances {m['instances']})  [{card}]")
     log(f"moe train step under torch.profiler: {m['profile_step_ms']:.1f} ms wall, "
         f"{m['profile_device_ms']:.1f} ms device (busy "
         f"{m['profile_device_busy']:.1%}); share of device time: "

@@ -1,6 +1,6 @@
 """Import hygiene of the PyTorch/CUDA port: no module of tony_tpu_torch, not
-chip_smoke.py and not the card's test file imports jax or anything of the
-JAX package. Read from
+chip_smoke.py, not the card's test file and not scripts/torch_kernel_ab.py
+imports jax or anything of the JAX package. Read from
 the source with ``ast`` (not ``sys.modules``: the interpreter may have
 imported jax before any test runs)."""
 
@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # the card's tests run where JAX is not installed, so their file is held
 # to the same rule
 FILES = sorted((ROOT / "tony_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests/test_torch_kernels_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests/test_torch_kernels_cuda.py",
+    ROOT / "scripts/torch_kernel_ab.py"]
 
 
 def _banned(name: str) -> bool:

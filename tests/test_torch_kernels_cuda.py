@@ -242,7 +242,7 @@ def _close(got, want, dtype, what):
 def _flash_against_plain(q, k, v, do, causal):
     """flash_fwd, flash_dq and flash_dkv on ``[B, S, H, hd]`` views against
     their plain versions on the same inputs; each kernel launched once, no
-    plain version run, and each bf16 fwd / dkv through its tensor-core
+    plain version run, and each bf16 kernel through its tensor-core
     instance."""
     from tony_tpu_torch.ops.attention import (
         LAUNCHES, _dkv, _dq, _delta, _fwd, flash_dkv_plain, flash_dq_plain,
@@ -272,7 +272,7 @@ def _flash_against_plain(q, k, v, do, causal):
     want = "tensor cores" if dtype == torch.bfloat16 else "scalar"
     assert kernel_instance("flash_fwd", dtype, hd) == want
     assert kernel_instance("flash_dkv", dtype, hd) == want
-    assert kernel_instance("flash_dq", dtype, hd) == "scalar"
+    assert kernel_instance("flash_dq", dtype, hd) == want
 
 
 @pytest.mark.cuda
@@ -369,23 +369,41 @@ def _gmm_case(dev, dtype, sizes, D, F, block, seed):
 # (sizes, D, F, block): a width crossing the 128-column tile with ragged
 # edges on both dims and an empty expert; the 16-row tiles of the tests'
 # configs with two empty experts at the end; a row tile of 160 (two row
-# slices per tile, the second partial) with a width below one column tile
+# slices per tile, the second partial) with a width below one column tile;
+# row tiles of 128 and 256 (the bf16 forward's wgmma instance: one and two
+# 128-row slices per tile) with contraction tails (72, 200, 328 are not
+# multiples of its 64-deep slices), output widths that end inside a
+# 64-column half and leave whole halves of its 256-column tile unloaded,
+# and empty experts; a row tile of 64 (mma.sync, as are 16 and 160)
 GMM_CASES = [([130, 0, 77, 300], 136, 200, 128), ([5, 40, 0, 9, 0], 64, 72, 16),
-             ([200, 0, 3], 40, 256, 160)]
+             ([200, 0, 3], 40, 256, 160), ([260, 0, 7, 129, 0], 72, 328, 128),
+             ([300, 0, 513], 136, 200, 256), ([70, 0, 5, 64], 72, 136, 64)]
+GMM_IDS = ["ragged", "block16", "block160", "block128-tail", "block256", "block64"]
+# the instance each dtype runs (csrc/grouped_mm.cu gmm_route), but for the
+# bf16 forward at row tiles of a multiple of 128: wgmma + TMA
+GMM_INSTANCE = {torch.float32: "scalar", torch.bfloat16: "mma.sync"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("sizes,D,F,block", GMM_CASES, ids=["ragged", "block16", "block160"])
+@pytest.mark.parametrize("sizes,D,F,block", GMM_CASES, ids=GMM_IDS)
 def test_gmm_kernels_match_plain_on_card(cuda, dtype, sizes, D, F, block):
     """gmm_fwd, gmm_dx and gmm_dw against their plain versions on the same
     inputs, both directions of the SwiGLU (D -> F as w1/w3, F -> D as w2);
-    an empty expert's dW is exactly 0."""
+    an empty expert's dW is exactly 0 and the forward's padding rows are
+    exactly 0. Each case runs the instance gmm_route names: bf16 gmm_fwd on
+    wgmma + TMA at row tiles of a multiple of 128, else mma.sync; float32
+    scalar."""
     from tony_tpu_torch.ops.grouped_mm import (
         LAUNCHES, gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
-        reset_launches,
+        kernel_instance, reset_launches,
     )
 
+    tc = dtype == torch.bfloat16 and block % 128 == 0
+    assert kernel_instance("gmm_fwd", dtype, block) == (
+        "tensor cores" if tc else GMM_INSTANCE[dtype])
+    for name in ("gmm_dx", "gmm_dw"):
+        assert kernel_instance(name, dtype, block) == GMM_INSTANCE[dtype]
     tol = GMM_TOL[dtype]
     for d_in, d_out in ((D, F), (F, D)):
         x, w, tg, dy = _gmm_case(cuda, dtype, sizes, d_in, d_out, block, seed=d_in)
@@ -398,6 +416,9 @@ def test_gmm_kernels_match_plain_on_card(cuda, dtype, sizes, D, F, block):
         assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
         torch.testing.assert_close(y.float(), gmm_fwd_plain(x, w, tg).float(),
                                    atol=tol, rtol=tol)
+        padding = (x == 0).all(dim=1)
+        assert int(padding.sum()) == x.shape[0] - sum(sizes)
+        assert torch.count_nonzero(y[padding]) == 0
         torch.testing.assert_close(dx.float(), gmm_dx_plain(dy, w, tg).float(),
                                    atol=tol, rtol=tol)
         torch.testing.assert_close(dw, gmm_dw_plain(x, dy, tg, G), atol=1e-4, rtol=1e-4)

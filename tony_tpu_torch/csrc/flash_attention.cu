@@ -24,14 +24,15 @@
 //
 // Two designs, picked by input type (flash_route says which runs):
 //
-// bf16 flash_fwd and flash_dkv: tensor cores (namespace tc). Tiles are
-// 64-column halves of hd in 128-byte-swizzled shared memory, loaded by TMA
-// (cp.async.bulk.tensor over 4-D tensor maps of (hd, S, heads, B) with the
-// caller's strides; rows past S arrive as zeros) through a 2-stage ring of
-// full/empty mbarriers, and read by wgmma through descriptors: K-major for
-// Q, K, V and dO as the "rows . rows" operands, MN-major (transposed) for
-// V, dO and Q as the second operand of P.V, P^T.dO and dS^T.Q. Products
-// are wgmma m64nNk16, bf16 in, float32 out.
+// bf16: tensor cores (namespace tc). Tiles are 64-column halves of hd in
+// 128-byte-swizzled shared memory, loaded by TMA (cp.async.bulk.tensor over
+// 4-D tensor maps of (hd, S, heads, B) with the caller's strides; rows past
+// S arrive as zeros) through rings of full/empty mbarriers, and read by
+// wgmma through descriptors: K-major for Q, K, V and dO as the "rows .
+// rows" operands, MN-major (transposed) for V, K, dO and Q as the second
+// operand of P.V, dS.K, P^T.dO and dS^T.Q. Products are wgmma m64nNk16,
+// bf16 in, float32 out. The mbarrier, TMA, descriptor and wgmma wrappers
+// are in sm90.cuh.
 // - flash_fwd: one CTA per (128 query rows, b * H + h), the longest causal
 //   rows first; 384 threads. Warpgroup 0 is the producer, one thread of
 //   which keeps the Q, K and V loads in flight; warpgroups 1 and 2 own 64
@@ -42,6 +43,19 @@
 //   j * blk_k <= i * blk_q + blk_q - 1), p rounded to bf16 and repacked in
 //   registers as the A operand of O += P.V. A consumer fits the 168
 //   registers a 384-thread CTA gives each thread (no spills).
+// - flash_dq: one CTA per (128 query rows, b * H + h), the longest causal
+//   rows first; 288 threads: warpgroups 0 and 1 own 64 rows each, warp 8
+//   is the producer. Q and dO are loaded once and stay resident; K and V
+//   stream through a 3-stage ring in 64-key tiles. Per tile: S = Q.K^T and
+//   dP = dO.V^T from shared memory, P = exp2(S scale log2 e - lse log2 e),
+//   dS = P (dP - delta) scale, rounded to bf16 and repacked as the register
+//   operand of dQ += dS.K, K read again MN-major from the same tile. A
+//   consumer holds S, dP and dQ: 128 floats at hd 128, as the forward's
+//   S and O. The tile is 64 keys for that reason (128 would hold 192,
+//   the dk/dv case). Whole tiles above a warpgroup's diagonal contribute
+//   no products; keys after a row and columns past S are masked by select
+//   on edge tiles. dq stays a kernel of its own, as in the reference: no
+//   atomics, so it is deterministic.
 // - flash_dkv: one CTA per (128 keys, b * Hkv + kv head), K and V loaded
 //   once and resident; two warpgroups own 64 keys each and walk every
 //   64-row q tile on or below the diagonal of every query head of the GQA
@@ -65,14 +79,13 @@
 // Scores run in log2 units (exp2f of s * scale * log2 e), the same
 // function as exp up to float32 rounding of the argument.
 //
-// float32 inputs, and flash_dq in both types: the first design, scalar
-// float32 FMA on CUDA cores. 64 x 64 tiles, 256 threads, a 4 x 4 block of
-// the score tile per thread; Q, K, V and dO staged as float32 transposed to
-// [hd][65] (the stride of 65 words keeps the staging stores and the column
-// reads free of bank conflicts); p and ds pass through shared memory. The
-// tensor cores have no float32 path that holds 1e-4 (TF32 keeps about 10
-// bits), so float32 stays here. flash_dq keeps p and ds in float32, as the
-// TPU kernel does.
+// float32: the first design, scalar float32 FMA on CUDA cores. 64 x 64
+// tiles, 256 threads, a 4 x 4 block of the score tile per thread; Q, K, V
+// and dO staged as float32 transposed to [hd][65] (the stride of 65 words
+// keeps the staging stores and the column reads free of bank conflicts);
+// p and ds pass through shared memory. The tensor cores have no float32
+// path that holds 1e-4 (TF32 keeps about 10 bits), so float32 stays here.
+// Its flash_dq keeps p and ds in float32, as the TPU kernel does.
 //
 // What bounds it on this card: operations. At the training shapes
 // (S = 2048, hd = 128) a tile does 2 * 64 * 128 * 128 flops per matmul
@@ -82,12 +95,9 @@
 // instances peak at the CUDA cores' 67 TFLOP/s. Measured times are in
 // PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
-#include <cstdint>
+#include "sm90.cuh"
 
 namespace {
 
@@ -100,14 +110,11 @@ struct Strides {
   long long sb, sh, ss;            // batch, head, position (d has stride 1)
 };
 
+// the scalar kernels' element type: float32 (bf16 runs on the tensor cores)
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // max / sum over the 16 lanes (tx = 0..15) that share one tile row
 __device__ __forceinline__ float row_max(float x) {
@@ -256,7 +263,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------- scalar dq (both types)
+// ---------------------------------------------------- scalar dq (float32)
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -497,66 +504,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 namespace tc {
 
 constexpr int kThreads = 384;      // fwd: warpgroup 0 produces, 1 and 2 consume
+constexpr int kDqThreads = 288;    // dq: warpgroups 0 and 1 consume, warp 8 produces
 constexpr int kConsumers = 256;    // the two compute warpgroups (dkv: the whole CTA)
-constexpr int kRows = 128;         // fwd: q rows per CTA, keys per tile; dkv: keys per CTA
+constexpr int kRows = 128;         // fwd, dq: q rows per CTA; fwd: keys per tile; dkv: keys per CTA
 constexpr int kQRows = 64;         // dkv: q rows per tile
+constexpr int kKeys = 64;          // dq: keys per tile
 constexpr int kStages = 2;
-constexpr int kHalf = 64;          // bf16 columns in one 128-byte swizzled row
+constexpr int kDqStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool bar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of the given parity to complete. A barrier that stays
-// open for 2^32 cycles (about 2 s; a tile takes microseconds) traps, so a
-// load that never lands is a launch error and not a hung card.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  if (bar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!bar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 32)) __trap();
-}
-
-// 4-D box (64 columns of hd, rows positions, 1 head, 1 batch row) at
-// (d0, s0, head, b) into dst, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
-                                         int d0, int s0, int head, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(d0), "r"(s0), "r"(head), "r"(b)
-      : "memory");
-}
 
 // a [rows, HD] tile as HD / 64 halves of [rows][64], one after the other
 template <int HD>
@@ -565,162 +521,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, 
 #pragma unroll
   for (int h = 0; h < HD / kHalf; ++h)
     tma_load(dst + h * rows * 128, map, bar, h * kHalf, s0, head, b);
-}
-
-// --- warpgroup MMA
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of wgmma registers across
-// the fence / wait that brackets the asynchronous product
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading byte offset (MN-major: the distance between 64-column
-// halves; K-major: unused), stride byte offset 1024 (8 rows of 128 bytes),
-// layout 128B swizzle. Within a swizzled row a k-step of 16 moves the
-// start by 32 bytes; the tiles are 1024-byte aligned, so the base offset
-// is 0.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// wgmma.mma_async m64nNk16, float32 += bf16 x bf16. ss: A and B from
-// shared memory, both K-major. rs: A from registers (the m64k16 fragment),
-// B from shared memory MN-major. acc = 0 overwrites d.
-// Accumulator layout (thread t of the warpgroup, warp w = t / 32, lane l):
-// d[i] is row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) +
-// 2 (l % 4) + (i & 1); the A fragment of k-step kk is the same layout's
-// d[8 kk .. 8 kk + 7] packed in pairs.
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
-                                               int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                               int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b,
-                                               int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b,
-                                               int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-template <int N>
-__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  if constexpr (N == 64) mma_ss_n64(d, a, b, acc);
-  else mma_ss_n128(d, a, b, acc);
-}
-
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b, int acc) {
-  if constexpr (N == 64) mma_rs_n64(d, a, b, acc);
-  else mma_rs_n128(d, a, b, acc);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// an accumulator as A fragments, rounded to bf16
-template <int N>
-__device__ __forceinline__ void to_a(const float (&d)[N], uint32_t (&a)[N / 2]) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 // rows r and r + 8 of a [64, HD] accumulator (this thread's columns), as
@@ -739,13 +539,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], __nv_bflo
   }
 }
 
-__device__ __forceinline__ void init_done() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // dynamic shared memory: 1 KB of slack to align the tiles to 1024 bytes
 constexpr int fwd_smem(int hd) { return 1024 + (1 + 2 * kStages) * kRows * hd * 2; }
+constexpr int dq_smem(int hd) { return 1024 + 2 * kRows * hd * 2 + 2 * kDqStages * kKeys * hd * 2; }
 constexpr int dkv_smem(int hd) { return 1024 + 2 * kRows * hd * 2 + 2 * kStages * kQRows * hd * 2; }
 
 // ---------------------------------------------------------------- forward
@@ -892,6 +688,149 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       if (r0 + 8 < S) lse[(long long)bh * S + r0 + 8] = m[1] * kLn2 + logf(ll[1]);
     }
   }
+}
+
+// --------------------------------------------------------------------- dq
+
+// Q and dO resident, K and V streamed in 64-key tiles through a 3-stage
+// ring. A producer warp (warp 8) rather than a warpgroup: ptxas gives each
+// thread of a CTA the same register budget, 65,536 over the CTA's threads
+// (168 at 384 threads, 224 at 288), and a consumer holds S, dP and dQ.
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
+                int Hkv, int S, Strides sq, float scale, int causal) {
+  constexpr int kQ = kRows * HD * 2, kKV = kKeys * HD * 2;      // tile bytes
+  constexpr int kQHalf = kRows * 128, kKVHalf = kKeys * 128;    // half-tile bytes
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 4 * kDqStages];
+  const uint32_t sQ = (saddr(smem) + 1023) & ~1023u, sO = sQ + kQ;
+  const uint32_t sK = sO + kQ, sV = sK + kDqStages * kKV;
+  // q_full (Q and dO), then k_full[s], v_full[s], k_empty[s], v_empty[s]
+  const uint32_t q_full = saddr(bars), k_full = q_full + 8, v_full = k_full + 8 * kDqStages;
+  const uint32_t k_empty = v_full + 8 * kDqStages, v_empty = k_empty + 8 * kDqStages;
+
+  // a 1-D grid, the longest causal rows first (see the forward)
+  const int nt = (S + kRows - 1) / kRows, BH = gridDim.x / nt;
+  const int bh = blockIdx.x % BH, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int i0 = (nt - 1 - blockIdx.x / BH) * kRows;
+  int nk = (S + kKeys - 1) / kKeys;
+  if (causal) nk = min(nk, (i0 + kRows) / kKeys);
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      bar_init(k_full + 8 * s, 1);
+      bar_init(v_full + 8 * s, 1);
+      bar_init(k_empty + 8 * s, kConsumers);
+      bar_init(v_empty + 8 * s, kConsumers);
+    }
+    init_done();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread keeps the loads in flight
+    if (threadIdx.x == kConsumers) {
+      bar_expect(q_full, 2 * kQ);
+      load_tile<HD>(sQ, qmap, q_full, i0, h, b, kRows);
+      load_tile<HD>(sO, omap, q_full, i0, h, b, kRows);
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % kDqStages;
+        const uint32_t ph = (t / kDqStages) & 1;
+        bar_wait(k_empty + 8 * s, ph ^ 1);
+        bar_expect(k_full + 8 * s, kKV);
+        load_tile<HD>(sK + s * kKV, kmap, k_full + 8 * s, t * kKeys, hk, b, kKeys);
+        bar_wait(v_empty + 8 * s, ph ^ 1);
+        bar_expect(v_full + 8 * s, kKV);
+        load_tile<HD>(sV + s * kKV, vmap, v_full + 8 * s, t * kKeys, hk, b, kKeys);
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32, t4 = lane % 4;
+  const int rw = i0 + 64 * cw;                     // this warpgroup's first row
+  const int r0 = rw + 16 * (tid / 32) + lane / 4;  // this thread's rows r0, r0 + 8
+  // the last key tile its rows attend (whole tiles above the diagonal
+  // contribute nothing); none when its rows all lie past S
+  const int last = rw >= S ? -1 : causal ? rw / kKeys : nk - 1;
+  const float sl2 = scale * kLog2e;
+  float l2[2], dl[2];                              // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = r0 + 8 * r < S;
+    l2[r] = in ? lse[(long long)bh * S + r0 + 8 * r] * kLog2e : 0.f;
+    dl[r] = in ? delta[(long long)bh * S + r0 + 8 * r] : 0.f;
+  }
+  const uint32_t aQ = sQ + cw * 64 * 128, aO = sO + cw * 64 * 128;  // its rows of each half
+  float g[HD / 2];
+  zero(g);
+  bar_wait(q_full, 0);
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % kDqStages, j0 = t * kKeys;
+    const uint32_t ph = (t / kDqStages) & 1;
+    bar_wait(k_full + 8 * s, ph);
+    bar_wait(v_full + 8 * s, ph);
+    if (t > last) {                  // the tile's keys all follow its rows
+      bar_arrive(v_empty + 8 * s);
+      bar_arrive(k_empty + 8 * s);
+      continue;
+    }
+    float st[32], dp[32];
+    zero(st);
+    zero(dp);
+    hold(st);
+    hold(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t qo = (kk / 4) * kQHalf + (kk % 4) * 32;
+      const uint32_t ko = s * kKV + (kk / 4) * kKVHalf + (kk % 4) * 32;
+      mma_ss<kKeys>(st, desc(aQ + qo, 16), desc(sK + ko, 16), kk);
+      mma_ss<kKeys>(dp, desc(aO + qo, 16), desc(sV + ko, 16), kk);
+    }
+    wg_commit();
+    wg_wait();
+    hold(st);
+    hold(dp);
+    bar_arrive(v_empty + 8 * s);
+
+    // P and dS; masks on the diagonal tile and past S, by select, so no
+    // inf from a masked score reaches a product
+    const bool edge = (causal && j0 + kKeys > rw) || j0 + kKeys > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int ri = (i >> 1) & 1;
+      float p = exp2f(st[i] * sl2 - l2[ri]);
+      if (edge) {
+        const int r = r0 + 8 * ri, c = j0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (c >= S || (causal && c > r)) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dl[ri]) * scale;
+    }
+    uint32_t da[16];
+    to_a(dp, da);
+    hold(g);
+    hold(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      mma_rs<HD>(g, &da[4 * kk], desc(sK + s * kKV + kk * 16 * 128, kKVHalf), 1);
+    wg_commit();
+    wg_wait();
+    hold(g);
+    bar_arrive(k_empty + 8 * s);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  __nv_bfloat16* base = dq + b * sq.sb + h * sq.sh + 2 * t4;
+  store_rows<HD>(g, r0 < S ? base + (long long)r0 * sq.ss : nullptr,
+                 r0 + 8 < S ? base + (long long)(r0 + 8) * sq.ss : nullptr, one);
 }
 
 // ------------------------------------------------------------------ dk/dv
@@ -1105,49 +1044,17 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // --- the tensor-core instances' tensor maps
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (so the library links no libcuda); null when libcuda lacks it
-decltype(&cuTensorMapEncodeTiled) encoder() {
-  static decltype(&cuTensorMapEncodeTiled) fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(p);
-  }
-  return fn;
-}
-
-constexpr int kNoEncoder = -2;   // libcuda has no cuTensorMapEncodeTiled
-constexpr int kBadMap = -3;      // it refused a map (base or stride not 16-byte aligned)
-
 // 4-D map of a bf16 tensor over (hd, S, heads, B) with element strides st,
-// boxes of (64, rows, 1, 1) in 128-byte swizzle; positions past S read as
-// zero. A dimension of size 1 gets a stride of its own (the caller's may be
-// any number there, and its only coordinate is 0).
+// boxes of (64, rows, 1, 1); positions past S read as zero. A dimension of
+// size 1 gets a stride of its own (the caller's may be any number there,
+// and its only coordinate is 0).
 int make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B, Strides st,
              int rows) {
-  const auto enc = encoder();
-  if (!enc) return kNoEncoder;
-  auto bytes = [hd](long long stride, int n) -> cuuint64_t {
-    return (cuuint64_t)(n > 1 ? stride : hd) * 2;
-  };
+  auto stride = [hd](long long s, int n) { return n > 1 ? s : (long long)hd; };
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {bytes(st.ss, S), bytes(st.sh, heads), bytes(st.sb, B)};
+  const long long strides[3] = {stride(st.ss, S), stride(st.sh, heads), stride(st.sb, B)};
   const cuuint32_t box[4] = {(cuuint32_t)tc::kHalf, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kBadMap;
+  return encode_map<4>(map, ptr, dims, strides, box);
 }
 
 template <int HD>
@@ -1166,6 +1073,26 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse, in
   tc::flash_fwd_kernel<HD><<<tiles * B * H, tc::kThreads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, Hkv, S, sq,
       scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dq_tc(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+          const void* delta, void* dq_out, int B, int H, int Hkv, int S, Strides sq,
+          Strides sk, float scale, int causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  int e = make_map(&qm, q, HD, S, H, B, sq, tc::kRows);
+  if (!e) e = make_map(&om, dout, HD, S, H, B, sq, tc::kRows);
+  if (!e) e = make_map(&km, k, HD, S, Hkv, B, sk, tc::kKeys);
+  if (!e) e = make_map(&vm, v, HD, S, Hkv, B, sk, tc::kKeys);
+  if (e) return e;
+  const int smem = tc::dq_smem(HD);
+  cudaError_t err = allow_smem(tc::flash_dq_kernel<HD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (S + tc::kRows - 1) / tc::kRows;
+  tc::flash_dq_kernel<HD><<<tiles * B * H, tc::kDqThreads, smem, stream>>>(
+      qm, km, vm, om, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq_out), H, Hkv, S, sq, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1191,8 +1118,7 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout, const 
 }
 
 // head_dim and dtype are template arguments: pick the instance. TC names
-// the bf16 tensor-core instance where the kernel has one (flash_route),
-// else the scalar one runs for bf16 too.
+// the bf16 tensor-core instance, FN the scalar float32 one (flash_route).
 #define TONY_DISPATCH(TC, FN, ...)                                            \
   do {                                                                        \
     if (dtype == 1) {                                                         \
@@ -1208,11 +1134,6 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout, const 
     }                                                                         \
     return -1;                                                                \
   } while (0)
-
-template <int HD, typename... A>
-int dq_bf16(A... args) {
-  return dq<__nv_bfloat16, HD>(args...);
-}
 
 }  // namespace
 
@@ -1241,7 +1162,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         int causal, int dtype, void* stream) {
   const Strides sq{qsb, qsh, qss}, sk{ksb, ksh, kss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TONY_DISPATCH(dq_bf16, dq, q, k, v, dout, lse, delta, dq_out, B, H, Hkv, S, sq, sk,
+  TONY_DISPATCH(dq_tc, dq, q, k, v, dout, lse, delta, dq_out, B, H, Hkv, S, sq, sk,
                 scale, causal, s);
 }
 
@@ -1263,5 +1184,5 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
 extern "C" int flash_route(int kernel, int dtype, int hd) {
   if ((hd != 64 && hd != 128) || (dtype != 0 && dtype != 1) || kernel < 0 || kernel > 2)
     return -1;
-  return dtype == 1 && kernel != 1 ? 1 : 0;
+  return dtype == 1 ? 1 : 0;
 }

@@ -17,11 +17,14 @@
 // reads w[g] [D, F] as its transpose in place: no transposed copy of the
 // expert weights is made, as the TPU kernel contracts w's last dim in place.
 //
-// Shape of the work. Every kernel is one tiled GEMM loop: a CTA of 256
+// Shape of the work. bf16 gmm_fwd at row tiles of a multiple of 128 rows,
+// the training path's, runs on wgmma with TMA staging (the tc section
+// below); every other instance is one tiled GEMM loop: a CTA of 256
 // threads owns a 128 x 128 output tile with float32 accumulators in
 // registers and walks the contraction in staged slices, two slice buffers
 // deep: the global loads of slice s + 1 are in flight while slice s is
-// multiplied, and one barrier per slice suffices.
+// multiplied, and one barrier per slice suffices. gmm_route says which
+// instance runs.
 // - bf16 runs on the tensor cores: mma.sync m16n8k16 (bf16 in, float32
 //   accumulate) on slices of 32 staged as bf16, fragments loaded with
 //   ldmatrix; the 8 warps split the tile 2 x 4, 64 x 32 each.
@@ -47,16 +50,17 @@
 // buffer rows, D 1024, F 2816) a launch is about 1.9e11 operations on
 // about 0.3 GB of bf16 operands: 640 operations per byte, above the H100's
 // ~295 ridge, so the least time is the operations over the bf16
-// tensor-core peak (989 TFLOP/s). mma.sync without TMA, warp specialisation
-// or wgmma reaches only part of that peak; the float32 path is bounded by
-// the CUDA cores' 67 TFLOP/s. wgmma tiles with TMA staging are later work.
+// tensor-core peak (989 TFLOP/s). Tiles re-read the operands from L2: at
+// 128 x 128 about 3 GB a launch, at the forward's 128 x 256 about 2.3 GB.
+// mma.sync without TMA, warp specialisation or wgmma reaches only part of
+// the peak; the float32 path is bounded by the CUDA cores' 67 TFLOP/s.
 // Measured times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -396,6 +400,143 @@ __device__ __forceinline__ RowSlice row_slice(int br, int n_sub) {
   return {tile, r0, min(r0 + kTile, (tile + 1) * br)};
 }
 
+// ------------------------------- bf16 forward: wgmma with TMA staging
+// gmm_fwd's bf16 instance for row tiles that are a multiple of 128 rows
+// (gmm_route). A persistent grid, one CTA of 288 threads per SM, walks the
+// 128 x 256 output tiles, columns fastest (consecutive tiles share x's rows
+// and w[g] in L2). Warpgroups 0 and 1 own 64 rows each, warp 8 produces:
+// one thread reads the tile's group and keeps a 3-stage ring of TMA loads
+// in flight across tiles, each stage a 64-deep slice of x (2-D map over
+// (D, N), K-major, 16 KB) and of w[g] (3-D map over (F, D, G), MN-major,
+// 32 KB as four 64-column halves; halves wholly past F are not loaded).
+// Per slice each consumer issues 4 x 2 wgmma m64n128k16 (A and B from
+// shared memory), keeps one slice's products in flight and releases the
+// stage before it. TMA zero-fills the contraction tail past D. The
+// epilogue rounds to bf16 into a swizzled staging tile in shared memory
+// (one per warpgroup) and TMA stores it (y's map clips columns past F):
+// the stores run while the warpgroup starts the next tile, and the
+// producer has its first slices loaded by then. A 64-row tile would put two groups in one CTA,
+// whose two warpgroups share the w slice, so other row tiles keep the
+// mma.sync instance.
+
+namespace tc {
+
+constexpr int kThreads = 288;     // warpgroups 0 and 1 consume, warp 8 produces
+constexpr int kConsumers = 256;
+constexpr int kRows = 128;        // output rows of a tile, 64 per consumer warpgroup
+constexpr int kCols = 256;        // output columns of a tile
+constexpr int kDepth = 64;        // contraction depth of a stage: one swizzled row
+constexpr int kStages = 3;
+constexpr int kXBytes = kRows * kDepth * 2;    // x slice: [128 rows][64]
+constexpr int kWBytes = kDepth * kCols * 2;    // w slice: 4 halves of [64][64]
+constexpr int kWHalf = kDepth * 128;
+constexpr int kYBox = 64 * 128;                // y staging: [64 rows][64 columns]
+constexpr int kYBytes = kCols / kHalf * kYBox; // one warpgroup's 64 x 256
+// 1 KB to align to 1024
+constexpr int kSmem = 1024 + kStages * (kXBytes + kWBytes) + 2 * kYBytes;
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap ymap, const int* __restrict__ tile_group,
+               int br, int n_rows, int G, int D, int F) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  const uint32_t sX = (saddr(smem) + 1023) & ~1023u, sW = sX + kStages * kXBytes;
+  const uint32_t sY = sW + kStages * kWBytes;
+  const uint32_t full = saddr(bars), empty = full + 8 * kStages;
+  const int n_cols = (F + kCols - 1) / kCols;
+  const int tiles = n_rows / kRows * n_cols, nk = (D + kDepth - 1) / kDepth;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, kConsumers);
+    }
+    init_done();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      int it = 0;                                  // slices loaded, over all tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int r0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
+        // in range for grouped_layout's maps; clamped so no load reads outside w
+        const int g = min(max(tile_group[r0 / br], 0), G - 1);
+        const int halves = min(kCols, F - n0 + kHalf - 1) / kHalf;
+        for (int t = 0; t < nk; ++t, ++it) {
+          const int s = it % kStages;
+          bar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+          bar_expect(full + 8 * s, kXBytes + halves * kWHalf);
+          tma_load(sX + s * kXBytes, xmap, full + 8 * s, t * kDepth, r0);
+          for (int hh = 0; hh < halves; ++hh)
+            tma_load(sW + s * kWBytes + hh * kWHalf, wmap, full + 8 * s, n0 + hh * kHalf,
+                     t * kDepth, g);
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32, t4 = lane % 4;
+  const uint32_t aX = sX + cw * 64 * 128;         // its 64 rows of each x slice
+  const uint32_t sYw = sY + cw * kYBytes;         // its staging tile
+  const int rr = 16 * (tid / 32) + lane / 4;      // its rows rr and rr + 8 there
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
+    float acc[kCols / 128][64];
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) zero(acc[j]);
+    for (int t = 0; t < nk; ++t, ++it) {
+      const int s = it % kStages;
+      bar_wait(full + 8 * s, (it / kStages) & 1);
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDepth / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < kCols / 128; ++j)
+          mma_ss<128, 1>(acc[j], desc(aX + s * kXBytes + kk * 32, 16),
+                         desc(sW + s * kWBytes + j * 2 * kWHalf + kk * 16 * 128, kWHalf), 1);
+      wg_commit();
+      wg_wait<1>();                               // slice t - 1's products are done
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+      if (t > 0) bar_arrive(empty + 8 * ((it - 1) % kStages));
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+    bar_arrive(empty + 8 * ((it - 1) % kStages));
+
+    // columns 8 i + 2 t4 (+ 1) of each 128-column half into box 2 j + i / 8,
+    // 16-byte chunk i % 8 of a row swizzled by the row (128B: chunk ^ row % 8)
+    if (tid == 0) bulk_wait_read();               // the last tile's stores read sYw
+    named_sync(1 + cw, 128);
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t at = sYw + (2 * j + i / 8) * kYBox + (((i % 8) ^ (rr % 8)) << 4) + 4 * t4;
+        st_shared(at + rr * 128, pack_bf16(acc[j][4 * i], acc[j][4 * i + 1]));
+        st_shared(at + (rr + 8) * 128, pack_bf16(acc[j][4 * i + 2], acc[j][4 * i + 3]));
+      }
+    fence_async_smem();
+    named_sync(1 + cw, 128);
+    if (tid == 0) {
+      for (int q = 0; q < kCols / kHalf && n0 + q * kHalf < F; ++q)
+        tma_store(ymap, sYw + q * kYBox, n0 + q * kHalf, r0 + 64 * cw);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();                      // the stores are done before exit
+}
+
+}  // namespace tc
+
 // ---------------------------------------------------------------- kernels
 
 template <typename T>
@@ -442,6 +583,39 @@ gmm_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// bf16 x [N, D], w [G, D, F] and y [N, F] as tensor maps (TMA boxes of 64
+// columns: x [128 rows][64], w [64 rows][64] of one group, y [64 rows][64]),
+// y by the tensor-core forward on a persistent grid of at most one CTA per
+// SM
+int fwd_tc(const void* x, const void* w, const void* tg, void* y, int n_tiles, int br, int G,
+           int D, int F, cudaStream_t stream) {
+  const int N = n_tiles * br;
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)N};
+  const long long xstrides[1] = {D};
+  const cuuint32_t xbox[2] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kRows};
+  const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)G};
+  const long long wstrides[2] = {F, (long long)D * F};
+  const cuuint32_t wbox[3] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kDepth, 1};
+  const cuuint64_t ydims[2] = {(cuuint64_t)F, (cuuint64_t)N};
+  const long long ystrides[1] = {F};
+  const cuuint32_t ybox[2] = {(cuuint32_t)tc::kHalf, 64};
+  CUtensorMap xm, wm, ym;
+  int e = encode_map<2>(&xm, x, xdims, xstrides, xbox);
+  if (!e) e = encode_map<3>(&wm, w, wdims, wstrides, wbox);
+  if (!e) e = encode_map<2>(&ym, y, ydims, ystrides, ybox);
+  if (e) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc::gmm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = N / tc::kRows * cdiv(F, tc::kCols);
+  tc::gmm_fwd_kernel<<<tiles < sms ? tiles : sms, tc::kThreads, tc::kSmem, stream>>>(
+      xm, wm, ym, static_cast<const int*>(tg), br, N, G, D, F);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int fwd(const void* x, const void* w, const void* tg, void* y, int n_tiles, int br,
         int G, int D, int F, cudaStream_t stream) {
@@ -478,15 +652,31 @@ int dw(const void* x, const void* dy, const void* bounds, void* dw_out, int br,
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 =
 // bfloat16 (x, w, dy, y and dx share it; dW is float32). D and F must be
-// multiples of 8 and every pointer 16-byte aligned (the wrapper checks).
-// Each returns the cudaError_t of its launch (0 = launched), or -1 for a
-// dtype it has no instance for.
+// multiples of 8 and every pointer 16-byte aligned (the wrapper checks;
+// TMA needs the same of the tensor-core forward's maps). Each returns the
+// cudaError_t of its launch (0 = launched), -1 for a dtype it has no
+// instance for, -2 when libcuda has no cuTensorMapEncodeTiled, -3 when it
+// refuses a tensor map.
+
+// Which instance a kernel (0 gmm_fwd, 1 gmm_dx, 2 gmm_dw) runs for dtype
+// and row tile br: 2 the tensor-core forward (wgmma + TMA, bf16, br a
+// multiple of 128), 1 the mma.sync tiles (bf16), 0 scalar FMA (float32),
+// -1 none. The entry points dispatch by it.
+extern "C" int gmm_route(int kernel, int dtype, int br) {
+  if (kernel < 0 || kernel > 2 || (dtype != 0 && dtype != 1) || br <= 0) return -1;
+  if (dtype == 0) return 0;
+  return kernel == 0 && br % tc::kRows == 0 ? 2 : 1;
+}
+
 extern "C" int gmm_fwd(const void* x, const void* w, const void* tile_group, void* y,
                        int n_tiles, int br, int G, int D, int F, int dtype,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return fwd<__nv_bfloat16>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
-  if (dtype == 0) return fwd<float>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
+  switch (gmm_route(0, dtype, br)) {
+    case 2: return fwd_tc(x, w, tile_group, y, n_tiles, br, G, D, F, s);
+    case 1: return fwd<__nv_bfloat16>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
+    case 0: return fwd<float>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
+  }
   return -1;
 }
 

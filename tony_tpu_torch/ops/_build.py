@@ -8,9 +8,11 @@ plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 (seconds per file, against minutes for an extension that includes
-PyTorch's headers). The library's name carries a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads from
-``csrc/build/`` (listed in ``.gitignore``).
+PyTorch's headers). The library's name carries a hash of the source, of
+every header under ``csrc/`` (``sm90.cuh``, the Hopper helpers the
+tensor-core kernels share) and of the flags, so an edited source or
+header rebuilds and an unchanged one loads from ``csrc/build/`` (listed in
+``.gitignore``).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -30,6 +32,11 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# the tensor-core entry points' own return codes (csrc/sm90.cuh kNoEncoder,
+# kBadMap); other nonzero returns are cudaError_t
+TMA_ERRORS = {-2: "libcuda has no cuTensorMapEncodeTiled",
+              -3: "cuTensorMapEncodeTiled refused a tensor map "
+                  "(base or stride not 16-byte aligned)"}
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
 
@@ -61,14 +68,23 @@ def nvcc_path() -> str:
     )
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is built: its name hashes the
+    source, every header under ``csrc/`` and the flags."""
+    digest = hashlib.sha256(CSRC.joinpath(f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if its library is missing, and load it.
     Raises RuntimeError with nvcc's output when the build fails."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = library_path(name)
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,4 +102,4 @@ def load(name: str) -> Built:
     return _loaded[name]
 
 
-__all__ = ["BUILD_DIR", "Built", "load", "nvcc_path"]
+__all__ = ["BUILD_DIR", "Built", "TMA_ERRORS", "library_path", "load", "nvcc_path"]

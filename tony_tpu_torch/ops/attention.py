@@ -9,11 +9,11 @@ kernels (``csrc/flash_attention.cu``, built with ``nvcc`` at first use by
 - ``flash_dq``: dq from explicit lse and ``delta = rowsum(dO * out)``;
 - ``flash_dkv``: dk/dv ``[B, S, Hkv, hd]``, summed over each GQA group.
 
-bf16 ``flash_fwd`` and ``flash_dkv`` run on the tensor cores (wgmma, with
-tiles staged by TMA); float32 inputs, and ``flash_dq``, run scalar float32
-instances (:func:`kernel_instance` says which). TMA reads a tensor only
-from a 16-byte-aligned start with 16-byte strides, so the wrapper hands
-those kernels aligned copies of tensors that are not (:func:`_tma_ready`).
+bf16 inputs run on the tensor cores (wgmma, with tiles staged by TMA);
+float32 inputs run scalar float32 instances (:func:`kernel_instance` says
+which). TMA reads a tensor only from a 16-byte-aligned start with 16-byte
+strides, so the wrapper hands those kernels aligned copies of tensors that
+are not (:func:`_tma_ready`).
 
 K/V may carry fewer heads than Q: head h reads kv head ``h // (H / Hkv)``
 by index, never through a repeat in memory. ``delta`` is computed here in
@@ -44,6 +44,8 @@ import math
 
 import torch
 
+from tony_tpu_torch.ops._build import TMA_ERRORS, load
+
 # one count per path, bumped where the path runs: the CUDA kernel's launch
 # and the plain version's CPU dispatch
 LAUNCHES: dict[str, int] = {
@@ -57,9 +59,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _KERNEL_CODES = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
 # the C entry points' own codes (other nonzero returns are cudaError_t)
-_ERRORS = {-1: "no instance for this dtype / head_dim",
-           -2: "libcuda has no cuTensorMapEncodeTiled",
-           -3: "cuTensorMapEncodeTiled refused a tensor map (base or stride not 16-byte aligned)"}
+_ERRORS = {-1: "no instance for this dtype / head_dim", **TMA_ERRORS}
 
 
 def reset_launches() -> None:
@@ -155,8 +155,6 @@ def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.cache
 def _kernels():
     """The three C entry points, built and bound on first use."""
-    from tony_tpu_torch.ops._build import load
-
     lib = load(_SOURCE).lib
     tail = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -287,6 +285,8 @@ def _dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     q, k, v = _dense(q), _dense(k), _dense(v)
     _check_cuda(q, k, v)
     do = _like(do.to(q.dtype), q)
+    if q.dtype == torch.bfloat16:
+        (q, do), (k, v) = _tma_ready(q, do), _tma_ready(k, v)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dq = torch.empty_like(q)
     _launch("flash_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

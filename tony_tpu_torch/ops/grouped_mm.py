@@ -19,7 +19,10 @@ Two implementations behind :func:`grouped_matmul`, as in the reference:
   place) and ``gmm_dw`` (float32, cast to w's dtype by the backward, as
   ``_gmm_pallas_bwd`` does). CUDA tensors launch them or raise; CPU
   tensors take :func:`gmm_fwd_plain`, :func:`gmm_dx_plain` and
-  :func:`gmm_dw_plain`, which the tests hold against the reference.
+  :func:`gmm_dw_plain`, which the tests hold against the reference. bf16
+  ``gmm_fwd`` at row tiles of a multiple of 128 rows (the training path's)
+  runs on wgmma with TMA staging, the other bf16 instances on mma.sync
+  tiles, float32 on scalar FMA (:func:`kernel_instance` says which).
 
 ``LAUNCHES`` counts both paths. The forward and the backward are
 ``torch.library`` custom ops (``tony_tpu_torch::gmm`` and ``::gmm_bwd``):
@@ -35,6 +38,8 @@ import functools
 
 import torch
 
+from tony_tpu_torch.ops._build import TMA_ERRORS, load
+
 # one count per path, bumped where the path runs: the CUDA kernel's launch
 # and the plain version's dispatch
 LAUNCHES: dict[str, int] = {
@@ -46,6 +51,10 @@ _SOURCE = "grouped_mm"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 128                 # the kernels' output tile (csrc/grouped_mm.cu kTile)
 _MAX_GRID_Y = 65535         # CUDA's grid.y limit: row tiles x 128-row slices
+_KERNEL_CODES = {"gmm_fwd": 0, "gmm_dx": 1, "gmm_dw": 2}
+_INSTANCES = {2: "tensor cores", 1: "mma.sync", 0: "scalar"}
+# the C entry points' own codes (other nonzero returns are cudaError_t)
+_ERRORS = {-1: "no instance for this dtype", **TMA_ERRORS}
 
 
 def reset_launches() -> None:
@@ -121,8 +130,6 @@ def gmm_dw_plain(x: torch.Tensor, dy: torch.Tensor, tile_group: torch.Tensor,
 @functools.cache
 def _kernels():
     """The three C entry points, built and bound on first use."""
-    from tony_tpu_torch.ops._build import load
-
     lib = load(_SOURCE).lib
     fns = {}
     # (name, ints after the four pointers): fwd/dx take n_tiles, br, G, D,
@@ -132,7 +139,21 @@ def _kernels():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    lib.gmm_route.argtypes = [ctypes.c_int] * 3
+    lib.gmm_route.restype = ctypes.c_int
+    fns["gmm_route"] = lib.gmm_route
     return fns
+
+
+def kernel_instance(name: str, dtype: torch.dtype, block: int) -> str:
+    """Which CUDA instance ``name`` (gmm_fwd, gmm_dx or gmm_dw) runs for
+    ``dtype`` and row tile ``block``, as the built library dispatches it:
+    ``"tensor cores"`` (wgmma + TMA), ``"mma.sync"`` or ``"scalar"``
+    (float32 FMA). Builds the library on first use, so it needs nvcc."""
+    route = _kernels()["gmm_route"](_KERNEL_CODES[name], _DTYPE_CODES.get(dtype, -1), block)
+    if route < 0:
+        raise ValueError(f"{name} has no instance for {dtype}, row tile {block}")
+    return _INSTANCES[route]
 
 
 def _ready(t: torch.Tensor) -> torch.Tensor:
@@ -146,7 +167,10 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor, tile_group: torch.Tensor,
                 D: int, F: int, a_cols: int, b_shape: tuple[int, ...]) -> None:
     """What the kernels take: ``a`` the ``[N, a_cols]`` row operand with N
     a whole number of row tiles, ``b`` of ``b_shape``, one dtype, one
-    device, widths that are multiples of 8, and a grid CUDA can launch."""
+    device, widths that are multiples of 8, and a grid CUDA can launch.
+    Widths of 8 make every row stride a multiple of 16 bytes in either
+    dtype, and ``_ready`` gives 16-byte-aligned starts: TMA's rule for the
+    tensor-core forward's maps."""
     if a.ndim != 2 or a.shape[1] != a_cols or tuple(b.shape) != tuple(b_shape):
         raise ValueError(f"grouped_mm kernel shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)}: expected [N, {a_cols}] and {tuple(b_shape)}")
@@ -161,8 +185,8 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor, tile_group: torch.Tensor,
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
     if D % 8 or F % 8:
-        raise ValueError(f"grouped_mm kernels take widths that are multiples of 8, "
-                         f"not D={D} F={F}")
+        raise ValueError(f"grouped_mm kernels take widths that are multiples of 8 "
+                         f"(16-byte rows, as TMA needs), not D={D} F={F}")
     n_tiles = tile_group.shape[0]
     if n_tiles * -(-(a.shape[0] // n_tiles) // _TILE) > _MAX_GRID_Y:
         raise ValueError(f"{a.shape[0]} rows in {n_tiles} tiles exceed the "
@@ -172,7 +196,7 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor, tile_group: torch.Tensor,
 def _launch(name: str, *args: int, device: torch.device) -> None:
     err = _kernels()[name](*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: {_ERRORS.get(err, f'cudaError {err}')}")
     LAUNCHES[name] += 1
 
 
@@ -294,5 +318,5 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, tile_group: torch.Tensor, *
 __all__ = [
     "LAUNCHES", "gmm_dw", "gmm_dw_plain", "gmm_dx", "gmm_dx_plain",
     "gmm_fwd", "gmm_fwd_plain", "grouped_layout", "grouped_matmul",
-    "reset_launches",
+    "kernel_instance", "reset_launches",
 ]

@@ -25,9 +25,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at bench_moe's shapes (33,792 buffer rows from a real router draw with
    one expert forced empty, D 1024, F 2816, 8 experts, row tile 128), in
    both directions of the SwiGLU and in bf16 and fp32, each with its
-   instance (the bf16 forward on wgmma with TMA staging, its registers and
-   spills; bf16 dx and dW on mma.sync; fp32 scalar) and the forward's
-   padding rows exactly 0, and one bench_moe
+   instance (all three in bf16 on wgmma with TMA staging, with their
+   registers and spills; fp32 scalar), the forward's padding rows and the
+   empty expert's dW exactly 0, and torch._grouped_mm's time beside each
+   (dW's with a float32 output where this torch computes one), and one bench_moe
    MoE block forward and backward under ``set_sync_debug_mode("error")``;
    then (3d) the quantized decode-attention kernel against its plain
    version at Llama-3-8B decode shapes (8 rows of about 512 positions) over
@@ -95,17 +96,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    random weights; every loss finite and the last below the first, each
    grouped-matmul kernel launched as often as remat implies (per layer and
    step: forward 6, dx 3, dW 3) and each flash kernel once per layer and
-   step, no plain version on the card, the forward and the flash kernels
-   on their tensor-core instances. Then one step under torch.profiler,
+   step, no plain version on the card, the grouped-matmul and flash
+   kernels on their tensor-core instances. Then one step under torch.profiler,
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
-again, and the script raises after three such windows. The flash kernels'
-and the grouped-matmul forward's launches are matched by their
-tensor-core kernels' names (``tc::``), so a window in which one ran
-another instance is short of events.
+again, and the script raises after three such windows. The flash and
+grouped-matmul kernels' launches are matched by their tensor-core
+kernels' names (``tc::``), so a window in which one ran another instance
+is short of events.
 
 The last three lines are the ``kernels`` JSON (thirteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed),
@@ -157,7 +158,7 @@ KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
 # (a profile must hold at least that many events of each). The profiles run
 # bf16 training and serving, so the flash kernels and the grouped-matmul
-# forward are named by their tensor-core instances (namespace tc).
+# kernels are named by their tensor-core instances (namespace tc).
 KERNEL_EVENTS = {
     "decode_attention": ("decode_kernel",),
     "paged_decode_attention": ("paged_decode_kernel",),
@@ -165,8 +166,8 @@ KERNEL_EVENTS = {
     "quant_mm": ("quant_mm_kernel",),
     "flash_fwd": ("tc::flash_fwd_kernel",), "flash_dq": ("tc::flash_dq_kernel",),
     "flash_dkv": ("tc::flash_dkv_kernel",),
-    "gmm_fwd": ("tc::gmm_fwd_kernel",), "gmm_dx": ("gmm_dx_kernel",),
-    "gmm_dw": ("gmm_dw_kernel",),
+    "gmm_fwd": ("tc::gmm_fwd_kernel",), "gmm_dx": ("tc::gmm_dx_kernel",),
+    "gmm_dw": ("tc::gmm_dw_kernel",),
     "ce_fwd": ("ce_fwd_kernel", "ce_fwd_merge_kernel"),
     "ce_dh": ("ce_dlogits_kernel", "ce_dh_kernel"), "ce_dw": ("ce_dw_kernel",),
 }
@@ -1368,18 +1369,28 @@ def gmm_inputs() -> dict:
 
 def grouped_library(name: str, a, w, dy, offs):
     """``torch._grouped_mm`` computing the same function as ``name`` (the
-    yardstick; the port never calls it), or None and the reason."""
+    yardstick; the port never calls it) and a note, or None and the
+    reason. dW is float32, so its call asks for a float32 output; where
+    this torch refuses that, the call with the inputs' output dtype stands
+    in, and the note says so and why."""
     if not hasattr(torch, "_grouped_mm"):
         return None, "this torch has no torch._grouped_mm"
-    fn = {"gmm_fwd": lambda: torch._grouped_mm(a, w, offs),
-          "gmm_dx": lambda: torch._grouped_mm(dy, w.transpose(-2, -1), offs),
-          "gmm_dw": lambda: torch._grouped_mm(a.t(), dy, offs)}[name]
-    try:
-        fn()
-        torch.cuda.synchronize()
-    except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
-        return None, f"torch._grouped_mm refused: {str(e).strip().splitlines()[0][:100]}"
-    return fn, ""
+    tries = {"gmm_fwd": [lambda: torch._grouped_mm(a, w, offs)],
+             "gmm_dx": [lambda: torch._grouped_mm(dy, w.transpose(-2, -1), offs)],
+             "gmm_dw": [lambda: torch._grouped_mm(a.t(), dy, offs, out_dtype=torch.float32),
+                        lambda: torch._grouped_mm(a.t(), dy, offs)]}[name]
+    refused = []
+    for fn in tries:
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
+            refused.append(f"torch._grouped_mm refused: {str(e).strip().splitlines()[0][:100]}")
+            continue
+        if name == "gmm_dw":
+            refused.append(f"{str(out.dtype).replace('torch.', '')} output")
+        return fn, "; ".join(refused)
+    return None, "; ".join(refused)
 
 
 def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dict]:
@@ -1858,16 +1869,17 @@ def train_ce_phase(card: str, scan: dict) -> dict:
 
 
 def check_tensor_core_path(cfg) -> dict[str, str]:
-    """The instance each flash kernel (and, for a MoE config, the grouped
-    matmul's forward) runs at ``cfg``'s dtype, head_dim and row tile, as
-    the built libraries dispatch it; raises unless each is the
+    """The instance each flash kernel (and, for a MoE config, each
+    grouped-matmul kernel) runs at ``cfg``'s dtype, head_dim and row tile,
+    as the built libraries dispatch it; raises unless each is the
     tensor-core one (wgmma + TMA). The profiles then find every counted
     launch of these kernels among ``tc::`` events (``KERNEL_EVENTS``)."""
     from tony_tpu_torch.ops import attention, grouped_mm
 
     got = {n: attention.kernel_instance(n, cfg.dtype, cfg.head_dim) for n in FLASH_KERNELS}
     if cfg.n_experts:
-        got["gmm_fwd"] = grouped_mm.kernel_instance("gmm_fwd", cfg.dtype, cfg.moe_group_block)
+        got.update({n: grouped_mm.kernel_instance(n, cfg.dtype, cfg.moe_group_block)
+                    for n in GMM_KERNELS})
     if any(v != "tensor cores" for v in got.values()):
         raise AssertionError(f"the training path is off its tensor-core instances: {got}")
     return got
@@ -2115,7 +2127,8 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         for c in gmm_cases(dtype, flush, inputs):
             gmm.append(c)
-            lib = (f"{c['library_ms']:.3f} ms (max|err| {c['library_max_abs_err']:.3e})"
+            lib = (f"{c['library_ms']:.3f} ms (max|err| {c['library_max_abs_err']:.3e}"
+                   f"{'; ' + c['library_note'] if c['library_note'] else ''})"
                    if c["library_ms"] is not None else f"- ({c['library_note']})")
             log(f"kernel {c['name']} {c['direction']} {c['dtype']} ({c['instance']}) "
                 f"rows={c['rows']} {c['d_in']}->{c['d_out']} E={c['experts']}: max|err| "
@@ -2128,15 +2141,12 @@ def main() -> int:
     if bad:
         raise AssertionError(f"grouped matmul kernels over tolerance: "
                              f"{[(c['name'], c['direction'], c['dtype']) for c in bad]}")
-    # the bf16 forward at row tile 128 runs on wgmma + TMA, bf16 dx and dW
-    # on mma.sync, fp32 scalar
-    want = {("gmm_fwd", "bfloat16"): "tensor cores", ("gmm_dx", "bfloat16"): "mma.sync",
-            ("gmm_dw", "bfloat16"): "mma.sync"}
+    # every bf16 kernel at row tile 128 runs on wgmma + TMA, fp32 scalar
     wrong = [(c["name"], c["dtype"], c["instance"]) for c in gmm
-             if c["instance"] != want.get((c["name"], c["dtype"]), "scalar")]
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
     if wrong:
         raise AssertionError(f"grouped matmul cases on an unexpected instance: {wrong}")
-    log_resources(builds, "grouped_mm", 1)
+    log_resources(builds, "grouped_mm", 3)
     del inputs
 
     # 3d: the quantized serving kernels. Decode attention over int8 and fp8

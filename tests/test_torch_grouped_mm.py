@@ -8,8 +8,8 @@ kernels and the port's plain versions take the same float32 products and
 sum them in another order (the Pallas dx kernel over column blocks, the
 dW kernel tile by tile). The same tolerance holds at row tiles of 64 and
 128 with contraction widths that end past a multiple of 64 (72, 136): the
-shapes at which the card holds its kernels, the bf16 forward's wgmma
-instance among them, against these plain versions."""
+shapes at which the card holds its kernels, the bf16 wgmma instances of
+all three among them, against these plain versions."""
 
 import jax
 import jax.numpy as jnp
@@ -59,11 +59,15 @@ def test_layout_matches_reference(seed, block):
 
 
 # (sizes, D, F, row tile): 8-row tiles, then row tiles of 128 and 64 with
-# contraction widths past a multiple of 64 and an empty expert
+# contraction widths past a multiple of 64 and an empty expert; last, at
+# row tile 128 (the layout the bf16 wgmma instances serve), a group over
+# three tiles, an empty expert in the middle and widths past a multiple
+# of 64
 CASES = [([5, 0, 17, 9], 16, 24, BLOCK), ([8, 8, 0, 0], 24, 40, BLOCK),
          ([0, 30, 3, 1], 40, 72, BLOCK), ([130, 0, 77, 20], 72, 40, 128),
-         ([70, 0, 5, 64], 136, 24, 64)]
-IDS = ["empty-1", "empty-tail", "ragged-width", "block128-tail", "block64-tail"]
+         ([70, 0, 5, 64], 136, 24, 64), ([300, 0, 129, 5], 72, 136, 128)]
+IDS = ["empty-1", "empty-tail", "ragged-width", "block128-tail", "block64-tail",
+       "block128-multi"]
 
 
 @pytest.mark.parametrize("sizes,D,F,block", CASES, ids=IDS)

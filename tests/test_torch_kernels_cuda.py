@@ -370,17 +370,22 @@ def _gmm_case(dev, dtype, sizes, D, F, block, seed):
 # edges on both dims and an empty expert; the 16-row tiles of the tests'
 # configs with two empty experts at the end; a row tile of 160 (two row
 # slices per tile, the second partial) with a width below one column tile;
-# row tiles of 128 and 256 (the bf16 forward's wgmma instance: one and two
-# 128-row slices per tile) with contraction tails (72, 200, 328 are not
-# multiples of its 64-deep slices), output widths that end inside a
-# 64-column half and leave whole halves of its 256-column tile unloaded,
-# and empty experts; a row tile of 64 (mma.sync, as are 16 and 160)
+# row tiles of 128 and 256 (the bf16 wgmma instances: one and two 128-row
+# slices per tile) with contraction tails (72, 136, 200, 328 are not
+# multiples of their 64-deep slices), output widths that end inside a
+# 64-column half, below one 256-column tile, or leave whole halves of it
+# unloaded, and empty experts in the middle and at the end; a row tile of
+# 64 (mma.sync, as are 16 and 160); and at row tile 128 a group over eight
+# tiles beside a group of one, so dW's contraction must stop at each
+# group's end
 GMM_CASES = [([130, 0, 77, 300], 136, 200, 128), ([5, 40, 0, 9, 0], 64, 72, 16),
              ([200, 0, 3], 40, 256, 160), ([260, 0, 7, 129, 0], 72, 328, 128),
-             ([300, 0, 513], 136, 200, 256), ([70, 0, 5, 64], 72, 136, 64)]
-GMM_IDS = ["ragged", "block16", "block160", "block128-tail", "block256", "block64"]
-# the instance each dtype runs (csrc/grouped_mm.cu gmm_route), but for the
-# bf16 forward at row tiles of a multiple of 128: wgmma + TMA
+             ([300, 0, 513], 136, 200, 256), ([70, 0, 5, 64], 72, 136, 64),
+             ([1000, 60, 0, 200], 136, 328, 128)]
+GMM_IDS = ["ragged", "block16", "block160", "block128-tail", "block256", "block64",
+           "block128-long"]
+# the instance each dtype runs (csrc/grouped_mm.cu gmm_route), but for bf16
+# at row tiles of a multiple of 128: wgmma + TMA
 GMM_INSTANCE = {torch.float32: "scalar", torch.bfloat16: "mma.sync"}
 
 
@@ -391,19 +396,17 @@ def test_gmm_kernels_match_plain_on_card(cuda, dtype, sizes, D, F, block):
     """gmm_fwd, gmm_dx and gmm_dw against their plain versions on the same
     inputs, both directions of the SwiGLU (D -> F as w1/w3, F -> D as w2);
     an empty expert's dW is exactly 0 and the forward's padding rows are
-    exactly 0. Each case runs the instance gmm_route names: bf16 gmm_fwd on
-    wgmma + TMA at row tiles of a multiple of 128, else mma.sync; float32
-    scalar."""
+    exactly 0. Each case runs the instance gmm_route names: bf16 on wgmma +
+    TMA at row tiles of a multiple of 128, else mma.sync; float32 scalar."""
     from tony_tpu_torch.ops.grouped_mm import (
         LAUNCHES, gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
         kernel_instance, reset_launches,
     )
 
     tc = dtype == torch.bfloat16 and block % 128 == 0
-    assert kernel_instance("gmm_fwd", dtype, block) == (
-        "tensor cores" if tc else GMM_INSTANCE[dtype])
-    for name in ("gmm_dx", "gmm_dw"):
-        assert kernel_instance(name, dtype, block) == GMM_INSTANCE[dtype]
+    for name in ("gmm_fwd", "gmm_dx", "gmm_dw"):
+        assert kernel_instance(name, dtype, block) == (
+            "tensor cores" if tc else GMM_INSTANCE[dtype])
     tol = GMM_TOL[dtype]
     for d_in, d_out in ((D, F), (F, D)):
         x, w, tg, dy = _gmm_case(cuda, dtype, sizes, d_in, d_out, block, seed=d_in)
@@ -425,6 +428,23 @@ def test_gmm_kernels_match_plain_on_card(cuda, dtype, sizes, D, F, block):
         for g, n in enumerate(sizes):
             if n == 0:
                 assert torch.count_nonzero(dw[g]) == 0
+
+
+@pytest.mark.cuda
+def test_gmm_dw_is_deterministic_on_card(cuda):
+    """Two bf16 gmm_dw launches on the same inputs, at row tile 128 (the
+    wgmma instance: one CTA sums each dW tile in a fixed order, no
+    atomics), give bit-equal dW in both directions."""
+    from tony_tpu_torch.ops.grouped_mm import gmm_dw, kernel_instance
+
+    assert kernel_instance("gmm_dw", torch.bfloat16, 128) == "tensor cores"
+    for d_in, d_out in ((136, 328), (328, 136)):
+        x, w, tg, dy = _gmm_case(cuda, torch.bfloat16, [1000, 60, 0, 200], d_in, d_out,
+                                 128, seed=d_out)
+        first, second = gmm_dw(x, dy, tg, w.shape[0]), gmm_dw(x, dy, tg, w.shape[0])
+        torch.cuda.synchronize()
+        assert torch.count_nonzero(first) > 0
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

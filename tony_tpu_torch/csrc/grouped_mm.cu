@@ -17,8 +17,8 @@
 // reads w[g] [D, F] as its transpose in place: no transposed copy of the
 // expert weights is made, as the TPU kernel contracts w's last dim in place.
 //
-// Shape of the work. bf16 gmm_fwd at row tiles of a multiple of 128 rows,
-// the training path's, runs on wgmma with TMA staging (the tc section
+// Shape of the work. bf16 at row tiles of a multiple of 128 rows, the
+// training path's, all three run on wgmma with TMA staging (the tc section
 // below); every other instance is one tiled GEMM loop: a CTA of 256
 // threads owns a 128 x 128 output tile with float32 accumulators in
 // registers and walks the contraction in staged slices, two slice buffers
@@ -51,9 +51,10 @@
 // about 0.3 GB of bf16 operands: 640 operations per byte, above the H100's
 // ~295 ridge, so the least time is the operations over the bf16
 // tensor-core peak (989 TFLOP/s). Tiles re-read the operands from L2: at
-// 128 x 128 about 3 GB a launch, at the forward's 128 x 256 about 2.3 GB.
-// mma.sync without TMA, warp specialisation or wgmma reaches only part of
-// the peak; the float32 path is bounded by the CUDA cores' 67 TFLOP/s.
+// 128 x 128 about 3 GB a launch, at the tensor-core instances' 128 x 256
+// about 2.3-2.6 GB. mma.sync without TMA, warp specialisation or wgmma
+// reaches only part of the peak; the float32 path is bounded by the CUDA
+// cores' 67 TFLOP/s.
 // Measured times are in PERF.md.
 
 #include <stdint.h>
@@ -400,24 +401,46 @@ __device__ __forceinline__ RowSlice row_slice(int br, int n_sub) {
   return {tile, r0, min(r0 + kTile, (tile + 1) * br)};
 }
 
-// ------------------------------- bf16 forward: wgmma with TMA staging
-// gmm_fwd's bf16 instance for row tiles that are a multiple of 128 rows
-// (gmm_route). A persistent grid, one CTA of 288 threads per SM, walks the
-// 128 x 256 output tiles, columns fastest (consecutive tiles share x's rows
-// and w[g] in L2). Warpgroups 0 and 1 own 64 rows each, warp 8 produces:
-// one thread reads the tile's group and keeps a 3-stage ring of TMA loads
-// in flight across tiles, each stage a 64-deep slice of x (2-D map over
-// (D, N), K-major, 16 KB) and of w[g] (3-D map over (F, D, G), MN-major,
-// 32 KB as four 64-column halves; halves wholly past F are not loaded).
-// Per slice each consumer issues 4 x 2 wgmma m64n128k16 (A and B from
-// shared memory), keeps one slice's products in flight and releases the
-// stage before it. TMA zero-fills the contraction tail past D. The
-// epilogue rounds to bf16 into a swizzled staging tile in shared memory
-// (one per warpgroup) and TMA stores it (y's map clips columns past F):
-// the stores run while the warpgroup starts the next tile, and the
-// producer has its first slices loaded by then. A 64-row tile would put two groups in one CTA,
-// whose two warpgroups share the w slice, so other row tiles keep the
-// mma.sync instance.
+// ------------------- bf16 at row tiles of a multiple of 128: wgmma + TMA
+// The instances gmm_route sends bf16 to at row tiles of a multiple of 128
+// rows (the training path's). Each is a persistent grid, one CTA of 288
+// threads per SM, walking 128 x 256 output tiles, columns fastest
+// (consecutive tiles share operands in L2). Warpgroups 0 and 1 own 64
+// output rows each; warp 8 produces: one thread keeps a ring of TMA loads
+// in flight across tiles, each stage a 64-deep slice of both operands in
+// 128-byte swizzle (16 KB of A, 32 KB of B). Per slice each consumer
+// issues 4 x 2 wgmma m64n128k16 (A and B from shared memory), keeps one
+// slice's products in flight and releases the stage before it. TMA
+// zero-fills what a box reads past the tensor, and boxes wholly past the
+// output's edge are not loaded (their columns are never stored).
+// - gmm_fwd and gmm_dx share one body (rows_tile): out tile = a's 128 rows
+//   times w[g], g read from tile_group, a [N, K] K-major through a 2-D map
+//   over (K, N) (x, K = D, for the forward; dy, K = F, for dx), w [G, D, F]
+//   through one 3-D map over (F, D, G). The forward reads B(k = d, n = f)
+//   MN-major, four 64-column halves of [64 d][64 f]; dx reads B(k = f,
+//   n = d) K-major, w's rows along their contiguous f, two boxes of [128
+//   d][64 f]: the transpose is taken in place, as the TPU kernel contracts
+//   w's last dim, and rows past D read as zeros, so no load reads another
+//   group's rows. The epilogue rounds to bf16 into a swizzled staging tile
+//   in shared memory (one per warpgroup) and TMA stores it (the output's
+//   map clips columns past its width): the stores run while the warpgroup
+//   starts the next tile, and the producer has its first slices loaded by
+//   then. A 64-row tile would put two groups in one CTA, whose two
+//   warpgroups share the w slice, so other row tiles keep mma.sync.
+// - gmm_dw walks the (g, 128 rows of d, 256 columns of f) tiles of dW and
+//   contracts each over its group's rows, [bounds[g] br, bounds[G + g] br),
+//   in 64-row slices, which never cross a group at these row tiles. Both
+//   operands are MN-major: A(m = d, k = row) = x[row, d] (wgmma's
+//   transposed A, one [64 rows][64 d] box per warpgroup) and B(k = row,
+//   n = f) = dy[row, f], as the forward reads w. A float32 128 x 256 tile
+//   (128 KB) has no room beside the ring, so the ring has 4 stages and the
+//   epilogue stores each thread's column pairs straight from the
+//   accumulators, 8 bytes a lane and a full 32-byte sector per 4 lanes.
+//   No atomics and no split over the rows: one CTA sums a dW tile in a
+//   fixed order, so dW is deterministic, as the TPU kernel's resident
+//   accumulator is.
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 namespace tc {
 
@@ -426,35 +449,116 @@ constexpr int kConsumers = 256;
 constexpr int kRows = 128;        // output rows of a tile, 64 per consumer warpgroup
 constexpr int kCols = 256;        // output columns of a tile
 constexpr int kDepth = 64;        // contraction depth of a stage: one swizzled row
-constexpr int kStages = 3;
-constexpr int kXBytes = kRows * kDepth * 2;    // x slice: [128 rows][64]
-constexpr int kWBytes = kDepth * kCols * 2;    // w slice: 4 halves of [64][64]
-constexpr int kWHalf = kDepth * 128;
-constexpr int kYBox = 64 * 128;                // y staging: [64 rows][64 columns]
-constexpr int kYBytes = kCols / kHalf * kYBox; // one warpgroup's 64 x 256
+constexpr int kBox = 64 * 128;    // one [64][64] bf16 box in 128B swizzle, bytes
+constexpr int kABytes = 2 * kBox; // A slice: 128 x 64
+constexpr int kBBytes = kCols / kHalf * kBox;  // B slice: 64 x 256
+constexpr int kStages = 3;        // rows_tile: the ring, beside two staging tiles
+constexpr int kYBytes = kCols / kHalf * kBox;  // one warpgroup's 64 x 256 bf16
 // 1 KB to align to 1024
-constexpr int kSmem = 1024 + kStages * (kXBytes + kWBytes) + 2 * kYBytes;
+constexpr int kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kYBytes;
+constexpr int kDwStages = 4;
+constexpr int kDwSmem = 1024 + kDwStages * (kABytes + kBBytes);
+// gmm_dw's entry point carries no row count: x's and dy's maps extend over
+// this many rows, and the kernel reads only the rows the caller's bounds
+// give each group, which lie inside the buffer (the mma.sync instance
+// reads by them too)
+constexpr cuuint64_t kMapRows = 0x7fffffff;
 
-__global__ void __launch_bounds__(kThreads, 1)
-gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
-               const __grid_constant__ CUtensorMap wmap,
-               const __grid_constant__ CUtensorMap ymap, const int* __restrict__ tile_group,
-               int br, int n_rows, int G, int D, int F) {
-  extern __shared__ uint8_t smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];
-  const uint32_t sX = (saddr(smem) + 1023) & ~1023u, sW = sX + kStages * kXBytes;
-  const uint32_t sY = sW + kStages * kWBytes;
-  const uint32_t full = saddr(bars), empty = full + 8 * kStages;
-  const int n_cols = (F + kCols - 1) / kCols;
-  const int tiles = n_rows / kRows * n_cols, nk = (D + kDepth - 1) / kDepth;
+// The ring of kS stages: full[s] completes when stage s's loads land, empty[s]
+// when the 256 consumer threads have released it. Slice `it` (counted over
+// all tiles) uses stage it % kS in phase it / kS.
+template <int kS>
+struct Ring {
+  uint32_t full, empty;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < kS; ++s) {
       bar_init(full + 8 * s, 1);
       bar_init(empty + 8 * s, kConsumers);
     }
     init_done();
   }
+  // producer: wait until slice it's stage is free, announce its bytes and
+  // return the barrier its loads complete on
+  __device__ __forceinline__ uint32_t acquire(int it, uint32_t bytes) const {
+    const int s = it % kS;
+    bar_wait(empty + 8 * s, ((it / kS) & 1) ^ 1);
+    bar_expect(full + 8 * s, bytes);
+    return full + 8 * s;
+  }
+  __device__ __forceinline__ void wait(int it) const {
+    bar_wait(full + 8 * (it % kS), (it / kS) & 1);
+  }
+  __device__ __forceinline__ void release(int it) const { bar_arrive(empty + 8 * (it % kS)); }
+};
+
+// the pair (a, b) to p where pred holds, as one predicated store: the
+// accumulators are read on the path every thread takes (see mainloop)
+__device__ __forceinline__ void st_pair_if(bool pred, float* p, float a, float b) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.global.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
+          (int)pred),
+      "l"(p), "f"(a), "f"(b)
+      : "memory");
+}
+
+// descriptor of k-step kk (16 deep) of a swizzled tile: K-major (T 0) moves
+// 32 bytes along the rows, MN-major (T 1) 16 rows, its 64-wide halves kBox
+// apart
+template <int T>
+__device__ __forceinline__ uint64_t step_desc(uint32_t addr, int kk) {
+  return T ? desc(addr + kk * 16 * 128, kBox) : desc(addr + kk * 32, 16);
+}
+
+// acc += nk slices from slice it on (it advances past them): this
+// warpgroup's A of stage 0 at a, B of stage 0 at b (stage s kABytes and
+// kBBytes further); A and B K-major (0) or MN-major (1)
+template <int kS, int TA, int TB>
+__device__ __forceinline__ void mainloop(float (&acc)[kCols / 128][64], const Ring<kS>& ring,
+                                         int& it, int nk, uint32_t a, uint32_t b) {
+  for (int t = 0; t < nk; ++t, ++it) {
+    const int s = it % kS;
+    ring.wait(it);
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j)
+        mma_ss<128, TB, TA>(acc[j], step_desc<TA>(a + s * kABytes, kk),
+                            step_desc<TB>(b + s * kBBytes + j * 2 * kBox, kk), 1);
+    wg_commit();
+    wg_wait<1>();                                 // slice t - 1's products are done
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+    if (t > 0) ring.release(it - 1);
+  }
+  // outside any branch: nk may differ between tiles (gmm_dw), and ptxas
+  // serializes every wgmma of a kernel that touches its accumulators on a
+  // path it cannot prove uniform (C7518)
+  wg_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+  if (nk > 0) ring.release(it - 1);
+}
+
+// gmm_fwd (BK false: a = x, K = D, M = F) and gmm_dx (BK true: a = dy,
+// K = F, M = D): out [N, M] = each 128-row tile of a [N, K] times w[g],
+// B read MN-major (w[g] [D, F] as it lies) or K-major (its transpose)
+template <bool BK>
+__device__ __forceinline__ void rows_tile(const CUtensorMap& amap, const CUtensorMap& wmap,
+                                          const CUtensorMap& omap,
+                                          const int* __restrict__ tile_group, int br,
+                                          int n_rows, int G, int K, int M) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  const uint32_t sA = (saddr(smem) + 1023) & ~1023u, sB = sA + kStages * kABytes;
+  const uint32_t sY = sB + kStages * kBBytes;
+  const Ring<kStages> ring{saddr(bars), saddr(bars) + 8 * kStages};
+  const int n_cols = cdiv(M, kCols), tiles = n_rows / kRows * n_cols, nk = cdiv(K, kDepth);
+
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
@@ -464,15 +568,19 @@ gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
         const int r0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
         // in range for grouped_layout's maps; clamped so no load reads outside w
         const int g = min(max(tile_group[r0 / br], 0), G - 1);
-        const int halves = min(kCols, F - n0 + kHalf - 1) / kHalf;
+        // w's boxes: [128 d][64 f] (dx) or [64 d][64 f] (forward), those
+        // wholly past M not loaded
+        const int box = BK ? 2 * kBox : kBox, span = BK ? 128 : kHalf;
+        const int nb = min(kBBytes / box, cdiv(M - n0, span));
         for (int t = 0; t < nk; ++t, ++it) {
           const int s = it % kStages;
-          bar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
-          bar_expect(full + 8 * s, kXBytes + halves * kWHalf);
-          tma_load(sX + s * kXBytes, xmap, full + 8 * s, t * kDepth, r0);
-          for (int hh = 0; hh < halves; ++hh)
-            tma_load(sW + s * kWBytes + hh * kWHalf, wmap, full + 8 * s, n0 + hh * kHalf,
-                     t * kDepth, g);
+          const uint32_t full = ring.acquire(it, kABytes + nb * box);
+          tma_load(sA + s * kABytes, amap, full, t * kDepth, r0);
+          for (int q = 0; q < nb; ++q) {
+            const uint32_t dst = sB + s * kBBytes + q * box;
+            if (BK) tma_load(dst, wmap, full, t * kDepth, n0 + q * span, g);
+            else tma_load(dst, wmap, full, n0 + q * span, t * kDepth, g);
+          }
         }
       }
     }
@@ -480,7 +588,6 @@ gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 
   const int cw = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32, t4 = lane % 4;
-  const uint32_t aX = sX + cw * 64 * 128;         // its 64 rows of each x slice
   const uint32_t sYw = sY + cw * kYBytes;         // its staging tile
   const int rr = 16 * (tid / 32) + lane / 4;      // its rows rr and rr + 8 there
   int it = 0;
@@ -489,28 +596,8 @@ gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
     float acc[kCols / 128][64];
 #pragma unroll
     for (int j = 0; j < kCols / 128; ++j) zero(acc[j]);
-    for (int t = 0; t < nk; ++t, ++it) {
-      const int s = it % kStages;
-      bar_wait(full + 8 * s, (it / kStages) & 1);
-#pragma unroll
-      for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kDepth / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < kCols / 128; ++j)
-          mma_ss<128, 1>(acc[j], desc(aX + s * kXBytes + kk * 32, 16),
-                         desc(sW + s * kWBytes + j * 2 * kWHalf + kk * 16 * 128, kWHalf), 1);
-      wg_commit();
-      wg_wait<1>();                               // slice t - 1's products are done
-#pragma unroll
-      for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
-      if (t > 0) bar_arrive(empty + 8 * ((it - 1) % kStages));
-    }
-    wg_wait<0>();
-#pragma unroll
-    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
-    bar_arrive(empty + 8 * ((it - 1) % kStages));
+    // its 64 rows of each A slice
+    mainloop<kStages, 0, BK ? 0 : 1>(acc, ring, it, nk, sA + cw * kBox, sB);
 
     // columns 8 i + 2 t4 (+ 1) of each 128-column half into box 2 j + i / 8,
     // 16-byte chunk i % 8 of a row swizzled by the row (128B: chunk ^ row % 8)
@@ -520,19 +607,102 @@ gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int j = 0; j < kCols / 128; ++j)
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const uint32_t at = sYw + (2 * j + i / 8) * kYBox + (((i % 8) ^ (rr % 8)) << 4) + 4 * t4;
+        const uint32_t at = sYw + (2 * j + i / 8) * kBox + (((i % 8) ^ (rr % 8)) << 4) + 4 * t4;
         st_shared(at + rr * 128, pack_bf16(acc[j][4 * i], acc[j][4 * i + 1]));
         st_shared(at + (rr + 8) * 128, pack_bf16(acc[j][4 * i + 2], acc[j][4 * i + 3]));
       }
     fence_async_smem();
     named_sync(1 + cw, 128);
     if (tid == 0) {
-      for (int q = 0; q < kCols / kHalf && n0 + q * kHalf < F; ++q)
-        tma_store(ymap, sYw + q * kYBox, n0 + q * kHalf, r0 + 64 * cw);
+      for (int q = 0; q < kCols / kHalf && n0 + q * kHalf < M; ++q)
+        tma_store(omap, sYw + q * kBox, n0 + q * kHalf, r0 + 64 * cw);
       bulk_commit();
     }
   }
   if (tid == 0) bulk_wait();                      // the stores are done before exit
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap ymap, const int* __restrict__ tile_group,
+               int br, int n_rows, int G, int D, int F) {
+  rows_tile<false>(xmap, wmap, ymap, tile_group, br, n_rows, G, D, F);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_dx_kernel(const __grid_constant__ CUtensorMap dymap,
+              const __grid_constant__ CUtensorMap wmap,
+              const __grid_constant__ CUtensorMap dxmap, const int* __restrict__ tile_group,
+              int br, int n_rows, int G, int D, int F) {
+  rows_tile<true>(dymap, wmap, dxmap, tile_group, br, n_rows, G, F, D);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_dw_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap dymap, const int* __restrict__ bounds,
+              float* __restrict__ dw, int br, int G, int D, int F) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kDwStages];
+  const uint32_t sA = (saddr(smem) + 1023) & ~1023u, sB = sA + kDwStages * kABytes;
+  const Ring<kDwStages> ring{saddr(bars), saddr(bars) + 8 * kDwStages};
+  const int n_cols = cdiv(F, kCols), per_group = cdiv(D, kRows) * n_cols;
+  const int tiles = G * per_group, per_slice = br / kDepth;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int g = tile / per_group, m0 = tile % per_group / n_cols * kRows;
+        const int n0 = tile % n_cols * kCols;
+        const int k0 = bounds[g] * br, nk = (bounds[G + g] - bounds[g]) * per_slice;
+        // 64-wide boxes of x's d and dy's f, those wholly past D or F not loaded
+        const int na = min(kRows / kHalf, cdiv(D - m0, kHalf));
+        const int nb = min(kCols / kHalf, cdiv(F - n0, kHalf));
+        for (int t = 0; t < nk; ++t, ++it) {
+          const int s = it % kDwStages, row = k0 + t * kDepth;
+          const uint32_t full = ring.acquire(it, (na + nb) * kBox);
+          for (int q = 0; q < na; ++q)
+            tma_load(sA + s * kABytes + q * kBox, xmap, full, m0 + q * kHalf, row);
+          for (int q = 0; q < nb; ++q)
+            tma_load(sB + s * kBBytes + q * kBox, dymap, full, n0 + q * kHalf, row);
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32, t4 = lane % 4;
+  const int rr = 16 * (tid / 32) + lane / 4;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int g = tile / per_group, m0 = tile % per_group / n_cols * kRows;
+    const int n0 = tile % n_cols * kCols;
+    const int nk = (bounds[G + g] - bounds[g]) * per_slice;
+    float acc[kCols / 128][64];
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) zero(acc[j]);
+    // its 64 d of each x slice, the [64 rows][64 d] box cw
+    mainloop<kDwStages, 1, 1>(acc, ring, it, nk, sA + cw * kBox, sB);
+
+    // acc[j][4 i + c]: row rr (+ 8 for c >= 2), columns 128 j + 8 i + 2 t4
+    // (+ 1) of this warpgroup's 64 rows; F is a multiple of 8, so a pair is
+    // wholly inside or past it
+    const int d = m0 + 64 * cw + rr;
+    float* out = dw + ((long long)g * D + d) * F + n0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = 128 * j + 8 * i;
+        st_pair_if(d < D && n0 + c < F, out + c, acc[j][4 * i], acc[j][4 * i + 1]);
+        st_pair_if(d + 8 < D && n0 + c < F, out + 8LL * F + c, acc[j][4 * i + 2],
+                   acc[j][4 * i + 3]);
+      }
+  }
 }
 
 }  // namespace tc
@@ -581,38 +751,71 @@ gmm_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                         dw + (long long)g * D * F, F);
 }
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
+// the current device's SMs, after raising kernel's dynamic shared memory
+// to smem bytes
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem, int* sms) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
 
-// bf16 x [N, D], w [G, D, F] and y [N, F] as tensor maps (TMA boxes of 64
-// columns: x [128 rows][64], w [64 rows][64] of one group, y [64 rows][64]),
-// y by the tensor-core forward on a persistent grid of at most one CTA per
-// SM
-int fwd_tc(const void* x, const void* w, const void* tg, void* y, int n_tiles, int br, int G,
-           int D, int F, cudaStream_t stream) {
-  const int N = n_tiles * br;
-  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)N};
-  const long long xstrides[1] = {D};
-  const cuuint32_t xbox[2] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kRows};
+// bf16 a [N, K], w [G, D, F] and out [N, M] as tensor maps (TMA boxes of 64
+// columns: a [128 rows][64], w [64 d][64 f] for the forward or [128 d][64 f]
+// for dx, of one group, out [64 rows][64]), out by the tensor-core forward
+// (BK false: a = x, K = D, M = F) or dx (BK true: a = dy, K = F, M = D) on
+// a persistent grid of at most one CTA per SM
+template <bool BK>
+int rows_tc(const void* a, const void* w, const void* tg, void* out, int n_tiles, int br,
+            int G, int D, int F, cudaStream_t stream) {
+  const int N = n_tiles * br, K = BK ? F : D, M = BK ? D : F;
+  const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const long long astrides[1] = {K};
+  const cuuint32_t abox[2] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kRows};
   const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)G};
   const long long wstrides[2] = {F, (long long)D * F};
-  const cuuint32_t wbox[3] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kDepth, 1};
-  const cuuint64_t ydims[2] = {(cuuint64_t)F, (cuuint64_t)N};
-  const long long ystrides[1] = {F};
-  const cuuint32_t ybox[2] = {(cuuint32_t)tc::kHalf, 64};
-  CUtensorMap xm, wm, ym;
-  int e = encode_map<2>(&xm, x, xdims, xstrides, xbox);
+  const cuuint32_t wbox[3] = {(cuuint32_t)tc::kHalf, BK ? 128u : (cuuint32_t)tc::kDepth, 1};
+  const cuuint64_t odims[2] = {(cuuint64_t)M, (cuuint64_t)N};
+  const long long ostrides[1] = {M};
+  const cuuint32_t obox[2] = {(cuuint32_t)tc::kHalf, 64};
+  CUtensorMap am, wm, om;
+  int e = encode_map<2>(&am, a, adims, astrides, abox);
   if (!e) e = encode_map<3>(&wm, w, wdims, wstrides, wbox);
-  if (!e) e = encode_map<2>(&ym, y, ydims, ystrides, ybox);
+  if (!e) e = encode_map<2>(&om, out, odims, ostrides, obox);
   if (e) return e;
-  cudaError_t err = cudaFuncSetAttribute(
-      tc::gmm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmem);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const auto kernel = BK ? tc::gmm_dx_kernel : tc::gmm_fwd_kernel;
+  int sms = 0;
+  const cudaError_t err = prepare(kernel, tc::kSmem, &sms);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = N / tc::kRows * cdiv(F, tc::kCols);
-  tc::gmm_fwd_kernel<<<tiles < sms ? tiles : sms, tc::kThreads, tc::kSmem, stream>>>(
-      xm, wm, ym, static_cast<const int*>(tg), br, N, G, D, F);
+  const int tiles = N / tc::kRows * cdiv(M, tc::kCols);
+  kernel<<<tiles < sms ? tiles : sms, tc::kThreads, tc::kSmem, stream>>>(
+      am, wm, om, static_cast<const int*>(tg), br, N, G, D, F);
+  return (int)cudaGetLastError();
+}
+
+// bf16 x [rows, D] and dy [rows, F] as tensor maps (boxes of [64 rows][64]),
+// dW [G, D, F] float32 by the tensor-core dW on a persistent grid of at
+// most one CTA per SM
+int dw_tc(const void* x, const void* dy, const void* bounds, void* dw_out, int br, int G,
+          int D, int F, cudaStream_t stream) {
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, tc::kMapRows};
+  const long long xstrides[1] = {D};
+  const cuuint64_t dydims[2] = {(cuuint64_t)F, tc::kMapRows};
+  const long long dystrides[1] = {F};
+  const cuuint32_t box[2] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kDepth};
+  CUtensorMap xm, dym;
+  int e = encode_map<2>(&xm, x, xdims, xstrides, box);
+  if (!e) e = encode_map<2>(&dym, dy, dydims, dystrides, box);
+  if (e) return e;
+  int sms = 0;
+  const cudaError_t err = prepare(tc::gmm_dw_kernel, tc::kDwSmem, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = G * cdiv(D, tc::kRows) * cdiv(F, tc::kCols);
+  tc::gmm_dw_kernel<<<tiles < sms ? tiles : sms, tc::kThreads, tc::kDwSmem, stream>>>(
+      xm, dym, static_cast<const int*>(bounds), static_cast<float*>(dw_out), br, G, D, F);
   return (int)cudaGetLastError();
 }
 
@@ -653,19 +856,19 @@ int dw(const void* x, const void* dy, const void* bounds, void* dw_out, int br,
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 =
 // bfloat16 (x, w, dy, y and dx share it; dW is float32). D and F must be
 // multiples of 8 and every pointer 16-byte aligned (the wrapper checks;
-// TMA needs the same of the tensor-core forward's maps). Each returns the
+// TMA needs the same of the tensor-core instances' maps). Each returns the
 // cudaError_t of its launch (0 = launched), -1 for a dtype it has no
 // instance for, -2 when libcuda has no cuTensorMapEncodeTiled, -3 when it
 // refuses a tensor map.
 
 // Which instance a kernel (0 gmm_fwd, 1 gmm_dx, 2 gmm_dw) runs for dtype
-// and row tile br: 2 the tensor-core forward (wgmma + TMA, bf16, br a
+// and row tile br: 2 the tensor-core instances (wgmma + TMA, bf16, br a
 // multiple of 128), 1 the mma.sync tiles (bf16), 0 scalar FMA (float32),
 // -1 none. The entry points dispatch by it.
 extern "C" int gmm_route(int kernel, int dtype, int br) {
   if (kernel < 0 || kernel > 2 || (dtype != 0 && dtype != 1) || br <= 0) return -1;
   if (dtype == 0) return 0;
-  return kernel == 0 && br % tc::kRows == 0 ? 2 : 1;
+  return br % tc::kRows == 0 ? 2 : 1;
 }
 
 extern "C" int gmm_fwd(const void* x, const void* w, const void* tile_group, void* y,
@@ -673,7 +876,7 @@ extern "C" int gmm_fwd(const void* x, const void* w, const void* tile_group, voi
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (gmm_route(0, dtype, br)) {
-    case 2: return fwd_tc(x, w, tile_group, y, n_tiles, br, G, D, F, s);
+    case 2: return rows_tc<false>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
     case 1: return fwd<__nv_bfloat16>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
     case 0: return fwd<float>(x, w, tile_group, y, n_tiles, br, G, D, F, s);
   }
@@ -684,8 +887,11 @@ extern "C" int gmm_dx(const void* dy, const void* w, const void* tile_group, voi
                       int n_tiles, int br, int G, int D, int F, int dtype,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dx<__nv_bfloat16>(dy, w, tile_group, dx_out, n_tiles, br, G, D, F, s);
-  if (dtype == 0) return dx<float>(dy, w, tile_group, dx_out, n_tiles, br, G, D, F, s);
+  switch (gmm_route(1, dtype, br)) {
+    case 2: return rows_tc<true>(dy, w, tile_group, dx_out, n_tiles, br, G, D, F, s);
+    case 1: return dx<__nv_bfloat16>(dy, w, tile_group, dx_out, n_tiles, br, G, D, F, s);
+    case 0: return dx<float>(dy, w, tile_group, dx_out, n_tiles, br, G, D, F, s);
+  }
   return -1;
 }
 
@@ -693,7 +899,10 @@ extern "C" int gmm_dx(const void* dy, const void* w, const void* tile_group, voi
 extern "C" int gmm_dw(const void* x, const void* dy, const void* bounds, void* dw_out,
                       int br, int G, int D, int F, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dw<__nv_bfloat16>(x, dy, bounds, dw_out, br, G, D, F, s);
-  if (dtype == 0) return dw<float>(x, dy, bounds, dw_out, br, G, D, F, s);
+  switch (gmm_route(2, dtype, br)) {
+    case 2: return dw_tc(x, dy, bounds, dw_out, br, G, D, F, s);
+    case 1: return dw<__nv_bfloat16>(x, dy, bounds, dw_out, br, G, D, F, s);
+    case 0: return dw<float>(x, dy, bounds, dw_out, br, G, D, F, s);
+  }
   return -1;
 }

@@ -19,10 +19,10 @@ Two implementations behind :func:`grouped_matmul`, as in the reference:
   place) and ``gmm_dw`` (float32, cast to w's dtype by the backward, as
   ``_gmm_pallas_bwd`` does). CUDA tensors launch them or raise; CPU
   tensors take :func:`gmm_fwd_plain`, :func:`gmm_dx_plain` and
-  :func:`gmm_dw_plain`, which the tests hold against the reference. bf16
-  ``gmm_fwd`` at row tiles of a multiple of 128 rows (the training path's)
-  runs on wgmma with TMA staging, the other bf16 instances on mma.sync
-  tiles, float32 on scalar FMA (:func:`kernel_instance` says which).
+  :func:`gmm_dw_plain`, which the tests hold against the reference. In
+  bf16 at row tiles of a multiple of 128 rows (the training path's) all
+  three run on wgmma with TMA staging, at other row tiles on mma.sync
+  tiles; float32 runs scalar FMA (:func:`kernel_instance` says which).
 
 ``LAUNCHES`` counts both paths. The forward and the backward are
 ``torch.library`` custom ops (``tony_tpu_torch::gmm`` and ``::gmm_bwd``):
@@ -170,7 +170,7 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor, tile_group: torch.Tensor,
     device, widths that are multiples of 8, and a grid CUDA can launch.
     Widths of 8 make every row stride a multiple of 16 bytes in either
     dtype, and ``_ready`` gives 16-byte-aligned starts: TMA's rule for the
-    tensor-core forward's maps."""
+    tensor-core instances' maps."""
     if a.ndim != 2 or a.shape[1] != a_cols or tuple(b.shape) != tuple(b_shape):
         raise ValueError(f"grouped_mm kernel shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)}: expected [N, {a_cols}] and {tuple(b_shape)}")

@@ -15,7 +15,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Llama-3-8B decode shapes (G 1 and 5, and the verify step's G 16 with
    rows whose lengths run past their written positions and past the
    table) and at block and head sizes where it stages
-   each block in chunks; then the flash-attention forward, dq and dk/dv
+   each block in chunks, each case with the instance that ran (every bf16
+   case on the tensor cores, mma.sync with a split over the sequence; fp32
+   scalar), and the nine tensor-core instances' registers and spills; then the flash-attention forward, dq and dk/dv
    kernels against theirs at bench_1b4's training shape, bench_moe's
    (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
    and fp32, each case logged with the instance that ran (every bf16
@@ -45,7 +47,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (kernel 7) against its plain version at the reference bench's decode
    case (bench_1b4 with 4 kv heads: 8 rows of a full 1024-position cache,
    block 128) in bf16 and fp32 and at Llama-3-8B's shape (T 2048) at G 1
-   and at G 5 with ragged rows, beside the repeat-expanded
+   and at G 5 with ragged rows, each with its instance (bf16 on the
+   tensor cores, fp32 scalar), beside the repeat-expanded
    ``reference_decode_attention``; and the bench's layer-scanned loop (24
    calls, each output the next query), whose 24 launches are the kernel's
    path. Each kernel with its time beside its bound, the plain version's
@@ -103,10 +106,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
-again, and the script raises after three such windows. The flash and
-grouped-matmul kernels' launches are matched by their tensor-core
-kernels' names (``tc::``), so a window in which one ran another instance
-is short of events.
+again, and the script raises after three such windows. The flash,
+grouped-matmul and bf16 decode kernels' launches are matched by their
+tensor-core kernels' names (``tc::``), so a window in which one ran
+another instance is short of events; a decode breakdown's attention share
+counts the merge of a row's splits (``tc::decode_merge_kernel``) too.
 
 The last three lines are the ``kernels`` JSON (thirteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed),
@@ -155,13 +159,20 @@ GMM_DW_TOLERANCE = (1e-2, 1e-4)
 QUANT_MM_TOLERANCE = {torch.bfloat16: (1e-2, 2**-7), torch.float32: (1e-4, 1e-4)}
 KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
                   "quant_mm", "fused_ce")
+# the bf16 paged decode kernel's tensor-core instance, whose device time a
+# breakdown counts: the split kernel, and the merge of a row's splits,
+# launched when the table spans more than one split (the engine sizes its
+# table to the live rows, so not at every step)
+PAGED_TC_EVENTS = ("tc::paged_decode_kernel", "tc::decode_merge_kernel")
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
 # (a profile must hold at least that many events of each). The profiles run
-# bf16 training and serving, so the flash kernels and the grouped-matmul
-# kernels are named by their tensor-core instances (namespace tc).
+# bf16 training and serving, so the flash, grouped-matmul and bf16 decode
+# kernels are named by their tensor-core instances (namespace tc); the
+# quantized decode kernel keeps the scalar body, whose name no tc:: name
+# matches.
 KERNEL_EVENTS = {
-    "decode_attention": ("decode_kernel",),
-    "paged_decode_attention": ("paged_decode_kernel",),
+    "decode_attention": ("tc::decode_kernel",),
+    "paged_decode_attention": ("tc::paged_decode_kernel",),
     "paged_decode_attention_quant": ("paged_decode_kernel",),
     "quant_mm": ("quant_mm_kernel",),
     "flash_fwd": ("tc::flash_fwd_kernel",), "flash_dq": ("tc::flash_dq_kernel",),
@@ -263,7 +274,7 @@ def decode_case(G: int, dtype: torch.dtype, flush: torch.Tensor, *,
     inputs, its time, its bound and SDPA's. With ``past``, the rows of a
     verify step (``verify_lengths``)."""
     from tony_tpu_torch.ops.decode_attention import (
-        _chunk, decode_attention, paged_decode_attention_plain,
+        _chunk, decode_attention, kernel_instance, paged_decode_attention_plain,
     )
 
     B, H, Hkv = 8, 32, 8
@@ -328,6 +339,7 @@ def decode_case(G: int, dtype: torch.dtype, flush: torch.Tensor, *,
     return {
         "G": G, "dtype": str(dtype).replace("torch.", ""), "blk": blk, "hd": hd,
         "past": past, "chunk": _chunk(blk, hd, itemsize),
+        "instance": kernel_instance("paged_decode_attention", dtype, hd, blk, G, H // Hkv),
         "max_abs_err": err.max().item(), "sdpa_max_abs_err": lib_err,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -643,7 +655,7 @@ def serve_phase(cfg, params) -> dict:
                              f"{figures['decode_steps']} x {cfg.n_layers} layers")
     if launches["paged_decode_attention_plain"] != 0:
         raise AssertionError("the plain decode attention ran on the card")
-    breakdown = decode_breakdown(engine, cfg, rng, {"attention": "paged_decode_kernel"})
+    breakdown = decode_breakdown(engine, cfg, rng, {"attention": PAGED_TC_EVENTS})
     del engine
     solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
                     device="cuda", serve=sv)
@@ -680,7 +692,7 @@ def quant_serve_phase(cfg, params, bf16: dict) -> dict:
         raise AssertionError(f"quantized launches {launches} != {want} "
                              f"({steps} decode steps)")
     breakdown = decode_breakdown(engine, cfg, rng, {
-        "attention": "paged_decode_kernel", "quant_mm": "quant_mm_kernel"})
+        "attention": ("paged_decode_kernel",), "quant_mm": ("quant_mm_kernel",)})
     del engine
     torch.cuda.empty_cache()
     solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
@@ -926,7 +938,7 @@ def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
     if profile:
         # 1 + 4 timed steps, then 1 + 4 a traced window, each up to G tokens
         n = ((PROFILE_ATTEMPTS + 1) * (4 + 1) + 1) * (SPEC_DRAFT + 1)
-        r.update(decode_breakdown(engine, cfg, None, {"attention": "paged_decode_kernel"},
+        r.update(decode_breakdown(engine, cfg, None, {"attention": PAGED_TC_EVENTS},
                                   steps=4, requests=reqs(n)))
     del engine
     torch.cuda.empty_cache()
@@ -1116,7 +1128,7 @@ def profile_window(run, steps: int) -> dict:
                          f"{PROFILE_ATTEMPTS} windows (events, launches): {short}")
 
 
-def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
+def decode_breakdown(engine, cfg, rng, kernels: dict[str, tuple[str, ...]],
                      steps: int = 8, requests=None) -> dict:
     """Where a full decode step's time goes, at 8 live slots of ~512
     positions (or over ``requests``, which must outlast every window
@@ -1124,8 +1136,8 @@ def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
     clock, then ``steps`` more under torch.profiler (after one warm-up
     step) for the device time by kernel. The busy share is device time per
     step over the unprofiled step's wall time; each entry of ``kernels``
-    (label: the kernel's name) gets its device ms per step and its share of
-    device time."""
+    (label: the kernels' names, a split kernel and its merge say) gets
+    their device ms per step and their share of device time."""
     from tony_tpu_torch.serve import Request
 
     if requests is None:
@@ -1156,15 +1168,17 @@ def decode_breakdown(engine, cfg, rng, kernels: dict[str, str],
         log(f"  host: {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
             f"x{e.count // steps:<5d} {e.key[:60]}")
     launches = sum(e.count for e in host
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                 "cuLaunchKernelEx"))
     out = {
         "profile_step_ms": step_s * 1e3,
         "profile_device_ms": device_us / 1e3,
         "profile_device_busy": device_us / 1e6 / step_s,
         "profile_launches_per_step": launches / steps,
     }
-    for label, kernel in kernels.items():
-        us = sum(e.self_device_time_total for e in dev if has_kernel(e.key, kernel)) / steps
+    for label, names in kernels.items():
+        us = sum(e.self_device_time_total for e in dev
+                 if any(has_kernel(e.key, k) for k in names)) / steps
         out[f"profile_{label}_ms"] = us / 1e3
         out[f"profile_{label}_share"] = us / device_us
     return out
@@ -1642,7 +1656,8 @@ def contiguous_case(label: str, B: int, H: int, Hkv: int, hd: int, T: int, G: in
     and SDPA over the repeat-expanded cache (both timed and compared only;
     the port calls neither), with its bound."""
     from tony_tpu_torch.ops.decode_attention import (
-        _chunk, decode_attention, decode_attention_plain, reference_decode_attention,
+        _chunk, decode_attention, decode_attention_plain, kernel_instance,
+        reference_decode_attention,
     )
 
     dev = "cuda"
@@ -1687,6 +1702,7 @@ def contiguous_case(label: str, B: int, H: int, Hkv: int, hd: int, T: int, G: in
     return {
         "label": label, "G": G, "dtype": str(dtype).replace("torch.", ""), "T": T,
         "block": min(block, T), "chunk": _chunk(min(block, T), hd, itemsize),
+        "instance": kernel_instance("decode_attention", dtype, hd, min(block, T), G, rep),
         "max_abs_err": err.max().item(), "oracle_max_abs_err": oracle_err,
         "sdpa_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
         "oracle_ms": oracle_ms, "library_ms": library_ms,
@@ -2088,14 +2104,21 @@ def main() -> int:
     for dtype, G, blk, hd, past in shapes:
         c = decode_case(G, dtype, flush, blk=blk, hd=hd, past=past)
         cases.append(c)
-        log(f"kernel paged_decode_attention G={G} {c['dtype']} blk={blk} hd={hd} "
-            f"chunk={c['chunk']}{f' past={past}' if past else ''}: max|err| {c['max_abs_err']:.3e}  "
+        log(f"kernel paged_decode_attention G={G} {c['dtype']} ({c['instance']}) blk={blk} "
+            f"hd={hd} chunk={c['chunk']}{f' past={past}' if past else ''}: max|err| "
+            f"{c['max_abs_err']:.3e}  "
             f"{c['ms'] * 1e3:.1f} us  (bound {c['bound_ms'] * 1e3:.1f} us by "
             f"{c['bound_by']}, {c['bytes'] / 1e6:.2f} MB)  plain "
             f"{c['plain_ms'] * 1e3:.1f} us  sdpa {c['library_ms'] * 1e3:.1f} us "
             f"(max|err| {c['sdpa_max_abs_err']:.3e})  [{card}]")
     if not any(c["chunk"] < c["blk"] for c in cases):
         raise AssertionError("no case staged a block in chunks")
+    # every bf16 case runs on the tensor cores, every fp32 case scalar
+    wrong = [(c["G"], c["dtype"], c["instance"]) for c in cases
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
+    if wrong:
+        raise AssertionError(f"paged decode cases on an unexpected instance: {wrong}")
+    log_resources(builds, "paged_decode_attention", 9)
 
     flash = []
     for label, B, S, H, Hkv, hd, causal in FLASH_SHAPES:
@@ -2236,13 +2259,18 @@ def main() -> int:
                for G, lens in ((1, np.full(8, 2048, np.int32)),
                                (5, np.array(LLAMA_LENGTHS, np.int32)))]
     for c in contig:
-        log(f"kernel decode_attention {c['label']} G={c['G']} {c['dtype']} T={c['T']} "
-            f"block={c['block']} chunk={c['chunk']}: max|err| {c['max_abs_err']:.3e}  "
+        log(f"kernel decode_attention {c['label']} G={c['G']} {c['dtype']} ({c['instance']}) "
+            f"T={c['T']} block={c['block']} chunk={c['chunk']}: max|err| "
+            f"{c['max_abs_err']:.3e}  "
             f"{c['ms'] * 1e3:.1f} us  (bound {c['bound_ms'] * 1e3:.1f} us by "
             f"{c['bound_by']}, {c['bytes'] / 1e6:.2f} MB)  plain {c['plain_ms'] * 1e3:.1f} "
             f"us  reference_decode_attention {c['oracle_ms'] * 1e3:.1f} us (max|err| "
             f"{c['oracle_max_abs_err']:.3e})  sdpa {c['library_ms'] * 1e3:.1f} us "
             f"(max|err| {c['sdpa_max_abs_err']:.3e})  [{card}]")
+    wrong = [(c["label"], c["G"], c["dtype"], c["instance"]) for c in contig
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
+    if wrong:
+        raise AssertionError(f"contiguous decode cases on an unexpected instance: {wrong}")
     loop = contiguous_bench_loop(flush)
     log(f"decode_attention bench loop ({bk['layers']} layers, each output the next "
         f"query, bf16): {loop['launches']} launches; {loop['ms']:.3f} ms  plain "

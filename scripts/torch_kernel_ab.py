@@ -2,7 +2,7 @@
 """Time the port's bf16 kernels built from two kernel-source trees on one
 card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe] [--rounds 2]
+    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode] [--rounds 2]
 
 OTHER_CSRC is the ``tony_tpu_torch/csrc`` of another checkout (a parent
 commit unpacked with ``git archive`` into a git-ignored directory). Each
@@ -16,13 +16,23 @@ shapes (kernel ms, max |err|, whether it held its plain version, the
 library call's ms, and for gmm the instance and the library call's note);
 ``--cases moe`` instead times bench_moe's training step end to end:
 ``fit()`` for 10 steps as chip_smoke's phase 6 runs it (p50 and p99 step
-on the host clock, tokens/s, the losses). Exits non-zero without a card,
-when a process fails or when a case does not hold its plain version.
+on the host clock, tokens/s, the losses). ``--cases decode`` times the
+bf16 decode kernels: ``chip_smoke.decode_case`` at G 1, 5 and the verify
+step's 16, ``chip_smoke.contiguous_case`` at the reference bench's case
+and Llama-3-8B's G 1, and the bench's 24-call loop. Their C entry points
+grew a workspace argument, so for decode the other side imports the
+whole ``tony_tpu_torch`` package of the other checkout (``OTHER_CSRC``'s
+parent's parent), not its csrc/ alone; a package without
+``kernel_instance`` has the scalar CTA body only. Exits non-zero without
+a card, when a process fails or when a case does not hold its plain
+version.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -34,18 +44,23 @@ ROOT = Path(__file__).resolve().parent.parent
 def measure(csrc: str, cases: str) -> dict:
     """This process's measurement, the kernels built from ``csrc`` ("" for
     this checkout's)."""
-    sys.path.insert(0, str(ROOT))
+    whole_tree = cases == "decode" and csrc
+    sys.path.insert(0, str(Path(csrc).resolve().parent.parent if whole_tree else ROOT))
     import torch
 
     from tony_tpu_torch.ops import _build
 
-    if csrc:
+    if csrc and not whole_tree:
         _build.CSRC = Path(csrc).resolve()
         _build.BUILD_DIR = _build.CSRC / "build"
-    import chip_smoke
+    # this checkout's cases, whichever package is on the path
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    source = {"gmm": "grouped_mm", "flash": "flash_attention", "moe": "grouped_mm"}[cases]
+    source = {"gmm": "grouped_mm", "flash": "flash_attention", "moe": "grouped_mm",
+              "decode": "paged_decode_attention"}[cases]
     out = {"csrc": csrc or "this checkout", "card": chip_smoke.card_line(),
            "resources": chip_smoke.tensor_core_resources(_build.load(source).log)}
     if cases == "moe":
@@ -65,6 +80,9 @@ def measure(csrc: str, cases: str) -> dict:
         out["cases"] = []
         return out
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    if cases == "decode":
+        out["cases"] = decode_cases(chip_smoke, flush)
+        return out
     if cases == "gmm":
         found = chip_smoke.gmm_cases(torch.bfloat16, flush, chip_smoke.gmm_inputs())
         key = ("name", "direction")
@@ -79,10 +97,39 @@ def measure(csrc: str, cases: str) -> dict:
     return out
 
 
+def decode_cases(chip_smoke, flush) -> list[dict]:
+    """The bf16 decode cases (each raises unless it holds its plain
+    version) and the bench loop."""
+    import numpy as np
+    import torch
+
+    # the package exports a function of the module's name: import by name
+    module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
+    if not hasattr(module, "kernel_instance"):
+        module.kernel_instance = lambda *args: "scalar"
+    found = []
+    for G, past in ((1, ()), (5, ()), (chip_smoke.SPEC_DRAFT + 1, chip_smoke.VERIFY_PAST)):
+        c = chip_smoke.decode_case(G, torch.bfloat16, flush, past=past)
+        found.append({"name": "paged_decode_attention", "case": f"G {G}", **c})
+    bk = chip_smoke.BENCH_KERN
+    for label, B, H, Hkv, T, lens, block in (
+            ("bench", bk["B"], bk["H"], bk["Hkv"], bk["T"], np.full(bk["B"], bk["T"]),
+             bk["block"]),
+            ("llama3_8b G 1", 8, 32, 8, 2048, np.full(8, 2048), 128)):
+        c = chip_smoke.contiguous_case(label, B, H, Hkv, bk["hd"], T, 1,
+                                       lens.astype(np.int32), torch.bfloat16, flush, block)
+        found.append({"name": "decode_attention", "case": label, **c})
+    loop = chip_smoke.contiguous_bench_loop(flush)
+    found.append({"name": "decode_attention", "case": "bench loop (24 calls)",
+                  "instance": found[-1]["instance"], "library_ms": None, **loop})
+    return [{k: c[k] for k in ("name", "case", "instance", "ms", "max_abs_err",
+                               "library_ms")} | {"ok": True} for c in found]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", default="", help="the other tree's csrc/")
-    ap.add_argument("--cases", choices=("gmm", "flash", "moe"), default="gmm")
+    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode"), default="gmm")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -8,6 +8,7 @@ Tolerance: atol=2e-6, rtol=1e-5, the one the reference holds its own decode
 kernels to (tests/test_serve.py): float32 everywhere, only the order of the
 sums differs."""
 
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -20,8 +21,9 @@ from tony_tpu.ops.decode_attention import (
     reference_decode_attention as jax_reference,
 )
 from tony_tpu_torch.ops.decode_attention import (
-    LAUNCHES, decode_attention, decode_attention_plain, paged_decode_attention_plain,
-    reference_decode_attention, reset_launches,
+    LAUNCHES, SPLIT, _contiguous_cuda, _paged_cuda, check_kernel_shape, decode_attention,
+    decode_attention_plain, kernel_instance, paged_decode_attention_plain,
+    reference_decode_attention, reset_launches, split_plan,
 )
 
 B, H, HKV, HD, BLK, M = 5, 4, 2, 16, 8, 6
@@ -134,6 +136,23 @@ def test_wrapper_rejects_what_it_cannot_run():
         decode_attention(q, k, v, lengths, tables=tables[:2])
     with pytest.raises(ValueError, match="multiple"):
         decode_attention(q[:, :, :3], k, v, lengths, tables=tables)
+    # the kernel's own checks, reached before anything is built: pools that
+    # do not start on a 16-byte boundary (both designs copy 16 bytes at a
+    # time), in either form
+    kb = torch.zeros((2, 2, 16, 16), dtype=torch.bfloat16)
+    shifted = torch.zeros(kb.numel() + 1, dtype=torch.bfloat16)[1:].view(kb.shape)
+    qb, one = torch.zeros((1, 1, 4, 16), dtype=torch.bfloat16), torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        _paged_cuda(qb, shifted, kb, one, one[:, None], scale=1.0)
+    with pytest.raises(ValueError, match="v must start on a 16-byte boundary"):
+        _paged_cuda(qb, kb, shifted, one, one[:, None], scale=1.0)
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        _contiguous_cuda(qb, shifted[:1], kb[:1], one, block=16, scale=1.0)
+    # kernel_instance: unknown kernels and dtypes, and shapes the rule refuses
+    with pytest.raises(ValueError, match="no decode kernel"):
+        kernel_instance("flash_fwd", torch.bfloat16, 128, 64, 1, 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel_instance("decode_attention", torch.float16, 128, 64, 1, 4)
 
 
 # --- contiguous form ------------------------------------------------------------
@@ -204,3 +223,85 @@ def test_contiguous_form_keeps_the_reference_shape_rules():
         decode_attention(q, k[:2], v[:2], lengths)
     with pytest.raises(ValueError, match="batch"):
         decode_attention(q, k, v, lengths[:2])
+
+
+# --- the shape rule, the instance route and the split plan ------------------------
+
+
+def _rule_before(G, H, Hkv, hd, blk, payload, q_item):
+    """The shape rule as it stood before the tensor-core instance
+    (check_kernel_shape then, frozen): True where it accepted the shape."""
+    vec = max(8, 16 // payload)
+    if hd > 256 or hd % vec or blk % 16 or not 16 <= blk <= 128:
+        return False
+    chunk = blk
+    while 2 * chunk * hd * q_item > 64 * 1024 and chunk % 16 == 0:
+        chunk //= 2
+    R = G * (H // Hkv)
+    return 2 * chunk * hd * q_item + 4 * (2 * R * hd + R * chunk + 3 * R) <= 232448
+
+
+@pytest.mark.parametrize("payload,q_item", [(2, 2), (4, 4), (1, 2)],
+                         ids=["bf16", "fp32", "quant"])
+def test_shape_rule_keeps_every_shape_it_accepted(payload, q_item):
+    """Over a grid of head_dim, block, G and rep, check_kernel_shape accepts
+    exactly what it accepted before the tensor-core instance existed (no
+    bf16 shape it took is refused now), and kernel_instance raises the same
+    ValueError, before anything is built, where it refuses."""
+    for hd in (8, 16, 24, 32, 48, 64, 96, 112, 128, 136, 192, 256, 264):
+        for blk in (8, 16, 48, 64, 112, 128, 144):
+            for G in (1, 2, 5, 16, 17, 40):
+                for rep in (1, 2, 4, 8):
+                    want = _rule_before(G, 2 * rep, 2, hd, blk, payload, q_item)
+                    try:
+                        check_kernel_shape(G, 2 * rep, 2, hd, blk, payload, q_item)
+                        got = True
+                    except ValueError as e:
+                        got, msg = False, str(e)
+                    assert got == want, (hd, blk, G, rep)
+                    if not got:
+                        name = ("paged_decode_attention_quant" if payload == 1
+                                else "paged_decode_attention")
+                        dtype = torch.float32 if q_item == 4 else torch.bfloat16
+                        with pytest.raises(ValueError) as refused:
+                            kernel_instance(name, dtype, hd, blk, G, rep)
+                        assert str(refused.value) == msg
+
+
+def test_kernel_instance_asks_the_library_route(monkeypatch):
+    """kernel_instance hands the built library's decode_route (here a
+    stand-in that records its arguments) the quantized flag, the dtype's
+    code, head_dim and the R = G * rep query rows, and names what it
+    answers; the route is the library's alone, so Python and CUDA cannot
+    disagree."""
+    calls = []
+
+    def route(quant, dtype_code, hd, R):
+        calls.append((quant, dtype_code, hd, R))
+        return 1 if dtype_code == 1 and not quant else 0
+
+    # the package exports a function of the module's name, so it is imported by name
+    module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
+    monkeypatch.setattr(module, "_route", route)
+    assert kernel_instance("paged_decode_attention", torch.bfloat16, 128, 64, 16, 4) == \
+        "tensor cores"
+    assert kernel_instance("decode_attention", torch.float32, 128, 128, 1, 4) == "scalar"
+    assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, 128, 64, 5,
+                           4) == "scalar"
+    assert calls == [(False, 1, 128, 64), (False, 0, 128, 4), (True, 1, 128, 20)]
+
+
+@pytest.mark.parametrize("M,blk", [(1, 16), (16, 16), (17, 16), (32, 64), (8, 128),
+                                   (144, 64), (3, 48)])
+@pytest.mark.parametrize("R,hd", [(4, 128), (20, 128), (64, 128), (128, 64), (1, 16)])
+def test_split_plan_is_a_function_of_the_shape_alone(M, blk, R, hd):
+    """The tensor-core instance splits a row at fixed multiples of SPLIT
+    positions, whatever the batch or the other rows: ceil(M * blk / SPLIT)
+    splits, and with more than one, R * (hd + 2) float32 partials per split
+    for each (row, kv head); one split needs no workspace."""
+    splits, per = split_plan(M, blk, R, hd)
+    assert SPLIT == 256
+    assert splits == math.ceil(M * blk / SPLIT) and splits >= 1
+    assert (splits - 1) * SPLIT < M * blk <= splits * SPLIT
+    assert per == (0 if splits == 1 else splits * R * (hd + 2))
+    assert split_plan(M, blk, R, hd) == (splits, per)

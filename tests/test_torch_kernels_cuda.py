@@ -216,6 +216,218 @@ def test_spec_engine_tokens_equal_spec_off_on_card(cuda):
     assert LAUNCHES["paged_decode_attention_plain"] == 0
 
 
+# --- the bf16 tensor-core instance of decode attention (kernels 7 and 8) ----------
+
+# bf16: the output and p are rounded to bf16, and p at the split's running
+# max where the plain version rounds it at the row's max: a couple of ulps
+# of 2^-8 (the decode cases' tolerance)
+DECODE_BF16_TOL = 2**-7
+
+
+def _tc_paged_case(G: int, hd: int, blk: int, rep: int, seed: int, split: int):
+    """Rows written to 1, S-1, S, S+1, 2S+1 and M * blk positions (S the
+    split), whose lengths run G - 1 past their written positions for a
+    verify step (the last row past the table's M blocks, as VERIFY_PAST
+    in chip_smoke.py), so every row's first query sees at least one
+    position; row 5 shares row 4's first two physical blocks; entries past
+    a row's written blocks name scratch block 0, which holds values of its
+    own. Pools of 2 kv heads, bf16, from a numpy seed."""
+    M = math.ceil((2 * split + 1) / blk) + 1
+    written = np.array([1, split - 1, split, split + 1, 2 * split + 1, M * blk], np.int32)
+    lengths = written + (G - 1)
+    need = [math.ceil(n / blk) for n in written]
+    own = need.copy()
+    own[5] -= 2
+    rng = np.random.default_rng(seed)
+    P = 1 + sum(own)
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((len(written), M), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        if b == 5:
+            tables[b, :2] = tables[4, :2]
+            tables[b, 2:n] = ids[at:at + own[b]]
+        else:
+            tables[b, :n] = ids[at:at + n]
+        at += own[b]
+    q = rng.standard_normal((len(written), G, 2 * rep, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((P, 2, blk, hd)).astype(np.float32) for _ in range(2))
+    return (*(torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)),
+            torch.from_numpy(lengths).cuda(), torch.from_numpy(tables).cuda())
+
+
+@pytest.mark.cuda
+def test_decode_kernel_instances_on_card(cuda):
+    """``kernel_instance`` names the design the built library dispatches:
+    the tensor cores for bf16 at the serving shapes (hd 128, blk 64, rep 4,
+    G 1, 5 and 16) and at kernel 7's bench case (blk 128), scalar for
+    float32 queries and for the quantized form; a shape the shape rule
+    refuses raises its ValueError."""
+    from tony_tpu_torch.ops.decode_attention import kernel_instance
+
+    tc = "tensor cores"
+    for G in (1, 5, 16):
+        assert kernel_instance("paged_decode_attention", torch.bfloat16, 128, 64, G, 4) == tc
+        assert kernel_instance("paged_decode_attention", torch.float32, 128, 64, G, 4) == "scalar"
+        assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, 128, 64, G,
+                               4) == "scalar"
+    assert kernel_instance("decode_attention", torch.bfloat16, 128, 128, 1, 4) == tc
+    assert kernel_instance("decode_attention", torch.float32, 128, 128, 1, 4) == "scalar"
+    # bf16 shapes past the tensor-core instance keep the scalar body
+    assert kernel_instance("paged_decode_attention", torch.bfloat16, 256, 64, 1, 4) == "scalar"
+    assert kernel_instance("paged_decode_attention", torch.bfloat16, 24, 64, 1, 4) == "scalar"
+    assert kernel_instance("paged_decode_attention", torch.bfloat16, 64, 64, 40, 4) == "scalar"
+    with pytest.raises(ValueError, match="G=40 x rep=4"):
+        kernel_instance("paged_decode_attention", torch.bfloat16, 128, 64, 40, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("blk", [16, 64, 128])
+def test_tc_paged_decode_matches_plain_on_card(cuda, hd, blk):
+    """The tensor-core instance of kernel 8 against its plain version at G
+    1, 5 and 16 and rep 1, 4 and 8 (rows of 1, S-1, S, S+1, 2S+1 and M *
+    blk positions, verify rows past the table, shared blocks), bf16. G 16
+    at rep 8 and hd 128 overflows the shape rule and raises there."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, SPLIT, check_kernel_shape, decode_attention, kernel_instance,
+        paged_decode_attention_plain, reset_launches,
+    )
+
+    for G in (1, 5, 16):
+        for rep in (1, 4, 8):
+            q, k, v, lengths, tables = _tc_paged_case(G, hd, blk, rep, 31 * G + rep, SPLIT)
+            try:
+                check_kernel_shape(G, 2 * rep, 2, hd, blk, 2, 2)
+            except ValueError:
+                with pytest.raises(ValueError, match="shared memory"):
+                    decode_attention(q, k, v, lengths, tables=tables)
+                continue
+            assert kernel_instance("paged_decode_attention", torch.bfloat16, hd, blk, G,
+                                   rep) == "tensor cores"
+            reset_launches()
+            out = decode_attention(q, k, v, lengths, tables=tables)
+            torch.cuda.synchronize()
+            assert LAUNCHES["paged_decode_attention"] == 1
+            ref = paged_decode_attention_plain(q.float(), k.float(), v.float(), lengths,
+                                               tables, scale=1.0 / math.sqrt(hd))
+            torch.testing.assert_close(out.float(), ref, atol=DECODE_BF16_TOL,
+                                       rtol=DECODE_BF16_TOL, msg=f"G={G} rep={rep}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("T,block", [(640, 64), (1024, 128), (48, 16)])
+def test_tc_contiguous_decode_matches_plain_on_card(cuda, hd, T, block):
+    """The tensor-core instance of kernel 7 against its plain version at G
+    1, 5 and 16 and rep 1, 4 and 8, lengths 1, S-1, S, S+1 and T (clipped
+    to T, at least G): positions past each row's length hold NaN, which
+    must not be read; the plain version gets zeros there."""
+    from tony_tpu_torch.ops.decode_attention import (
+        SPLIT, check_kernel_shape, decode_attention, decode_attention_plain, kernel_instance,
+    )
+
+    for G in (1, 5, 16):
+        for rep in (1, 4, 8):
+            try:
+                check_kernel_shape(G, 2 * rep, 2, hd, min(block, T), 2, 2)
+            except ValueError:
+                continue
+            assert kernel_instance("decode_attention", torch.bfloat16, hd, min(block, T), G,
+                                   rep) == "tensor cores"
+            rng = np.random.default_rng(hd + T + 7 * G + rep)
+            lens = np.array([min(max(n, G), T) for n in (1, SPLIT - 1, SPLIT, SPLIT + 1, T)],
+                            np.int32)
+            q = rng.standard_normal((len(lens), G, 2 * rep, hd)).astype(np.float32)
+            k, v = (rng.standard_normal((len(lens), 2, T, hd)).astype(np.float32)
+                    for _ in range(2))
+            kz, vz = k.copy(), v.copy()
+            for b, n in enumerate(lens):
+                k[b, :, n:], v[b, :, n:] = np.nan, np.nan
+                kz[b, :, n:], vz[b, :, n:] = 0.0, 0.0
+            q, k, v, kz, vz = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                               for a in (q, k, v, kz, vz))
+            lengths = torch.from_numpy(lens).cuda()
+            out = decode_attention(q, k, v, lengths, block=block)
+            torch.cuda.synchronize()
+            ref = decode_attention_plain(q.float(), kz.float(), vz.float(), lengths,
+                                         scale=1.0 / math.sqrt(hd))
+            torch.testing.assert_close(out.float(), ref, atol=DECODE_BF16_TOL,
+                                       rtol=DECODE_BF16_TOL, msg=f"G={G} rep={rep}")
+
+
+@pytest.mark.cuda
+def test_tc_decode_long_row_takes_many_splits_on_card(cuda):
+    """One row of 9000 positions (36 splits of 256) beside a short one, at
+    the serving shape (rep 4, hd 128, blk 64), G 1 and 16, paged and
+    contiguous: the merge over many splits against the plain versions."""
+    from tony_tpu_torch.ops.decode_attention import (
+        SPLIT, decode_attention, decode_attention_plain, paged_decode_attention_plain,
+        split_plan,
+    )
+
+    blk, hd, M = 64, 128, 144
+    assert split_plan(M, blk, 4, hd)[0] == 36 and 9000 > 35 * SPLIT
+    rng = np.random.default_rng(90)
+    for G in (1, 16):
+        lengths = torch.tensor([9000, 70], dtype=torch.int32).cuda()
+        tables = torch.from_numpy(
+            rng.permutation(np.arange(1, 1 + 2 * M)).reshape(2, M).astype(np.int32)).cuda()
+        q = torch.from_numpy(rng.standard_normal((2, G, 8, hd)).astype(np.float32))
+        k, v = (torch.from_numpy(rng.standard_normal((1 + 2 * M, 2, blk, hd)).astype(np.float32))
+                for _ in range(2))
+        q, k, v = (t.cuda().to(torch.bfloat16) for t in (q, k, v))
+        out = decode_attention(q, k, v, lengths, tables=tables)
+        ref = paged_decode_attention_plain(q.float(), k.float(), v.float(), lengths, tables,
+                                           scale=hd ** -0.5)
+        torch.testing.assert_close(out.float(), ref, atol=DECODE_BF16_TOL,
+                                   rtol=DECODE_BF16_TOL)
+        kc = k[tables.long()].permute(0, 2, 1, 3, 4).reshape(2, 2, M * blk, hd).contiguous()
+        vc = v[tables.long()].permute(0, 2, 1, 3, 4).reshape(2, 2, M * blk, hd).contiguous()
+        out_c = decode_attention(q, kc, vc, lengths, block=128)
+        ref_c = decode_attention_plain(q.float(), kc.float(), vc.float(), lengths,
+                                       scale=hd ** -0.5)
+        torch.testing.assert_close(out_c.float(), ref_c, atol=DECODE_BF16_TOL,
+                                   rtol=DECODE_BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["paged", "contiguous"])
+def test_tc_decode_is_invariant_on_card(cuda, form):
+    """Bit for bit, on the tensor-core instance: row b of a batch of 8
+    equals the row computed alone (B = 1, its own table row); query G - 1
+    of a G 16 call equals a G 1 call at the same length; two launches are
+    equal. Llama-3-8B's decode shape (rep 4, hd 128, blk 64), the serving
+    case's lengths, two rows sharing blocks."""
+    from tony_tpu_torch.ops.decode_attention import decode_attention
+
+    G, blk, hd, M = 16, 64, 128, 32
+    rng = np.random.default_rng(11)
+    lens = torch.tensor([2048, 5, 64, 1000, 1537, 700, 133, 1999], dtype=torch.int32).cuda()
+    tables = rng.permutation(np.arange(1, 1 + 8 * M)).reshape(8, M).astype(np.int32)
+    tables[7, :8] = tables[0, :8]
+    tables = torch.from_numpy(tables).cuda()
+    q = torch.from_numpy(rng.standard_normal((8, G, 32, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1 + 8 * M, 8, blk, hd)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.cuda().to(torch.bfloat16) for t in (q, k, v))
+    if form == "contiguous":
+        k = k[tables.long()].permute(0, 2, 1, 3, 4).reshape(8, 8, M * blk, hd).contiguous()
+        v = v[tables.long()].permute(0, 2, 1, 3, 4).reshape(8, 8, M * blk, hd).contiguous()
+
+    def run(q, rows=slice(None)):
+        if form == "paged":
+            return decode_attention(q, k, v, lens[rows], tables=tables[rows])
+        return decode_attention(q, k[rows], v[rows], lens[rows], block=128)
+
+    out = run(q)
+    assert torch.equal(out, run(q))
+    for b in range(8):
+        assert torch.equal(run(q[b:b + 1], slice(b, b + 1)), out[b:b + 1]), f"row {b}"
+    last = run(q[:, G - 1:].contiguous())
+    assert torch.equal(last[:, 0], out[:, G - 1])
+
+
 # --- flash attention ---------------------------------------------------------------
 
 # bf16: outputs are rounded to bf16 (2^-8 relative) and the forward rounds p

@@ -17,8 +17,58 @@
 // the probabilities cast to the cache dtype before P.V as the TPU kernel
 // does. Head h reads kv head h / (H / Hkv).
 //
-// Shape of the work. One CTA per (row b, kv head x): grid B * Hkv, 256
-// threads. The G * rep query rows that share kv head x are folded into
+// Two designs, picked per call by decode_route (ops/decode_attention.py's
+// kernel_instance asks the same function, so Python and CUDA agree):
+//
+// bf16 on the tensor cores (namespace tc, tc::paged_decode_kernel for the
+// paged form and tc::decode_kernel for the contiguous one, at head_dim a
+// multiple of 16 up to 128 and up to 128 query rows a kv head), the path
+// of the serving engine's decode and verify steps:
+// - A fixed split over the sequence (flash-decoding). The grid is (split
+//   s, kv head x, row b); split s covers positions [s * kSplit, (s + 1) *
+//   kSplit) of its row, kSplit = 256 whatever the batch, the grid or the
+//   other rows (128 and 512 measured slower, PERF.md section 6). The host
+//   does not know the lengths, so the grid takes ceil(M * blk / kSplit)
+//   splits a row and a CTA past its row's length exits at once. A row of
+//   one split writes its output directly; a longer row's CTAs write
+//   float32 partials (acc [R, hd], m, l) to a workspace the wrapper
+//   allocates, and tc::decode_merge_kernel combines them in the order of
+//   s: M = max m_s, out = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s,
+//   1e-30), one thread an output. A second kernel, not a last-CTA counter:
+//   it needs no zeroed counters that outlive a launch. It is launched as a
+//   programmatic dependent of the split kernel, so its launch overlaps the
+//   split kernel's last CTAs, and griddepcontrol.wait orders its reads.
+// - Each CTA (256 threads, 8 warps) first works out where each position
+//   of its split lies, one thread a position (the paged form looks the
+//   block up in the table row, whose entries past the length are never
+//   read), then streams the split in tiles of kTile = 64 positions
+//   through a ring of shared-memory stages filled with cp.async.cg 16-byte
+//   copies, so the next tiles load while one is computed: three stages,
+//   two for the NT 4 and 8 instances, where a third would keep a second
+//   CTA off the SM. Positions at or past the row's length are zero-filled
+//   (cp.async with a source size of 0 reads nothing). The queries ride
+//   with the first tile's copies.
+// - mma.sync m16n8k16, bf16 in, float32 accumulators, fed by ldmatrix, in
+//   the "swap AB" form: S^T = K Q^T with positions as the m16 dimension
+//   and the R = G * rep query rows as n8 tiles (padded to 8, 32, 64 or 128
+//   rows: the instance NT = 1, 4, 8 or 16), the k-steps in two chains
+//   summed at the end; then out^T = V^T P^T (V through ldmatrix.trans)
+//   with each warp owning 16 of head_dim. The scores go through shared
+//   memory for the online softmax of the tile (8 lanes a query row), and
+//   each row's p, rounded to bf16 before P.V as the TPU kernel does,
+//   overwrites its scores. K, V and Q rows are padded with 8 bf16 and the
+//   score rows with 4 floats, so that ldmatrix's 8 row addresses fall on
+//   distinct banks.
+// - Invariance: a (row, query) output depends on its own length and data
+//   alone. Splits and tiles sit at fixed positions, every reduction has a
+//   fixed order, each output column of an mma depends on its own query
+//   row only, and no atomics touch the sums: a row computed in a batch
+//   equals the row computed alone, query G - 1 of a verify step equals a
+//   one-token step at the same length, and two launches are bit-equal.
+//
+// The scalar CTA body (float32, the quantized form, and bf16 shapes the
+// tensor-core instance does not take): one CTA per (row b, kv head x),
+// 256 threads. The G * rep query rows that share kv head x are folded into
 // one tile (R = G * rep rows), so each K/V byte is read once per CTA. The
 // CTA reads its own row length and walks its table row for
 // j < ceil(len / blk): this takes the place of the TPU's scalar prefetch,
@@ -36,13 +86,15 @@
 // out, over the 3.35 TB/s of HBM3 (H100 SXM data sheet): at chip_smoke.py's
 // Llama-3-8B decode case (8 rows of 5..2048 positions, two rows sharing 8
 // blocks, 8 kv heads, hd 128, bf16) that is 28.7 MB, 8.6 us, as the script
-// computes it. The design reads every needed byte once per CTA (a block
-// shared by two rows is read by both) and nothing past a row's length; it
-// does not yet overlap loads with math (no cp.async/TMA pipeline), and
-// B * Hkv CTAs
-// (64 at 8 rows) fill under half of the 132 SMs: splitting the sequence
-// across CTAs (flash-decoding) is the known next step. Measured times
-// against this bound are in PERF.md.
+// computes it. Both designs read every needed byte once per CTA (a block
+// shared by two rows is read by both) and nothing past a row's length.
+// The scalar body fills B * Hkv CTAs (64 at 8 rows, under half of the 132
+// SMs) and does not overlap loads with math; the split gives the
+// tensor-core instance 264 working CTAs at that case, two an SM, each
+// with tiles in flight while it computes. What holds it above the bound is
+// each CTA's chain of dependent reads (its length, then its table
+// entries, then its first tiles) and the per-tile steps between barriers.
+// Measured times against this bound are in PERF.md.
 
 // Quantized pools (the same kernel, templated on the payload type P).
 // Replaces tony_tpu/ops/decode_attention.py::_paged_quant_kernel (reached
@@ -77,16 +129,19 @@
 // bf16) moves 16.8 MB: 5.0 us; chip_smoke.py prints the measured time
 // beside it.
 //
-// Both forms read no K/V position at or past a row's length: a CTA walks
-// blocks j < min(ceil(len / blk), M) and stages only the chunk's positions
-// below the length, so neither the tail of a row's last block nor anything
-// past the table's M blocks is read. The rest of the chunk's shared memory
-// keeps stale values; their scores are replaced by the length mask and
-// P.V stops at the staged positions, so none reaches the output. (A branch
-// that set those scores masked instead spilled registers and ran slower on
-// the card; PERF.md section 6 has the times.) A speculative verify step's padding
-// rows ask for up to G - 1 positions past their written length; with the
-// clamp to M they see at most the table's width, as the plain version does.
+// Both forms read no K/V position at or past a row's length. The scalar
+// body walks blocks j < min(ceil(len / blk), M) and stages only the
+// chunk's positions below the length, so neither the tail of a row's last
+// block nor anything past the table's M blocks is read. The rest of the
+// chunk's shared memory keeps stale values; their scores are replaced by
+// the length mask and P.V stops at the staged positions, so none reaches
+// the output. (A branch that set those scores masked instead spilled
+// registers and ran slower on the card; PERF.md section 6 has the times.)
+// The tensor-core instance copies positions below min(len, M * blk) only,
+// reads the table entries of those positions only, and zero-fills the
+// rest of a tile. A speculative verify step's padding rows ask for up to
+// G - 1 positions past their written length; with the clamp to M they
+// see at most the table's width, as the plain version does.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -396,19 +451,485 @@ int launch_quant(const void* q, const void* k, const void* v, const float* ks,
                            blk, M, chunk, scale, smem_bytes, s);
 }
 
+// --- the bf16 tensor-core instance (kernels 7 and 8) -------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSplit = 256;       // positions a split covers, whatever the batch
+constexpr int kTile = 64;         // positions a ring stage holds
+constexpr int kMaxHd = 128;       // one 16-wide slice of head_dim a warp
+constexpr int kMaxRows = 128;     // query rows a kv head (16 n8 tiles)
+constexpr int kPad = 8;           // bf16 a K/V/Q row is padded by
+constexpr int kSld = kTile + 4;   // float stride of a score row
+constexpr int kPld = 2 * kSld;    // bf16 stride of a probability row: p overlays
+                                  // its score row (272 bytes: ldmatrix's 8 rows
+                                  // fall on distinct banks)
+static_assert(kSplit % kTile == 0, "a split is whole tiles");
+static_assert(kTile == 16 * 4, "four warps of 16 positions score a tile");
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const int* lengths;
+  const int* tables;  // paged form only
+  bf16* out;
+  float* ws;          // [B, Hkv, splits, R * (hd + 2)]: acc [R, hd], then (m, l) x R
+  int G, H, Hkv, hd, blk, M;
+  float scale;
+};
+
+// Ring stages of the NT instance: three, except where a third would keep a
+// second CTA off the SM (NT 4 and 8 at head_dim 128), and the CTAs an SM
+// that __launch_bounds__ asks for.
+__host__ __device__ constexpr int stages(int NT) { return NT == 4 || NT == 8 ? 2 : 3; }
+__host__ __device__ constexpr int min_ctas(int NT) { return NT <= 8 ? 2 : 1; }
+
+// Dynamic shared memory of one CTA of the NT instance (layout in
+// split_cta).
+__host__ __device__ constexpr int smem_bytes(int hd, int NT) {
+  return stages(NT) * 2 * kTile * (hd + kPad) * 2 + NT * 8 * (hd + kPad) * 2 +
+         NT * 8 * kSld * 4 + kSplit * 8 + 4 * NT * 8 * 4;
+}
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled (nothing read) unless `ok`
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(saddr(p)));
+}
+
+// d += a (16 x 16, row) b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One CTA: split s = blockIdx.x of row b = blockIdx.z, kv head x =
+// blockIdx.y, at NT n8 tiles of query rows (R <= 8 * NT). Fragment
+// layouts of m16n8k16: lane l holds C rows l / 4 (+ 8) and columns
+// 2 * (l % 4) (+ 1); ldmatrix lane l addresses row l % 8 of matrix l / 8.
+template <int NT, bool kPaged>
+__device__ __forceinline__ void split_cta(const Args& a) {
+  constexpr int Rp = NT * 8, kStages = stages(NT);
+  const int s = blockIdx.x, x = blockIdx.y, b = blockIdx.z;
+  const int hd = a.hd, ld = hd + kPad;
+  const int rep = a.H / a.Hkv, R = a.G * rep;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r8 = lane & 7, mi = lane >> 3;
+  const int len = a.lengths[b];
+  const int T = a.M * a.blk;
+  const int end = min(len, T);                        // positions the row may read
+  const int start = s * kSplit;
+  if (s > 0 && start >= end) return;                  // past the row: no work
+  // the merge may be launched now; it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int stop = min(start + kSplit, end);
+  const int n_tiles = stop > start ? (stop - start + kTile - 1) / kTile : 0;
+  const int n_split = max(1, (end + kSplit - 1) / kSplit);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);         // kStages x {K, V} [kTile][ld]
+  bf16* q_s = ring + kStages * 2 * kTile * ld;         // [Rp][ld]
+  float* s_s = reinterpret_cast<float*>(q_s + Rp * ld);  // [Rp][kSld]
+  bf16* p_s = reinterpret_cast<bf16*>(s_s);            // [Rp][kPld], over s_s
+  long long* off_s = reinterpret_cast<long long*>(s_s + Rp * kSld);  // [kSplit]
+  float* m_s = reinterpret_cast<float*>(off_s + kSplit);  // [Rp]
+  float* l_s = m_s + Rp;                               // [Rp]
+  float* c_s = l_s + Rp;                               // [Rp] this tile's correction
+  int* lim_s = reinterpret_cast<int*>(c_s + Rp);       // [Rp] positions a row attends
+
+  // where each position of the split lies (-1: at or past the row's
+  // length, never read), one thread a position: the paged form looks its
+  // block up in the table row, whose entries past the length are never
+  // read; and the positions each query row attends, below stop
+  for (int p = tid; p < kSplit; p += kThreads) {
+    const int pos = start + p;
+    long long off = -1;
+    if (pos < stop) {
+      if constexpr (kPaged) {
+        const int j = pos / a.blk;
+        off = ((long long)a.tables[(size_t)b * a.M + j] * a.Hkv + x) * a.blk * hd +
+              (long long)(pos - j * a.blk) * hd;
+      } else {
+        off = (((long long)b * a.Hkv + x) * T + pos) * hd;
+      }
+    }
+    off_s[p] = off;
+  }
+  for (int r = tid; r < Rp; r += kThreads)
+    lim_s[r] = r < R ? min(len - (a.G - 1) + r / rep, stop) : -1;
+  __syncthreads();
+
+  // each thread copies the same (row, 16-byte column) slots of every tile
+  const int vpr = hd / 8;                              // 16-byte vectors a row
+  // (threads past the last whole row of slots idle when vpr does not
+  // divide kThreads)
+  const int row_step = kThreads / vpr;
+  const int row0 = tid < row_step * vpr ? tid / vpr : kTile, c = tid % vpr;
+  auto stage = [&](int t) {
+    bf16* ks = ring + (t % kStages) * 2 * kTile * ld;
+    bf16* vs = ks + kTile * ld;
+    for (int row = row0; row < kTile; row += row_step) {
+      const long long off = off_s[t * kTile + row];
+      const size_t src = off < 0 ? 0 : (size_t)off + c * 8;
+      cp_async16(ks + row * ld + c * 8, a.k + src, off >= 0);
+      cp_async16(vs + row * ld + c * 8, a.v + src, off >= 0);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const int d0 = warp * 16;                            // this warp's slice of head_dim
+
+  // the queries ride with tile 0's copies: folded row r = g * rep + i is
+  // query g of head x * rep + i; rows past R are zero (their columns are
+  // computed and never written)
+  for (int e = tid; e < Rp * vpr; e += kThreads) {
+    const int r = e / vpr, cq = e - r * vpr;
+    size_t off = 0;
+    if (r < R) {
+      const int g = r / rep, i = r - g * rep;
+      off = ((size_t)(b * a.G + g) * a.H + x * rep + i) * hd + cq * 8;
+    }
+    cp_async16(q_s + r * ld + cq * 8, a.q + off, r < R);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) stage(t);
+    cp_commit();
+  }
+  for (int r = tid; r < Rp; r += kThreads) {
+    m_s[r] = kNeg;
+    l_s[r] = 0.f;
+    c_s[r] = 1.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // tile t landed for every thread; tile t - 1's readers are done
+    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
+    cp_commit();
+    const bf16* ks = ring + (t % kStages) * 2 * kTile * ld;
+    const bf16* vs = ks + kTile * ld;
+    const int p0 = start + t * kTile;
+
+    // scores S^T = K Q^T: warp w takes positions 16 (w % 4) .. + 16 and the
+    // n8 tiles nt = w / 4, w / 4 + 2, ..., four at a time
+    {
+      const int prow = (warp & 3) * 16, nh = warp >> 2;
+      const bf16* a_ptr = ks + (prow + r8 + 8 * (mi & 1)) * ld + 8 * (mi >> 1);
+      constexpr int NJ = (NT + 1) / 2;
+#pragma unroll
+      for (int jc = 0; jc < NJ; jc += 4) {
+        // two chains of k-steps (even, odd), summed at the end: the same
+        // arithmetic for every NT
+        float sc[2][4][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kMaxHd; kk += 16) {
+          if (kk < hd) {
+            uint32_t af[4];
+            ldsm_x4(af, a_ptr + kk);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int nt = nh + 2 * (jc + u);
+              if (jc + u < NJ && nt < NT) {
+                uint32_t bq[2];
+                ldsm_x2(bq, q_s + (nt * 8 + r8) * ld + kk + 8 * (mi & 1));
+                mma_bf16(sc[(kk / 16) & 1][u], af, bq);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int nt = nh + 2 * (jc + u);
+          if (jc + u < NJ && nt < NT) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = nt * 8 + 2 * (lane & 3) + e;
+              const int lim = lim_s[r];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = prow + (lane >> 2) + 8 * h;
+                const float dot = sc[0][u][2 * h + e] + sc[1][u][2 * h + e];
+                s_s[r * kSld + row] = p0 + row < lim ? dot * a.scale : kNeg;
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax of the tile: 8 lanes a query row, four rows a warp;
+    // every padded row too, whose p is 0. A row's p overwrites its scores
+    // once its lanes hold them (the max's shuffles order the two).
+    {
+      const int grp = lane >> 3, li = lane & 7;
+      for (int r0 = warp * 4; r0 < Rp; r0 += kWarps * 4) {
+        const int r = r0 + grp;
+        const float* sr = s_s + r * kSld;
+        float sv[kTile / 8];
+        float mx = kNeg;
+#pragma unroll
+        for (int u = 0; u < kTile / 8; ++u) {
+          sv[u] = sr[li + 8 * u];
+          mx = fmaxf(mx, sv[u]);
+        }
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_prev = m_s[r];
+        const float m_new = fmaxf(m_prev, mx);
+        const int lim = lim_s[r];                      // -1 past R: p = 0
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < kTile / 8; ++u) {
+          const int pos = p0 + li + 8 * u;
+          const float p = pos < lim ? expf(sv[u] - m_new) : 0.f;
+          sum += p;
+          // P.V takes p in bf16, as the TPU kernel does
+          p_s[r * kPld + li + 8 * u] = __float2bfloat16(p);
+        }
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (li == 0 && r < R) {
+          const float corr = expf(m_prev - m_new);
+          c_s[r] = corr;
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
+        }
+      }
+    }
+    __syncthreads();
+
+    // out^T = acc^T * corr + V^T P^T over this warp's 16 of head_dim
+    if (d0 < hd) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = nt * 8 + 2 * (lane & 3);
+        const float c0 = c_s[r], c1 = c_s[r + 1];
+        acc[nt][0] *= c0;
+        acc[nt][1] *= c1;
+        acc[nt][2] *= c0;
+        acc[nt][3] *= c1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        uint32_t af[4];
+        ldsm_x4_t(af, vs + (kk + r8 + 8 * (mi >> 1)) * ld + d0 + 8 * (mi & 1));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bp[2];
+          ldsm_x2(bp, p_s + (nt * 8 + r8) * kPld + kk + 8 * (mi & 1));
+          mma_bf16(acc[nt], af, bp);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // m_s and l_s as the last tile left them (or as set up)
+
+  // a row of one split writes its output; a longer row's splits write
+  // partials for tc::decode_merge_kernel
+  const size_t stride = (size_t)R * (hd + 2);
+  float* part = a.ws + (((size_t)b * a.Hkv + x) * gridDim.x + s) * stride;
+  if (d0 < hd) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = nt * 8 + 2 * (lane & 3) + e, d = d0 + (lane >> 2) + 8 * h;
+          if (r >= R) continue;
+          if (n_split == 1) {
+            const int g = r / rep, i = r - g * rep;
+            a.out[((size_t)(b * a.G + g) * a.H + x * rep + i) * hd + d] =
+                __float2bfloat16(acc[nt][2 * h + e] / fmaxf(l_s[r], 1e-30f));
+          } else {
+            part[(size_t)r * hd + d] = acc[nt][2 * h + e];
+          }
+        }
+  }
+  if (n_split > 1)
+    for (int r = tid; r < R; r += kThreads) {
+      part[(size_t)R * hd + 2 * r] = m_s[r];
+      part[(size_t)R * hd + 2 * r + 1] = l_s[r];
+    }
+}
+
+// Kernel 8: paged pools through the block table.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, min_ctas(NT)) paged_decode_kernel(Args a) {
+  split_cta<NT, true>(a);
+}
+
+// Kernel 7: a contiguous cache [B, Hkv, M * blk, hd].
+template <int NT>
+__global__ void __launch_bounds__(kThreads, min_ctas(NT)) decode_kernel(Args a) {
+  split_cta<NT, false>(a);
+}
+
+// Combine a row's splits, in the order of s; rows of one split were
+// written by their CTA. Grid (ceil(R * hd / kThreads), Hkv, B): one
+// thread a (query row, dim), so the loads over the splits of different
+// outputs run side by side.
+__global__ void __launch_bounds__(kThreads) decode_merge_kernel(Args a, int n_grid) {
+  const int x = blockIdx.y, b = blockIdx.z;
+  const int end = min(a.lengths[b], a.M * a.blk);
+  const int n = max(1, (end + kSplit - 1) / kSplit);
+  const int hd = a.hd, rep = a.H / a.Hkv, R = a.G * rep;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (n == 1 || e >= R * hd) return;
+  // launched early (programmatic dependent launch): the split kernel's
+  // partials are complete and visible past this point
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int r = e / hd, d = e - r * hd;
+  const size_t stride = (size_t)R * (hd + 2);
+  const float* base = a.ws + ((size_t)b * a.Hkv + x) * n_grid * stride;
+  const float* ml = base + (size_t)R * hd + 2 * r;
+  float mx = kNeg;
+#pragma unroll 4
+  for (int s = 0; s < n; ++s) mx = fmaxf(mx, ml[s * stride]);
+  float num = 0.f, den = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n; ++s) {
+    // a split whose positions are all masked for this row (m = kNeg,
+    // l = 0, acc = 0) weighs e^(kNeg - mx) = 0, or 1 if all are
+    const float w = expf(ml[s * stride] - mx);
+    num += w * base[s * stride + e];
+    den += w * ml[s * stride + 1];
+  }
+  const int g = r / rep, i = r - g * rep;
+  a.out[((size_t)(b * a.G + g) * a.H + x * rep + i) * hd + d] =
+      __float2bfloat16(num / fmaxf(den, 1e-30f));
+}
+
+// Splits a row of the grid: ceil(M * blk / kSplit).
+__host__ __device__ constexpr int splits(int M, int blk) {
+  return (M * blk + kSplit - 1) / kSplit;
+}
+
+template <int NT, bool kPaged>
+int launch_nt(const Args& a, int B, cudaStream_t stream) {
+  auto kernel = kPaged ? paged_decode_kernel<NT> : decode_kernel<NT>;
+  const int smem = smem_bytes(a.hd, NT);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(splits(a.M, a.blk), a.Hkv, B), kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The split kernel at the smallest NT that holds R rows, then the merge
+// when a row may take more than one split.
+template <bool kPaged>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const int R = a.G * (a.H / a.Hkv);
+  const int err = R <= 8    ? launch_nt<1, kPaged>(a, B, stream)
+                  : R <= 32 ? launch_nt<4, kPaged>(a, B, stream)
+                  : R <= 64 ? launch_nt<8, kPaged>(a, B, stream)
+                            : launch_nt<16, kPaged>(a, B, stream);
+  if (err != 0) return err;
+  const int n_grid = splits(a.M, a.blk);
+  if (n_grid > 1) {
+    // programmatic dependent launch: the merge's launch overlaps the split
+    // kernel's last CTAs, and griddepcontrol.wait orders its reads
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((R * a.hd + kThreads - 1) / kThreads, a.Hkv, B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(&cfg, decode_merge_kernel, a, n_grid);
+  }
+  return 0;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16
 // (q, out and the unquantized pools). Each returns the cudaError_t of the
 // launch (0 = launched).
+
+// Which design runs (0 = unquantized pools, 1 = quantized; R = G * rep
+// query rows a kv head): 1 the bf16 tensor-core instance, 0 the scalar
+// body, -1 no instance (an unknown dtype). The entry points below dispatch
+// through it.
+extern "C" int decode_route(int quant, int dtype, int hd, int R) {
+  if (dtype != 0 && dtype != 1) return -1;
+  if (quant || dtype == 0) return 0;
+  return hd % 16 == 0 && hd >= 16 && hd <= tc::kMaxHd && R >= 1 && R <= tc::kMaxRows ? 1
+                                                                                      : 0;
+}
+
+// Positions a split of the tensor-core instance covers (the wrapper sizes
+// the workspace with it).
+extern "C" int decode_split_positions() { return tc::kSplit; }
+
+// workspace: float32 [B, Hkv, ceil(M * blk / 256), R * (hd + 2)] when the
+// tensor-core instance runs and a row may take more than one split, else
+// unused (null). chunk and smem_bytes size the scalar body.
 extern "C" int paged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* tables, void* out, int B, int G, int H, int Hkv, int hd,
-    int blk, int M, int chunk, float scale, int smem_bytes, int dtype,
+    const void* tables, void* out, void* workspace, int B, int G, int H, int Hkv,
+    int hd, int blk, int M, int chunk, float scale, int smem_bytes, int dtype,
     void* stream) {
   const int* len_p = static_cast<const int*>(lengths);
   const int* tbl_p = static_cast<const int*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (decode_route(0, dtype, hd, G * (H / Hkv)) == 1) {
+    const tc::Args a{static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+                     static_cast<const tc::bf16*>(v), len_p, tbl_p,
+                     static_cast<tc::bf16*>(out), static_cast<float*>(workspace),
+                     G, H, Hkv, hd, blk, M, scale};
+    return tc::launch<true>(a, B, s);
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, v, nullptr, nullptr, len_p, tbl_p, out, B, G, H, Hkv, hd, blk, M,
@@ -418,7 +939,7 @@ extern "C" int paged_decode_attention(
 }
 
 // Quantized pools: payload 0 = int8, 1 = fp8 e4m3; k_scale/v_scale
-// [P, Hkv] float32.
+// [P, Hkv] float32. Always the scalar body.
 extern "C" int paged_decode_attention_quant(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* lengths, const void* tables, void* out,
@@ -437,13 +958,21 @@ extern "C" int paged_decode_attention_quant(
                              hd, blk, M, chunk, scale, smem_bytes, payload, s);
 }
 
-// Contiguous caches k/v [B, Hkv, M * blk, hd] in q's dtype.
+// Contiguous caches k/v [B, Hkv, M * blk, hd] in q's dtype; workspace as
+// for the paged form.
 extern "C" int decode_attention_contiguous(
     const void* q, const void* k, const void* v, const void* lengths, void* out,
-    int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk, float scale,
-    int smem_bytes, int dtype, void* stream) {
+    void* workspace, int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+    float scale, int smem_bytes, int dtype, void* stream) {
   const int* len_p = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (decode_route(0, dtype, hd, G * (H / Hkv)) == 1) {
+    const tc::Args a{static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+                     static_cast<const tc::bf16*>(v), len_p, nullptr,
+                     static_cast<tc::bf16*>(out), static_cast<float*>(workspace),
+                     G, H, Hkv, hd, blk, M, scale};
+    return tc::launch<false>(a, B, s);
+  }
   if (dtype == 1)
     return launch_contiguous<__nv_bfloat16>(q, k, v, len_p, out, B, G, H, Hkv, hd,
                                             blk, M, chunk, scale, smem_bytes, s);

@@ -24,7 +24,14 @@ Where it runs is decided by the tensors' device alone:
 - CUDA tensors launch the hand-written kernel
   ``csrc/paged_decode_attention.cu`` (built with ``nvcc`` at first use,
   ``ops/_build.py``), or raise. There is no fallback. Both forms share the
-  kernel's CTA body and its shape rule (:func:`check_kernel_shape`).
+  kernel's shape rule (:func:`check_kernel_shape`) and its two designs:
+  bf16 runs on the tensor cores with a fixed split over the sequence
+  (``tc::paged_decode_kernel``, ``tc::decode_kernel``, then
+  ``tc::decode_merge_kernel`` over a float32 workspace this wrapper
+  allocates, :func:`split_plan`); float32, the quantized form and the bf16
+  shapes that instance does not take run the scalar CTA body.
+  :func:`kernel_instance` says which, from the built library's
+  ``decode_route``.
 - CPU tensors take the plain PyTorch versions that the tests hold against
   the reference: :func:`decode_attention_plain` (a masked float32 softmax)
   and :func:`paged_decode_attention_plain` (a gather through the table,
@@ -69,6 +76,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOAD_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _SMEM_LIMIT = 232448          # bytes of shared memory a Hopper CTA may use
 _CHUNK_BYTES = 64 * 1024      # K+V staged per chunk at most
+# positions a split of the tensor-core instance covers (the library's
+# decode_split_positions; checked when the library is bound)
+SPLIT = 256
+_FORMS = ("decode_attention", "paged_decode_attention", "paged_decode_attention_quant")
+_INSTANCES = {1: "tensor cores", 0: "scalar"}
 
 
 def reset_launches() -> None:
@@ -181,8 +193,10 @@ def check_kernel_shape(G: int, H: int, Hkv: int, hd: int, blk: int,
                        payload_itemsize: int, q_itemsize: int) -> tuple[int, int]:
     """The CUDA kernel's shape rule, shared by its wrapper and by the
     engine (which checks it at construction, before any request is
-    admitted): returns ``(chunk, shared-memory bytes)`` or raises
-    ValueError. ``payload_itemsize`` is the pools' element size (1 for
+    admitted): returns the scalar CTA body's ``(chunk, shared-memory
+    bytes)`` or raises ValueError. Every shape it accepts has an instance
+    (:func:`kernel_instance`; the tensor-core one sizes its own shared
+    memory). ``payload_itemsize`` is the pools' element size (1 for
     quantized pools), ``q_itemsize`` the queries' (K/V are staged in q's
     dtype)."""
     # the staging loads are 16 bytes of payload per thread
@@ -201,13 +215,29 @@ def check_kernel_shape(G: int, H: int, Hkv: int, hd: int, blk: int,
     return chunk, smem
 
 
+def split_plan(M: int, blk: int, R: int, hd: int) -> tuple[int, int]:
+    """The tensor-core instance's split of a row of ``M`` blocks of ``blk``
+    positions at ``R`` query rows a kv head: ``(splits, workspace floats
+    per (row, kv head))``. Splits sit at fixed multiples of :data:`SPLIT`
+    positions; with more than one, each keeps float32 partials (acc ``[R,
+    hd]``, then m and l per query row) for the merge, and with one there
+    is no workspace."""
+    splits = -(-M * blk // SPLIT)
+    return splits, (splits * R * (hd + 2) if splits > 1 else 0)
+
+
 @functools.cache
 def _kernel(form: str):
     """One of the kernel's C entry points, built and bound on first use:
-    ``"paged"``, its quantized form ``"quant"``, or ``"contiguous"``."""
+    ``"paged"``, its quantized form ``"quant"``, ``"contiguous"``, or
+    ``"route"`` (``decode_route``)."""
     from tony_tpu_torch.ops._build import load
 
     lib = load(_KERNEL).lib
+    lib.decode_split_positions.restype = ctypes.c_int
+    if lib.decode_split_positions() != SPLIT:
+        raise RuntimeError(f"{_KERNEL} splits at {lib.decode_split_positions()} "
+                           f"positions, the wrapper at {SPLIT}")
     if form == "quant":
         fn = lib.paged_decode_attention_quant
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
@@ -215,14 +245,44 @@ def _kernel(form: str):
             ctypes.c_void_p]
     elif form == "paged":
         fn = lib.paged_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    elif form == "contiguous":
+        fn = lib.decode_attention_contiguous
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     else:
-        fn = lib.decode_attention_contiguous
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn = lib.decode_route
+        fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _route(quant: bool, dtype_code: int, hd: int, R: int) -> int:
+    """The library's ``decode_route`` for R = G * rep query rows a kv head:
+    1 tensor cores, 0 scalar."""
+    return _kernel("route")(int(quant), dtype_code, hd, R)
+
+
+def kernel_instance(name: str, dtype: torch.dtype, hd: int, blk: int, G: int,
+                    rep: int) -> str:
+    """Which design the CUDA kernel ``name`` (decode_attention,
+    paged_decode_attention or paged_decode_attention_quant) runs for
+    queries of ``dtype`` at head_dim ``hd``, block ``blk``, G query
+    positions and ``rep`` heads a kv head, as the built library dispatches
+    it: ``"tensor cores"`` (bf16, mma.sync with a split over the sequence)
+    or ``"scalar"``. A shape :func:`check_kernel_shape` refuses raises its
+    ValueError before anything is built; otherwise this builds the library
+    on first use, so it needs nvcc."""
+    if name not in _FORMS:
+        raise ValueError(f"no decode kernel {name!r}; one of {_FORMS}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16 queries, not {dtype}")
+    quant = name == "paged_decode_attention_quant"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    check_kernel_shape(G, rep, 1, hd, blk, 1 if quant else itemsize, itemsize)
+    return _INSTANCES[_route(quant, _DTYPE_CODES[dtype], hd, G * rep)]
 
 
 def _check_operands(named: list[tuple[str, torch.Tensor]]) -> None:
@@ -233,6 +293,26 @@ def _check_operands(named: list[tuple[str, torch.Tensor]]) -> None:
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_aligned(*named: tuple[str, torch.Tensor]) -> None:
+    """Both designs stage K/V in 16-byte copies, the tensor-core instance
+    the queries too."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _workspace(q: torch.Tensor, Hkv: int, M: int, blk: int) -> torch.Tensor | None:
+    """The tensor-core instance's float32 partials (:func:`split_plan`), or
+    None for the scalar body and for a grid of one split."""
+    B, G, H, hd = q.shape
+    R = G * (H // Hkv)
+    if _route(False, _DTYPE_CODES[q.dtype], hd, R) != 1:
+        return None
+    _check_aligned(("q", q))
+    _, per = split_plan(M, blk, R, hd)
+    return torch.empty(B * Hkv * per, dtype=torch.float32, device=q.device) if per else None
 
 
 def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
@@ -261,6 +341,7 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
     _check_operands(named)
     chunk, smem = check_kernel_shape(G, H, Hkv, hd, blk, k.element_size(),
                                      q.element_size())
+    _check_aligned(("k", k), ("v", v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     shape = (B, G, H, Hkv, hd, blk, M, chunk, scale, smem, _DTYPE_CODES[q.dtype])
@@ -272,9 +353,11 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
         )
         name = "paged_decode_attention_quant"
     else:
+        ws = _workspace(q, Hkv, M, blk)
         err = _kernel("paged")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            tables.data_ptr(), out.data_ptr(), *shape, stream,
+            tables.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            *shape, stream,
         )
         name = _KERNEL
     if err != 0:
@@ -295,12 +378,14 @@ def _contiguous_cuda(q, k, v, lengths, *, block: int, scale: float) -> torch.Ten
     _check_operands([("q", q), ("k", k), ("v", v), ("lengths", lengths)])
     chunk, smem = check_kernel_shape(G, H, Hkv, hd, block, k.element_size(),
                                      q.element_size())
+    _check_aligned(("k", k), ("v", v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = _workspace(q, Hkv, T // block, block)
     err = _kernel("contiguous")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, G, H, Hkv, hd, block, T // block, chunk, scale, smem,
-        _DTYPE_CODES[q.dtype], stream,
+        0 if ws is None else ws.data_ptr(), B, G, H, Hkv, hd, block, T // block,
+        chunk, scale, smem, _DTYPE_CODES[q.dtype], stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
@@ -368,6 +453,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "LAUNCHES", "check_kernel_shape", "decode_attention", "decode_attention_plain",
-    "paged_decode_attention_plain", "reference_decode_attention", "reset_launches",
+    "LAUNCHES", "SPLIT", "check_kernel_shape", "decode_attention",
+    "decode_attention_plain", "kernel_instance", "paged_decode_attention_plain",
+    "reference_decode_attention", "reset_launches", "split_plan",
 ]

@@ -17,7 +17,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    table) and at block and head sizes where it stages
    each block in chunks, each case with the instance that ran (every bf16
    case on the tensor cores, mma.sync with a split over the sequence; fp32
-   scalar), and the nine tensor-core instances' registers and spills; then the flash-attention forward, dq and dk/dv
+   scalar), and the seventeen tensor-core instances' registers and spills
+   (kernels 7, 8 and the merge, and kernel 9's over int8 and fp8); then
+   the flash-attention forward, dq and dk/dv
    kernels against theirs at bench_1b4's training shape, bench_moe's
    (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
    and fp32, each case logged with the instance that ran (every bf16
@@ -37,7 +39,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    int8 and fp8 e4m3 pools, G 1 and 5 and the verify step's G 16 (rows
    whose lengths run past their written positions and past the table),
    bf16 queries, plus a float32-query
-   case, a case that stages blocks in chunks and a NaN-scale case; and the
+   case, a case that stages blocks in chunks and a NaN-scale case (the
+   block named below one row's length and past another's), each case
+   with the instance that ran (every bf16 case on the tensor cores, the
+   split body of kernel 8 over one-byte tiles; fp32 scalar); and the
    int8 dequant-matmul kernel at each of the decode step's five weight
    shapes, 8 slots, bf16 and fp32; then (3e) the fused cross-entropy
    kernels (ce_fwd, ce_dh, ce_dw) against theirs at bench_1b4's loss head
@@ -78,7 +83,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (the limit from the bf16 noise and the spec-off run's own trail,
    ``spec_serve_phase``); tokens/s per slot, tokens per step, accept rate
    and the on/off ratio are printed, and the batch-8 verify step's
-   breakdown. Then a 2-layer
+   breakdown, bf16 and quantized. Then a 2-layer
    cross-check of the quantized engine on the card against the same
    engine on the CPU (plain versions);
 5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
@@ -107,7 +112,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
 again, and the script raises after three such windows. The flash,
-grouped-matmul and bf16 decode kernels' launches are matched by their
+grouped-matmul and decode kernels' launches are matched by their
 tensor-core kernels' names (``tc::``), so a window in which one ran
 another instance is short of events; a decode breakdown's attention share
 counts the merge of a row's splits (``tc::decode_merge_kernel``) too.
@@ -164,16 +169,18 @@ KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
 # launched when the table spans more than one split (the engine sizes its
 # table to the live rows, so not at every step)
 PAGED_TC_EVENTS = ("tc::paged_decode_kernel", "tc::decode_merge_kernel")
+# the same for the quantized pools' tensor-core instance (kernel 9)
+QUANT_TC_EVENTS = ("tc::paged_quant_decode_kernel", "tc::decode_merge_kernel")
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
 # (a profile must hold at least that many events of each). The profiles run
-# bf16 training and serving, so the flash, grouped-matmul and bf16 decode
-# kernels are named by their tensor-core instances (namespace tc); the
-# quantized decode kernel keeps the scalar body, whose name no tc:: name
-# matches.
+# bf16 queries in training and serving, so the flash, grouped-matmul and
+# decode kernels are named by their tensor-core instances (namespace tc):
+# a launch on the scalar body, whose names no tc:: name matches, falls
+# short.
 KERNEL_EVENTS = {
     "decode_attention": ("tc::decode_kernel",),
     "paged_decode_attention": ("tc::paged_decode_kernel",),
-    "paged_decode_attention_quant": ("paged_decode_kernel",),
+    "paged_decode_attention_quant": ("tc::paged_quant_decode_kernel",),
     "quant_mm": ("quant_mm_kernel",),
     "flash_fwd": ("tc::flash_fwd_kernel",), "flash_dq": ("tc::flash_dq_kernel",),
     "flash_dkv": ("tc::flash_dkv_kernel",),
@@ -203,10 +210,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the buffer time_ms zero-fills before each timed call: it flushes the 50 MB
+# L2, and at 1 GiB (about 0.4 ms of device time) it keeps the device busy
+# until the host has enqueued the call, so a slow host does not add its own
+# time to the kernel's (a 256 MB fill left some medians twice the kernel's
+# time on a shared host)
+FLUSH_BYTES = 2**30
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     """Median device time of one call, each run after the L2 cache is
     flushed (the engine calls the kernel once per layer, so it finds the
-    pools cold), timed with CUDA events."""
+    pools cold; ``flush``: FLUSH_BYTES on the card), timed with CUDA
+    events."""
     for _ in range(3):
         fn()
     pairs = []
@@ -360,14 +376,18 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
                       past: tuple[int, ...] = ()) -> dict:
     """The quantized paged decode kernel at Llama-3-8B decode shapes (32/8
     heads) over ``kv`` pools quantized per block per kv head: against its
-    plain version on the same inputs, its time, its bound and SDPA over the
-    dequantized, gathered K/V (the dequant and gather not timed). With
-    ``poison`` only the NaN-scale check runs: row 0's sixth block (no other
-    row names it) gets a NaN K scale, and exactly the rows whose tables name
-    it must go non-finite. With ``past``, the rows of a verify step
-    (``verify_lengths``)."""
+    plain version on the same inputs, its time, its bound, SDPA over the
+    dequantized, gathered K/V (the dequant and gather not timed), and the
+    unquantized kernel (kernel 8) over the pools dequantized beforehand,
+    which the tensor-core instance must equal bit for bit (its math is
+    kernel 8's) in about twice kernel 9's bytes. With
+    ``poison`` only the NaN-scale check runs: row 0's sixth block gets a
+    NaN K scale, and row 3 (5 positions) names it past its length, where
+    its table is never read; exactly the rows whose tables name it below
+    their length must go non-finite. With ``past``, the rows of a verify
+    step (``verify_lengths``)."""
     from tony_tpu_torch.ops.decode_attention import (
-        _chunk, decode_attention, paged_decode_attention_plain,
+        _chunk, decode_attention, kernel_instance, paged_decode_attention_plain,
     )
     from tony_tpu_torch.serve.cache import kv_quant_spec, quantize_values
 
@@ -403,6 +423,8 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
                                    k_scale=ks, v_scale=vs)
     if poison:
         bad = int(tables_np[0, 5])
+        tables_np[3, need[3]:] = bad
+        tables.copy_(torch.as_tensor(tables_np, device=dev))
         ks[bad] = float("nan")
         out = run()
         torch.cuda.synchronize()
@@ -411,7 +433,8 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
         if finite != [not h for h in hit]:
             raise AssertionError(f"NaN scale of block {bad}: rows finite {finite}, "
                                  f"rows naming it {hit}")
-        return {"kv": kv, "poisoned_block": bad, "rows_hit": hit}
+        return {"kv": kv, "poisoned_block": bad, "rows_hit": hit,
+                "rows_naming_it": [b for b in range(B) if bad in tables_np[b]]}
 
     out = run()
     torch.cuda.synchronize()
@@ -423,6 +446,12 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
         raise AssertionError(
             f"paged_decode_attention_quant {kv} G={G} {dtype}: max |err| "
             f"{err.max().item():.3e} over atol={atol} rtol={rtol}")
+    instance = kernel_instance("paged_decode_attention_quant", dtype, hd, blk, G, H // Hkv)
+    kd, vd = ((pq.float() * sc[..., None, None]).to(dtype) for pq, sc in ((kq, ks), (vq, vs)))
+    kernel8 = lambda: decode_attention(q, kd, vd, lengths, tables=tables)  # noqa: E731
+    if instance == "tensor cores" and not torch.equal(out, kernel8()):
+        raise AssertionError(f"paged_decode_attention_quant {kv} G={G}: differs from "
+                             f"kernel 8 over the pools dequantized beforehand")
 
     # library yardstick: SDPA over the dequantized, gathered, repeat-expanded
     # K/V in q's dtype (the port never calls SDPA)
@@ -445,6 +474,7 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
     plain_ms = time_ms(lambda: paged_decode_attention_plain(
         q, kq, vq, lengths, tables, scale=scale, k_scale=ks, v_scale=vs), flush)
     library_ms = time_ms(sdpa, flush)
+    kernel8_ms = time_ms(kernel8, flush)
 
     # payload bytes: one byte per element; two float32 scales per (block,
     # kv head) read
@@ -459,9 +489,10 @@ def quant_decode_case(kv: str, G: int, dtype: torch.dtype, flush: torch.Tensor, 
     return {
         "kv": kv, "G": G, "dtype": str(dtype).replace("torch.", ""), "blk": blk,
         "hd": hd, "past": past, "chunk": _chunk(blk, hd, q.element_size()),
+        "instance": instance,
         "max_abs_err": err.max().item(), "sdpa_max_abs_err": lib_err,
         "atol": atol, "rtol": rtol,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "kernel8_ms": kernel8_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes,
@@ -692,7 +723,7 @@ def quant_serve_phase(cfg, params, bf16: dict) -> dict:
         raise AssertionError(f"quantized launches {launches} != {want} "
                              f"({steps} decode steps)")
     breakdown = decode_breakdown(engine, cfg, rng, {
-        "attention": ("paged_decode_kernel",), "quant_mm": ("quant_mm_kernel",)})
+        "attention": QUANT_TC_EVENTS, "quant_mm": ("quant_mm_kernel",)})
     del engine
     torch.cuda.empty_cache()
     solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
@@ -938,7 +969,8 @@ def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
     if profile:
         # 1 + 4 timed steps, then 1 + 4 a traced window, each up to G tokens
         n = ((PROFILE_ATTEMPTS + 1) * (4 + 1) + 1) * (SPEC_DRAFT + 1)
-        r.update(decode_breakdown(engine, cfg, None, {"attention": PAGED_TC_EVENTS},
+        events = QUANT_TC_EVENTS if quant else PAGED_TC_EVENTS
+        r.update(decode_breakdown(engine, cfg, None, {"attention": events},
                                   steps=4, requests=reqs(n)))
     del engine
     torch.cuda.empty_cache()
@@ -973,7 +1005,7 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
     Reported: tokens/s per slot, tokens per step, accept rate, the on/off
     ratio, tokens equal on/off, the share of emitted tokens that are the
     reference's argmax, the largest trail on and off, and the batch-8
-    verify step's breakdown."""
+    verify step's breakdown, bf16 and quantized."""
     prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, SPEC_BLOCK)
     L = cfg.n_layers
     res = {}
@@ -983,7 +1015,7 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
     for label, batch, new, quant in modes:
         off = spec_mode(cfg, params, prompt, False, batch, new, **quant)
         on = spec_mode(cfg, params, prompt, True, batch, new, seed=off["tokens"][0],
-                       profile=label == "b8", **quant)
+                       profile=label in ("b8", "b8_int8"), **quant)
         for r in (on, off):
             la, steps = r["launches"], r["steps"]
             if quant:
@@ -1034,13 +1066,14 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
             raise AssertionError(f"spec {label}: an emitted token trails the reference's "
                                  f"top logit by {trail_on:.4e}, over the limit {limit:.4e}")
         r.update(trail_on=trail_on, trail_off=trail_off, limit=limit, noise=noise)
-    b8 = res["b8"]["on"]
     log(f"teacher-forced references: {ref_s:.1f} s")
-    log(f"verify step (batch 8, G {SPEC_DRAFT + 1}, store warm): "
-        f"{b8['profile_step_ms']:.2f} ms wall, {b8['profile_device_ms']:.2f} ms device "
-        f"(busy {b8['profile_device_busy']:.1%}), {b8['profile_launches_per_step']:.0f} "
-        f"kernel launches; decode attention {b8['profile_attention_ms']:.2f} ms = "
-        f"{b8['profile_attention_share']:.1%} of device time  [{card}]")
+    for label in ("b8", "b8_int8"):
+        r = res[label]["on"]
+        log(f"verify step {label} (batch 8, G {SPEC_DRAFT + 1}, store warm): "
+            f"{r['profile_step_ms']:.2f} ms wall, {r['profile_device_ms']:.2f} ms device "
+            f"(busy {r['profile_device_busy']:.1%}), {r['profile_launches_per_step']:.0f} "
+            f"kernel launches; decode attention {r['profile_attention_ms']:.2f} ms = "
+            f"{r['profile_attention_share']:.1%} of device time  [{card}]")
     return res
 
 
@@ -1202,16 +1235,20 @@ def _pairs(B: int, S: int, H: int, causal: bool) -> int:
 
 def tensor_core_resources(log: str) -> list[dict]:
     """Registers, stack and spills of each tensor-core instance (namespace
-    ``tc``, e.g. ``flash_fwd_kernel<128>``, ``gmm_fwd_kernel``) from
-    nvcc's ``-Xptxas -v`` lines."""
+    ``tc``, e.g. ``flash_fwd_kernel<128>``, ``gmm_fwd_kernel``,
+    ``paged_quant_decode_kernel<1, int8>``) from nvcc's ``-Xptxas -v``
+    lines."""
+    payloads = {"a": "int8", "13__nv_fp8_e4m3": "fp8_e4m3"}
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"2tc\d+(\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(r"2tc\d+(\w+?_kernel)(?:ILi(\d+)E(a|13__nv_fp8_e4m3)?)?",
+                          m.group(1))
             cur = None
             if k:
-                cur = {"kernel": k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")}
+                args = [a for a in (k.group(2), payloads.get(k.group(3))) if a]
+                cur = {"kernel": k.group(1) + (f"<{', '.join(args)}>" if args else "")}
             if cur:
                 out.append(cur)
         elif cur is not None:
@@ -2091,7 +2128,7 @@ def main() -> int:
             if "Compile time" not in line:
                 log(f"    {line}")
 
-    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     cases = []
     # the serving shapes (blk 64, hd 128: each block staged whole), the
     # verify step's (G 16, rows running past their written positions and
@@ -2118,7 +2155,7 @@ def main() -> int:
              if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
     if wrong:
         raise AssertionError(f"paged decode cases on an unexpected instance: {wrong}")
-    log_resources(builds, "paged_decode_attention", 9)
+    log_resources(builds, "paged_decode_attention", 17)
 
     flash = []
     for label, B, S, H, Hkv, hd, causal in FLASH_SHAPES:
@@ -2185,19 +2222,29 @@ def main() -> int:
             ("int8", 1, torch.float32, 64, ()), ("int8", 1, torch.float32, 128, ())):
         c = quant_decode_case(kv, G, dtype, flush, blk=blk, past=past)
         qcases.append(c)
-        log(f"kernel paged_decode_attention_quant {kv} G={G} {c['dtype']} blk={blk} "
-            f"hd={c['hd']} chunk={c['chunk']}{f' past={past}' if past else ''}: max|err| {c['max_abs_err']:.3e} "
+        equal = " (bit-equal)" if c["instance"] == "tensor cores" else ""
+        log(f"kernel paged_decode_attention_quant {kv} G={G} {c['dtype']} ({c['instance']}) "
+            f"blk={blk} hd={c['hd']} chunk={c['chunk']}{f' past={past}' if past else ''}: "
+            f"max|err| {c['max_abs_err']:.3e} "
             f"(atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms'] * 1e3:.1f} us  "
             f"(bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']}, "
             f"{c['bytes'] / 1e6:.2f} MB)  plain {c['plain_ms'] * 1e3:.1f} us  sdpa on "
             f"dequantized K/V {c['library_ms'] * 1e3:.1f} us (max|err| "
-            f"{c['sdpa_max_abs_err']:.3e})  [{card}]")
-    if not any(c["chunk"] < c["blk"] for c in qcases):
+            f"{c['sdpa_max_abs_err']:.3e})  kernel 8 on the dequantized pools "
+            f"{c['kernel8_ms'] * 1e3:.1f} us{equal}  [{card}]")
+    # the chunks are the scalar body's: a float32 case
+    if not any(c["chunk"] < c["blk"] for c in qcases if c["instance"] == "scalar"):
         raise AssertionError("no quantized case staged a block in chunks")
+    # every bf16 case runs on the tensor cores, every fp32 case scalar
+    wrong = [(c["kv"], c["G"], c["dtype"], c["instance"]) for c in qcases
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
+    if wrong:
+        raise AssertionError(f"quantized decode cases on an unexpected instance: {wrong}")
     for kv in ("int8", "fp8_e4m3"):
         c = quant_decode_case(kv, 1, torch.bfloat16, flush, poison=True)
-        log(f"kernel paged_decode_attention_quant {kv}: NaN scale on block "
-            f"{c['poisoned_block']} reaches exactly rows "
+        log(f"kernel paged_decode_attention_quant {kv} (tensor cores): NaN scale on block "
+            f"{c['poisoned_block']}, named by rows {c['rows_naming_it']}, reaches exactly "
+            f"the rows naming it below their length, "
             f"{[b for b, h in enumerate(c['rows_hit']) if h]}  [{card}]")
     mm = []
     for dtype in (torch.bfloat16, torch.float32):

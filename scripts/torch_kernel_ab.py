@@ -2,7 +2,7 @@
 """Time the port's bf16 kernels built from two kernel-source trees on one
 card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode] [--rounds 2]
+    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant] [--rounds 2]
 
 OTHER_CSRC is the ``tony_tpu_torch/csrc`` of another checkout (a parent
 commit unpacked with ``git archive`` into a git-ignored directory). Each
@@ -19,9 +19,13 @@ library call's ms, and for gmm the instance and the library call's note);
 on the host clock, tokens/s, the losses). ``--cases decode`` times the
 bf16 decode kernels: ``chip_smoke.decode_case`` at G 1, 5 and the verify
 step's 16, ``chip_smoke.contiguous_case`` at the reference bench's case
-and Llama-3-8B's G 1, and the bench's 24-call loop. Their C entry points
-grew a workspace argument, so for decode the other side imports the
-whole ``tony_tpu_torch`` package of the other checkout (``OTHER_CSRC``'s
+and Llama-3-8B's G 1, and the bench's 24-call loop. ``--cases quant``
+times the quantized decode kernel with bf16 queries:
+``chip_smoke.quant_decode_case`` over int8 and fp8 e4m3 pools at G 1, 5
+and the verify step's 16, each with kernel 8's time over the same pools
+dequantized beforehand (``kernel8_ms``). Their C entry points grew a workspace
+argument, so for decode and quant the other side imports the whole
+``tony_tpu_torch`` package of the other checkout (``OTHER_CSRC``'s
 parent's parent), not its csrc/ alone; a package without
 ``kernel_instance`` has the scalar CTA body only. Exits non-zero without
 a card, when a process fails or when a case does not hold its plain
@@ -44,7 +48,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def measure(csrc: str, cases: str) -> dict:
     """This process's measurement, the kernels built from ``csrc`` ("" for
     this checkout's)."""
-    whole_tree = cases == "decode" and csrc
+    whole_tree = cases in ("decode", "quant") and csrc
     sys.path.insert(0, str(Path(csrc).resolve().parent.parent if whole_tree else ROOT))
     import torch
 
@@ -60,7 +64,7 @@ def measure(csrc: str, cases: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     source = {"gmm": "grouped_mm", "flash": "flash_attention", "moe": "grouped_mm",
-              "decode": "paged_decode_attention"}[cases]
+              "decode": "paged_decode_attention", "quant": "paged_decode_attention"}[cases]
     out = {"csrc": csrc or "this checkout", "card": chip_smoke.card_line(),
            "resources": chip_smoke.tensor_core_resources(_build.load(source).log)}
     if cases == "moe":
@@ -79,9 +83,9 @@ def measure(csrc: str, cases: str) -> dict:
                       "losses": [m["loss"] for m in steps]}
         out["cases"] = []
         return out
-    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    if cases == "decode":
-        out["cases"] = decode_cases(chip_smoke, flush)
+    flush = torch.empty(chip_smoke.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    if cases in ("decode", "quant"):
+        out["cases"] = (decode_cases if cases == "decode" else quant_cases)(chip_smoke, flush)
         return out
     if cases == "gmm":
         found = chip_smoke.gmm_cases(torch.bfloat16, flush, chip_smoke.gmm_inputs())
@@ -97,16 +101,41 @@ def measure(csrc: str, cases: str) -> dict:
     return out
 
 
+def _instances_named() -> None:
+    """A package without ``kernel_instance`` runs the scalar CTA body only
+    (the package exports a function of the module's name: import by
+    name)."""
+    module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
+    if not hasattr(module, "kernel_instance"):
+        module.kernel_instance = lambda *args: "scalar"
+
+
+_KEYS = ("name", "case", "instance", "ms", "max_abs_err", "library_ms")
+
+
+def quant_cases(chip_smoke, flush) -> list[dict]:
+    """Phase 3d's bf16 cases of the quantized decode kernel (each raises
+    unless it holds its plain version)."""
+    import torch
+
+    _instances_named()
+    found = []
+    for kv in ("int8", "fp8_e4m3"):
+        for G, past in ((1, ()), (5, ()),
+                        (chip_smoke.SPEC_DRAFT + 1, chip_smoke.QUANT_VERIFY_PAST)):
+            c = chip_smoke.quant_decode_case(kv, G, torch.bfloat16, flush, past=past)
+            found.append({"name": "paged_decode_attention_quant", "case": f"{kv} G {G}",
+                          **c})
+    return [{k: c[k] for k in _KEYS + ("kernel8_ms",)} | {"ok": True} for c in found]
+
+
 def decode_cases(chip_smoke, flush) -> list[dict]:
     """The bf16 decode cases (each raises unless it holds its plain
     version) and the bench loop."""
     import numpy as np
     import torch
 
-    # the package exports a function of the module's name: import by name
-    module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
-    if not hasattr(module, "kernel_instance"):
-        module.kernel_instance = lambda *args: "scalar"
+    _instances_named()
     found = []
     for G, past in ((1, ()), (5, ()), (chip_smoke.SPEC_DRAFT + 1, chip_smoke.VERIFY_PAST)):
         c = chip_smoke.decode_case(G, torch.bfloat16, flush, past=past)
@@ -122,14 +151,14 @@ def decode_cases(chip_smoke, flush) -> list[dict]:
     loop = chip_smoke.contiguous_bench_loop(flush)
     found.append({"name": "decode_attention", "case": "bench loop (24 calls)",
                   "instance": found[-1]["instance"], "library_ms": None, **loop})
-    return [{k: c[k] for k in ("name", "case", "instance", "ms", "max_abs_err",
-                               "library_ms")} | {"ok": True} for c in found]
+    return [{k: c[k] for k in _KEYS} | {"ok": True} for c in found]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", default="", help="the other tree's csrc/")
-    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode"), default="gmm")
+    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode", "quant"),
+                    default="gmm")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()

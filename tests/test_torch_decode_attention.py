@@ -241,8 +241,8 @@ def _rule_before(G, H, Hkv, hd, blk, payload, q_item):
     return 2 * chunk * hd * q_item + 4 * (2 * R * hd + R * chunk + 3 * R) <= 232448
 
 
-@pytest.mark.parametrize("payload,q_item", [(2, 2), (4, 4), (1, 2)],
-                         ids=["bf16", "fp32", "quant"])
+@pytest.mark.parametrize("payload,q_item", [(2, 2), (4, 4), (1, 2), (1, 4)],
+                         ids=["bf16", "fp32", "quant", "quant-fp32"])
 def test_shape_rule_keeps_every_shape_it_accepted(payload, q_item):
     """Over a grid of head_dim, block, G and rep, check_kernel_shape accepts
     exactly what it accepted before the tensor-core instance existed (no
@@ -278,7 +278,7 @@ def test_kernel_instance_asks_the_library_route(monkeypatch):
 
     def route(quant, dtype_code, hd, R):
         calls.append((quant, dtype_code, hd, R))
-        return 1 if dtype_code == 1 and not quant else 0
+        return 1 if dtype_code == 1 and hd <= 128 else 0
 
     # the package exports a function of the module's name, so it is imported by name
     module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
@@ -287,8 +287,36 @@ def test_kernel_instance_asks_the_library_route(monkeypatch):
         "tensor cores"
     assert kernel_instance("decode_attention", torch.float32, 128, 128, 1, 4) == "scalar"
     assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, 128, 64, 5,
+                           4) == "tensor cores"
+    assert kernel_instance("paged_decode_attention_quant", torch.float32, 128, 64, 5,
                            4) == "scalar"
-    assert calls == [(False, 1, 128, 64), (False, 0, 128, 4), (True, 1, 128, 20)]
+    assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, 256, 64, 1,
+                           4) == "scalar"
+    assert calls == [(False, 1, 128, 64), (False, 0, 128, 4), (True, 1, 128, 20),
+                     (True, 0, 128, 20), (True, 1, 256, 4)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "quant"])
+def test_workspace_asks_the_route_of_its_form(monkeypatch, quant):
+    """The wrapper sizes the tensor-core instance's workspace from the
+    library's route for its own form (the quantized flag for quantized
+    pools): a stand-in route records the question; where it answers the
+    tensor cores the workspace is split_plan's, per (row, kv head); where
+    it answers scalar there is none."""
+    module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
+    calls = []
+
+    def route(q_flag, dtype_code, hd, R):
+        calls.append((q_flag, dtype_code, hd, R))
+        return 1 if dtype_code == 1 else 0
+
+    monkeypatch.setattr(module, "_route", route)
+    q = torch.zeros((3, 5, 8, 64), dtype=torch.bfloat16)
+    ws = module._workspace(q, 2, 8, 64, quant)
+    assert ws.dtype == torch.float32 and ws.numel() == 3 * 2 * split_plan(8, 64, 20, 64)[1]
+    assert module._workspace(q, 2, 4, 64, quant) is None        # one split
+    assert module._workspace(q.float(), 2, 8, 64, quant) is None  # the scalar body
+    assert calls == [(quant, 1, 64, 20)] * 2 + [(quant, 0, 64, 20)]
 
 
 @pytest.mark.parametrize("M,blk", [(1, 16), (16, 16), (17, 16), (32, 64), (8, 128),

@@ -259,10 +259,10 @@ def _tc_paged_case(G: int, hd: int, blk: int, rep: int, seed: int, split: int):
 @pytest.mark.cuda
 def test_decode_kernel_instances_on_card(cuda):
     """``kernel_instance`` names the design the built library dispatches:
-    the tensor cores for bf16 at the serving shapes (hd 128, blk 64, rep 4,
-    G 1, 5 and 16) and at kernel 7's bench case (blk 128), scalar for
-    float32 queries and for the quantized form; a shape the shape rule
-    refuses raises its ValueError."""
+    the tensor cores for bf16 queries at the serving shapes (hd 128, blk
+    64, rep 4, G 1, 5 and 16), over bf16 or quantized pools, and at kernel
+    7's bench case (blk 128), scalar for float32 queries and for bf16 past
+    head_dim 128; a shape the shape rule refuses raises its ValueError."""
     from tony_tpu_torch.ops.decode_attention import kernel_instance
 
     tc = "tensor cores"
@@ -270,7 +270,11 @@ def test_decode_kernel_instances_on_card(cuda):
         assert kernel_instance("paged_decode_attention", torch.bfloat16, 128, 64, G, 4) == tc
         assert kernel_instance("paged_decode_attention", torch.float32, 128, 64, G, 4) == "scalar"
         assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, 128, 64, G,
+                               4) == tc
+        assert kernel_instance("paged_decode_attention_quant", torch.float32, 128, 64, G,
                                4) == "scalar"
+    assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, 256, 64, 1,
+                           4) == "scalar"
     assert kernel_instance("decode_attention", torch.bfloat16, 128, 128, 1, 4) == tc
     assert kernel_instance("decode_attention", torch.float32, 128, 128, 1, 4) == "scalar"
     # bf16 shapes past the tensor-core instance keep the scalar body
@@ -392,14 +396,15 @@ def test_tc_decode_long_row_takes_many_splits_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["paged", "contiguous"])
+@pytest.mark.parametrize("form", ["paged", "contiguous", "int8", "fp8_e4m3"])
 def test_tc_decode_is_invariant_on_card(cuda, form):
     """Bit for bit, on the tensor-core instance: row b of a batch of 8
     equals the row computed alone (B = 1, its own table row); query G - 1
     of a G 16 call equals a G 1 call at the same length; two launches are
     equal. Llama-3-8B's decode shape (rep 4, hd 128, blk 64), the serving
-    case's lengths, two rows sharing blocks."""
-    from tony_tpu_torch.ops.decode_attention import decode_attention
+    case's lengths, two rows sharing blocks; paged, contiguous, and paged
+    over int8 and fp8 pools (kernel 9)."""
+    from tony_tpu_torch.ops.decode_attention import decode_attention, kernel_instance
 
     G, blk, hd, M = 16, 64, 128, 32
     rng = np.random.default_rng(11)
@@ -411,14 +416,20 @@ def test_tc_decode_is_invariant_on_card(cuda, form):
     k, v = (torch.from_numpy(rng.standard_normal((1 + 8 * M, 8, blk, hd)).astype(np.float32))
             for _ in range(2))
     q, k, v = (t.cuda().to(torch.bfloat16) for t in (q, k, v))
+    scales = {}
     if form == "contiguous":
         k = k[tables.long()].permute(0, 2, 1, 3, 4).reshape(8, 8, M * blk, hd).contiguous()
         v = v[tables.long()].permute(0, 2, 1, 3, 4).reshape(8, 8, M * blk, hd).contiguous()
+    elif form != "paged":
+        (k, ks), (v, vs) = _quantize_pool(k, form), _quantize_pool(v, form)
+        scales = dict(k_scale=ks, v_scale=vs)
+        assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, hd, blk, G,
+                               4) == "tensor cores"
 
     def run(q, rows=slice(None)):
-        if form == "paged":
-            return decode_attention(q, k, v, lens[rows], tables=tables[rows])
-        return decode_attention(q, k[rows], v[rows], lens[rows], block=128)
+        if form == "contiguous":
+            return decode_attention(q, k[rows], v[rows], lens[rows], block=128)
+        return decode_attention(q, k, v, lens[rows], tables=tables[rows], **scales)
 
     out = run(q)
     assert torch.equal(out, run(q))
@@ -717,6 +728,94 @@ def _quantize_pool(pool: torch.Tensor, kv: str):
     dt, qmax = kv_quant_spec(kv)
     scale = pool.float().abs().amax(dim=(2, 3)) / qmax
     return quantize_values(pool, scale[..., None, None], qmax, dt), scale
+
+
+def _dequantized(pool: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A quantized pool dequantized beforehand, as the plain version does:
+    (float(payload) * its block's scale) rounded to bf16."""
+    return (pool.float() * scale[..., None, None]).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("blk", [16, 64, 128])
+def test_tc_quant_decode_matches_plain_on_card(cuda, kv, hd, blk):
+    """Kernel 9's tensor-core instance (bf16 queries over int8 and fp8
+    pools) against its plain version at G 1, 5 and 16 and rep 1, 4 and 8:
+    rows of 1, S-1, S, S+1, 2S+1 and M * blk positions (S the split),
+    verify rows running past the table, shared blocks, entries past a row
+    naming scratch block 0. Both dequantize to the same bf16 values, so the
+    tolerance is kernel 8's (DECODE_BF16_TOL). And bit for bit
+    (torch.equal) kernel 8's tensor-core instance over the pools
+    dequantized beforehand: the quantized instance dequantizes each tile
+    into the layout kernel 8 reads and runs its math. A shape the shape
+    rule refuses (G 16 at rep 8, hd 128, blk 128) raises there."""
+    from tony_tpu_torch.ops.decode_attention import (
+        LAUNCHES, SPLIT, check_kernel_shape, decode_attention, kernel_instance,
+        paged_decode_attention_plain, reset_launches,
+    )
+
+    for G in (1, 5, 16):
+        for rep in (1, 4, 8):
+            q, k, v, lengths, tables = _tc_paged_case(G, hd, blk, rep, 37 * G + rep, SPLIT)
+            (kq, ks), (vq, vs) = _quantize_pool(k, kv), _quantize_pool(v, kv)
+            try:
+                check_kernel_shape(G, 2 * rep, 2, hd, blk, 1, 2)
+            except ValueError:
+                with pytest.raises(ValueError, match="shared memory"):
+                    decode_attention(q, kq, vq, lengths, tables=tables, k_scale=ks,
+                                     v_scale=vs)
+                continue
+            assert kernel_instance("paged_decode_attention_quant", torch.bfloat16, hd, blk,
+                                   G, rep) == "tensor cores"
+            reset_launches()
+            out = decode_attention(q, kq, vq, lengths, tables=tables, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            assert LAUNCHES["paged_decode_attention_quant"] == 1
+            assert LAUNCHES["paged_decode_attention"] == 0
+            ref = paged_decode_attention_plain(q, kq, vq, lengths, tables,
+                                               scale=1.0 / math.sqrt(hd), k_scale=ks,
+                                               v_scale=vs)
+            torch.testing.assert_close(out.float(), ref.float(), atol=DECODE_BF16_TOL,
+                                       rtol=DECODE_BF16_TOL, msg=f"G={G} rep={rep}")
+            k8 = decode_attention(q, _dequantized(kq, ks), _dequantized(vq, vs), lengths,
+                                  tables=tables)
+            assert torch.equal(out, k8), f"G={G} rep={rep}: differs from kernel 8"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "fp8_e4m3"])
+def test_tc_quant_decode_nan_scale_reaches_only_its_rows_on_card(cuda, kv):
+    """A NaN K scale on the tensor-core instance (bf16 queries, the serving
+    shape: rep 4, hd 128, blk 64, G 1 and the verify step's G 16): the
+    block is named below row 0's length and past row 2's (its table
+    entries past the length are never read, so neither is the block's
+    scale). Row 0 goes non-finite; every other row equals a clean run."""
+    from tony_tpu_torch.ops.decode_attention import decode_attention
+
+    blk, hd, M = 64, 128, 8
+    rng = np.random.default_rng(12)
+    for G in (1, 16):
+        written = np.array([300, 64, 70, 500], np.int32)
+        lengths = torch.from_numpy(written + (G - 1)).cuda()
+        tables = rng.permutation(np.arange(1, 1 + 4 * M)).reshape(4, M).astype(np.int32)
+        bad = int(tables[0, 2])                       # row 0's positions 128..191
+        reads = -(-(written + G - 1) // blk)
+        tables[2, reads[2]:] = bad                    # past row 2's length only
+        assert bad not in tables[1] and bad not in tables[3]
+        tables = torch.from_numpy(tables).cuda()
+        q = torch.from_numpy(rng.standard_normal((4, G, 32, hd)).astype(np.float32))
+        k, v = (torch.from_numpy(rng.standard_normal((1 + 4 * M, 8, blk, hd))
+                                 .astype(np.float32)) for _ in range(2))
+        q, k, v = (t.cuda().to(torch.bfloat16) for t in (q, k, v))
+        (kq, ks), (vq, vs) = _quantize_pool(k, kv), _quantize_pool(v, kv)
+        clean = decode_attention(q, kq, vq, lengths, tables=tables, k_scale=ks, v_scale=vs)
+        ks[bad] = float("nan")
+        out = decode_attention(q, kq, vq, lengths, tables=tables, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert not bool(torch.isfinite(out[0]).all()), f"G={G}"
+        assert torch.equal(out[1:], clean[1:]), f"G={G}"
 
 
 @pytest.mark.cuda

@@ -436,6 +436,65 @@ def test_quant_decode_args_are_validated():
         decode_attention(q, kq, vq, lengths, k_scale=ks, v_scale=vs)
 
 
+class _Routed(Exception):
+    """Raised by a stand-in route once it has been asked."""
+
+
+def test_quant_kernel_wrapper_checks_before_it_builds(monkeypatch):
+    """The quantized CUDA wrapper's own checks, each reached before
+    anything is built or launched (CPU tensors stand in for the card's):
+    the payload and scale types and shapes, 16-byte pool starts, the shape
+    rule; then it sizes the workspace its entry point now takes through
+    the library's route asked with the quantized flag (here a stand-in
+    that records the question), and on the tensor-core instance it also
+    holds the queries to a 16-byte start."""
+    import importlib
+
+    module = importlib.import_module("tony_tpu_torch.ops.decode_attention")
+    q = torch.zeros((2, 5, 8, 64), dtype=torch.bfloat16)
+    kq = torch.zeros((3, 2, 16, 64), dtype=torch.int8)
+    ks = torch.ones((3, 2), dtype=torch.float32)
+    lengths = torch.tensor([3, 20], dtype=torch.int32)
+    tables = torch.tensor([[1, 2], [2, 1]], dtype=torch.int32)
+
+    def run(q=q, k=kq, v=kq, k_scale=ks, v_scale=ks):
+        module._paged_cuda(q, k, v, lengths, tables, scale=0.125, k_scale=k_scale,
+                           v_scale=v_scale)
+
+    with pytest.raises(TypeError, match="int8 or float8_e4m3fn"):
+        run(k=kq.to(torch.float16), v=kq.to(torch.float16))
+    with pytest.raises(TypeError, match="int8 or float8_e4m3fn"):
+        run(v=kq.view(torch.float8_e4m3fn))
+    with pytest.raises(ValueError, match="scales must be float32"):
+        run(k_scale=ks.double())
+    with pytest.raises(ValueError, match="scales must be float32"):
+        run(v_scale=ks[:2])
+    shifted = torch.zeros(kq.numel() + 1, dtype=torch.int8)[1:].view(kq.shape)
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        run(k=shifted)
+    with pytest.raises(ValueError, match="v must start on a 16-byte boundary"):
+        run(v=shifted)
+    with pytest.raises(ValueError, match="head_dim 8 must be a multiple of 16"):
+        run(q=q[..., :8].contiguous(), k=kq[..., :8].contiguous(),
+            v=kq[..., :8].contiguous())
+    asked = []
+
+    def route(quant, dtype_code, hd, R):
+        asked.append((quant, dtype_code, hd, R))
+        raise _Routed
+
+    monkeypatch.setattr(module, "_route", route)
+    with pytest.raises(_Routed):
+        run()
+    with pytest.raises(_Routed):
+        run(q=q.float())
+    assert asked == [(True, 1, 64, 20), (True, 0, 64, 20)]
+    monkeypatch.setattr(module, "_route", lambda *args: 1)
+    qs = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
+        run(q=qs)
+
+
 # --- the engine -----------------------------------------------------------------
 
 # slots=2 forces churn; the short bucket ladder keeps the reference from

@@ -20,10 +20,11 @@
 // Two designs, picked per call by decode_route (ops/decode_attention.py's
 // kernel_instance asks the same function, so Python and CUDA agree):
 //
-// bf16 on the tensor cores (namespace tc, tc::paged_decode_kernel for the
-// paged form and tc::decode_kernel for the contiguous one, at head_dim a
-// multiple of 16 up to 128 and up to 128 query rows a kv head), the path
-// of the serving engine's decode and verify steps:
+// bf16 queries on the tensor cores (namespace tc, tc::paged_decode_kernel
+// for the paged form, tc::paged_quant_decode_kernel for quantized pools and
+// tc::decode_kernel for the contiguous one, at head_dim a multiple of 16
+// up to 128 and up to 128 query rows a kv head), the path of the serving
+// engine's decode and verify steps:
 // - A fixed split over the sequence (flash-decoding). The grid is (split
 //   s, kv head x, row b); split s covers positions [s * kSplit, (s + 1) *
 //   kSplit) of its row, kSplit = 256 whatever the batch, the grid or the
@@ -43,11 +44,11 @@
 //   block up in the table row, whose entries past the length are never
 //   read), then streams the split in tiles of kTile = 64 positions
 //   through a ring of shared-memory stages filled with cp.async.cg 16-byte
-//   copies, so the next tiles load while one is computed: three stages,
-//   two for the NT 4 and 8 instances, where a third would keep a second
-//   CTA off the SM. Positions at or past the row's length are zero-filled
-//   (cp.async with a source size of 0 reads nothing). The queries ride
-//   with the first tile's copies.
+//   copies, so the next tiles load while one is computed: for bf16 pools
+//   three stages, two for the NT 4 and 8 instances, where a third would
+//   keep a second CTA off the SM (quantized pools: below). Positions at
+//   or past the row's length are zero-filled (cp.async with a source size
+//   of 0 reads nothing). The queries ride with the first tile's copies.
 // - mma.sync m16n8k16, bf16 in, float32 accumulators, fed by ldmatrix, in
 //   the "swap AB" form: S^T = K Q^T with positions as the m16 dimension
 //   and the R = G * rep query rows as n8 tiles (padded to 8, 32, 64 or 128
@@ -66,7 +67,7 @@
 //   equals the row computed alone, query G - 1 of a verify step equals a
 //   one-token step at the same length, and two launches are bit-equal.
 //
-// The scalar CTA body (float32, the quantized form, and bf16 shapes the
+// The scalar CTA body (float32 queries, over any pools, and bf16 shapes the
 // tensor-core instance does not take): one CTA per (row b, kv head x),
 // 256 threads. The G * rep query rows that share kv head x are folded into
 // one tile (R = G * rep rows), so each K/V byte is read once per CTA. The
@@ -96,24 +97,50 @@
 // entries, then its first tiles) and the per-tile steps between barriers.
 // Measured times against this bound are in PERF.md.
 
-// Quantized pools (the same kernel, templated on the payload type P).
+// Quantized pools (both designs templated on the payload type P).
 // Replaces tony_tpu/ops/decode_attention.py::_paged_quant_kernel (reached
 // through _paged_pallas): the step the engine runs when its KV pools are
 // block-scaled int8 or fp8 e4m3. The pools hold P, and two scale pools
 //   k_scale, v_scale [P, Hkv] float32
 // carry one scale per physical block per kv head. Each K/V element is
 // dequantized as float(payload) * scale[tables[b, j], x] and rounded to the
-// query's dtype, as the TPU kernel does, before the dot. The CTA loads the
-// two scales of a block beside its table entry, one load each per (block,
-// kv head), and dequantizes each 16-byte vector of payload in registers as
-// it stages the chunk into shared memory: shared memory holds the
-// dequantized values in the query's dtype, so the chunking rule is the
-// unquantized kernel's at that dtype, and the dequantized cache never
-// exists in device memory. Bound: the same as above with one byte per K/V
-// element plus two float32 scales per (block, kv head) read, about half the
-// bf16 pools' bytes. Scales are not clamped and no block past a row's length
-// is read, so a NaN scale reaches exactly the rows whose tables name its
-// block.
+// query's dtype, as the TPU kernel does, before the dot: the scale is not
+// folded into the score or the output, which would round otherwise.
+// Bound: the same as above with one byte per K/V element plus two float32
+// scales per (block, kv head) read, about half the bf16 pools' bytes.
+// - bf16 queries: tc::paged_quant_decode_kernel<NT, P>, kernel 8's split
+//   CTA in a quantized address-and-dequant mode, with kernel 8's split,
+//   merge, workspace and invariance. The scalar body it replaces ran one
+//   CTA per (row, kv head), 64 CTAs at the serving case for 132 SMs, with
+//   scalar math and no load in flight while it computed: 48x its bound at
+//   G 1 and 370x at the verify step's G 16 (PERF.md). Here the loop that
+//   finds each position's offset keeps its (block, kv head), and the
+//   position's K and V scales (0 past the length) are loaded from it once
+//   a CTA while the first tiles are in flight; a tile of 64 positions may
+//   span several blocks, so a scale is taken a position, not a tile. The
+//   ring stages one-byte tiles [64][hd] with the same cp.async copies,
+//   half the bf16 ring's bytes, so it holds one stage more at the same
+//   occupancy (four, three and two stages at NT 1 / 16, 4 and 8), and a
+//   stage is refilled as soon as its V is dequantized, before the
+//   softmax. The CTA dequantizes a tile, 8 bytes a
+//   thread into one 16-byte store, into a bf16 K and a bf16 V tile in the
+//   padded layout kernel 8's ldmatrix reads: tile t's V beside its scores,
+//   tile t + 1's K beside tile t's P.V, so it keeps kernel 8's three
+//   barriers a tile. The math is kernel 8's, so the output is bit-equal
+//   to kernel 8 over pools dequantized beforehand (the card tests assert
+//   it). What holds it above the bound is kernel 8's: each CTA's chain of
+//   dependent reads and per-tile steps, plus the dequant's conversions
+//   (PERF.md section 6 has the times, and what a copy without the
+//   dequant showed).
+// - float32 queries: the scalar CTA body, which loads the two scales of a
+//   block beside its table entry and dequantizes each 16-byte vector of
+//   payload in registers as it stages the chunk into shared memory, in
+//   the query's dtype (so the chunking rule is the unquantized kernel's at
+//   that dtype).
+// Scales are not clamped, and no block past a row's length is read (a
+// position past it dequantizes to an exact 0 through a scale of 0), so a
+// NaN scale reaches exactly the rows whose tables name its block below
+// their length.
 
 // Contiguous caches (the same CTA body, templated on how a block's address
 // is found). Replaces tony_tpu/ops/decode_attention.py::_decode_kernel
@@ -144,6 +171,7 @@
 // see at most the table's width, as the plain version does.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -451,7 +479,7 @@ int launch_quant(const void* q, const void* k, const void* v, const float* ks,
                            blk, M, chunk, scale, smem_bytes, s);
 }
 
-// --- the bf16 tensor-core instance (kernels 7 and 8) -------------------------
+// --- the tensor-core instance for bf16 queries (kernels 7, 8 and 9) ------
 
 namespace tc {
 
@@ -473,8 +501,10 @@ static_assert(kTile == 16 * 4, "four warps of 16 positions score a tile");
 
 struct Args {
   const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* k;          // bf16 pools, or the int8 / fp8 e4m3 payload of quantized ones
+  const void* v;
+  const float* k_scale;   // quantized pools only: [P, Hkv] float32
+  const float* v_scale;
   const int* lengths;
   const int* tables;  // paged form only
   bf16* out;
@@ -483,17 +513,24 @@ struct Args {
   float scale;
 };
 
-// Ring stages of the NT instance: three, except where a third would keep a
-// second CTA off the SM (NT 4 and 8 at head_dim 128), and the CTAs an SM
-// that __launch_bounds__ asks for.
-__host__ __device__ constexpr int stages(int NT) { return NT == 4 || NT == 8 ? 2 : 3; }
+// Ring stages of the NT instance, and the CTAs an SM that __launch_bounds__
+// asks for. bf16 pools: three, except where a third would keep a second
+// CTA off the SM (NT 4 and 8 at head_dim 128). Quantized pools stage one
+// byte an element beside a bf16 K and V tile, and the same rule gives
+// four, three and two.
+__host__ __device__ constexpr int stages(int NT, bool quant) {
+  return quant ? (NT == 8 ? 2 : NT == 4 ? 3 : 4) : (NT == 4 || NT == 8 ? 2 : 3);
+}
 __host__ __device__ constexpr int min_ctas(int NT) { return NT <= 8 ? 2 : 1; }
 
 // Dynamic shared memory of one CTA of the NT instance (layout in
-// split_cta).
-__host__ __device__ constexpr int smem_bytes(int hd, int NT) {
-  return stages(NT) * 2 * kTile * (hd + kPad) * 2 + NT * 8 * (hd + kPad) * 2 +
-         NT * 8 * kSld * 4 + kSplit * 8 + 4 * NT * 8 * 4;
+// split_cta): the ring (bf16 rows padded by kPad; payload rows of hd bytes
+// and a dequantized bf16 K and V tile when quantized), then the queries,
+// scores, offsets (and the positions' scales) and the row state.
+__host__ __device__ constexpr int smem_bytes(int hd, int NT, bool quant) {
+  return (quant ? stages(NT, true) * 2 * kTile * hd + 2 * kTile * (hd + kPad) * 2 + kSplit * 8
+                : stages(NT, false) * 2 * kTile * (hd + kPad) * 2) +
+         NT * 8 * (hd + kPad) * 2 + NT * 8 * kSld * 4 + kSplit * 8 + 4 * NT * 8 * 4;
 }
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -544,15 +581,92 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four payload bytes -> four floats: float(payload), exact. int8 by the
+// magic-number form (each byte, offset to unsigned, becomes the low byte
+// of the float 2^23 + u; subtracting 2^23 + 128 leaves the int8 value);
+// fp8 e4m3 two at a time through f16x2 (exact: e4m3 is a subset of f16).
+template <typename P>
+__device__ __forceinline__ void payload4(uint32_t w, float* f) {
+  if constexpr (std::is_same<P, int8_t>::value) {
+    const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)), 8388736.f);
+  } else {
+    static_assert(std::is_same<P, __nv_fp8_e4m3>::value, "int8 or fp8 e4m3 payloads");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w >> (16 * h)), __NV_E4M3);
+      const float2 v = __half22float2(__half2(r));
+      f[2 * h] = v.x;
+      f[2 * h + 1] = v.y;
+    }
+  }
+}
+
+// Dequantize one tile of payload [kTile][hd] bytes into bf16 [kTile][ld]:
+// float(payload) * its position's scale, rounded to bf16, as the TPU
+// kernel does (and the plain version, and the scalar body's dequant16).
+// A thread takes 8 bytes of the rows row0, row0 + step, ... (at most four:
+// step >= kThreads / (kMaxHd / 8) = 16) at column c, loads them all first,
+// and writes each as one 16-byte store, so both the loads and the stores
+// of a quarter-warp cover consecutive bytes.
+template <typename P>
+__device__ __forceinline__ void dequant_tile(const P* __restrict__ src,
+                                             const float2* __restrict__ sc, bool v,
+                                             bf16* __restrict__ dst, int hd, int ld,
+                                             int row0, int step, int c) {
+  static_assert(kTile <= 4 * (kThreads / (kMaxHd / 8)), "four rows a thread at most");
+  uint2 raw[4];
+  float m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i * step;
+    if (row < kTile) {
+      raw[i] = *reinterpret_cast<const uint2*>(src + row * hd + c * 8);
+      const float2 rs = sc[row];
+      m[i] = v ? rs.y : rs.x;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i * step;
+    if (row < kTile) {
+      float f[8];
+      payload4<P>(raw[i].x, f);
+      payload4<P>(raw[i].y, f + 4);
+      uint4 out;
+      uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(f[2 * e], m[i]),
+                                                       __fmul_rn(f[2 * e + 1], m[i]));
+        o[e] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(dst + row * ld + c * 8) = out;
+    }
+  }
+}
+
 // One CTA: split s = blockIdx.x of row b = blockIdx.z, kv head x =
-// blockIdx.y, at NT n8 tiles of query rows (R <= 8 * NT). Fragment
-// layouts of m16n8k16: lane l holds C rows l / 4 (+ 8) and columns
-// 2 * (l % 4) (+ 1); ldmatrix lane l addresses row l % 8 of matrix l / 8.
-template <int NT, bool kPaged>
+// blockIdx.y, at NT n8 tiles of query rows (R <= 8 * NT). P: the pools'
+// element, bf16, or int8 / fp8 e4m3 for quantized pools (then paged), whose
+// tiles are staged as bytes and dequantized once a tile into the bf16
+// layout the math reads: a tile's V beside its scores, the next tile's K
+// beside its P.V, so the quantized mode keeps kernel 8's three barriers a
+// tile. Fragment layouts of m16n8k16: lane l holds C rows l / 4 (+ 8) and
+// columns 2 * (l % 4) (+ 1); ldmatrix lane l addresses row l % 8 of matrix
+// l / 8.
+template <int NT, bool kPaged, typename P>
 __device__ __forceinline__ void split_cta(const Args& a) {
-  constexpr int Rp = NT * 8, kStages = stages(NT);
+  constexpr bool kQuant = !std::is_same<P, bf16>::value;
+  static_assert(kPaged || !kQuant, "quantized pools are paged");
+  static_assert(kSplit == kThreads, "one thread a position of the split");
+  constexpr int Rp = NT * 8, kStages = stages(NT, kQuant);
   const int s = blockIdx.x, x = blockIdx.y, b = blockIdx.z;
   const int hd = a.hd, ld = hd + kPad;
+  const int rld = kQuant ? hd : ld;                   // a ring row's stride, in P
   const int rep = a.H / a.Hkv, R = a.G * rep;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r8 = lane & 7, mi = lane >> 3;
@@ -566,54 +680,72 @@ __device__ __forceinline__ void split_cta(const Args& a) {
   const int stop = min(start + kSplit, end);
   const int n_tiles = stop > start ? (stop - start + kTile - 1) / kTile : 0;
   const int n_split = max(1, (end + kSplit - 1) / kSplit);
+  const P* kp = static_cast<const P*>(a.k);
+  const P* vp = static_cast<const P*>(a.v);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);         // kStages x {K, V} [kTile][ld]
-  bf16* q_s = ring + kStages * 2 * kTile * ld;         // [Rp][ld]
+  P* ring = reinterpret_cast<P*>(smem);               // kStages x {K, V} [kTile][rld]
+  // quantized: a tile's K and V, dequantized, {K, V} [kTile][ld]
+  bf16* kq_s = reinterpret_cast<bf16*>(ring + kStages * 2 * kTile * rld);
+  bf16* vq_s = kq_s + kTile * ld;
+  bf16* q_s = kq_s + (kQuant ? 2 * kTile * ld : 0);    // [Rp][ld]
   float* s_s = reinterpret_cast<float*>(q_s + Rp * ld);  // [Rp][kSld]
   bf16* p_s = reinterpret_cast<bf16*>(s_s);            // [Rp][kPld], over s_s
   long long* off_s = reinterpret_cast<long long*>(s_s + Rp * kSld);  // [kSplit]
-  float* m_s = reinterpret_cast<float*>(off_s + kSplit);  // [Rp]
+  float2* sc_s = reinterpret_cast<float2*>(off_s + kSplit);  // [kSplit] (K, V) scales
+  float* m_s = reinterpret_cast<float*>(sc_s + (kQuant ? kSplit : 0));  // [Rp]
   float* l_s = m_s + Rp;                               // [Rp]
   float* c_s = l_s + Rp;                               // [Rp] this tile's correction
   int* lim_s = reinterpret_cast<int*>(c_s + Rp);       // [Rp] positions a row attends
 
-  // where each position of the split lies (-1: at or past the row's
-  // length, never read), one thread a position: the paged form looks its
-  // block up in the table row, whose entries past the length are never
-  // read; and the positions each query row attends, below stop
-  for (int p = tid; p < kSplit; p += kThreads) {
-    const int pos = start + p;
+  // where this thread's position of the split lies (-1: at or past the
+  // row's length, never read): the paged form looks its block up in the
+  // table row, whose entries past the length are never read; and the
+  // positions each query row attends, below stop
+  long long sb = -1;                                   // the position's (block, kv head)
+  {
+    const int pos = start + tid;
     long long off = -1;
     if (pos < stop) {
       if constexpr (kPaged) {
         const int j = pos / a.blk;
-        off = ((long long)a.tables[(size_t)b * a.M + j] * a.Hkv + x) * a.blk * hd +
-              (long long)(pos - j * a.blk) * hd;
+        sb = (long long)a.tables[(size_t)b * a.M + j] * a.Hkv + x;
+        off = (sb * a.blk + (pos - j * a.blk)) * hd;
       } else {
         off = (((long long)b * a.Hkv + x) * T + pos) * hd;
       }
     }
-    off_s[p] = off;
+    off_s[tid] = off;
   }
   for (int r = tid; r < Rp; r += kThreads)
     lim_s[r] = r < R ? min(len - (a.G - 1) + r / rep, stop) : -1;
   __syncthreads();
 
   // each thread copies the same (row, 16-byte column) slots of every tile
-  const int vpr = hd / 8;                              // 16-byte vectors a row
+  constexpr int kVec = 16 / (int)sizeof(P);            // elements a 16-byte copy moves
+  const int vpr = hd / kVec;                           // 16-byte vectors a row
   // (threads past the last whole row of slots idle when vpr does not
   // divide kThreads)
   const int row_step = kThreads / vpr;
   const int row0 = tid < row_step * vpr ? tid / vpr : kTile, c = tid % vpr;
   auto stage = [&](int t) {
-    bf16* ks = ring + (t % kStages) * 2 * kTile * ld;
-    bf16* vs = ks + kTile * ld;
+    P* ks = ring + (t % kStages) * 2 * kTile * rld;
+    P* vs = ks + kTile * rld;
     for (int row = row0; row < kTile; row += row_step) {
       const long long off = off_s[t * kTile + row];
-      const size_t src = off < 0 ? 0 : (size_t)off + c * 8;
-      cp_async16(ks + row * ld + c * 8, a.k + src, off >= 0);
-      cp_async16(vs + row * ld + c * 8, a.v + src, off >= 0);
+      const size_t src = off < 0 ? 0 : (size_t)off + c * kVec;
+      cp_async16(ks + row * rld + c * kVec, kp + src, off >= 0);
+      cp_async16(vs + row * rld + c * kVec, vp + src, off >= 0);
+    }
+  };
+  // quantized: each thread dequantizes the same (row, 8-byte piece) slots
+  // of every tile, K (v false) or V of tile t
+  const int cpr = hd / 8, dstep = kThreads / cpr;
+  const int drow0 = tid < dstep * cpr ? tid / cpr : kTile, dc = tid % cpr;
+  auto dequant = [&](int t, bool v) {
+    if constexpr (kQuant) {
+      const P* src = ring + (t % kStages) * 2 * kTile * rld + (v ? kTile * rld : 0);
+      dequant_tile(src, sc_s + t * kTile, v, v ? vq_s : kq_s, hd, ld, drow0, dstep, dc);
     }
   };
 
@@ -625,8 +757,9 @@ __device__ __forceinline__ void split_cta(const Args& a) {
   // the queries ride with tile 0's copies: folded row r = g * rep + i is
   // query g of head x * rep + i; rows past R are zero (their columns are
   // computed and never written)
-  for (int e = tid; e < Rp * vpr; e += kThreads) {
-    const int r = e / vpr, cq = e - r * vpr;
+  const int qvpr = hd / 8;
+  for (int e = tid; e < Rp * qvpr; e += kThreads) {
+    const int r = e / qvpr, cq = e - r * qvpr;
     size_t off = 0;
     if (r < R) {
       const int g = r / rep, i = r - g * rep;
@@ -634,23 +767,52 @@ __device__ __forceinline__ void split_cta(const Args& a) {
     }
     cp_async16(q_s + r * ld + cq * 8, a.q + off, r < R);
   }
+  // the ring's first tiles: all its stages when quantized (a stage frees
+  // once its V is dequantized, before the softmax), else all but one
+  constexpr int kAhead = kQuant ? kStages : kStages - 1;
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
+  for (int t = 0; t < kAhead; ++t) {
     if (t < n_tiles) stage(t);
     cp_commit();
+  }
+  if constexpr (kQuant) {
+    // the position's two scales, one load each per position, read while
+    // the first tiles are in flight (the first barrier below orders them);
+    // past the length 0, a finite scale for the zero-filled payload, so
+    // no block past the length is read
+    float2 sc = make_float2(0.f, 0.f);
+    if (sb >= 0) sc = make_float2(a.k_scale[sb], a.v_scale[sb]);
+    sc_s[tid] = sc;
   }
   for (int r = tid; r < Rp; r += kThreads) {
     m_s[r] = kNeg;
     l_s[r] = 0.f;
     c_s[r] = 1.f;
   }
+  if constexpr (kQuant) {
+    if (n_tiles > 0) {
+      cp_wait<kAhead - 1>();
+      __syncthreads();  // tile 0 and the scales landed
+      dequant(0, false);
+    }
+  }
   for (int t = 0; t < n_tiles; ++t) {
-    cp_wait<kStages - 2>();
-    __syncthreads();  // tile t landed for every thread; tile t - 1's readers are done
-    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
-    cp_commit();
-    const bf16* ks = ring + (t % kStages) * 2 * kTile * ld;
-    const bf16* vs = ks + kTile * ld;
+    const bf16* ks;
+    const bf16* vs;
+    if constexpr (kQuant) {
+      // K(t), dequantized beside P.V of tile t - 1, is complete; that P.V
+      // is done with V's tile; tile t's bytes landed before it
+      __syncthreads();
+      ks = kq_s;
+      vs = vq_s;
+    } else {
+      cp_wait<kStages - 2>();
+      __syncthreads();  // tile t landed for every thread; tile t - 1's readers are done
+      if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
+      cp_commit();
+      ks = ring + (t % kStages) * 2 * kTile * rld;
+      vs = ks + kTile * ld;
+    }
     const int p0 = start + t * kTile;
 
     // scores S^T = K Q^T: warp w takes positions 16 (w % 4) .. + 16 and the
@@ -699,7 +861,13 @@ __device__ __forceinline__ void split_cta(const Args& a) {
         }
       }
     }
+    if constexpr (kQuant) dequant(t, true);
     __syncthreads();
+    if constexpr (kQuant) {
+      // tile t's stage is read: the ring's next tile takes it
+      if (t + kStages < n_tiles) stage(t + kStages);
+      cp_commit();
+    }
 
     // online softmax of the tile: 8 lanes a query row, four rows a warp;
     // every padded row too, whose p is 0. A row's p overwrites its scores
@@ -740,6 +908,9 @@ __device__ __forceinline__ void split_cta(const Args& a) {
         }
       }
     }
+    // quantized: tile t + 1 landed for every thread (its K is dequantized
+    // after P.V)
+    if constexpr (kQuant) cp_wait<kAhead - 1>();
     __syncthreads();
 
     // out^T = acc^T * corr + V^T P^T over this warp's 16 of head_dim
@@ -765,6 +936,9 @@ __device__ __forceinline__ void split_cta(const Args& a) {
         }
       }
     }
+    // quantized: the next tile's K (the scores of tile t are done with K)
+    if constexpr (kQuant)
+      if (t + 1 < n_tiles) dequant(t + 1, false);
   }
   cp_wait<0>();
   __syncthreads();  // m_s and l_s as the last tile left them (or as set up)
@@ -801,13 +975,19 @@ __device__ __forceinline__ void split_cta(const Args& a) {
 // Kernel 8: paged pools through the block table.
 template <int NT>
 __global__ void __launch_bounds__(kThreads, min_ctas(NT)) paged_decode_kernel(Args a) {
-  split_cta<NT, true>(a);
+  split_cta<NT, true, bf16>(a);
+}
+
+// Kernel 9: quantized paged pools (P int8 or fp8 e4m3), bf16 queries.
+template <int NT, typename P>
+__global__ void __launch_bounds__(kThreads, min_ctas(NT)) paged_quant_decode_kernel(Args a) {
+  split_cta<NT, true, P>(a);
 }
 
 // Kernel 7: a contiguous cache [B, Hkv, M * blk, hd].
 template <int NT>
 __global__ void __launch_bounds__(kThreads, min_ctas(NT)) decode_kernel(Args a) {
-  split_cta<NT, false>(a);
+  split_cta<NT, false, bf16>(a);
 }
 
 // Combine a row's splits, in the order of s; rows of one split were
@@ -850,10 +1030,15 @@ __host__ __device__ constexpr int splits(int M, int blk) {
   return (M * blk + kSplit - 1) / kSplit;
 }
 
-template <int NT, bool kPaged>
+template <int NT, bool kPaged, typename P>
 int launch_nt(const Args& a, int B, cudaStream_t stream) {
-  auto kernel = kPaged ? paged_decode_kernel<NT> : decode_kernel<NT>;
-  const int smem = smem_bytes(a.hd, NT);
+  constexpr bool kQuant = !std::is_same<P, bf16>::value;
+  void (*kernel)(Args);
+  if constexpr (kQuant)
+    kernel = paged_quant_decode_kernel<NT, P>;
+  else
+    kernel = kPaged ? paged_decode_kernel<NT> : decode_kernel<NT>;
+  const int smem = smem_bytes(a.hd, NT, kQuant);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -863,13 +1048,13 @@ int launch_nt(const Args& a, int B, cudaStream_t stream) {
 
 // The split kernel at the smallest NT that holds R rows, then the merge
 // when a row may take more than one split.
-template <bool kPaged>
+template <bool kPaged, typename P>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const int R = a.G * (a.H / a.Hkv);
-  const int err = R <= 8    ? launch_nt<1, kPaged>(a, B, stream)
-                  : R <= 32 ? launch_nt<4, kPaged>(a, B, stream)
-                  : R <= 64 ? launch_nt<8, kPaged>(a, B, stream)
-                            : launch_nt<16, kPaged>(a, B, stream);
+  const int err = R <= 8    ? launch_nt<1, kPaged, P>(a, B, stream)
+                  : R <= 32 ? launch_nt<4, kPaged, P>(a, B, stream)
+                  : R <= 64 ? launch_nt<8, kPaged, P>(a, B, stream)
+                            : launch_nt<16, kPaged, P>(a, B, stream);
   if (err != 0) return err;
   const int n_grid = splits(a.M, a.blk);
   if (n_grid > 1) {
@@ -897,13 +1082,15 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 // (q, out and the unquantized pools). Each returns the cudaError_t of the
 // launch (0 = launched).
 
-// Which design runs (0 = unquantized pools, 1 = quantized; R = G * rep
-// query rows a kv head): 1 the bf16 tensor-core instance, 0 the scalar
-// body, -1 no instance (an unknown dtype). The entry points below dispatch
-// through it.
+// Which design runs (quant: 0 = unquantized pools, 1 = int8 / fp8 pools,
+// which take the same limits; R = G * rep query rows a kv head): 1 the bf16
+// tensor-core instance, 0 the scalar body (float32 queries, and bf16 past
+// head_dim 128 or 128 query rows), -1 no instance (an unknown dtype). The
+// entry points below dispatch through it.
 extern "C" int decode_route(int quant, int dtype, int hd, int R) {
+  (void)quant;
   if (dtype != 0 && dtype != 1) return -1;
-  if (quant || dtype == 0) return 0;
+  if (dtype == 0) return 0;
   return hd % 16 == 0 && hd >= 16 && hd <= tc::kMaxHd && R >= 1 && R <= tc::kMaxRows ? 1
                                                                                       : 0;
 }
@@ -924,11 +1111,10 @@ extern "C" int paged_decode_attention(
   const int* tbl_p = static_cast<const int*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (decode_route(0, dtype, hd, G * (H / Hkv)) == 1) {
-    const tc::Args a{static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-                     static_cast<const tc::bf16*>(v), len_p, tbl_p,
+    const tc::Args a{static_cast<const tc::bf16*>(q), k, v, nullptr, nullptr, len_p, tbl_p,
                      static_cast<tc::bf16*>(out), static_cast<float*>(workspace),
                      G, H, Hkv, hd, blk, M, scale};
-    return tc::launch<true>(a, B, s);
+    return tc::launch<true, tc::bf16>(a, B, s);
   }
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
@@ -939,17 +1125,26 @@ extern "C" int paged_decode_attention(
 }
 
 // Quantized pools: payload 0 = int8, 1 = fp8 e4m3; k_scale/v_scale
-// [P, Hkv] float32. Always the scalar body.
+// [P, Hkv] float32; workspace as for the unquantized form (the bf16
+// tensor-core instance, tc::paged_quant_decode_kernel, takes kernel 8's
+// split and merge).
 extern "C" int paged_decode_attention_quant(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* lengths, const void* tables, void* out,
-    int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk,
+    void* workspace, int B, int G, int H, int Hkv, int hd, int blk, int M, int chunk,
     float scale, int smem_bytes, int dtype, int payload, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* len_p = static_cast<const int*>(lengths);
   const int* tbl_p = static_cast<const int*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (decode_route(1, dtype, hd, G * (H / Hkv)) == 1) {
+    const tc::Args a{static_cast<const tc::bf16*>(q), k, v, ks, vs, len_p, tbl_p,
+                     static_cast<tc::bf16*>(out), static_cast<float*>(workspace),
+                     G, H, Hkv, hd, blk, M, scale};
+    return payload == 1 ? tc::launch<true, __nv_fp8_e4m3>(a, B, s)
+                        : tc::launch<true, int8_t>(a, B, s);
+  }
   if (dtype == 1)
     return launch_quant<__nv_bfloat16>(q, k, v, ks, vs, len_p, tbl_p, out, B, G,
                                        H, Hkv, hd, blk, M, chunk, scale,
@@ -967,11 +1162,10 @@ extern "C" int decode_attention_contiguous(
   const int* len_p = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (decode_route(0, dtype, hd, G * (H / Hkv)) == 1) {
-    const tc::Args a{static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-                     static_cast<const tc::bf16*>(v), len_p, nullptr,
-                     static_cast<tc::bf16*>(out), static_cast<float*>(workspace),
+    const tc::Args a{static_cast<const tc::bf16*>(q), k, v, nullptr, nullptr, len_p,
+                     nullptr, static_cast<tc::bf16*>(out), static_cast<float*>(workspace),
                      G, H, Hkv, hd, blk, M, scale};
-    return tc::launch<false>(a, B, s);
+    return tc::launch<false, tc::bf16>(a, B, s);
   }
   if (dtype == 1)
     return launch_contiguous<__nv_bfloat16>(q, k, v, len_p, out, B, G, H, Hkv, hd,

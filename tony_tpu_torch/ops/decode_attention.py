@@ -25,13 +25,13 @@ Where it runs is decided by the tensors' device alone:
   ``csrc/paged_decode_attention.cu`` (built with ``nvcc`` at first use,
   ``ops/_build.py``), or raise. There is no fallback. Both forms share the
   kernel's shape rule (:func:`check_kernel_shape`) and its two designs:
-  bf16 runs on the tensor cores with a fixed split over the sequence
-  (``tc::paged_decode_kernel``, ``tc::decode_kernel``, then
+  bf16 queries run on the tensor cores with a fixed split over the
+  sequence (``tc::paged_decode_kernel``, ``tc::paged_quant_decode_kernel``
+  over quantized pools, ``tc::decode_kernel``, then
   ``tc::decode_merge_kernel`` over a float32 workspace this wrapper
-  allocates, :func:`split_plan`); float32, the quantized form and the bf16
-  shapes that instance does not take run the scalar CTA body.
-  :func:`kernel_instance` says which, from the built library's
-  ``decode_route``.
+  allocates, :func:`split_plan`); float32 queries and the bf16 shapes that
+  instance does not take run the scalar CTA body. :func:`kernel_instance`
+  says which, from the built library's ``decode_route``.
 - CPU tensors take the plain PyTorch versions that the tests hold against
   the reference: :func:`decode_attention_plain` (a masked float32 softmax)
   and :func:`paged_decode_attention_plain` (a gather through the table,
@@ -45,10 +45,13 @@ paged form only): the pools hold int8 or ``float8_e4m3fn`` payloads with
 one scale per physical block per kv head (``serve/cache.py``). Each K/V
 element is dequantized as ``float(payload) * scale`` and rounded to
 ``q.dtype`` before the dot, as the reference's ``_paged_quant_kernel``
-does. CUDA tensors launch the same kernel's quantized form (its CTA
-dequantizes each chunk in registers while staging it into shared memory);
-CPU tensors take the plain version with the scale rows gathered beside
-the blocks.
+does. CUDA tensors launch the same kernel's quantized form: with bf16
+queries its tensor-core instance stages one-byte tiles and dequantizes
+each tile once into the bf16 layout kernel 8's math reads, so its output
+equals kernel 8's over pools dequantized beforehand; with float32 queries
+the scalar CTA dequantizes each chunk in registers while staging it. CPU
+tensors take the plain version with the scale rows gathered beside the
+blocks.
 """
 
 from __future__ import annotations
@@ -240,7 +243,7 @@ def _kernel(form: str):
                            f"positions, the wrapper at {SPLIT}")
     if form == "quant":
         fn = lib.paged_decode_attention_quant
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
     elif form == "paged":
@@ -271,10 +274,11 @@ def kernel_instance(name: str, dtype: torch.dtype, hd: int, blk: int, G: int,
     paged_decode_attention or paged_decode_attention_quant) runs for
     queries of ``dtype`` at head_dim ``hd``, block ``blk``, G query
     positions and ``rep`` heads a kv head, as the built library dispatches
-    it: ``"tensor cores"`` (bf16, mma.sync with a split over the sequence)
-    or ``"scalar"``. A shape :func:`check_kernel_shape` refuses raises its
-    ValueError before anything is built; otherwise this builds the library
-    on first use, so it needs nvcc."""
+    it: ``"tensor cores"`` (bf16 queries, over bf16 or quantized pools,
+    mma.sync with a split over the sequence) or ``"scalar"``. A shape
+    :func:`check_kernel_shape` refuses raises its ValueError before
+    anything is built; otherwise this builds the library on first use, so
+    it needs nvcc."""
     if name not in _FORMS:
         raise ValueError(f"no decode kernel {name!r}; one of {_FORMS}")
     if dtype not in _DTYPE_CODES:
@@ -303,12 +307,14 @@ def _check_aligned(*named: tuple[str, torch.Tensor]) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _workspace(q: torch.Tensor, Hkv: int, M: int, blk: int) -> torch.Tensor | None:
+def _workspace(q: torch.Tensor, Hkv: int, M: int, blk: int,
+               quant: bool = False) -> torch.Tensor | None:
     """The tensor-core instance's float32 partials (:func:`split_plan`), or
-    None for the scalar body and for a grid of one split."""
+    None for the scalar body and for a grid of one split; ``quant`` asks
+    the route for quantized pools."""
     B, G, H, hd = q.shape
     R = G * (H // Hkv)
-    if _route(False, _DTYPE_CODES[q.dtype], hd, R) != 1:
+    if _route(quant, _DTYPE_CODES[q.dtype], hd, R) != 1:
         return None
     _check_aligned(("q", q))
     _, per = split_plan(M, blk, R, hd)
@@ -342,6 +348,7 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
     chunk, smem = check_kernel_shape(G, H, Hkv, hd, blk, k.element_size(),
                                      q.element_size())
     _check_aligned(("k", k), ("v", v))
+    ws = _workspace(q, Hkv, M, blk, quant)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     shape = (B, G, H, Hkv, hd, blk, M, chunk, scale, smem, _DTYPE_CODES[q.dtype])
@@ -349,11 +356,11 @@ def _paged_cuda(q, k, v, lengths, tables, *, scale: float, k_scale=None,
         err = _kernel("quant")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), lengths.data_ptr(), tables.data_ptr(),
-            out.data_ptr(), *shape, _PAYLOAD_CODES[k.dtype], stream,
+            out.data_ptr(), 0 if ws is None else ws.data_ptr(), *shape,
+            _PAYLOAD_CODES[k.dtype], stream,
         )
         name = "paged_decode_attention_quant"
     else:
-        ws = _workspace(q, Hkv, M, blk)
         err = _kernel("paged")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             tables.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),

@@ -48,8 +48,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernels (ce_fwd, ce_dh, ce_dw) against theirs at bench_1b4's loss head
    (16,384 rows, D 2048, V 32,000) in bf16 and fp32, and at a ragged shape
    (rows and vocab off the tiles) finite, with a NaN and an inf row and
-   with a NaN weight; then (3f) the contiguous-cache decode kernel
-   (kernel 7) against its plain version at the reference bench's decode
+   with a NaN weight, each case with the instance that ran (bf16 ce_dh and
+   ce_dw on wgmma with TMA staging, the bf16 forward on mma.sync, fp32
+   scalar), the backward launched twice and held bit-equal, and the three
+   tensor-core instances' registers and spills; then (3f) the
+   contiguous-cache decode kernel (kernel 7) against its plain version at the reference bench's decode
    case (bench_1b4 with 4 kv heads: 8 rows of a full 1024-position cache,
    block 128) in bf16 and fp32 and at Llama-3-8B's shape (T 2048) at G 1
    and at G 5 with ragged rows, each with its instance (bf16 on the
@@ -96,8 +99,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    under torch.profiler, and a 2-layer cross-check of one train step with
    the kernels against plain attention. Then (5b) the same fit() with
    ``ce_impl="pallas"``: step 1 within 2e-2 of phase 5's, ce_fwd once a
-   step and ce_dh / ce_dw once per vocab chunk a step, no plain version;
-   its profile, and a 2-layer cross-check against the scan head;
+   step and ce_dh / ce_dw once per vocab chunk a step on their
+   tensor-core instances, no plain version; its profile, and a 2-layer
+   cross-check against the scan head;
 6. MoE training: ``fit()`` on bench_moe at full width and depth (24
    layers, 8 experts top-2, batch 8 x 2048, the same recipe with the
    grouped dispatch through the grouped-matmul kernels), 10 steps from
@@ -112,8 +116,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
 again, and the script raises after three such windows. The flash,
-grouped-matmul and decode kernels' launches are matched by their
-tensor-core kernels' names (``tc::``), so a window in which one ran
+grouped-matmul, decode and CE backward kernels' launches are matched by
+their tensor-core kernels' names (``tc::``), so a window in which one ran
 another instance is short of events; a decode breakdown's attention share
 counts the merge of a row's splits (``tc::decode_merge_kernel``) too.
 
@@ -174,9 +178,9 @@ QUANT_TC_EVENTS = ("tc::paged_quant_decode_kernel", "tc::decode_merge_kernel")
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
 # (a profile must hold at least that many events of each). The profiles run
 # bf16 queries in training and serving, so the flash, grouped-matmul and
-# decode kernels are named by their tensor-core instances (namespace tc):
-# a launch on the scalar body, whose names no tc:: name matches, falls
-# short.
+# decode kernels, and the CE backward's (ce_impl="pallas"), are named by
+# their tensor-core instances (namespace tc): a launch on the scalar body,
+# whose names no tc:: name matches, falls short.
 KERNEL_EVENTS = {
     "decode_attention": ("tc::decode_kernel",),
     "paged_decode_attention": ("tc::paged_decode_kernel",),
@@ -187,7 +191,7 @@ KERNEL_EVENTS = {
     "gmm_fwd": ("tc::gmm_fwd_kernel",), "gmm_dx": ("tc::gmm_dx_kernel",),
     "gmm_dw": ("tc::gmm_dw_kernel",),
     "ce_fwd": ("ce_fwd_kernel", "ce_fwd_merge_kernel"),
-    "ce_dh": ("ce_dlogits_kernel", "ce_dh_kernel"), "ce_dw": ("ce_dw_kernel",),
+    "ce_dh": ("tc::ce_dlogits_kernel", "tc::ce_dh_kernel"), "ce_dw": ("tc::ce_dw_kernel",),
 }
 # the CE head's profiler ranges (ops/fused_ce.py), one per pass
 CE_RANGES = ("fused_ce.fwd", "fused_ce.bwd")
@@ -1597,11 +1601,20 @@ def ce_close(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
     return ok, (err.max().item() if err.numel() else 0.0), atol, rtol
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (a NaN equals a NaN of the
+    same payload, which ``torch.equal`` denies)."""
+    as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
+
+
 def ce_cases(dtype: torch.dtype, flush: torch.Tensor, shape=CE_SHAPE,
              poison: str = "", timed: bool = True) -> list[dict]:
     """ce_fwd, ce_dh and ce_dw against their plain versions on the same
     inputs (the backward from the plain lse, so each kernel is held on its
-    own). ``timed``: each kernel's time beside its bound, its plain
+    own), each with the instance that ran; the backward launched twice,
+    and its dh and dW must be bit-equal (``ok`` is false otherwise).
+    ``timed``: each kernel's time beside its bound, its plain
     version's time and the scan head's (cuBLAS) time as the library
     yardstick: ``_scan_fwd`` for ce_fwd, the whole ``_scan_bwd`` for ce_dh
     and ce_dw. ce_dh's time is the backward's dh half (its launches alone);
@@ -1613,7 +1626,11 @@ def ce_cases(dtype: torch.dtype, flush: torch.Tensor, shape=CE_SHAPE,
     lse, tl = ce.ce_fwd(h, w, tgt)
     ref_lse, ref_tl = ce.ce_fwd_plain(h, w, tgt)
     dh, dw = ce.ce_bwd(h, w, tgt, ref_lse, g)
+    # a second launch on the same inputs: no atomics, a fixed order
+    dh2, dw2 = ce.ce_bwd(h, w, tgt, ref_lse, g)
     torch.cuda.synchronize()
+    bit_equal = bits_equal(dh, dh2) and bits_equal(dw, dw2)
+    del dh2, dw2
     held = {"ce_fwd": [("lse", lse, ref_lse), ("tl", tl, ref_tl)],
             "ce_dh": [("dh", dh, ce.ce_dh_plain(h, w, tgt, ref_lse, g))],
             "ce_dw": [("dW", dw, ce.ce_dw_plain(h, w, tgt, ref_lse, g))]}
@@ -1629,8 +1646,10 @@ def ce_cases(dtype: torch.dtype, flush: torch.Tensor, shape=CE_SHAPE,
         cases.append({
             "name": name, "dtype": str(dtype).replace("torch.", ""), "N": N, "D": D,
             "V": V, "poison": poison, "ok": all(c[0] for c in checks) and poisoned
-            is not False, "max_abs_err": max(c[1] for c in checks),
+            is not False and (name == "ce_fwd" or bit_equal),
+            "max_abs_err": max(c[1] for c in checks), "bit_equal": bit_equal,
             "atol": max(c[2] for c in checks), "rtol": max(c[3] for c in checks),
+            "instance": ce.kernel_instance(name, dtype),
         })
     del dh, dw, held
     if not timed:
@@ -1908,13 +1927,14 @@ def train_ce_phase(card: str, scan: dict) -> dict:
     want.update({f"{n}_plain": 0 for n in list(want)})
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"launches {launches} != {want}")
-    check_tensor_core_path(cfg)
+    instances = check_tensor_core_path(dataclasses.replace(cfg, ce_impl="pallas"))
     timed = [m["step_time_s"] for m in steps[2:]]      # 2 warm-up steps
     step_s = sum(timed) / len(timed)
     tokens = data.global_batch * data.seq_len
     return {
         "losses": losses, "launches": launches, "wall_s": wall, "final": final,
-        "chunks": chunks, "mean_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "chunks": chunks, "instances": instances, "mean_step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s,
         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         **train_profile(dataclasses.replace(cfg, ce_impl="pallas"), data,
                         FLASH_KERNELS + CE_CUDA_KERNELS),
@@ -1923,16 +1943,19 @@ def train_ce_phase(card: str, scan: dict) -> dict:
 
 def check_tensor_core_path(cfg) -> dict[str, str]:
     """The instance each flash kernel (and, for a MoE config, each
-    grouped-matmul kernel) runs at ``cfg``'s dtype, head_dim and row tile,
-    as the built libraries dispatch it; raises unless each is the
-    tensor-core one (wgmma + TMA). The profiles then find every counted
-    launch of these kernels among ``tc::`` events (``KERNEL_EVENTS``)."""
-    from tony_tpu_torch.ops import attention, grouped_mm
+    grouped-matmul kernel; with ``ce_impl="pallas"``, ce_dh and ce_dw)
+    runs at ``cfg``'s dtype, head_dim and row tile, as the built libraries
+    dispatch it; raises unless each is the tensor-core one (wgmma + TMA).
+    The profiles then find every counted launch of these kernels among
+    ``tc::`` events (``KERNEL_EVENTS``)."""
+    from tony_tpu_torch.ops import attention, fused_ce, grouped_mm
 
     got = {n: attention.kernel_instance(n, cfg.dtype, cfg.head_dim) for n in FLASH_KERNELS}
     if cfg.n_experts:
         got.update({n: grouped_mm.kernel_instance(n, cfg.dtype, cfg.moe_group_block)
                     for n in GMM_KERNELS})
+    if cfg.ce_impl == "pallas":
+        got.update({n: fused_ce.kernel_instance(n, cfg.dtype) for n in ("ce_dh", "ce_dw")})
     if any(v != "tensor cores" for v in got.values()):
         raise AssertionError(f"the training path is off its tensor-core instances: {got}")
     return got
@@ -2274,7 +2297,8 @@ def main() -> int:
         for c in ce_cases(dtype, flush):
             ce.append(c)
             lib = "_scan_fwd" if c["name"] == "ce_fwd" else "whole _scan_bwd"
-            log(f"kernel {c['name']} {c['dtype']} N={c['N']} D={c['D']} V={c['V']}: "
+            log(f"kernel {c['name']} {c['dtype']} ({c['instance']}) N={c['N']} D={c['D']} "
+                f"V={c['V']}{' (two launches bit-equal)' if c['bit_equal'] else ''}: "
                 f"max|err| {c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
                 f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms']:.3f} ms "
                 f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: {c['ops']:.4g} ops, "
@@ -2285,14 +2309,22 @@ def main() -> int:
     for poison in ("", "rows", "weight"):
         for c in ce_cases(torch.bfloat16, flush, CE_RAGGED, poison, timed=False):
             ce.append(c)
-            log(f"kernel {c['name']} bf16 ragged N={c['N']} V={c['V']} "
+            log(f"kernel {c['name']} bf16 ({c['instance']}) ragged N={c['N']} V={c['V']} "
                 f"{poison or 'finite'}: max|err| {c['max_abs_err']:.3e} "
                 f"({'ok' if c['ok'] else 'OVER'} atol={c['atol']:.3g} "
                 f"rtol={c['rtol']:.3g})  [{card}]")
     bad = [c for c in ce if not c["ok"]]
     if bad:
-        raise AssertionError(f"CE kernels over tolerance or masks: "
+        raise AssertionError(f"CE kernels over tolerance, masks or bit-equality: "
                              f"{[(c['name'], c['dtype'], c['N'], c['poison']) for c in bad]}")
+    # bf16 dh and dW on wgmma + TMA, the bf16 forward on mma.sync, fp32 scalar
+    want = {("ce_fwd", "bfloat16"): "mma.sync", ("ce_dh", "bfloat16"): "tensor cores",
+            ("ce_dw", "bfloat16"): "tensor cores"}
+    wrong = [(c["name"], c["dtype"], c["instance"]) for c in ce
+             if c["instance"] != want.get((c["name"], c["dtype"]), "scalar")]
+    if wrong:
+        raise AssertionError(f"CE cases on an unexpected instance: {wrong}")
+    log_resources(builds, "fused_ce", 3)
     # 3f: kernel 7 at the reference bench's case (bf16 and fp32), its
     # layer-scanned loop, then Llama-3-8B's shape at G 1 (full rows) and
     # G 5 (ragged rows)
@@ -2404,11 +2436,13 @@ def main() -> int:
         f"({t['tokens_per_s']:.0f}); peak allocated {tc['peak_allocated_gb']:.2f} GB "
         f"({t['peak_allocated_gb']:.2f}); launches ce_fwd {lc['ce_fwd']}, ce_dh "
         f"{lc['ce_dh']}, ce_dw {lc['ce_dw']} ({tc['chunks']} vocab chunks a step), "
-        f"flash {lc['flash_fwd']}/{lc['flash_dq']}/{lc['flash_dkv']}  [{card}]")
+        f"flash {lc['flash_fwd']}/{lc['flash_dq']}/{lc['flash_dkv']} (instances "
+        f"{tc['instances']})  [{card}]")
     log(f"train step ce=pallas under torch.profiler: {tc['profile_step_ms']:.1f} ms "
         f"wall, {tc['profile_device_ms']:.1f} ms device (busy "
-        f"{tc['profile_device_busy']:.1%}); share of device time: "
-        + ", ".join(f"{k} {v:.1%}" for k, v in tc["profile_share"].items())
+        f"{tc['profile_device_busy']:.1%}); share of device time (ms): "
+        + ", ".join(f"{k} {v:.1%} ({v * tc['profile_device_ms']:.2f})"
+                    for k, v in tc["profile_share"].items())
         + f"; CE head {tc['profile_ce_head_ms']:.2f} ms = "
         f"{tc['profile_ce_head_share']:.1%} (phase 5's scan head "
         f"{t['profile_ce_head_ms']:.2f} ms = {t['profile_ce_head_share']:.1%})  [{card}]")

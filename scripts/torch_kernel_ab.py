@@ -2,7 +2,7 @@
 """Time the port's bf16 kernels built from two kernel-source trees on one
 card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant] [--rounds 2]
+    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant|ce] [--rounds 2]
 
 OTHER_CSRC is the ``tony_tpu_torch/csrc`` of another checkout (a parent
 commit unpacked with ``git archive`` into a git-ignored directory). Each
@@ -23,11 +23,18 @@ and Llama-3-8B's G 1, and the bench's 24-call loop. ``--cases quant``
 times the quantized decode kernel with bf16 queries:
 ``chip_smoke.quant_decode_case`` over int8 and fp8 e4m3 pools at G 1, 5
 and the verify step's 16, each with kernel 8's time over the same pools
-dequantized beforehand (``kernel8_ms``). Their C entry points grew a workspace
-argument, so for decode and quant the other side imports the whole
-``tony_tpu_torch`` package of the other checkout (``OTHER_CSRC``'s
-parent's parent), not its csrc/ alone; a package without
-``kernel_instance`` has the scalar CTA body only. Exits non-zero without
+dequantized beforehand (``kernel8_ms``). ``--cases ce`` times the bf16 CE
+backward at bench_1b4's head (``chip_smoke.ce_cases``): the dh half
+(``ce_bwd(..., dw=False)``) and the dW pass over every chunk, each held
+against its plain version and launched twice bit-equal, with the whole
+``_scan_bwd`` beside them (``library_ms``) and the whole kernel backward
+(``whole_bwd_ms``); a library without ``ce_route`` runs the mma.sync
+instances. The decode entry points grew a workspace argument, and a CE
+tree may differ in the wrapper's chunk width, so for decode, quant and ce
+the other side imports the whole ``tony_tpu_torch`` package of the other
+checkout (``OTHER_CSRC``'s parent's parent), not its csrc/ alone; a
+decode package without ``kernel_instance`` has the scalar CTA body
+only. Exits non-zero without
 a card, when a process fails or when a case does not hold its plain
 version.
 """
@@ -48,7 +55,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def measure(csrc: str, cases: str) -> dict:
     """This process's measurement, the kernels built from ``csrc`` ("" for
     this checkout's)."""
-    whole_tree = cases in ("decode", "quant") and csrc
+    whole_tree = cases in ("decode", "quant", "ce") and csrc
     sys.path.insert(0, str(Path(csrc).resolve().parent.parent if whole_tree else ROOT))
     import torch
 
@@ -64,7 +71,8 @@ def measure(csrc: str, cases: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     source = {"gmm": "grouped_mm", "flash": "flash_attention", "moe": "grouped_mm",
-              "decode": "paged_decode_attention", "quant": "paged_decode_attention"}[cases]
+              "decode": "paged_decode_attention", "quant": "paged_decode_attention",
+              "ce": "fused_ce"}[cases]
     out = {"csrc": csrc or "this checkout", "card": chip_smoke.card_line(),
            "resources": chip_smoke.tensor_core_resources(_build.load(source).log)}
     if cases == "moe":
@@ -86,6 +94,9 @@ def measure(csrc: str, cases: str) -> dict:
     flush = torch.empty(chip_smoke.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     if cases in ("decode", "quant"):
         out["cases"] = (decode_cases if cases == "decode" else quant_cases)(chip_smoke, flush)
+        return out
+    if cases == "ce":
+        out["cases"] = ce_cases(chip_smoke, flush, _build.load(source).lib)
         return out
     if cases == "gmm":
         found = chip_smoke.gmm_cases(torch.bfloat16, flush, chip_smoke.gmm_inputs())
@@ -154,10 +165,27 @@ def decode_cases(chip_smoke, flush) -> list[dict]:
     return [{k: c[k] for k in _KEYS} | {"ok": True} for c in found]
 
 
+def ce_cases(chip_smoke, flush, lib) -> list[dict]:
+    """Phase 3e's bf16 ce_dh and ce_dw cases at bench_1b4's head (``ok``
+    false unless each holds its plain version and two backward launches
+    are bit-equal)."""
+    import torch
+
+    from tony_tpu_torch.ops import fused_ce
+
+    if not hasattr(lib, "ce_route"):
+        fused_ce.kernel_instance = (
+            lambda name, dtype: "mma.sync" if dtype == torch.bfloat16 else "scalar")
+    keys = ("name", "instance", "ms", "max_abs_err", "ok", "bit_equal", "library_ms",
+            "whole_bwd_ms")
+    return [{k: c[k] for k in keys} for c in chip_smoke.ce_cases(torch.bfloat16, flush)
+            if c["name"] != "ce_fwd"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", default="", help="the other tree's csrc/")
-    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode", "quant"),
+    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode", "quant", "ce"),
                     default="gmm")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", help=argparse.SUPPRESS)

@@ -1061,3 +1061,88 @@ def test_fused_ce_pallas_autograd_on_card(cuda):
                 "ce_fwd": 1, "ce_dh": 2, "ce_dw": 2}
     for a, b, what in zip(grads["pallas"], grads["scan"], ("loss", "dh", "dW")):
         _ce_close(a, b, torch.bfloat16, what if what != "loss" else "lse")
+
+
+@pytest.mark.cuda
+def test_ce_kernel_instances_on_card(cuda):
+    """The instance each CE kernel runs, as the built library's ce_route
+    dispatches it: bf16 ce_dh and ce_dw on wgmma + TMA, bf16 ce_fwd on
+    mma.sync, float32 scalar."""
+    from tony_tpu_torch.ops.fused_ce import kernel_instance
+
+    assert kernel_instance("ce_dh", torch.bfloat16) == "tensor cores"
+    assert kernel_instance("ce_dw", torch.bfloat16) == "tensor cores"
+    assert kernel_instance("ce_fwd", torch.bfloat16) == "mma.sync"
+    for name in ("ce_fwd", "ce_dh", "ce_dw"):
+        assert kernel_instance(name, torch.float32) == "scalar"
+
+
+@pytest.mark.cuda
+def test_ce_bwd_is_deterministic_on_card(cuda):
+    """Two bf16 ce_bwd launches on the same inputs (three vocab chunks, the
+    last ragged; rows off the 128-row tile) give bit-equal dh and dW: every
+    output element is summed by one thread in a fixed order."""
+    from tony_tpu_torch.ops.fused_ce import ce_bwd, ce_fwd_plain
+
+    h, w, t, g = _ce_case(cuda, torch.bfloat16, 300, 200, 8200, seed=3)
+    lse, _ = ce_fwd_plain(h, w, t)
+    first, second = ce_bwd(h, w, t, lse, g), ce_bwd(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(first[0]) > 0 and torch.count_nonzero(first[1]) > 0
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_ce_tail_chunk_ignores_stale_scratch_on_card(cuda, monkeypatch):
+    """The dlogits scratch is as wide as a full chunk; the tail chunk (1000
+    of its 4096 columns) leaves the rest holding the chunk before. Here
+    that rest is NaN before the tail chunk's ce_dh launch: a dh or dW
+    product that read past the chunk's width would turn NaN. Rows (333)
+    off the tile."""
+    from tony_tpu_torch.ops import fused_ce
+
+    N, D, V = 333, 136, 4096 + 1000
+    h, w, t, g = _ce_case(cuda, torch.bfloat16, N, D, V, seed=7)
+    lse, _ = fused_ce.ce_fwd_plain(h, w, t)
+    chunks = fused_ce.dlogits_chunks(V)
+    assert chunks[-1] == (4096, V)
+    dw_chunk = fused_ce.ce_dw_chunk
+    poisoned = []
+
+    def poison_after(h_, dl, dw_, start, stop):
+        dw_chunk(h_, dl, dw_, start, stop)
+        if stop < V:                  # the scratch the tail chunk inherits
+            dl.fill_(float("nan"))
+            poisoned.append(start)
+
+    monkeypatch.setattr(fused_ce, "ce_dw_chunk", poison_after)
+    dh, dw = fused_ce.ce_bwd(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    assert poisoned == [0]
+    assert bool(torch.isfinite(dh).all()) and bool(torch.isfinite(dw).all())
+    _ce_close(dh, fused_ce.ce_dh_plain(h, w, t, lse, g), torch.bfloat16, "dh")
+    _ce_close(dw, fused_ce.ce_dw_plain(h, w, t, lse, g), torch.bfloat16, "dW")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [(37, 200, 4096 + 264), (129, 200, 1000), (128, 64, 4104)],
+                         ids=["under-a-tile", "just-over-a-tile", "one-tile"])
+def test_ce_bwd_tensor_cores_match_plain_on_card(cuda, N, D, V):
+    """The bf16 backward's wgmma instances at rows under, at and just over
+    the 128-row tile, D off the 64-column box and V off the 256-column
+    tile, against the plain versions (tolerance as ``_ce_close``); one
+    ce_dh and one ce_dw launch per vocab chunk."""
+    from tony_tpu_torch.ops.fused_ce import (
+        LAUNCHES, ce_bwd, ce_dh_plain, ce_dw_plain, ce_fwd_plain, dlogits_chunks,
+        reset_launches,
+    )
+
+    h, w, t, g = _ce_case(cuda, torch.bfloat16, N, D, V, seed=N + D)
+    lse, _ = ce_fwd_plain(h, w, t)
+    reset_launches()
+    dh, dw = ce_bwd(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    chunks = len(dlogits_chunks(V))
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"ce_dh": chunks, "ce_dw": chunks}
+    _ce_close(dh, ce_dh_plain(h, w, t, lse, g), torch.bfloat16, "dh")
+    _ce_close(dw, ce_dw_plain(h, w, t, lse, g), torch.bfloat16, "dW")

@@ -9,14 +9,16 @@
 //                                    (exp(logits - lse) - onehot) g
 //   ce_dw  <- _ce_dw_kernel  (:236)  dW = h^T dlogits, one writer per column
 // and computes what they compute: products of the input type summed in
-// float32, padded vocab columns and rows past N kept out of every sum by
-// select. dlogits are rounded to h's type before the backward's products,
-// as the scan head does (tony_tpu_torch/ops/fused_ce.py _scan_bwd).
+// float32, padded vocab columns and rows past N kept out of every sum.
+// dlogits are rounded to h's type before the backward's products, as the
+// scan head does (tony_tpu_torch/ops/fused_ce.py _scan_bwd). No atomics:
+// every output element is summed by one thread in a fixed order, so two
+// launches are bit-equal.
 //
 // Layouts, all row-major and dense: h [N, D], W [D, V], tgt int32 [N], lse
 // and g float32 [N]; dh like h, dW like W. D and V are multiples of 8 and
 // every pointer is 16-byte aligned (the wrapper checks): operands load 16
-// bytes at a time.
+// bytes at a time, and TMA needs 16-byte row strides.
 //
 // Why not the TPU's blocks. The TPU kernels keep [512, D] (dh) and [D, 512]
 // (dW) float32 accumulators in VMEM across a sequential grid: 4 MB each at
@@ -29,45 +31,58 @@
 //   per 128 rows alone, bench_1b4's 16,384 rows would give 128 CTAs for 132
 //   SMs, so the vocab is split across CTAs (flash-decoding's trick) and a
 //   second, small kernel merges each row's partial (m, s, tl). Both kernels
-//   are one launch of ce_fwd.
+//   are one launch of ce_fwd. bf16 runs mma.sync m16n8k16 on slices of 32
+//   staged as bf16 (8 warps split the 128 x 128 tile 2 x 4); float32 scalar
+//   FMA on slices of 16, 8 x 8 accumulators a thread; both a CTA of 256
+//   threads, two slice buffers deep.
 // - backward, per vocab chunk of Vc columns (the wrapper's loop): ce_dh
 //   recomputes the chunk's logits once and writes dlogits in h's type to a
 //   [N, Vc] scratch (kernel a), then accumulates dh_f32 += dlogits W_c^T
 //   (kernel b; the last chunk writes dh in h's type). ce_dw then writes the
 //   chunk's dW columns once, dW_c = h^T dlogits, from the same scratch. The
 //   logits are recomputed once, where the TPU kernels recompute them in dh
-//   and again in dW.
+//   and again in dW. A cluster-resident dh accumulator does not fit: 128
+//   rows of float32 dh at D 2048 are 1 MB, a whole 8-CTA cluster's shared
+//   memory, and dW would then need a sum across row blocks. Recomputing
+//   dlogits inside the dh product instead would multiply the logits work
+//   by D / 256.
 //
-// Every product is one tiled GEMM loop: a CTA of 256 threads owns a 128 x
-// 128 output tile with float32 accumulators in registers and walks the
-// contraction in staged slices, two buffers deep.
-// - bf16 on the tensor cores: mma.sync m16n8k16 on slices of 32 staged as
-//   bf16, fragments loaded with ldmatrix; 8 warps split the tile 2 x 4.
-// - float32 on scalar FMA: slices of 16, 8 x 8 accumulators a thread.
-// (The tile code is grouped_mm.cu's, copied so that each source builds and
-// hashes on its own.)
+// The bf16 backward (the training path's) runs three GEMMs a chunk on
+// wgmma with TMA staging (namespace tc, the persistent 128 x 256 tile
+// body of sm90.cuh's pgemm, shared with grouped_mm.cu): dlogits = h W_c
+// with an epilogue of exp, onehot and g in registers and a TMA store of
+// the bf16 tile; dh += dl W_c^T with 8-byte float32 read-add-writes of
+// dh's sum (bf16 pairs on the last chunk); dW_c = h^T dl through wgmma's
+// transposed A, a TMA store. The tail chunk's columns past Vc and the
+// rows past N are masked by the tensor maps' extents (see the tc
+// section). float32 keeps one scalar-FMA CTA per 128 x 128 output tile
+// for all three. ce_route says which instance runs.
 //
 // NaN. fmaxf drops a NaN, so a running max built on it never holds one;
 // a NaN logit still reaches its row's s through exp(NaN - m), and the final
 // max(s, 1e-30) keeps a NaN s. A NaN weight therefore reaches every loss,
-// dh and dW, as the TPU kernels let it. The padded-column and padded-row
-// masks are selects on indices and never touch a real value.
+// dh and dW, as the TPU kernels let it; a NaN or inf row reaches its own
+// loss and dh row and, through the sum over rows, every dW entry. The
+// padded-column and padded-row masks are selects on indices or zero-filled
+// loads and never touch a real value.
 //
 // What bounds it on this card: operations. One pass of h W at bench_1b4's
 // shapes (N 16,384, D 2048, V 32,000) is 2.15e12 operations on 0.2 GB of
 // bf16 operands, far above the H100's ~295 operations per byte, so the
 // least time is the operations over the bf16 tensor-core peak (989
 // TFLOP/s): 2.17 ms per pass, one pass in ce_fwd, two in ce_dh, one in
-// ce_dw. mma.sync without TMA or wgmma reaches part of that peak; the
-// float32 path is bounded by the CUDA cores' 67 TFLOP/s. Measured times are
-// in PERF.md.
+// ce_dw. The backward's scratch adds about 1 GB written and 2 GB read, and
+// dh's float32 sum 2 GB of round trips, about 1.5 ms at 3.35 TB/s, partly
+// under the products. mma.sync without TMA or wgmma reaches part of the
+// peak; the float32 path is bounded by the CUDA cores' 67 TFLOP/s.
+// Measured times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -85,9 +100,6 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // ------------------------------------------------ float32: scalar FMA tiles
 // One operand of C[m, n] = sum_k A(m, k) B(k, n), seen along its output dim
@@ -179,7 +191,7 @@ __device__ __forceinline__ void gemm_tile(float (&acc)[8][8], const Operand<A_KC
   }
 }
 
-// ------------------------------------------------ bf16: tensor-core tiles
+// ------------------------------------------------ bf16: mma.sync tiles (ce_fwd)
 constexpr int kHSlice = 32;            // contraction depth per staged slice
 constexpr int kLdK = kHSlice + 8;      // [mn][k] row, elements
 constexpr int kLdMN = kTile + 8;       // [k][mn] row, elements
@@ -510,6 +522,7 @@ __global__ void ce_fwd_merge_kernel(const float* __restrict__ part,
   tl[row] = t >= 0 && t < V ? part[2 * plane + (long long)(t / kTile / tps) * N + row] : 0.f;
 }
 
+// The float32 backward (bf16 runs the tc section's instances).
 // backward (a): dl[row, v] = (exp(logit - lse) - onehot) g for the chunk's
 // columns v in [0, vc) (global column c0 + v), rounded to T
 template <typename T>
@@ -590,7 +603,256 @@ ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ dl, T* __restrict__ 
   }
 }
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ------------------------------ bf16 backward: wgmma + TMA, three GEMMs a chunk
+// Each product is pgemm's persistent 128 x 256 tile GEMM (sm90.cuh, the
+// body of grouped_mm.cu's kernels): out [M, Nc] = A [M, K] B [K, Nc],
+// tiles walked columns fastest. Every operand and output goes through a
+// 2-D tensor map of [64][64] boxes, (inner, outer) coordinates:
+//   h  (D, N)      row stride D
+//   W_c (vc, D)    row stride V, from column c0: the chunk's columns
+//   dl (vc, N)     row stride ldl: the chunk's dlogits, width vc
+//   dW_c (vc, D)   row stride V, from column c0
+// A and B are read K-major (coordinates (k, mn)) or MN-major ((mn, k)).
+// The maps are as wide and as tall as the tensor's real part, so TMA
+// zero-fills every element a box reads past it and clips every store:
+// - columns past vc (the tail chunk): W_c and dl read as 0, so the dh
+//   product never sees the scratch's stale columns from the chunk before,
+//   and dlogits' columns there (exp(0 - lse) g, not 0) are never stored;
+// - rows past N: h and dl read as 0, so dW's contraction over rows adds
+//   exact zeros there; dlogits and dh never store them.
+// Boxes wholly past the output's edge are not loaded; the outputs that
+// read their stale stage are past the edge too and never stored.
+
+namespace tc {
+
+using namespace pgemm;
+
+// Four stages: a stage's load is issued about 2.5 slices' products
+// (about 1.4 µs at the peak rate) before the consumers need it, against
+// about 1.5 with three, which left the loads' latency exposed (PERF.md).
+// Beside them each warpgroup stages half its output tile (64 x 128 bf16)
+// at a time for the TMA store: 1 KB to align to 1024, 192 KB of ring,
+// 32 KB of staging
+constexpr int kStages = 4;
+constexpr int kYBytes = 2 * kBox;   // one warpgroup's 64 x 128 bf16
+constexpr int kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kYBytes;
+
+enum Epilogue { kDlogits, kDh, kDw };
+
+// what the epilogues read beside the tile: the rows' target, lse and g
+// (dlogits), dh's float32 sum and its bf16 output (dh)
+struct Rows {
+  const int* tgt;
+  const float* lse;
+  const float* g;
+  float* acc;
+  __nv_bfloat16* dh;
+  int c0, first, last;
+};
+
+// (pred ? *p : 0) as one predicated 8-byte load
+__device__ __forceinline__ float2 ld_pair_if(bool pred, const float* p) {
+  float2 v;
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\nmov.f32 %0, 0f00000000;\n"
+      "mov.f32 %1, 0f00000000;\n@q ld.global.v2.f32 {%0, %1}, [%3];\n}\n"
+      : "=f"(v.x), "=f"(v.y)
+      : "r"((int)pred), "l"(p)
+      : "memory");
+  return v;
+}
+
+// the bf16 pair v to p where pred holds, as one predicated 4-byte store
+__device__ __forceinline__ void st_b32_if(bool pred, void* p, uint32_t v) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.global.b32 [%1], %2;\n}\n" ::"r"(
+                   (int)pred),
+               "l"(p), "r"(v)
+               : "memory");
+}
+
+// out = A B, A read K-major (TA 0) or MN-major (1), B likewise (TB);
+// epilogue EPI: kDlogits and kDw round the tile to bf16
+// (dlogits after (exp(x - lse) - onehot) g) into a swizzled staging tile
+// and TMA store it through omap; kDh adds it to dh's float32 sum.
+template <int TA, int TB, int EPI>
+__device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtensorMap& bmap,
+                                           const CUtensorMap& omap, int M, int Nc, int K,
+                                           const Rows& p) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  const uint32_t sA = (saddr(smem) + 1023) & ~1023u, sB = sA + kStages * kABytes;
+  const uint32_t sY = sB + kStages * kBBytes;
+  const Ring<kStages> ring{saddr(bars), saddr(bars) + 8 * kStages};
+  const int n_cols = cdiv(Nc, kCols), tiles = cdiv(M, kRows) * n_cols, nk = cdiv(K, kDepth);
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      int it = 0;                                  // slices loaded, over all tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
+        // 64-wide boxes of A's rows and B's columns, those wholly past M or
+        // Nc not loaded
+        const int na = min(kRows / kHalf, cdiv(M - m0, kHalf));
+        const int nb = min(kCols / kHalf, cdiv(Nc - n0, kHalf));
+        for (int t = 0; t < nk; ++t, ++it) {
+          const int s = it % kStages, k = t * kDepth;
+          const uint32_t full = ring.acquire(it, (na + nb) * kBox);
+          for (int q = 0; q < na; ++q) {
+            const int m = m0 + q * kHalf;
+            tma_load(sA + s * kABytes + q * kBox, amap, full, TA ? m : k, TA ? k : m);
+          }
+          for (int q = 0; q < nb; ++q) {
+            const int n = n0 + q * kHalf;
+            tma_load(sB + s * kBBytes + q * kBox, bmap, full, TB ? n : k, TB ? k : n);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32, t4 = lane % 4;
+  const uint32_t sYw = sY + cw * kYBytes;         // its staging tile
+  const int rr = 16 * (tid / 32) + lane / 4;      // its rows rr and rr + 8 there
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
+    // acc[j][4 i + c]: row m0 + 64 cw + rr (+ 8 for c >= 2), column n0 +
+    // 128 j + 8 i + 2 t4 (+ 1 for odd c)
+    const int row = m0 + 64 * cw + rr;
+    float acc[kCols / 128][64];
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) zero(acc[j]);
+    // its 64 rows of each A slice: box cw
+    mainloop<kStages, TA, TB>(acc, ring, it, nk, sA + cw * kBox, sB);
+
+    if constexpr (EPI == kDh) {
+      // dh = (first ? 0 : acc) + tile: float32 pairs back to acc, or on the
+      // last chunk bf16 pairs to dh; every access predicated, none
+      // branched. Nc (D) is a multiple of 8, so a pair is wholly inside or
+      // past it. kBatch column groups' sums are loaded before any of them
+      // is stored, so 2 kBatch reads are in flight at once (each pair is
+      // read and written by its own thread alone)
+      constexpr int kBatch = 4;
+      const long long at = (long long)row * Nc + n0 + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j)
+#pragma unroll
+        for (int i0 = 0; i0 < 16; i0 += kBatch) {
+          float2 s[kBatch][2];
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = 128 * j + 8 * (i0 + b);
+              const bool in = row + 8 * h < M && n0 + c < Nc;
+              s[b][h] = ld_pair_if(in && !p.first, p.acc + at + 8LL * h * Nc + c);
+            }
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = 128 * j + 8 * (i0 + b), e = 4 * (i0 + b) + 2 * h;
+              const bool in = row + 8 * h < M && n0 + c < Nc;
+              const long long o = at + 8LL * h * Nc + c;
+              const float x = s[b][h].x + acc[j][e], y = s[b][h].y + acc[j][e + 1];
+              st_pair_if(in && !p.last, p.acc + o, x, y);
+              st_b32_if(in && p.last, p.dh + o, pack_bf16(x, y));
+            }
+        }
+    } else {
+      if constexpr (EPI == kDlogits) {
+        // its rows' lse, g and target column (relative to its first
+        // column), loaded here and not before the main loop: held across
+        // it they make ptxas spill (168 registers a thread at 288 threads,
+        // 3 warps on one SM sub-partition); rows past M read row M - 1's
+        // (never stored)
+        float l[2], g[2];
+        int want[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = min(row + 8 * h, M - 1);
+          l[h] = p.lse[r];
+          g[h] = p.g[r];
+          want[h] = p.tgt[r] - p.c0 - n0 - 2 * t4;
+        }
+#pragma unroll
+        for (int j = 0; j < kCols / 128; ++j)
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int h = c >> 1, col = 128 * j + 8 * i + (c & 1);
+              float& x = acc[j][4 * i + c];
+              x = (expf(x - l[h]) - (col == want[h] ? 1.f : 0.f)) * g[h];
+            }
+      }
+      // each 128-column half j in turn: columns 8 i + 2 t4 (+ 1) into box
+      // i / 8, 16-byte chunk i % 8 of a row swizzled by the row (128B:
+      // chunk ^ row % 8), then TMA stored; the map clips rows past M and
+      // columns past Nc
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j) {
+        if (tid == 0) bulk_wait_read();           // the last stores read sYw
+        named_sync(1 + cw, 128);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const uint32_t at = sYw + (i / 8) * kBox + (((i % 8) ^ (rr % 8)) << 4) + 4 * t4;
+          st_shared(at + rr * 128, pack_bf16(acc[j][4 * i], acc[j][4 * i + 1]));
+          st_shared(at + (rr + 8) * 128, pack_bf16(acc[j][4 * i + 2], acc[j][4 * i + 3]));
+        }
+        fence_async_smem();
+        named_sync(1 + cw, 128);
+        if (tid == 0 && m0 + 64 * cw < M) {
+          for (int q = 0; q < 2 && n0 + 128 * j + q * kHalf < Nc; ++q)
+            tma_store(omap, sYw + q * kBox, n0 + 128 * j + q * kHalf, m0 + 64 * cw);
+          bulk_commit();
+        }
+      }
+    }
+  }
+  if (EPI != kDh && tid == 0) bulk_wait();        // the stores are done before exit
+}
+
+// backward (a): dl [N, vc] = (exp(h W_c - lse) - onehot) g in bf16.
+// A = h (m = row, k = d) K-major; B = W_c (k = d, n = v) MN-major
+__global__ void __launch_bounds__(kThreads, 1)
+ce_dlogits_kernel(const __grid_constant__ CUtensorMap hmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap dlmap, const int* __restrict__ tgt,
+                  const float* __restrict__ lse, const float* __restrict__ g, int N, int D,
+                  int c0, int vc) {
+  tiles_body<0, 1, kDlogits>(hmap, wmap, dlmap, N, vc, D,
+                                      Rows{tgt, lse, g, nullptr, nullptr, c0, 0, 0});
+}
+
+// backward (b): acc (+)= dl W_c^T, or dh = bf16(acc + dl W_c^T) on the last
+// chunk. A = dl (m = row, k = v) K-major; B = W_c (k = v, n = d) K-major:
+// W's rows read along their contiguous v, the transpose taken in place
+__global__ void __launch_bounds__(kThreads, 1)
+ce_dh_kernel(const __grid_constant__ CUtensorMap dlmap,
+             const __grid_constant__ CUtensorMap wmap, float* __restrict__ acc,
+             __nv_bfloat16* __restrict__ dh, int N, int D, int vc, int first, int last) {
+  tiles_body<0, 0, kDh>(dlmap, wmap, dlmap, N, D, vc,
+                                   Rows{nullptr, nullptr, nullptr, acc, dh, 0, first, last});
+}
+
+// dW_c [D, vc] = h^T dl. A = h (m = d, k = row) MN-major (wgmma's
+// transposed A); B = dl (k = row, n = v) MN-major. One CTA sums a tile
+// over all N rows in a fixed order: no atomics, each column written once
+__global__ void __launch_bounds__(kThreads, 1)
+ce_dw_kernel(const __grid_constant__ CUtensorMap hmap,
+             const __grid_constant__ CUtensorMap dlmap,
+             const __grid_constant__ CUtensorMap dwmap, int N, int D, int vc) {
+  tiles_body<1, 1, kDw>(hmap, dlmap, dwmap, D, vc, N, Rows{});
+}
+
+}  // namespace tc
 
 template <typename T>
 int fwd(const void* h, const void* w, const void* tgt, void* part, void* lse, void* tl,
@@ -632,19 +894,83 @@ int dw(const void* h, const void* dl, void* dw_out, int N, int D, int V, int c0,
   return (int)cudaGetLastError();
 }
 
+// a bf16 [outer][inner] tensor with row stride ld as a map of [64][64]
+// boxes (see the tc section): 0, kNoEncoder or kBadMap
+int map2(CUtensorMap* map, const void* p, int inner, int outer, long long ld) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const long long strides[1] = {ld};
+  const cuuint32_t box[2] = {(cuuint32_t)tc::kHalf, (cuuint32_t)tc::kHalf};
+  return encode_map<2>(map, p, dims, strides, box);
+}
+
+// kernel on a persistent grid of at most one CTA per SM over `tiles` tiles
+template <typename Kernel, typename... Args>
+int launch_tc(Kernel kernel, int smem, int tiles, cudaStream_t stream, const Args&... args) {
+  int sms = 0;
+  const cudaError_t err = prepare(kernel, smem, &sms);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<tiles < sms ? tiles : sms, tc::kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+int dh_tc(const void* h, const void* w, const void* tgt, const void* lse, const void* g,
+          void* dl, void* acc, void* dh_out, int N, int D, int V, int c0, int vc, int ldl,
+          int first, int last, cudaStream_t stream) {
+  CUtensorMap hm, wm, dlm;
+  int e = map2(&hm, h, D, N, D);
+  if (!e) e = map2(&wm, static_cast<const __nv_bfloat16*>(w) + c0, vc, D, V);
+  if (!e) e = map2(&dlm, dl, vc, N, ldl);
+  if (!e)
+    e = launch_tc(tc::ce_dlogits_kernel, tc::kSmem, cdiv(N, tc::kRows) * cdiv(vc, tc::kCols),
+                  stream, hm, wm, dlm, static_cast<const int*>(tgt),
+                  static_cast<const float*>(lse), static_cast<const float*>(g), N, D, c0, vc);
+  if (!e)
+    e = launch_tc(tc::ce_dh_kernel, tc::kSmem, cdiv(N, tc::kRows) * cdiv(D, tc::kCols),
+                  stream, dlm, wm, static_cast<float*>(acc),
+                  static_cast<__nv_bfloat16*>(dh_out), N, D, vc, first, last);
+  return e;
+}
+
+int dw_tc(const void* h, const void* dl, void* dw_out, int N, int D, int V, int c0, int vc,
+          int ldl, cudaStream_t stream) {
+  CUtensorMap hm, dlm, dwm;
+  int e = map2(&hm, h, D, N, D);
+  if (!e) e = map2(&dlm, dl, vc, N, ldl);
+  if (!e) e = map2(&dwm, static_cast<__nv_bfloat16*>(dw_out) + c0, vc, D, V);
+  if (!e)
+    e = launch_tc(tc::ce_dw_kernel, tc::kSmem, cdiv(D, tc::kRows) * cdiv(vc, tc::kCols),
+                  stream, hm, dlm, dwm, N, D, vc);
+  return e;
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float32, 1 =
 // bfloat16 (h, W, dl, dh and dW share it; tgt is int32, lse, g, tl and the
-// partials float32). Each returns the cudaError_t of its launches (0 =
-// launched), or -1 for a dtype it has no instance for.
+// partials float32). D and V must be multiples of 8, ldl too, and every
+// pointer 16-byte aligned (the wrapper checks; TMA needs the same of the
+// tensor-core instances' maps). Each returns the cudaError_t of its
+// launches (0 = launched), -1 for a dtype it has no instance for, -2 when
+// libcuda has no cuTensorMapEncodeTiled, -3 when it refuses a tensor map.
+
+// Which instance a kernel (0 ce_fwd, 1 ce_dh, 2 ce_dw) runs for dtype: 2
+// the tensor-core instances (wgmma + TMA: bf16 dh and dW), 1 the mma.sync
+// tiles (bf16 ce_fwd), 0 scalar FMA (float32), -1 none. The entry points
+// dispatch by it.
+extern "C" int ce_route(int kernel, int dtype) {
+  if (kernel < 0 || kernel > 2 || (dtype != 0 && dtype != 1)) return -1;
+  if (dtype == 0) return 0;
+  return kernel == 0 ? 1 : 2;
+}
 
 // lse, tl [N]; part: float32 scratch of 3 * splits * N
 extern "C" int ce_fwd(const void* h, const void* w, const void* tgt, void* part, void* lse,
                       void* tl, int N, int D, int V, int splits, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return fwd<__nv_bfloat16>(h, w, tgt, part, lse, tl, N, D, V, splits, s);
-  if (dtype == 0) return fwd<float>(h, w, tgt, part, lse, tl, N, D, V, splits, s);
+  switch (ce_route(0, dtype)) {
+    case 1: return fwd<__nv_bfloat16>(h, w, tgt, part, lse, tl, N, D, V, splits, s);
+    case 0: return fwd<float>(h, w, tgt, part, lse, tl, N, D, V, splits, s);
+  }
   return -1;
 }
 
@@ -656,12 +982,13 @@ extern "C" int ce_dh(const void* h, const void* w, const void* tgt, const void* 
                      int c0, int vc, int ldl, int first, int last, int dtype,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dh<__nv_bfloat16>(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl,
-                             first, last, s);
-  if (dtype == 0)
-    return dh<float>(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl, first,
-                     last, s);
+  switch (ce_route(1, dtype)) {
+    case 2:
+      return dh_tc(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl, first, last, s);
+    case 0:
+      return dh<float>(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl, first,
+                       last, s);
+  }
   return -1;
 }
 
@@ -669,7 +996,9 @@ extern "C" int ce_dh(const void* h, const void* w, const void* tgt, const void* 
 extern "C" int ce_dw(const void* h, const void* dl, void* dw_out, int N, int D, int V,
                      int c0, int vc, int ldl, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dw<__nv_bfloat16>(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
-  if (dtype == 0) return dw<float>(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
+  switch (ce_route(2, dtype)) {
+    case 2: return dw_tc(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
+    case 0: return dw<float>(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
+  }
   return -1;
 }

@@ -444,14 +444,8 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 namespace tc {
 
-constexpr int kThreads = 288;     // warpgroups 0 and 1 consume, warp 8 produces
-constexpr int kConsumers = 256;
-constexpr int kRows = 128;        // output rows of a tile, 64 per consumer warpgroup
-constexpr int kCols = 256;        // output columns of a tile
-constexpr int kDepth = 64;        // contraction depth of a stage: one swizzled row
-constexpr int kBox = 64 * 128;    // one [64][64] bf16 box in 128B swizzle, bytes
-constexpr int kABytes = 2 * kBox; // A slice: 128 x 64
-constexpr int kBBytes = kCols / kHalf * kBox;  // B slice: 64 x 256
+using namespace pgemm;            // the tile, the ring and the main loop (sm90.cuh)
+
 constexpr int kStages = 3;        // rows_tile: the ring, beside two staging tiles
 constexpr int kYBytes = kCols / kHalf * kBox;  // one warpgroup's 64 x 256 bf16
 // 1 KB to align to 1024
@@ -463,85 +457,6 @@ constexpr int kDwSmem = 1024 + kDwStages * (kABytes + kBBytes);
 // give each group, which lie inside the buffer (the mma.sync instance
 // reads by them too)
 constexpr cuuint64_t kMapRows = 0x7fffffff;
-
-// The ring of kS stages: full[s] completes when stage s's loads land, empty[s]
-// when the 256 consumer threads have released it. Slice `it` (counted over
-// all tiles) uses stage it % kS in phase it / kS.
-template <int kS>
-struct Ring {
-  uint32_t full, empty;
-
-  __device__ __forceinline__ void init() const {
-    for (int s = 0; s < kS; ++s) {
-      bar_init(full + 8 * s, 1);
-      bar_init(empty + 8 * s, kConsumers);
-    }
-    init_done();
-  }
-  // producer: wait until slice it's stage is free, announce its bytes and
-  // return the barrier its loads complete on
-  __device__ __forceinline__ uint32_t acquire(int it, uint32_t bytes) const {
-    const int s = it % kS;
-    bar_wait(empty + 8 * s, ((it / kS) & 1) ^ 1);
-    bar_expect(full + 8 * s, bytes);
-    return full + 8 * s;
-  }
-  __device__ __forceinline__ void wait(int it) const {
-    bar_wait(full + 8 * (it % kS), (it / kS) & 1);
-  }
-  __device__ __forceinline__ void release(int it) const { bar_arrive(empty + 8 * (it % kS)); }
-};
-
-// the pair (a, b) to p where pred holds, as one predicated store: the
-// accumulators are read on the path every thread takes (see mainloop)
-__device__ __forceinline__ void st_pair_if(bool pred, float* p, float a, float b) {
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.global.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
-          (int)pred),
-      "l"(p), "f"(a), "f"(b)
-      : "memory");
-}
-
-// descriptor of k-step kk (16 deep) of a swizzled tile: K-major (T 0) moves
-// 32 bytes along the rows, MN-major (T 1) 16 rows, its 64-wide halves kBox
-// apart
-template <int T>
-__device__ __forceinline__ uint64_t step_desc(uint32_t addr, int kk) {
-  return T ? desc(addr + kk * 16 * 128, kBox) : desc(addr + kk * 32, 16);
-}
-
-// acc += nk slices from slice it on (it advances past them): this
-// warpgroup's A of stage 0 at a, B of stage 0 at b (stage s kABytes and
-// kBBytes further); A and B K-major (0) or MN-major (1)
-template <int kS, int TA, int TB>
-__device__ __forceinline__ void mainloop(float (&acc)[kCols / 128][64], const Ring<kS>& ring,
-                                         int& it, int nk, uint32_t a, uint32_t b) {
-  for (int t = 0; t < nk; ++t, ++it) {
-    const int s = it % kS;
-    ring.wait(it);
-#pragma unroll
-    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kDepth / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < kCols / 128; ++j)
-        mma_ss<128, TB, TA>(acc[j], step_desc<TA>(a + s * kABytes, kk),
-                            step_desc<TB>(b + s * kBBytes + j * 2 * kBox, kk), 1);
-    wg_commit();
-    wg_wait<1>();                                 // slice t - 1's products are done
-#pragma unroll
-    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
-    if (t > 0) ring.release(it - 1);
-  }
-  // outside any branch: nk may differ between tiles (gmm_dw), and ptxas
-  // serializes every wgmma of a kernel that touches its accumulators on a
-  // path it cannot prove uniform (C7518)
-  wg_wait<0>();
-#pragma unroll
-  for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
-  if (nk > 0) ring.release(it - 1);
-}
 
 // gmm_fwd (BK false: a = x, K = D, M = F) and gmm_dx (BK true: a = dy,
 // K = F, M = D): out [N, M] = each 128-row tile of a [N, K] times w[g],
@@ -749,18 +664,6 @@ gmm_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   // A(m = d, k = row) = x[row, d] (MC); B(k = row, n = f) = dy[row, f] (MC)
   gemm<T, false, false>(x, D, m0, D, dy, F, n0, F, k_begin, k_end,
                         dw + (long long)g * D * F, F);
-}
-
-// the current device's SMs, after raising kernel's dynamic shared memory
-// to smem bytes
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem, int* sms) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
 }
 
 // bf16 a [N, K], w [G, D, F] and out [N, M] as tensor maps (TMA boxes of 64

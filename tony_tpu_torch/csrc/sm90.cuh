@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu and grouped_mm.cu: mbarriers, TMA loads, shared-memory
-// matrix descriptors and the wgmma forms they use, and the host-side lookup
-// of cuTensorMapEncodeTiled. Each .cu file includes it and compiles on its
-// own (ops/_build.py hashes this header with every source).
+// flash_attention.cu, grouped_mm.cu and fused_ce.cu: mbarriers, TMA loads,
+// shared-memory matrix descriptors and the wgmma forms they use, the
+// persistent 128 x 256 tile GEMM's ring and main loop (pgemm), and the
+// host-side lookup of cuTensorMapEncodeTiled. Each .cu file includes it
+// and compiles on its own (ops/_build.py hashes this header with every
+// source).
 //
 // Conventions. Tiles live in shared memory in 128-byte swizzle: rows of 64
 // bf16 (kHalf), a wider tile stored as 64-column halves one after the
@@ -129,6 +131,17 @@ __device__ __forceinline__ void bulk_wait_read() {
 // wait until this thread's bulk groups are complete
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the pair (a, b) to p where pred holds, as one predicated store: a
+// kernel reads its wgmma accumulators on the path every thread takes (see
+// pgemm::mainloop), so its epilogue predicates stores instead of branching
+__device__ __forceinline__ void st_pair_if(bool pred, float* p, float a, float b) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.global.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
+          (int)pred),
+      "l"(p), "f"(a), "f"(b)
+      : "memory");
 }
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
@@ -299,6 +312,96 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
+// --- the persistent 128 x 256 tile GEMM (grouped_mm.cu's three kernels,
+// fused_ce.cu's backward). A persistent grid, one CTA of 288 threads per
+// SM, walks 128 x 256 output tiles. Warpgroups 0 and 1 own 64 output rows
+// each; warp 8 produces: one thread keeps a ring of TMA loads in flight
+// across tiles, each stage a 64-deep slice of both operands in 128-byte
+// swizzle, A 128 x 64 (16 KB) and B 64 x 256 (32 KB). Per slice each
+// consumer issues 4 x 2 wgmma m64n128k16 (A and B from shared memory),
+// keeps one slice's products in flight and releases the stage before it.
+namespace pgemm {
+
+constexpr int kThreads = 288;     // warpgroups 0 and 1 consume, warp 8 produces
+constexpr int kConsumers = 256;
+constexpr int kRows = 128;        // output rows of a tile, 64 per consumer warpgroup
+constexpr int kCols = 256;        // output columns of a tile
+constexpr int kDepth = 64;        // contraction depth of a stage: one swizzled row
+constexpr int kBox = 64 * 128;    // one [64][64] bf16 box in 128B swizzle, bytes
+constexpr int kABytes = 2 * kBox; // A slice: 128 x 64
+constexpr int kBBytes = kCols / kHalf * kBox;  // B slice: 64 x 256
+
+// The ring of kS stages: full[s] completes when stage s's loads land, empty[s]
+// when the 256 consumer threads have released it. Slice `it` (counted over
+// all tiles) uses stage it % kS in phase it / kS.
+template <int kS>
+struct Ring {
+  uint32_t full, empty;
+
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < kS; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, kConsumers);
+    }
+    init_done();
+  }
+  // producer: wait until slice it's stage is free, announce its bytes and
+  // return the barrier its loads complete on
+  __device__ __forceinline__ uint32_t acquire(int it, uint32_t bytes) const {
+    const int s = it % kS;
+    bar_wait(empty + 8 * s, ((it / kS) & 1) ^ 1);
+    bar_expect(full + 8 * s, bytes);
+    return full + 8 * s;
+  }
+  __device__ __forceinline__ void wait(int it) const {
+    bar_wait(full + 8 * (it % kS), (it / kS) & 1);
+  }
+  __device__ __forceinline__ void release(int it) const { bar_arrive(empty + 8 * (it % kS)); }
+};
+
+// descriptor of k-step kk (16 deep) of a swizzled tile: K-major (T 0) moves
+// 32 bytes along the rows, MN-major (T 1) 16 rows, its 64-wide halves kBox
+// apart
+template <int T>
+__device__ __forceinline__ uint64_t step_desc(uint32_t addr, int kk) {
+  return T ? desc(addr + kk * 16 * 128, kBox) : desc(addr + kk * 32, 16);
+}
+
+// acc += nk slices from slice it on (it advances past them): this
+// warpgroup's A of stage 0 at a, B of stage 0 at b (stage s kABytes and
+// kBBytes further); A and B K-major (0) or MN-major (1)
+template <int kS, int TA, int TB>
+__device__ __forceinline__ void mainloop(float (&acc)[kCols / 128][64], const Ring<kS>& ring,
+                                         int& it, int nk, uint32_t a, uint32_t b) {
+  for (int t = 0; t < nk; ++t, ++it) {
+    const int s = it % kS;
+    ring.wait(it);
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j)
+        mma_ss<128, TB, TA>(acc[j], step_desc<TA>(a + s * kABytes, kk),
+                            step_desc<TB>(b + s * kBBytes + j * 2 * kBox, kk), 1);
+    wg_commit();
+    wg_wait<1>();                                 // slice t - 1's products are done
+#pragma unroll
+    for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+    if (t > 0) ring.release(it - 1);
+  }
+  // outside any branch: nk may differ between tiles (gmm_dw), and ptxas
+  // serializes every wgmma of a kernel that touches its accumulators on a
+  // path it cannot prove uniform (C7518)
+  wg_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kCols / 128; ++j) hold(acc[j]);
+  if (nk > 0) ring.release(it - 1);
+}
+
+}  // namespace pgemm
+
 }  // namespace tc
 
 // --- host: tensor maps
@@ -344,6 +447,18 @@ int encode_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[R],
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kBadMap;
+}
+
+// the current device's SMs, after raising kernel's dynamic shared memory
+// to smem bytes
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem, int* sms) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 }  // namespace

@@ -34,7 +34,10 @@ at first use by ``ops/_build.py``:
   scratch, then ``dh += dlogits W_c^T`` in float32;
 - ``ce_dw``: the chunk's dW columns, ``h^T dlogits``, from that scratch.
 
-CUDA tensors launch them or raise; CPU tensors take the plain versions
+bfloat16 ``ce_dh`` and ``ce_dw`` run on wgmma with TMA staging, bfloat16
+``ce_fwd`` on mma.sync, float32 on scalar FMA (:func:`kernel_instance`
+says which, from the library's ``ce_route``). CUDA tensors launch the
+routed instance or raise; CPU tensors take the plain versions
 :func:`ce_fwd_plain`, :func:`ce_dh_plain` and :func:`ce_dw_plain`, which
 walk the reference's ``block_v`` vocab tiles (and ``block_n`` row blocks
 for dW's sum) and which the tests hold against the reference. The kernels
@@ -50,6 +53,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from tony_tpu_torch.ops._build import TMA_ERRORS, load
+
 _NEG = -0.7 * torch.finfo(torch.float32).max
 # the pallas path's tile defaults (the reference's _BLOCK_N / _BLOCK_V)
 _BLOCK_N = 512
@@ -62,6 +67,9 @@ LAUNCHES: dict[str, int] = {
 }
 _SOURCE = "fused_ce"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_CODES = {"ce_fwd": 0, "ce_dh": 1, "ce_dw": 2}
+_INSTANCES = {2: "tensor cores", 1: "mma.sync", 0: "scalar"}
+_ERRORS = {-1: "no instance for this dtype", **TMA_ERRORS}
 _TILE = 128                 # the kernels' tile (csrc/fused_ce.cu kTile)
 _MAX_GRID_Y = 65535         # CUDA's grid.y limit: row blocks of 128
 _DL_COLS = 4096             # vocab columns per backward chunk (dlogits scratch)
@@ -227,8 +235,6 @@ def ce_dw_plain(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor, lse: torch.
 @functools.cache
 def _kernels():
     """The three C entry points, built and bound on first use."""
-    from tony_tpu_torch.ops._build import load
-
     lib = load(_SOURCE).lib
     p, i = ctypes.c_void_p, ctypes.c_int
     sigs = {"ce_fwd": [p] * 6 + [i] * 5 + [p],
@@ -243,9 +249,23 @@ def _kernels():
     return fns
 
 
+def kernel_instance(name: str, dtype: torch.dtype) -> str:
+    """Which CUDA instance ``name`` (ce_fwd, ce_dh or ce_dw) runs for
+    ``dtype``, as the built library dispatches it: ``"tensor cores"``
+    (wgmma + TMA), ``"mma.sync"`` or ``"scalar"`` (float32 FMA). Builds
+    the library on first use, so it needs nvcc."""
+    route = load(_SOURCE).lib.ce_route
+    route.argtypes = [ctypes.c_int] * 2
+    route.restype = ctypes.c_int
+    got = route(_KERNEL_CODES[name], _DTYPE_CODES.get(dtype, -1))
+    if got < 0:
+        raise ValueError(f"{name} has no instance for {dtype}")
+    return _INSTANCES[got]
+
+
 def _ready(t: torch.Tensor) -> torch.Tensor:
     """``t`` dense and 16-byte aligned (the kernels load 16 bytes at a
-    time), copied only where it is not."""
+    time, and TMA needs aligned bases), copied only where it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -253,7 +273,7 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
 def _launch(name: str, *args: int, device: torch.device) -> None:
     err = _kernels()[name](*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: {_ERRORS.get(err, f'cudaError {err}')}")
     LAUNCHES[name] += 1
 
 
@@ -438,5 +458,5 @@ def reference_ce_tokens(h: torch.Tensor, w: torch.Tensor,
 __all__ = [
     "LAUNCHES", "ce_bwd", "ce_dh_plain", "ce_dw_chunk", "ce_dw_plain", "ce_fwd",
     "ce_fwd_plain", "dlogits_chunks", "f32_matmul_route", "fused_ce_tokens",
-    "reference_ce_tokens", "reset_launches",
+    "kernel_instance", "reference_ce_tokens", "reset_launches",
 ]

@@ -44,14 +44,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with the instance that ran (every bf16 case on the tensor cores, the
    split body of kernel 8 over one-byte tiles; fp32 scalar); and the
    int8 dequant-matmul kernel at each of the decode step's five weight
-   shapes, 8 slots, bf16 and fp32; then (3e) the fused cross-entropy
+   shapes, bf16 at 8 rows (the decode step) and 16 and 128 (verify steps),
+   fp32 at 8, each with its instance (bf16 on the tensor cores, fp32
+   scalar) and, in bf16, its rows bit-equal to calls of 8 rows and of one,
+   the five tensor-core instances' registers and spills, and the cases
+   summed per step at each M; then (3e) the fused cross-entropy
    kernels (ce_fwd, ce_dh, ce_dw) against theirs at bench_1b4's loss head
    (16,384 rows, D 2048, V 32,000) in bf16 and fp32, and at a ragged shape
    (rows and vocab off the tiles) finite, with a NaN and an inf row and
-   with a NaN weight, each case with the instance that ran (bf16 ce_dh and
-   ce_dw on wgmma with TMA staging, the bf16 forward on mma.sync, fp32
-   scalar), the backward launched twice and held bit-equal, and the three
-   tensor-core instances' registers and spills; then (3f) the
+   with a NaN weight, each case with the instance that ran (bf16 on wgmma
+   with TMA staging, fp32 scalar), the backward launched twice and held
+   bit-equal, and the four tensor-core instances' registers and spills;
+   then (3f) the
    contiguous-cache decode kernel (kernel 7) against its plain version at the reference bench's decode
    case (bench_1b4 with 4 kv heads: 8 rows of a full 1024-position cache,
    block 128) in bf16 and fp32 and at Llama-3-8B's shape (T 2048) at G 1
@@ -86,7 +90,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (the limit from the bf16 noise and the spec-off run's own trail,
    ``spec_serve_phase``); tokens/s per slot, tokens per step, accept rate
    and the on/off ratio are printed, and the batch-8 verify step's
-   breakdown, bf16 and quantized. Then a 2-layer
+   breakdown, bf16 and quantized (the dequant-matmul's ms a step). Then a
+   2-layer
    cross-check of the quantized engine on the card against the same
    engine on the CPU (plain versions);
 5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
@@ -99,8 +104,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    under torch.profiler, and a 2-layer cross-check of one train step with
    the kernels against plain attention. Then (5b) the same fit() with
    ``ce_impl="pallas"``: step 1 within 2e-2 of phase 5's, ce_fwd once a
-   step and ce_dh / ce_dw once per vocab chunk a step on their
-   tensor-core instances, no plain version; its profile, and a 2-layer
+   step and ce_dh / ce_dw once per vocab chunk a step, all three on
+   their tensor-core instances, no plain version; its profile, and a 2-layer
    cross-check against the scan head;
 6. MoE training: ``fit()`` on bench_moe at full width and depth (24
    layers, 8 experts top-2, batch 8 x 2048, the same recipe with the
@@ -116,9 +121,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
 again, and the script raises after three such windows. The flash,
-grouped-matmul, decode and CE backward kernels' launches are matched by
-their tensor-core kernels' names (``tc::``), so a window in which one ran
-another instance is short of events; a decode breakdown's attention share
+grouped-matmul, decode, dequant-matmul and CE kernels' launches are
+matched by their tensor-core kernels' names (``tc::``), so a window in
+which one ran another instance is short of events; a decode breakdown's attention share
 counts the merge of a row's splits (``tc::decode_merge_kernel``) too.
 
 The last three lines are the ``kernels`` JSON (thirteen kernels; quant_mm's
@@ -177,20 +182,20 @@ PAGED_TC_EVENTS = ("tc::paged_decode_kernel", "tc::decode_merge_kernel")
 QUANT_TC_EVENTS = ("tc::paged_quant_decode_kernel", "tc::decode_merge_kernel")
 # each launch counter's CUDA kernels: one counted launch enqueues one of each
 # (a profile must hold at least that many events of each). The profiles run
-# bf16 queries in training and serving, so the flash, grouped-matmul and
-# decode kernels, and the CE backward's (ce_impl="pallas"), are named by
-# their tensor-core instances (namespace tc): a launch on the scalar body,
-# whose names no tc:: name matches, falls short.
+# bf16 in training and serving, so the flash, grouped-matmul, decode,
+# dequant-matmul and CE kernels (ce_impl="pallas") are named by their
+# tensor-core instances (namespace tc): a launch on the scalar body, whose
+# names no tc:: name matches, falls short.
 KERNEL_EVENTS = {
     "decode_attention": ("tc::decode_kernel",),
     "paged_decode_attention": ("tc::paged_decode_kernel",),
     "paged_decode_attention_quant": ("tc::paged_quant_decode_kernel",),
-    "quant_mm": ("quant_mm_kernel",),
+    "quant_mm": ("tc::quant_mm_kernel",),
     "flash_fwd": ("tc::flash_fwd_kernel",), "flash_dq": ("tc::flash_dq_kernel",),
     "flash_dkv": ("tc::flash_dkv_kernel",),
     "gmm_fwd": ("tc::gmm_fwd_kernel",), "gmm_dx": ("tc::gmm_dx_kernel",),
     "gmm_dw": ("tc::gmm_dw_kernel",),
-    "ce_fwd": ("ce_fwd_kernel", "ce_fwd_merge_kernel"),
+    "ce_fwd": ("tc::ce_fwd_kernel", "ce_fwd_merge_kernel"),
     "ce_dh": ("tc::ce_dlogits_kernel", "tc::ce_dh_kernel"), "ce_dw": ("tc::ce_dw_kernel",),
 }
 # the CE head's profiler ranges (ops/fused_ce.py), one per pass
@@ -531,11 +536,15 @@ def quant_mm_library(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor):
 
 def quant_mm_case(label: str, D: int, N: int, dtype: torch.dtype,
                   flush: torch.Tensor, M: int = 8) -> dict:
-    """The int8 dequant-matmul kernel at one decode weight shape, 8 slots:
-    against its plain version on the same inputs, its time, its bound, the
-    plain version's time and one library call's (named)."""
+    """The int8 dequant-matmul kernel at one decode weight shape and M rows
+    (8: the decode step's slots; 16 and 128: verify steps of G 16 at batch
+    1 and 8): against its plain version on the same inputs, the instance
+    that ran, its time, its bound, the plain version's time and one library
+    call's (named). In bf16 ``rows_equal`` says whether the first 8 rows
+    (and the first row) came out the same bits from calls of 8 rows and of
+    one, as a slot decodes alone or in a batch."""
     from tony_tpu_torch.ops.quant_mm import (
-        quant_matmul, quant_matmul_plain, quantize_weights,
+        kernel_instance, quant_matmul, quant_matmul_plain, quantize_weights,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(D + N)
@@ -544,6 +553,10 @@ def quant_mm_case(label: str, D: int, N: int, dtype: torch.dtype,
     wq, s = quantize_weights(w)
     del w
     out = quant_matmul(x, wq, s)
+    rows_equal = None
+    if dtype == torch.bfloat16:
+        rows_equal = (torch.equal(out[:1], quant_matmul(x[:1].contiguous(), wq, s))
+                      and torch.equal(out[:8], quant_matmul(x[:8].contiguous(), wq, s)))
     torch.cuda.synchronize()
     ref = quant_matmul_plain(x, wq, s)
     err = (out.float() - ref.float()).abs()
@@ -560,9 +573,12 @@ def quant_mm_case(label: str, D: int, N: int, dtype: torch.dtype,
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {
         "label": label, "D": D, "N": N, "M": M, "dtype": str(dtype).replace("torch.", ""),
-        "max_abs_err": max_err, "ok": ok, "atol": atol, "rtol": rtol,
+        "max_abs_err": max_err, "ok": ok and rows_equal is not False, "atol": atol,
+        "rtol": rtol, "rows_equal": rows_equal, "instance": kernel_instance(dtype),
         "ms": time_ms(lambda: quant_matmul(x, wq, s), flush),
-        "plain_ms": time_ms(lambda: quant_matmul_plain(x, wq, s), flush, reps=10),
+        # the plain version is a row at a time: 3 repeats at 128 rows
+        "plain_ms": time_ms(lambda: quant_matmul_plain(x, wq, s), flush,
+                            reps=10 if M <= 16 else 3),
         "library_ms": time_ms(lib, flush), "library": lib_name,
         "library_max_abs_err": lib_err,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -571,11 +587,11 @@ def quant_mm_case(label: str, D: int, N: int, dtype: torch.dtype,
     }
 
 
-def quant_mm_step(cases: list[dict], n_layers: int = 32) -> dict:
-    """The bf16 cases summed as one decode step runs them: each layer shape
-    times its count per layer times the layers, lm_head once."""
+def quant_mm_step(cases: list[dict], M: int = 8, n_layers: int = 32) -> dict:
+    """The bf16 cases of M rows summed as one step runs them: each layer
+    shape times its count per layer times the layers, lm_head once."""
     per = {label: count for label, _, _, count in QUANT_MM_SHAPES}
-    bf = [c for c in cases if c["dtype"] == "bfloat16"]
+    bf = [c for c in cases if c["dtype"] == "bfloat16" and c["M"] == M]
     weight = {c["label"]: (per[c["label"]] * n_layers or 1) for c in bf}
     total = {k: sum(c[k] * weight[c["label"]] for c in bf)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
@@ -727,7 +743,7 @@ def quant_serve_phase(cfg, params, bf16: dict) -> dict:
         raise AssertionError(f"quantized launches {launches} != {want} "
                              f"({steps} decode steps)")
     breakdown = decode_breakdown(engine, cfg, rng, {
-        "attention": QUANT_TC_EVENTS, "quant_mm": ("quant_mm_kernel",)})
+        "attention": QUANT_TC_EVENTS, "quant_mm": KERNEL_EVENTS["quant_mm"]})
     del engine
     torch.cuda.empty_cache()
     solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
@@ -973,9 +989,10 @@ def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
     if profile:
         # 1 + 4 timed steps, then 1 + 4 a traced window, each up to G tokens
         n = ((PROFILE_ATTEMPTS + 1) * (4 + 1) + 1) * (SPEC_DRAFT + 1)
-        events = QUANT_TC_EVENTS if quant else PAGED_TC_EVENTS
-        r.update(decode_breakdown(engine, cfg, None, {"attention": events},
-                                  steps=4, requests=reqs(n)))
+        kernels = {"attention": QUANT_TC_EVENTS if quant else PAGED_TC_EVENTS}
+        if quant:
+            kernels["quant_mm"] = KERNEL_EVENTS["quant_mm"]
+        r.update(decode_breakdown(engine, cfg, None, kernels, steps=4, requests=reqs(n)))
     del engine
     torch.cuda.empty_cache()
     return r
@@ -1073,11 +1090,13 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
     log(f"teacher-forced references: {ref_s:.1f} s")
     for label in ("b8", "b8_int8"):
         r = res[label]["on"]
+        qmm = (f", quant_mm {r['profile_quant_mm_ms']:.2f} ms = "
+               f"{r['profile_quant_mm_share']:.1%}" if "profile_quant_mm_ms" in r else "")
         log(f"verify step {label} (batch 8, G {SPEC_DRAFT + 1}, store warm): "
             f"{r['profile_step_ms']:.2f} ms wall, {r['profile_device_ms']:.2f} ms device "
             f"(busy {r['profile_device_busy']:.1%}), {r['profile_launches_per_step']:.0f} "
             f"kernel launches; decode attention {r['profile_attention_ms']:.2f} ms = "
-            f"{r['profile_attention_share']:.1%} of device time  [{card}]")
+            f"{r['profile_attention_share']:.1%}{qmm} of device time  [{card}]")
     return res
 
 
@@ -1943,7 +1962,7 @@ def train_ce_phase(card: str, scan: dict) -> dict:
 
 def check_tensor_core_path(cfg) -> dict[str, str]:
     """The instance each flash kernel (and, for a MoE config, each
-    grouped-matmul kernel; with ``ce_impl="pallas"``, ce_dh and ce_dw)
+    grouped-matmul kernel; with ``ce_impl="pallas"``, each CE kernel)
     runs at ``cfg``'s dtype, head_dim and row tile, as the built libraries
     dispatch it; raises unless each is the tensor-core one (wgmma + TMA).
     The profiles then find every counted launch of these kernels among
@@ -1955,7 +1974,7 @@ def check_tensor_core_path(cfg) -> dict[str, str]:
         got.update({n: grouped_mm.kernel_instance(n, cfg.dtype, cfg.moe_group_block)
                     for n in GMM_KERNELS})
     if cfg.ce_impl == "pallas":
-        got.update({n: fused_ce.kernel_instance(n, cfg.dtype) for n in ("ce_dh", "ce_dw")})
+        got.update({n: fused_ce.kernel_instance(n, cfg.dtype) for n in CE_KERNELS})
     if any(v != "tensor cores" for v in got.values()):
         raise AssertionError(f"the training path is off its tensor-core instances: {got}")
     return got
@@ -2269,12 +2288,18 @@ def main() -> int:
             f"{c['poisoned_block']}, named by rows {c['rows_naming_it']}, reaches exactly "
             f"the rows naming it below their length, "
             f"{[b for b, h in enumerate(c['rows_hit']) if h]}  [{card}]")
+    # the dequant-matmul at the decode step's 8 rows and a verify step's 16
+    # (batch 1) and 128 (batch 8) in bf16, 8 in fp32
     mm = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, M in ((torch.bfloat16, 8), (torch.bfloat16, 16), (torch.bfloat16, 128),
+                     (torch.float32, 8)):
         for label, D, N, _ in QUANT_MM_SHAPES:
-            c = quant_mm_case(label, D, N, dtype, flush)
+            c = quant_mm_case(label, D, N, dtype, flush, M)
             mm.append(c)
-            log(f"kernel quant_mm {label} {D}->{N} M={c['M']} {c['dtype']}: max|err| "
+            same = {True: " (rows bit-equal at M 1 and 8)", False: " (ROWS DIFFER)",
+                    None: ""}[c["rows_equal"]]
+            log(f"kernel quant_mm {label} {D}->{N} M={c['M']} {c['dtype']} ({c['instance']})"
+                f"{same}: max|err| "
                 f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} "
                 f"atol={c['atol']:.3g} rtol={c['rtol']:.3g})  {c['ms'] * 1e3:.1f} us  "
                 f"(bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']}, "
@@ -2283,13 +2308,29 @@ def main() -> int:
                 f"{c['library_max_abs_err']:.3e})  [{card}]")
     bad = [c for c in mm if not c["ok"]]
     if bad:
-        raise AssertionError(f"quant_mm over tolerance: "
-                             f"{[(c['label'], c['dtype']) for c in bad]}")
+        raise AssertionError(f"quant_mm over tolerance or rows not bit-equal across M: "
+                             f"{[(c['label'], c['M'], c['dtype']) for c in bad]}")
+    # bf16 on the tensor cores, fp32 scalar
+    wrong = [(c["label"], c["M"], c["dtype"], c["instance"]) for c in mm
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
+    if wrong:
+        raise AssertionError(f"quant_mm cases on an unexpected instance: {wrong}")
+    log_resources(builds, "quant_mm", 5)
+    from tony_tpu_torch.ops.quant_mm import card_shape, split_k
+
+    sms, clusters = card_shape(torch.cuda.current_device())
+    log(f"quant_mm split of D (from the shape and the card: {sms} SMs, clusters of 1-8 "
+        f"CTAs held at once {clusters}): "
+        + ", ".join(f"{label} {split_k(D, N, sms, clusters)}"
+                    for label, D, N, _ in QUANT_MM_SHAPES) + f"  [{card}]")
+    for M, what in ((8, "decode step, 8 slots"), (16, "verify step, batch 1, G 16"),
+                    (128, "verify step, batch 8, G 16")):
+        st = quant_mm_step(mm, M)
+        log(f"quant_mm over one Llama-3-8B {what} ({st['launches']} launches, bf16, "
+            f"M {M}): {st['ms']:.3f} ms (bound {st['bound_ms']:.3f} ms, "
+            f"{st['bytes'] / 1e9:.3f} GB)  plain {st['plain_ms']:.3f} ms  "
+            f"library {st['library_ms']:.3f} ms  [{card}]")
     step_mm = quant_mm_step(mm)
-    log(f"quant_mm over one Llama-3-8B decode step ({step_mm['launches']} launches, "
-        f"bf16, 8 slots): {step_mm['ms']:.3f} ms (bound {step_mm['bound_ms']:.3f} ms, "
-        f"{step_mm['bytes'] / 1e9:.3f} GB)  plain {step_mm['plain_ms']:.3f} ms  "
-        f"library {step_mm['library_ms']:.3f} ms  [{card}]")
     # 3e: the fused CE kernels at bench_1b4's loss head, bf16 then fp32,
     # then the ragged shape and its NaN-row and NaN-weight cases (bf16)
     ce = []
@@ -2317,14 +2358,12 @@ def main() -> int:
     if bad:
         raise AssertionError(f"CE kernels over tolerance, masks or bit-equality: "
                              f"{[(c['name'], c['dtype'], c['N'], c['poison']) for c in bad]}")
-    # bf16 dh and dW on wgmma + TMA, the bf16 forward on mma.sync, fp32 scalar
-    want = {("ce_fwd", "bfloat16"): "mma.sync", ("ce_dh", "bfloat16"): "tensor cores",
-            ("ce_dw", "bfloat16"): "tensor cores"}
+    # bf16 fwd, dh and dW on wgmma + TMA, fp32 scalar
     wrong = [(c["name"], c["dtype"], c["instance"]) for c in ce
-             if c["instance"] != want.get((c["name"], c["dtype"]), "scalar")]
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
     if wrong:
         raise AssertionError(f"CE cases on an unexpected instance: {wrong}")
-    log_resources(builds, "fused_ce", 3)
+    log_resources(builds, "fused_ce", 4)
     # 3f: kernel 7 at the reference bench's case (bf16 and fp32), its
     # layer-scanned loop, then Llama-3-8B's shape at G 1 (full rows) and
     # G 5 (ragged rows)

@@ -2,7 +2,7 @@
 """Time the port's bf16 kernels built from two kernel-source trees on one
 card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant|ce] [--rounds 2]
+    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant|ce|qmm] [--rounds 2]
 
 OTHER_CSRC is the ``tony_tpu_torch/csrc`` of another checkout (a parent
 commit unpacked with ``git archive`` into a git-ignored directory). Each
@@ -24,13 +24,21 @@ times the quantized decode kernel with bf16 queries:
 ``chip_smoke.quant_decode_case`` over int8 and fp8 e4m3 pools at G 1, 5
 and the verify step's 16, each with kernel 8's time over the same pools
 dequantized beforehand (``kernel8_ms``). ``--cases ce`` times the bf16 CE
-backward at bench_1b4's head (``chip_smoke.ce_cases``): the dh half
-(``ce_bwd(..., dw=False)``) and the dW pass over every chunk, each held
-against its plain version and launched twice bit-equal, with the whole
-``_scan_bwd`` beside them (``library_ms``) and the whole kernel backward
-(``whole_bwd_ms``); a library without ``ce_route`` runs the mma.sync
-instances. The decode entry points grew a workspace argument, and a CE
-tree may differ in the wrapper's chunk width, so for decode, quant and ce
+kernels at bench_1b4's head (``chip_smoke.ce_cases``): the forward beside
+``_scan_fwd``, the dh half (``ce_bwd(..., dw=False)``) and the dW pass
+over every chunk, each held against its plain version (the backward
+launched twice bit-equal), with the whole ``_scan_bwd`` beside them
+(``library_ms``) and the whole kernel backward (``whole_bwd_ms``); a
+library without ``ce_route`` runs the mma.sync instances. ``--cases qmm``
+times the bf16 int8 dequant-matmul (``chip_smoke.quant_mm_case``) at the
+decode step's five weight shapes and 8, 16 and 128 rows, each held
+against its plain version with its rows bit-equal to calls of 8 rows and
+of one, and each M's cases summed per step (``chip_smoke.quant_mm_step``),
+beside the time the same timing gives a launch of a 16-element add
+(``launch_floor_ms``);
+a package without ``kernel_instance`` there has the scalar body only. The
+decode and quant_mm entry points grew workspace arguments, and a CE tree
+may differ in the wrapper's chunk width, so for decode, quant, ce and qmm
 the other side imports the whole ``tony_tpu_torch`` package of the other
 checkout (``OTHER_CSRC``'s parent's parent), not its csrc/ alone; a
 decode package without ``kernel_instance`` has the scalar CTA body
@@ -55,7 +63,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def measure(csrc: str, cases: str) -> dict:
     """This process's measurement, the kernels built from ``csrc`` ("" for
     this checkout's)."""
-    whole_tree = cases in ("decode", "quant", "ce") and csrc
+    whole_tree = cases in ("decode", "quant", "ce", "qmm") and csrc
     sys.path.insert(0, str(Path(csrc).resolve().parent.parent if whole_tree else ROOT))
     import torch
 
@@ -72,7 +80,7 @@ def measure(csrc: str, cases: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     source = {"gmm": "grouped_mm", "flash": "flash_attention", "moe": "grouped_mm",
               "decode": "paged_decode_attention", "quant": "paged_decode_attention",
-              "ce": "fused_ce"}[cases]
+              "ce": "fused_ce", "qmm": "quant_mm"}[cases]
     out = {"csrc": csrc or "this checkout", "card": chip_smoke.card_line(),
            "resources": chip_smoke.tensor_core_resources(_build.load(source).log)}
     if cases == "moe":
@@ -97,6 +105,12 @@ def measure(csrc: str, cases: str) -> dict:
         return out
     if cases == "ce":
         out["cases"] = ce_cases(chip_smoke, flush, _build.load(source).lib)
+        return out
+    if cases == "qmm":
+        out["cases"], out["steps"] = qmm_cases(chip_smoke, flush)
+        # what the same timing gives a launch that does next to nothing
+        tiny = torch.zeros(16, device="cuda")
+        out["launch_floor_ms"] = chip_smoke.time_ms(lambda: tiny.add_(1), flush)
         return out
     if cases == "gmm":
         found = chip_smoke.gmm_cases(torch.bfloat16, flush, chip_smoke.gmm_inputs())
@@ -165,10 +179,27 @@ def decode_cases(chip_smoke, flush) -> list[dict]:
     return [{k: c[k] for k in _KEYS} | {"ok": True} for c in found]
 
 
+def qmm_cases(chip_smoke, flush) -> tuple[list[dict], dict]:
+    """Phase 3d's bf16 dequant-matmul cases at 8, 16 and 128 rows (``ok``
+    false unless each holds its plain version with its rows bit-equal to
+    calls of 8 rows and of one), and each M's step sums."""
+    import torch
+
+    module = importlib.import_module("tony_tpu_torch.ops.quant_mm")
+    if not hasattr(module, "kernel_instance"):
+        module.kernel_instance = lambda dtype: "scalar"
+    found = [chip_smoke.quant_mm_case(label, D, N, torch.bfloat16, flush, M)
+             for M in (8, 16, 128) for label, D, N, _ in chip_smoke.QUANT_MM_SHAPES]
+    keys = ("label", "M", "instance", "ms", "bound_ms", "max_abs_err", "ok", "rows_equal",
+            "library_ms")
+    steps = {M: {k: v for k, v in chip_smoke.quant_mm_step(found, M).items()
+                 if k in ("ms", "bound_ms", "library_ms", "launches")} for M in (8, 16, 128)}
+    return [{k: c[k] for k in keys} for c in found], steps
+
+
 def ce_cases(chip_smoke, flush, lib) -> list[dict]:
-    """Phase 3e's bf16 ce_dh and ce_dw cases at bench_1b4's head (``ok``
-    false unless each holds its plain version and two backward launches
-    are bit-equal)."""
+    """Phase 3e's bf16 cases at bench_1b4's head (``ok`` false unless each
+    holds its plain version and two backward launches are bit-equal)."""
     import torch
 
     from tony_tpu_torch.ops import fused_ce
@@ -178,14 +209,13 @@ def ce_cases(chip_smoke, flush, lib) -> list[dict]:
             lambda name, dtype: "mma.sync" if dtype == torch.bfloat16 else "scalar")
     keys = ("name", "instance", "ms", "max_abs_err", "ok", "bit_equal", "library_ms",
             "whole_bwd_ms")
-    return [{k: c[k] for k in keys} for c in chip_smoke.ce_cases(torch.bfloat16, flush)
-            if c["name"] != "ce_fwd"]
+    return [{k: c[k] for k in keys} for c in chip_smoke.ce_cases(torch.bfloat16, flush)]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", default="", help="the other tree's csrc/")
-    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode", "quant", "ce"),
+    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode", "quant", "ce", "qmm"),
                     default="gmm")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", help=argparse.SUPPRESS)

@@ -21,7 +21,7 @@ import torch
 from tony_tpu.ops import fused_ce as jce
 from tony_tpu_torch.ops.fused_ce import (
     LAUNCHES, ce_bwd, ce_dh_plain, ce_dw_plain, ce_fwd, ce_fwd_plain, f32_matmul_route,
-    fused_ce_tokens, reference_ce_tokens, reset_launches,
+    fused_ce_tokens, fwd_splits, reference_ce_tokens, reset_launches,
 )
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -213,3 +213,20 @@ def test_pallas_wrappers_take_the_plain_versions_on_the_cpu():
                                atol=0, rtol=0)
     assert {k: v for k, v in LAUNCHES.items() if v} == {
         "ce_fwd_plain": 1, "ce_dh_plain": 2, "ce_dw_plain": 1}
+
+
+@pytest.mark.parametrize("N,V,scalar", [(16384, 32000, 9), (16300, 31992, 9), (37, 1000, 8),
+                                        (1100, 4104, 33)])
+def test_fwd_workspace_is_sized_by_route(N, V, scalar):
+    """ce_fwd's partials workspace ``[3, splits, N]`` follows the instance
+    that runs: the tensor-core forward writes one partial per 256-column
+    tile of the vocab whatever the rows and the card; the scalar one splits
+    its 128-column tiles for about 8 CTAs of 128 rows per SM on an H100's
+    132 SMs (``scalar``), every split holding a tile, and one split on a
+    card of one SM with many row blocks."""
+    for sms in (132, 114, 1):
+        assert fwd_splits("tensor cores", N, V, sms) == -(-V // 256)
+        splits, tiles = fwd_splits("scalar", N, V, sms), -(-V // 128)
+        assert 1 <= splits <= tiles and (splits - 1) * -(-tiles // splits) < tiles
+    assert fwd_splits("scalar", N, V, 132) == scalar
+    assert fwd_splits("scalar", 16384, V, 1) == 1

@@ -964,6 +964,81 @@ def test_quant_mm_kernel_matches_plain_on_card(cuda, M, D, N):
     assert bool(torch.isfinite(torch.cat([bad[:, :7], bad[:, 8:]], dim=1)).all())
 
 
+def _qmm_case(dev, M, D, N, seed):
+    from tony_tpu_torch.ops.quant_mm import quantize_weights
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, D)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((D, N)) / np.sqrt(D)).astype(np.float32))
+    wq, s = (t.to(dev) for t in quantize_weights(w))
+    return x.to(torch.bfloat16), wq, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16, 128, 130])
+@pytest.mark.parametrize("D,N", [(4096, 1024), (200, 1001), (14336, 256), (512, 4104)],
+                         ids=["split-k", "ragged", "deep", "tail-tile"])
+def test_quant_mm_tensor_cores_match_plain_on_card(cuda, M, D, N):
+    """The bf16 instance on the tensor cores at a single row, the decode
+    step's 8 slots, 16 rows, a verify step's 128 and past them (130: a
+    second row tile), over a split D (N 1024), an odd N read byte by byte
+    with D off the 64-deep slice, w2's depth and a tail column tile;
+    against the plain version within one bf16 ulp (2^-8 relative) plus the
+    sums' order, as ``test_quant_mm_kernel_matches_plain_on_card``. A NaN
+    scale stays in its column, through the split partials too."""
+    from tony_tpu_torch.ops.quant_mm import (
+        LAUNCHES, kernel_instance, quant_matmul, quant_matmul_plain, reset_launches,
+    )
+
+    assert kernel_instance(torch.bfloat16) == "tensor cores"
+    x, wq, s = _qmm_case(cuda, M, D, N, seed=M + D + N)
+    reset_launches()
+    out = quant_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"quant_mm": 1, "quant_mm_plain": 0}
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    ref = quant_matmul_plain(x, wq, s)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2**-7, rtol=2**-7)
+    s[7] = float("nan")
+    bad = quant_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(bad[:, 7]).any())
+    assert bool(torch.isfinite(torch.cat([bad[:, :7], bad[:, 8:]], dim=1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N", [(4096, 1024), (4096, 4096), (1024, 34048)],
+                         ids=["split-32", "split-8", "no-split"])
+def test_quant_mm_rows_do_not_depend_on_the_batch_on_card(cuda, D, N):
+    """A row's result is the same bits decoded alone, in 8 slots or in a
+    verify step's 128 rows (the split of D comes from the shape and the
+    card, never from M), and two launches are bit-equal."""
+    from tony_tpu_torch.ops.quant_mm import quant_matmul
+
+    x, wq, s = _qmm_case(cuda, 128, D, N, seed=D + N)
+    full = quant_matmul(x, wq, s)
+    again = quant_matmul(x, wq, s)
+    slots = quant_matmul(x[:8].contiguous(), wq, s)
+    sixteen = quant_matmul(x[8:24].contiguous(), wq, s)
+    alone = quant_matmul(x[5:6].contiguous(), wq, s)
+    last = quant_matmul(x[127:].contiguous(), wq, s)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    assert torch.equal(full[:8], slots)
+    assert torch.equal(full[8:24], sixteen)
+    assert torch.equal(full[5:6], alone)
+    assert torch.equal(full[127:], last)
+
+
+@pytest.mark.cuda
+def test_quant_mm_kernel_instances_on_card(cuda):
+    """bf16 x on the tensor cores, float32 x on the scalar body."""
+    from tony_tpu_torch.ops.quant_mm import kernel_instance
+
+    assert kernel_instance(torch.bfloat16) == "tensor cores"
+    assert kernel_instance(torch.float32) == "scalar"
+
+
 # --- fused cross-entropy head -------------------------------------------------------
 
 # (N, D, V): rows not a multiple of the 128-row tile and a vocab not a
@@ -1066,15 +1141,41 @@ def test_fused_ce_pallas_autograd_on_card(cuda):
 @pytest.mark.cuda
 def test_ce_kernel_instances_on_card(cuda):
     """The instance each CE kernel runs, as the built library's ce_route
-    dispatches it: bf16 ce_dh and ce_dw on wgmma + TMA, bf16 ce_fwd on
-    mma.sync, float32 scalar."""
+    dispatches it: bf16 ce_fwd, ce_dh and ce_dw on wgmma + TMA, float32
+    scalar."""
     from tony_tpu_torch.ops.fused_ce import kernel_instance
 
     assert kernel_instance("ce_dh", torch.bfloat16) == "tensor cores"
     assert kernel_instance("ce_dw", torch.bfloat16) == "tensor cores"
-    assert kernel_instance("ce_fwd", torch.bfloat16) == "mma.sync"
+    assert kernel_instance("ce_fwd", torch.bfloat16) == "tensor cores"
     for name in ("ce_fwd", "ce_dh", "ce_dw"):
         assert kernel_instance(name, torch.float32) == "scalar"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [(300, 128, 1000), (1100, 64, 4104)],
+                         ids=["ragged-tile", "two-column-groups"])
+def test_ce_fwd_tensor_cores_on_card(cuda, N, D, V):
+    """The bf16 forward on wgmma: a target in the ragged last 256-column
+    tile, targets outside [0, V) (tl 0, lse unmoved), against the plain
+    version (tolerance as ``_ce_close``); two launches bit-equal. The second
+    shape has more tiles than the card has SMs, over two column groups of
+    the forward's tile order (the last one tile wide)."""
+    from tony_tpu_torch.ops.fused_ce import LAUNCHES, ce_fwd, ce_fwd_plain, reset_launches
+
+    h, w, t, _ = _ce_case(cuda, torch.bfloat16, N, D, V, seed=N + V)
+    t[3] = V - 5
+    t[4], t[5], t[6] = -1, V, V + 300
+    reset_launches()
+    lse, tl = ce_fwd(h, w, t)
+    lse2, tl2 = ce_fwd(h, w, t)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"ce_fwd": 2}
+    assert torch.equal(lse, lse2) and torch.equal(tl, tl2)
+    ref_lse, ref_tl = ce_fwd_plain(h, w, t)
+    _ce_close(lse, ref_lse, torch.bfloat16, "lse")
+    _ce_close(tl, ref_tl, torch.bfloat16, "tl")
+    assert tl[3] != 0 and bool((tl[4:7] == 0).all())
 
 
 @pytest.mark.cuda

@@ -9,6 +9,8 @@ DotThunk::Execute: BF16 x BF16 = F32"), so bf16 is held on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py). Each test states its
 tolerance and why."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +34,7 @@ from tony_tpu_torch.ops.decode_attention import (
     LAUNCHES as ATTN_LAUNCHES, decode_attention, reset_launches as reset_attn,
 )
 from tony_tpu_torch.ops.quant_mm import (
-    LAUNCHES as MM_LAUNCHES, WEIGHT_QMAX, quant_matmul, quant_matmul_plain,
+    LAUNCHES as MM_LAUNCHES, WEIGHT_QMAX, quant_matmul, quant_matmul_plain, split_k,
     quantize_weights, reset_launches as reset_mm,
 )
 from tony_tpu_torch.serve import Engine, Request, ServeConfig
@@ -105,6 +107,53 @@ def test_quant_matmul_plain_matches_reference(impl, lead):
                             impl=impl, block_n=16)
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_quant_matmul_plain_matches_reference_at_verify_rows():
+    """A verify step's rows (8 slots of G 16: 128) through the plain
+    version against the reference's Pallas kernel in interpret mode, with
+    the tolerance of ``test_quant_matmul_plain_matches_reference``: each
+    row is its own product there too."""
+    x, wq, s = _mm_case(seed=6, D=40, N=48, lead=(8, 16))
+    reset_mm()
+    got = quant_matmul(_t(x), _t(wq), _t(s))
+    assert MM_LAUNCHES == {"quant_mm": 0, "quant_mm_plain": 1}
+    want = jax_quant_matmul(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s),
+                            impl="pallas", block_n=16)
+    assert got.shape == (8, 16, 48)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# an H100's 132 SMs and the clusters of 1 to 8 CTAs of the tensor-core
+# instance it holds at once (``card_shape`` on "NVIDIA H100 80GB HBM3,
+# 700.00 W"); the decode step's weight shapes (D, N): wq/wo, wk/wv, w1/w3,
+# w2, lm_head, and the split each takes there
+H100 = (132, {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15})
+DECODE_SPLITS = [((4096, 4096), 6), ((4096, 1024), 8), ((4096, 14336), 2),
+                 ((14336, 4096), 6), ((4096, 128256), 1)]
+
+
+@pytest.mark.parametrize("shape,splits", DECODE_SPLITS)
+def test_quant_mm_split_follows_shape_and_card_not_rows(shape, splits):
+    """The tensor-core instance's split of D is a function of the weight's
+    shape and the card alone (``split_k`` takes no row count), so a row's
+    float32 sum runs in the same order alone, in 8 slots or in a verify
+    step's 128 rows. At most a cluster of 8, every split holding a 64-deep
+    slice, and a split call's CTAs in one wave: no more than the SMs, and
+    its column tiles' clusters no more than the card holds at once (16
+    tiles of wq/wo would take two waves in clusters of 8, of which the card
+    holds 15)."""
+    D, N = shape
+    sms, clusters = H100
+    assert "M" not in inspect.signature(split_k).parameters
+    assert split_k(D, N, sms, clusters) == splits
+    slices, tiles = -(-D // 64), -(-N // 256)
+    assert (splits - 1) * -(-slices // splits) < slices
+    assert splits == 1 or (tiles * splits <= sms and tiles <= clusters[splits])
+    for cut in (1, 66, 114, 132):
+        got = split_k(D, N, cut, clusters)
+        assert 1 <= got <= 8 and (got == 1 or tiles * got <= cut)
+    assert split_k(200, 1001, *H100) == 4 and split_k(14336, 256, *H100) == 8
 
 
 def test_poisoned_scale_channel_stays_in_its_column():

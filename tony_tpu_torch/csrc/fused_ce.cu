@@ -24,17 +24,17 @@
 // (dW) float32 accumulators in VMEM across a sequential grid: 4 MB each at
 // D 2048. An H100 CTA has at most 227 KB of shared memory, and its CTAs
 // run in no order. So:
-// - ce_fwd: a CTA owns 128 rows and one split of the vocab's 128-column
-//   tiles. Per tile it forms the [128, 128] float32 logits in registers
-//   (a GEMM main loop over D) and folds them into three per-row scalars in
-//   shared memory (m, s, tl); nothing else survives a tile. With one CTA
-//   per 128 rows alone, bench_1b4's 16,384 rows would give 128 CTAs for 132
-//   SMs, so the vocab is split across CTAs (flash-decoding's trick) and a
-//   second, small kernel merges each row's partial (m, s, tl). Both kernels
-//   are one launch of ce_fwd. bf16 runs mma.sync m16n8k16 on slices of 32
-//   staged as bf16 (8 warps split the 128 x 128 tile 2 x 4); float32 scalar
-//   FMA on slices of 16, 8 x 8 accumulators a thread; both a CTA of 256
-//   threads, two slice buffers deep.
+// - ce_fwd: each output tile's [rows, columns] float32 logits (a GEMM
+//   main loop over D) fold into three per-row scalars (m, s, tl); nothing
+//   else survives a tile. The vocab is split across CTAs (flash-decoding's
+//   trick) and a second, small kernel merges each row's partials. Both
+//   kernels are one launch of ce_fwd. bf16: every 128 x 256 tile of the
+//   persistent wgmma body below writes its rows' partial to a float32
+//   workspace [3][cdiv(V, 256)][N] (25 MB at bench_1b4's head), the row
+//   reductions in registers and two shuffles (see the tc section). float32:
+//   a CTA of 256 threads owns 128 rows and a split of the vocab's
+//   128-column tiles, scalar FMA on slices of 16, 8 x 8 accumulators a
+//   thread, the partials met in shared memory.
 // - backward, per vocab chunk of Vc columns (the wrapper's loop): ce_dh
 //   recomputes the chunk's logits once and writes dlogits in h's type to a
 //   [N, Vc] scratch (kernel a), then accumulates dh_f32 += dlogits W_c^T
@@ -47,16 +47,19 @@
 //   dlogits inside the dh product instead would multiply the logits work
 //   by D / 256.
 //
-// The bf16 backward (the training path's) runs three GEMMs a chunk on
-// wgmma with TMA staging (namespace tc, the persistent 128 x 256 tile
-// body of sm90.cuh's pgemm, shared with grouped_mm.cu): dlogits = h W_c
+// bf16 (the training path's) runs on wgmma with TMA staging (namespace
+// tc, the persistent 128 x 256 tile body of sm90.cuh's pgemm, shared with
+// grouped_mm.cu): the forward's one pass h W over the whole vocab, its
+// tiles walked in column groups so that W and h stay in L2 (tile_origin),
+// and three GEMMs a chunk for the backward: dlogits = h W_c
 // with an epilogue of exp, onehot and g in registers and a TMA store of
 // the bf16 tile; dh += dl W_c^T with 8-byte float32 read-add-writes of
 // dh's sum (bf16 pairs on the last chunk); dW_c = h^T dl through wgmma's
 // transposed A, a TMA store. The tail chunk's columns past Vc and the
 // rows past N are masked by the tensor maps' extents (see the tc
 // section). float32 keeps one scalar-FMA CTA per 128 x 128 output tile
-// for all three. ce_route says which instance runs.
+// for all three. ce_route says which instance runs; no atomics anywhere,
+// so two launches of any of them are bit-equal.
 //
 // NaN. fmaxf drops a NaN, so a running max built on it never holds one;
 // a NaN logit still reaches its row's s through exp(NaN - m), and the final
@@ -73,14 +76,13 @@
 // TFLOP/s): 2.17 ms per pass, one pass in ce_fwd, two in ce_dh, one in
 // ce_dw. The backward's scratch adds about 1 GB written and 2 GB read, and
 // dh's float32 sum 2 GB of round trips, about 1.5 ms at 3.35 TB/s, partly
-// under the products. mma.sync without TMA or wgmma reaches part of the
-// peak; the float32 path is bounded by the CUDA cores' 67 TFLOP/s.
-// Measured times are in PERF.md.
+// under the products. The forward's W (131 MB) and h (67 MB) do not fit
+// the L2 together; in column groups W is read about 16 times and h about
+// 8 (2.6 GB, 0.8 ms), under its products. The float32 path is bounded by
+// the CUDA cores' 67 TFLOP/s. Measured times are in PERF.md.
 
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -97,9 +99,6 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // ------------------------------------------------ float32: scalar FMA tiles
 // One operand of C[m, n] = sum_k A(m, k) B(k, n), seen along its output dim
@@ -191,175 +190,16 @@ __device__ __forceinline__ void gemm_tile(float (&acc)[8][8], const Operand<A_KC
   }
 }
 
-// ------------------------------------------------ bf16: mma.sync tiles (ce_fwd)
-constexpr int kHSlice = 32;            // contraction depth per staged slice
-constexpr int kLdK = kHSlice + 8;      // [mn][k] row, elements
-constexpr int kLdMN = kTile + 8;       // [k][mn] row, elements
-constexpr int kHBuf = kTile * kLdK;    // one operand's slice buffer (>= kHSlice * kLdMN)
-
-template <bool KC>
-struct OperandH {
-  const __nv_bfloat16* p;
-  long long ld;
-  int mn0, mn_end;
-
-  __device__ __forceinline__ void fetch(uint4 (&v)[2], int k0, int k_end) const {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int e = threadIdx.x + c * kThreads;
-      const int mn = mn0 + (KC ? e >> 2 : (e & 15) * 8);
-      const int k = k0 + (KC ? (e & 3) * 8 : e >> 4);
-      v[c] = mn < mn_end && k < k_end
-                 ? *reinterpret_cast<const uint4*>(
-                       p + (KC ? (long long)mn * ld + k : (long long)k * ld + mn))
-                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  __device__ __forceinline__ void put(__nv_bfloat16* s, const uint4 (&v)[2]) const {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int e = threadIdx.x + c * kThreads;
-      const int off = KC ? (e >> 2) * kLdK + (e & 3) * 8 : (e >> 4) * kLdMN + (e & 15) * 8;
-      *reinterpret_cast<uint4*>(s + off) = v[c];
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <bool A_KC, bool B_KC>
-__device__ __forceinline__ void mma_slice(float (&acc)[4][4][4],
-                                          const __nv_bfloat16* sa,
-                                          const __nv_bfloat16* sb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int r8 = lane & 7, hi = (lane >> 3) & 1, q = lane >> 4;
-#pragma unroll
-  for (int kk = 0; kk < kHSlice; kk += 16) {
-    uint32_t a[4][4], b[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int m = wm + mt * 16;
-      if (A_KC) ldsm_x4(a[mt], sa + (m + r8 + 8 * hi) * kLdK + kk + 8 * q);
-      else ldsm_x4_t(a[mt], sa + (kk + r8 + 8 * q) * kLdMN + m + 8 * hi);
-    }
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      const int n = wn + np * 16;
-      if (B_KC) ldsm_x4(b[np], sb + (n + r8 + 8 * q) * kLdK + kk + 8 * hi);
-      else ldsm_x4_t(b[np], sb + (kk + r8 + 8 * hi) * kLdMN + n + 8 * q);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
-  }
-}
-
-template <bool A_KC, bool B_KC>
-__device__ __forceinline__ void gemm_tile_tc(float (&acc)[4][4][4], const OperandH<A_KC>& A,
-                                             const OperandH<B_KC>& B, int k_begin,
-                                             int k_end) {
-  __shared__ __align__(16) __nv_bfloat16 sa[2][kHBuf];
-  __shared__ __align__(16) __nv_bfloat16 sb[2][kHBuf];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-  if (k_begin >= k_end) return;
-
-  uint4 va[2], vb[2];
-  A.fetch(va, k_begin, k_end);
-  B.fetch(vb, k_begin, k_end);
-  A.put(sa[0], va);
-  B.put(sb[0], vb);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += kHSlice) {
-    const bool more = k0 + kHSlice < k_end;
-    if (more) {
-      A.fetch(va, k0 + kHSlice, k_end);
-      B.fetch(vb, k0 + kHSlice, k_end);
-    }
-    mma_slice<A_KC, B_KC>(acc, sa[buf], sb[buf]);
-    if (more) {
-      A.put(sa[buf ^ 1], va);
-      B.put(sb[buf ^ 1], vb);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-}
-
 // ------------------------------------------------ the tile as epilogues see it
 // A thread's part of the CTA's 128 x 128 float32 tile: 8 row slots r and 8
 // column slots c. row(r) and col(c) are offsets inside the tile. The
-// threads that share a row reduce over their lanes with row_max/row_sum,
-// then over kParts partial results in shared memory (part() is the slot a
-// thread's result goes to, writer() the one lane per part that writes it).
-
-// mma layout: accumulator (mt, nt, e) of lane l in warp w is row
-// 64 (w / 4) + 16 mt + l / 4 (+ 8 for e >= 2), column 32 (w % 4) + 8 nt +
-// 2 (l % 4) (+ 1 for odd e); a row is shared by the 4 lanes of a quad in
-// each of the 4 warps with the same w / 4
-struct TileTC {
-  static constexpr int kParts = 4;
-  float a[4][4][4];
-  __device__ __forceinline__ float& at(int r, int c) {
-    return a[r >> 1][c >> 1][(r & 1) * 2 + (c & 1)];
-  }
-  __device__ static __forceinline__ int row(int r) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    return (warp >> 2) * 64 + (r >> 1) * 16 + (lane >> 2) + (r & 1) * 8;
-  }
-  __device__ static __forceinline__ int col(int c) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    return (warp & 3) * 32 + (c >> 1) * 8 + 2 * (lane & 3) + (c & 1);
-  }
-  __device__ static __forceinline__ float row_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  }
-  __device__ static __forceinline__ float row_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-  }
-  __device__ static __forceinline__ int part() { return (threadIdx.x >> 5) & 3; }
-  __device__ static __forceinline__ bool writer() { return (threadIdx.x & 3) == 0; }
-};
+// threads that share a row reduce over their lanes with row_max/row_sum;
+// writer() is the one lane of a row that stores its result.
 
 // FMA layout: thread (ty, tx) = (tid / 16, tid % 16) holds rows 4 ty + i
 // and 64 + 4 ty + i, columns likewise from tx; a row's 16 threads are one
 // half-warp
 struct TileF32 {
-  static constexpr int kParts = 1;
   float a[8][8];
   __device__ __forceinline__ float& at(int r, int c) { return a[r][c]; }
   __device__ static __forceinline__ int row(int r) {
@@ -380,27 +220,18 @@ struct TileF32 {
     for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
     return x;
   }
-  __device__ static __forceinline__ int part() { return 0; }
   __device__ static __forceinline__ bool writer() { return (threadIdx.x & 15) == 0; }
 };
-
-template <typename T>
-using TileOf = std::conditional_t<std::is_same_v<T, __nv_bfloat16>, TileTC, TileF32>;
 
 // tile = sum over k in [k_begin, k_end) of A(m0 + i, k) B(k, n0 + j); rows
 // past m_end and columns past n_end read as zero. Every thread of the CTA
 // calls it with the same arguments.
-template <typename T, bool A_KC, bool B_KC>
-__device__ __forceinline__ void product(TileOf<T>& t, const T* a, long long lda, int m0,
-                                        int m_end, const T* b, long long ldb, int n0,
+template <bool A_KC, bool B_KC>
+__device__ __forceinline__ void product(TileF32& t, const float* a, long long lda, int m0,
+                                        int m_end, const float* b, long long ldb, int n0,
                                         int n_end, int k_begin, int k_end) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    gemm_tile_tc(t.a, OperandH<A_KC>{a, lda, m0, m_end}, OperandH<B_KC>{b, ldb, n0, n_end},
-                 k_begin, k_end);
-  } else {
-    gemm_tile(t.a, Operand<A_KC>{a, lda, m0, m_end}, Operand<B_KC>{b, ldb, n0, n_end},
-              k_begin, k_end);
-  }
+  gemm_tile(t.a, Operand<A_KC>{a, lda, m0, m_end}, Operand<B_KC>{b, ldb, n0, n_end}, k_begin,
+            k_end);
 }
 
 // max(s, 1e-30) that keeps a NaN s, as jnp.maximum does
@@ -413,14 +244,12 @@ __device__ __forceinline__ float floor_keep_nan(float s) {
 // grid (splits, row blocks). CTA (split, i): rows [128 i, 128 i + 128),
 // vocab tiles [split * tps, min(n_tiles, (split + 1) * tps)); writes the
 // rows' partial (m, s, tl) over its tiles to part[{0, 1, 2}][split][row]
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
+ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const int* __restrict__ tgt, float* __restrict__ part, int N, int D, int V,
               int tps) {
-  using Tile = TileOf<T>;
-  __shared__ float red_m[Tile::kParts][kTile];
-  __shared__ float red_s[Tile::kParts][kTile];
+  using Tile = TileF32;
+  __shared__ float red_m[kTile], red_s[kTile];   // a tile's row max and sum
   __shared__ float m_sm[kTile], s_sm[kTile], t_sm[kTile];
   __shared__ int tgt_sm[kTile];
   const int split = blockIdx.x, r0 = blockIdx.y * kTile;
@@ -438,7 +267,7 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
   for (int vt = t_begin; vt < t_end; ++vt) {
     const int c0 = vt * kTile;
     // logits: A(m = row, k = d) = h[row, d] (KC); B(k = d, n = v) = W[d, v]
-    product<T, true, false>(t, h, D, r0, N, w, V, c0, V, 0, D);
+    product<true, false>(t, h, D, r0, N, w, V, c0, V, 0, D);
     // columns past V to kNeg by select, before they touch m or s
     float part_max[8];
 #pragma unroll
@@ -454,16 +283,14 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
     }
     if (Tile::writer()) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) red_m[Tile::part()][Tile::row(r)] = part_max[r];
+      for (int r = 0; r < 8; ++r) red_m[Tile::row(r)] = part_max[r];
     }
     __syncthreads();
     float part_sum[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = Tile::row(r);
-      float m_new = m_sm[row];
-#pragma unroll
-      for (int p = 0; p < Tile::kParts; ++p) m_new = fmaxf(m_new, red_m[p][row]);
+      const float m_new = fmaxf(m_sm[row], red_m[row]);
       float x = 0.f;
       const int want = tgt_sm[row] - c0;   // the target's column in this tile
 #pragma unroll
@@ -477,18 +304,13 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
     }
     if (Tile::writer()) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) red_s[Tile::part()][Tile::row(r)] = part_sum[r];
+      for (int r = 0; r < 8; ++r) red_s[Tile::row(r)] = part_sum[r];
     }
     __syncthreads();
     if (threadIdx.x < kTile) {
       const int row = threadIdx.x;
-      const float m_old = m_sm[row];
-      float m_new = m_old, s = 0.f;
-#pragma unroll
-      for (int p = 0; p < Tile::kParts; ++p) m_new = fmaxf(m_new, red_m[p][row]);
-#pragma unroll
-      for (int p = 0; p < Tile::kParts; ++p) s += red_s[p][row];
-      s_sm[row] = s_sm[row] * expf(m_old - m_new) + s;
+      const float m_old = m_sm[row], m_new = fmaxf(m_old, red_m[row]);
+      s_sm[row] = s_sm[row] * expf(m_old - m_new) + red_s[row];
       m_sm[row] = m_new;
     }
     __syncthreads();
@@ -502,11 +324,13 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
   }
 }
 
-// one thread per row: merge the splits' (m, s, tl) into lse and tl
+// one thread per row: merge the splits' (m, s, tl) into lse and tl; a
+// split covers `cols` vocab columns (the scalar instance's kTile * tps, the
+// tensor-core instance's 256), so the target's column names its split
 __global__ void ce_fwd_merge_kernel(const float* __restrict__ part,
                                     const int* __restrict__ tgt, float* __restrict__ lse,
                                     float* __restrict__ tl, int N, int V, int splits,
-                                    int tps) {
+                                    int cols) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const long long plane = (long long)splits * N;
@@ -519,22 +343,21 @@ __global__ void ce_fwd_merge_kernel(const float* __restrict__ part,
   }
   lse[row] = m + logf(floor_keep_nan(s));
   const int t = tgt[row];
-  tl[row] = t >= 0 && t < V ? part[2 * plane + (long long)(t / kTile / tps) * N + row] : 0.f;
+  tl[row] = t >= 0 && t < V ? part[2 * plane + (long long)(t / cols) * N + row] : 0.f;
 }
 
 // The float32 backward (bf16 runs the tc section's instances).
 // backward (a): dl[row, v] = (exp(logit - lse) - onehot) g for the chunk's
-// columns v in [0, vc) (global column c0 + v), rounded to T
-template <typename T>
+// columns v in [0, vc) (global column c0 + v), in float32
 __global__ void __launch_bounds__(kThreads)
-ce_dlogits_kernel(const T* __restrict__ h, const T* __restrict__ w,
+ce_dlogits_kernel(const float* __restrict__ h, const float* __restrict__ w,
                   const int* __restrict__ tgt, const float* __restrict__ lse,
-                  const float* __restrict__ g, T* __restrict__ dl, int N, int D, int V,
+                  const float* __restrict__ g, float* __restrict__ dl, int N, int D, int V,
                   int c0, int vc, int ldl) {
-  using Tile = TileOf<T>;
+  using Tile = TileF32;
   const int r0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   Tile t;
-  product<T, true, false>(t, h, D, r0, N, w + c0, V, n0, vc, 0, D);
+  product<true, false>(t, h, D, r0, N, w + c0, V, n0, vc, 0, D);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = r0 + Tile::row(r);
@@ -546,25 +369,24 @@ ce_dlogits_kernel(const T* __restrict__ h, const T* __restrict__ w,
       const int col = n0 + Tile::col(c);
       if (col >= vc) continue;               // nor columns past the chunk
       const float p = expf(t.at(r, c) - l);
-      dl[(long long)row * ldl + col] = from_f<T>((p - (col == want ? 1.f : 0.f)) * gr);
+      dl[(long long)row * ldl + col] = ((p - (col == want ? 1.f : 0.f)) * gr);
     }
   }
 }
 
 // backward (b): dh[row, d] (+)= sum over the chunk's v of dl[row, v]
 // W[d, c0 + v]; acc holds the float32 sum between chunks, the last chunk
-// writes dh in T
-template <typename T>
+// writes dh
 __global__ void __launch_bounds__(kThreads)
-ce_dh_kernel(const T* __restrict__ dl, const T* __restrict__ w, float* __restrict__ acc,
-             T* __restrict__ dh, int N, int D, int V, int c0, int vc, int ldl, int first,
+ce_dh_kernel(const float* __restrict__ dl, const float* __restrict__ w, float* __restrict__ acc,
+             float* __restrict__ dh, int N, int D, int V, int c0, int vc, int ldl, int first,
              int last) {
-  using Tile = TileOf<T>;
+  using Tile = TileF32;
   const int r0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   Tile t;
   // A(m = row, k = v) = dl[row, v] (KC); B(k = v, n = d) = W[d, c0 + v] (KC):
   // W's rows read along their contiguous v, the transpose taken in place
-  product<T, true, true>(t, dl, ldl, r0, N, w + c0, V, n0, D, 0, vc);
+  product<true, true>(t, dl, ldl, r0, N, w + c0, V, n0, D, 0, vc);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = r0 + Tile::row(r);
@@ -575,22 +397,21 @@ ce_dh_kernel(const T* __restrict__ dl, const T* __restrict__ w, float* __restric
       if (col >= D) continue;
       const long long at = (long long)row * D + col;
       const float v = first ? t.at(r, c) : acc[at] + t.at(r, c);
-      if (last) dh[at] = from_f<T>(v);
+      if (last) dh[at] = (v);
       else acc[at] = v;
     }
   }
 }
 
 // dW[d, c0 + v] = sum over rows of h[row, d] dl[row, v], written once
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ dl, T* __restrict__ dw,
+ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ dl, float* __restrict__ dw,
              int N, int D, int V, int c0, int vc, int ldl) {
-  using Tile = TileOf<T>;
+  using Tile = TileF32;
   const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   Tile t;
   // A(m = d, k = row) = h[row, d] (MC); B(k = row, n = v) = dl[row, v] (MC)
-  product<T, false, false>(t, h, D, m0, D, dl, ldl, n0, vc, 0, N);
+  product<false, false>(t, h, D, m0, D, dl, ldl, n0, vc, 0, N);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int d = m0 + Tile::row(r);
@@ -598,19 +419,20 @@ ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ dl, T* __restrict__ 
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int col = n0 + Tile::col(c);
-      if (col < vc) dw[(long long)d * V + c0 + col] = from_f<T>(t.at(r, c));
+      if (col < vc) dw[(long long)d * V + c0 + col] = (t.at(r, c));
     }
   }
 }
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// ------------------------------ bf16 backward: wgmma + TMA, three GEMMs a chunk
+// ------------------------------ bf16: wgmma + TMA, one GEMM forward, three a chunk backward
 // Each product is pgemm's persistent 128 x 256 tile GEMM (sm90.cuh, the
-// body of grouped_mm.cu's kernels): out [M, Nc] = A [M, K] B [K, Nc],
-// tiles walked columns fastest. Every operand and output goes through a
-// 2-D tensor map of [64][64] boxes, (inner, outer) coordinates:
+// body of grouped_mm.cu's kernels): out [M, Nc] = A [M, K] B [K, Nc].
+// Every operand and output goes through a 2-D tensor map of [64][64]
+// boxes, (inner, outer) coordinates:
 //   h  (D, N)      row stride D
+//   W  (V, D)      row stride V: the forward's whole vocab
 //   W_c (vc, D)    row stride V, from column c0: the chunk's columns
 //   dl (vc, N)     row stride ldl: the chunk's dlogits, width vc
 //   dW_c (vc, D)   row stride V, from column c0
@@ -621,7 +443,9 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 //   product never sees the scratch's stale columns from the chunk before,
 //   and dlogits' columns there (exp(0 - lse) g, not 0) are never stored;
 // - rows past N: h and dl read as 0, so dW's contraction over rows adds
-//   exact zeros there; dlogits and dh never store them.
+//   exact zeros there; dlogits and dh never store them;
+// - the forward's columns past V read 0 as well, so its epilogue sets
+//   them to kNeg by index before they touch m or s.
 // Boxes wholly past the output's edge are not loaded; the outputs that
 // read their stale stage are past the edge too and never stored.
 
@@ -638,11 +462,14 @@ using namespace pgemm;
 constexpr int kStages = 4;
 constexpr int kYBytes = 2 * kBox;   // one warpgroup's 64 x 128 bf16
 constexpr int kSmem = 1024 + kStages * (kABytes + kBBytes) + 2 * kYBytes;
+// the forward stores no tile: the ring alone
+constexpr int kFwdSmem = 1024 + kStages * (kABytes + kBBytes);
 
-enum Epilogue { kDlogits, kDh, kDw };
+enum Epilogue { kDlogits, kDh, kDw, kFwd };
 
 // what the epilogues read beside the tile: the rows' target, lse and g
-// (dlogits), dh's float32 sum and its bf16 output (dh)
+// (dlogits), dh's float32 sum and its bf16 output (dh), the partials'
+// workspace (fwd)
 struct Rows {
   const int* tgt;
   const float* lse;
@@ -650,7 +477,37 @@ struct Rows {
   float* acc;
   __nv_bfloat16* dh;
   int c0, first, last;
+  float* part;
 };
+
+// The persistent grid's tile order. The backward walks row blocks
+// outermost: a 4096-column chunk of W (16.8 MB at D 2048) stays in the 50
+// MB L2 while every row block passes it. The forward's W is the whole
+// vocab (131 MB at bench_1b4's head), so it walks column groups of kGroup
+// tiles outermost, then row blocks, then the group's tiles: the ~132 tiles
+// in flight share about 8 row blocks of h (4 MB) and one group's 4096
+// columns of W (17 MB), and W is read from HBM once per group pass, not
+// once per row block. Returns the tile's first row and column.
+constexpr int kGroup = 16;
+
+template <int EPI>
+__device__ __forceinline__ int2 tile_origin(int tile, int m_tiles, int n_cols) {
+  if constexpr (EPI == kFwd) {
+    const int g = tile / (kGroup * m_tiles), r = tile % (kGroup * m_tiles);
+    const int width = min(kGroup, n_cols - g * kGroup);   // the last group's
+    return make_int2(r / width * kRows, (g * kGroup + r % width) * kCols);
+  } else {
+    return make_int2(tile / n_cols * kRows, tile % n_cols * kCols);
+  }
+}
+
+// v to p where pred holds, as one predicated 4-byte store
+__device__ __forceinline__ void st_f32_if(bool pred, float* p, float v) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.global.f32 [%1], %2;\n}\n" ::"r"(
+                   (int)pred),
+               "l"(p), "f"(v)
+               : "memory");
+}
 
 // (pred ? *p : 0) as one predicated 8-byte load
 __device__ __forceinline__ float2 ld_pair_if(bool pred, const float* p) {
@@ -675,7 +532,8 @@ __device__ __forceinline__ void st_b32_if(bool pred, void* p, uint32_t v) {
 // out = A B, A read K-major (TA 0) or MN-major (1), B likewise (TB);
 // epilogue EPI: kDlogits and kDw round the tile to bf16
 // (dlogits after (exp(x - lse) - onehot) g) into a swizzled staging tile
-// and TMA store it through omap; kDh adds it to dh's float32 sum.
+// and TMA store it through omap; kDh adds it to dh's float32 sum; kFwd
+// folds each row into its partial (m, s, tl) and stores nothing else.
 template <int TA, int TB, int EPI>
 __device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtensorMap& bmap,
                                            const CUtensorMap& omap, int M, int Nc, int K,
@@ -685,7 +543,8 @@ __device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtens
   const uint32_t sA = (saddr(smem) + 1023) & ~1023u, sB = sA + kStages * kABytes;
   const uint32_t sY = sB + kStages * kBBytes;
   const Ring<kStages> ring{saddr(bars), saddr(bars) + 8 * kStages};
-  const int n_cols = cdiv(Nc, kCols), tiles = cdiv(M, kRows) * n_cols, nk = cdiv(K, kDepth);
+  const int m_tiles = cdiv(M, kRows), n_cols = cdiv(Nc, kCols), nk = cdiv(K, kDepth);
+  const int tiles = m_tiles * n_cols;
 
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
@@ -694,7 +553,8 @@ __device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtens
     if (threadIdx.x == kConsumers) {
       int it = 0;                                  // slices loaded, over all tiles
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
+        const int2 o = tile_origin<EPI>(tile, m_tiles, n_cols);
+        const int m0 = o.x, n0 = o.y;
         // 64-wide boxes of A's rows and B's columns, those wholly past M or
         // Nc not loaded
         const int na = min(kRows / kHalf, cdiv(M - m0, kHalf));
@@ -721,7 +581,8 @@ __device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtens
   const int rr = 16 * (tid / 32) + lane / 4;      // its rows rr and rr + 8 there
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = tile / n_cols * kRows, n0 = tile % n_cols * kCols;
+    const int2 o = tile_origin<EPI>(tile, m_tiles, n_cols);
+    const int m0 = o.x, n0 = o.y;
     // acc[j][4 i + c]: row m0 + 64 cw + rr (+ 8 for c >= 2), column n0 +
     // 128 j + 8 i + 2 t4 (+ 1 for odd c)
     const int row = m0 + 64 * cw + rr;
@@ -731,7 +592,61 @@ __device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtens
     // its 64 rows of each A slice: box cw
     mainloop<kStages, TA, TB>(acc, ring, it, nk, sA + cw * kBox, sB);
 
-    if constexpr (EPI == kDh) {
+    if constexpr (EPI == kFwd) {
+      // each row's partial over the tile's 256 columns, to slot n0 / kCols
+      // of part [3][n_cols][M]. A quad (t4 0..3) holds a row's 256
+      // columns, 64 each, so the row max and sum take two shuffles, no
+      // shared memory and no barrier. Columns past Nc (V) go to kNeg by
+      // index before they touch m or s; fmaxf drops a NaN from the max and
+      // exp(NaN - m) carries it into s. The thread whose column is the
+      // target takes tl. The targets are loaded here and not before the
+      // main loop (held across it they spill, see kDlogits); rows past M
+      // read row M - 1's and are never stored.
+      const int c_end = Nc - n0 - 2 * t4;          // its columns from here are padding
+      int want[2];
+      float mx[2] = {kNeg, kNeg}, sum[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) want[h] = p.tgt[min(row + 8 * h, M - 1)] - n0 - 2 * t4;
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j)
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float& x = acc[j][4 * i + c];
+            x = 128 * j + 8 * i + (c & 1) < c_end ? x : kNeg;
+            mx[c >> 1] = fmaxf(mx[c >> 1], x);
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      }
+#pragma unroll
+      for (int j = 0; j < kCols / 128; ++j)
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int h = c >> 1, col = 128 * j + 8 * i + (c & 1);
+            const float x = acc[j][4 * i + c];
+            sum[h] += expf(x - mx[h]);
+            tl[h] = col == want[h] ? x : tl[h];
+          }
+      const long long plane = (long long)n_cols * M;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        const int r = row + 8 * h, w = want[h];
+        // its columns are 128 j + 8 i + {0, 1} past n0 + 2 t4
+        const bool holds = w >= 0 && w < kCols && w < c_end && (w & 6) == 0;
+        float* at = p.part + (long long)(n0 / kCols) * M + r;
+        st_f32_if(r < M && t4 == 0, at, mx[h]);
+        st_f32_if(r < M && t4 == 0, at + plane, sum[h]);
+        st_f32_if(r < M && holds, at + 2 * plane, tl[h]);
+      }
+    } else if constexpr (EPI == kDh) {
       // dh = (first ? 0 : acc) + tile: float32 pairs back to acc, or on the
       // last chunk bf16 pairs to dh; every access predicated, none
       // branched. Nc (D) is a multiple of 8, so a pair is wholly inside or
@@ -816,7 +731,19 @@ __device__ __forceinline__ void tiles_body(const CUtensorMap& amap, const CUtens
       }
     }
   }
-  if (EPI != kDh && tid == 0) bulk_wait();        // the stores are done before exit
+  if ((EPI == kDlogits || EPI == kDw) && tid == 0) bulk_wait();   // the stores are done
+}
+
+// forward: each row's partial (m, s, tl) over each 256-column tile of the
+// vocab, to part [3][cdiv(V, 256)][N]; ce_fwd_merge_kernel folds them.
+// A = h (m = row, k = d) K-major; B = W (k = d, n = v) MN-major, the whole
+// vocab (Nc = V)
+__global__ void __launch_bounds__(kThreads, 1)
+ce_fwd_kernel(const __grid_constant__ CUtensorMap hmap,
+              const __grid_constant__ CUtensorMap wmap, const int* __restrict__ tgt,
+              float* __restrict__ part, int N, int D, int V) {
+  tiles_body<0, 1, kFwd>(hmap, wmap, hmap, N, V, D,
+                         Rows{tgt, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, part});
 }
 
 // backward (a): dl [N, vc] = (exp(h W_c - lse) - onehot) g in bf16.
@@ -854,43 +781,41 @@ ce_dw_kernel(const __grid_constant__ CUtensorMap hmap,
 
 }  // namespace tc
 
-template <typename T>
-int fwd(const void* h, const void* w, const void* tgt, void* part, void* lse, void* tl,
-        int N, int D, int V, int splits, cudaStream_t stream) {
+// the float32 instances: one scalar-FMA CTA per 128 x 128 tile
+int fwd(const void* h, const void* w, const void* tgt, void* part, void* lse, void* tl, int N,
+        int D, int V, int splits, cudaStream_t stream) {
   const int tps = cdiv(cdiv(V, kTile), splits);
-  ce_fwd_kernel<T><<<dim3(splits, cdiv(N, kTile)), kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(tgt),
-      static_cast<float*>(part), N, D, V, tps);
+  ce_fwd_kernel<<<dim3(splits, cdiv(N, kTile)), kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
+      static_cast<const int*>(tgt), static_cast<float*>(part), N, D, V, tps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ce_fwd_merge_kernel<<<cdiv(N, kThreads), kThreads, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(tgt),
-      static_cast<float*>(lse), static_cast<float*>(tl), N, V, splits, tps);
+      static_cast<float*>(lse), static_cast<float*>(tl), N, V, splits, kTile * tps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dh(const void* h, const void* w, const void* tgt, const void* lse, const void* g,
        void* dl, void* acc, void* dh_out, int N, int D, int V, int c0, int vc, int ldl,
        int first, int last, cudaStream_t stream) {
-  ce_dlogits_kernel<T><<<dim3(cdiv(vc, kTile), cdiv(N, kTile)), kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(tgt),
-      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dl),
+  ce_dlogits_kernel<<<dim3(cdiv(vc, kTile), cdiv(N, kTile)), kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), static_cast<const int*>(tgt),
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<float*>(dl),
       N, D, V, c0, vc, ldl);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ce_dh_kernel<T><<<dim3(cdiv(D, kTile), cdiv(N, kTile)), kThreads, 0, stream>>>(
-      static_cast<const T*>(dl), static_cast<const T*>(w), static_cast<float*>(acc),
-      static_cast<T*>(dh_out), N, D, V, c0, vc, ldl, first, last);
+  ce_dh_kernel<<<dim3(cdiv(D, kTile), cdiv(N, kTile)), kThreads, 0, stream>>>(
+      static_cast<const float*>(dl), static_cast<const float*>(w), static_cast<float*>(acc),
+      static_cast<float*>(dh_out), N, D, V, c0, vc, ldl, first, last);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dw(const void* h, const void* dl, void* dw_out, int N, int D, int V, int c0, int vc,
        int ldl, cudaStream_t stream) {
-  ce_dw_kernel<T><<<dim3(cdiv(vc, kTile), cdiv(D, kTile)), kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(dl), static_cast<T*>(dw_out), N, D,
-      V, c0, vc, ldl);
+  ce_dw_kernel<<<dim3(cdiv(vc, kTile), cdiv(D, kTile)), kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(dl), static_cast<float*>(dw_out),
+      N, D, V, c0, vc, ldl);
   return (int)cudaGetLastError();
 }
 
@@ -910,6 +835,26 @@ int launch_tc(Kernel kernel, int smem, int tiles, cudaStream_t stream, const Arg
   const cudaError_t err = prepare(kernel, smem, &sms);
   if (err != cudaSuccess) return (int)err;
   kernel<<<tiles < sms ? tiles : sms, tc::kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// the workspace's splits must be the vocab's 256-column tiles
+constexpr int kBadSplits = -4;
+
+int fwd_tc(const void* h, const void* w, const void* tgt, void* part, void* lse, void* tl,
+           int N, int D, int V, int splits, cudaStream_t stream) {
+  const int n_cols = cdiv(V, tc::kCols);
+  if (splits != n_cols) return kBadSplits;
+  CUtensorMap hm, wm;
+  int e = map2(&hm, h, D, N, D);
+  if (!e) e = map2(&wm, w, V, D, V);
+  if (!e)
+    e = launch_tc(tc::ce_fwd_kernel, tc::kFwdSmem, cdiv(N, tc::kRows) * n_cols, stream, hm, wm,
+                  static_cast<const int*>(tgt), static_cast<float*>(part), N, D, V);
+  if (e) return e;
+  ce_fwd_merge_kernel<<<cdiv(N, kThreads), kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(tgt), static_cast<float*>(lse),
+      static_cast<float*>(tl), N, V, n_cols, tc::kCols);
   return (int)cudaGetLastError();
 }
 
@@ -951,25 +896,26 @@ int dw_tc(const void* h, const void* dl, void* dw_out, int N, int D, int V, int 
 // pointer 16-byte aligned (the wrapper checks; TMA needs the same of the
 // tensor-core instances' maps). Each returns the cudaError_t of its
 // launches (0 = launched), -1 for a dtype it has no instance for, -2 when
-// libcuda has no cuTensorMapEncodeTiled, -3 when it refuses a tensor map.
+// libcuda has no cuTensorMapEncodeTiled, -3 when it refuses a tensor map,
+// -4 when ce_fwd's splits do not match its instance's workspace.
 
 // Which instance a kernel (0 ce_fwd, 1 ce_dh, 2 ce_dw) runs for dtype: 2
-// the tensor-core instances (wgmma + TMA: bf16 dh and dW), 1 the mma.sync
-// tiles (bf16 ce_fwd), 0 scalar FMA (float32), -1 none. The entry points
-// dispatch by it.
+// the tensor-core instances (wgmma + TMA: bf16), 0 scalar FMA (float32),
+// -1 none. The entry points dispatch by it.
 extern "C" int ce_route(int kernel, int dtype) {
   if (kernel < 0 || kernel > 2 || (dtype != 0 && dtype != 1)) return -1;
-  if (dtype == 0) return 0;
-  return kernel == 0 ? 1 : 2;
+  return dtype == 0 ? 0 : 2;
 }
 
-// lse, tl [N]; part: float32 scratch of 3 * splits * N
+// lse, tl [N]; part: float32 scratch of 3 * splits * N, where splits is
+// cdiv(V, 256) on the tensor-core instance (one per 256-column tile) and
+// the scalar instance's choice otherwise
 extern "C" int ce_fwd(const void* h, const void* w, const void* tgt, void* part, void* lse,
                       void* tl, int N, int D, int V, int splits, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ce_route(0, dtype)) {
-    case 1: return fwd<__nv_bfloat16>(h, w, tgt, part, lse, tl, N, D, V, splits, s);
-    case 0: return fwd<float>(h, w, tgt, part, lse, tl, N, D, V, splits, s);
+    case 2: return fwd_tc(h, w, tgt, part, lse, tl, N, D, V, splits, s);
+    case 0: return fwd(h, w, tgt, part, lse, tl, N, D, V, splits, s);
   }
   return -1;
 }
@@ -986,8 +932,7 @@ extern "C" int ce_dh(const void* h, const void* w, const void* tgt, const void* 
     case 2:
       return dh_tc(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl, first, last, s);
     case 0:
-      return dh<float>(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl, first,
-                       last, s);
+      return dh(h, w, tgt, lse, g, dl, acc, dh_out, N, D, V, c0, vc, ldl, first, last, s);
   }
   return -1;
 }
@@ -998,7 +943,7 @@ extern "C" int ce_dw(const void* h, const void* dl, void* dw_out, int N, int D, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ce_route(2, dtype)) {
     case 2: return dw_tc(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
-    case 0: return dw<float>(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
+    case 0: return dw(h, dl, dw_out, N, D, V, c0, vc, ldl, s);
   }
   return -1;
 }

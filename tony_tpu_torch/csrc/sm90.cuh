@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu, grouped_mm.cu and fused_ce.cu: mbarriers, TMA loads,
+// flash_attention.cu, grouped_mm.cu, fused_ce.cu and quant_mm.cu: mbarriers, TMA loads,
 // shared-memory matrix descriptors and the wgmma forms they use, the
 // persistent 128 x 256 tile GEMM's ring and main loop (pgemm), and the
 // host-side lookup of cuTensorMapEncodeTiled. Each .cu file includes it
@@ -194,8 +194,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
 
 // wgmma.mma_async m64nNk16, float32 += bf16 x bf16. ss: A and B from
 // shared memory, each K-major (TA, TB 0) or MN-major (1). rs: A
-// from registers (the m64k16 fragment), B from shared memory MN-major.
-// acc = 0 overwrites d.
+// from registers (the m64k16 fragment), B from shared memory MN-major
+// (TB 1) or K-major (0). acc = 0 overwrites d.
 // Accumulator layout (thread t of the warpgroup, warp w = t / 32, lane l):
 // d[i] is row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) +
 // 2 (l % 4) + (i & 1); the A fragment of k-step kk is the same layout's
@@ -241,6 +241,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(acc), "n"(TB), "n"(TA));
 }
 
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b,
                                            int acc) {
   asm volatile(
@@ -248,16 +249,17 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, ui
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
 }
 
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b,
                                             int acc) {
   asm volatile(
@@ -267,7 +269,7 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, u
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -279,7 +281,7 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, u
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
 }
 
 template <int N, int TB = 0, int TA = 0>
@@ -288,10 +290,10 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b
   else mma_ss_n128<TB, TA>(d, a, b, acc);
 }
 
-template <int N>
+template <int N, int TB = 1>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b, int acc) {
-  if constexpr (N == 64) mma_rs_n64(d, a, b, acc);
-  else mma_rs_n128(d, a, b, acc);
+  if constexpr (N == 64) mma_rs_n64<TB>(d, a, b, acc);
+  else mma_rs_n128<TB>(d, a, b, acc);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -27,16 +27,15 @@ kernels (``_ce_fwd_kernel`` :164, ``_ce_dh_kernel`` :204, ``_ce_dw_kernel``
 :236), hand-written in CUDA in ``csrc/fused_ce.cu`` and built with ``nvcc``
 at first use by ``ops/_build.py``:
 
-- ``ce_fwd``: lse and the target logit per row, online over 128-column
-  vocab tiles, the vocab split across CTAs and merged per row;
+- ``ce_fwd``: lse and the target logit per row, online over vocab tiles,
+  the vocab split across CTAs and merged per row;
 - ``ce_dh``: per vocab chunk of ``_DL_COLS`` columns, the chunk's logits
   recomputed once and its dlogits written in h's dtype to a ``[N, Vc]``
   scratch, then ``dh += dlogits W_c^T`` in float32;
 - ``ce_dw``: the chunk's dW columns, ``h^T dlogits``, from that scratch.
 
-bfloat16 ``ce_dh`` and ``ce_dw`` run on wgmma with TMA staging, bfloat16
-``ce_fwd`` on mma.sync, float32 on scalar FMA (:func:`kernel_instance`
-says which, from the library's ``ce_route``). CUDA tensors launch the
+bfloat16 runs all three on wgmma with TMA staging, float32 on scalar FMA
+(:func:`kernel_instance` says which, from the library's ``ce_route``). CUDA tensors launch the
 routed instance or raise; CPU tensors take the plain versions
 :func:`ce_fwd_plain`, :func:`ce_dh_plain` and :func:`ce_dw_plain`, which
 walk the reference's ``block_v`` vocab tiles (and ``block_n`` row blocks
@@ -68,12 +67,14 @@ LAUNCHES: dict[str, int] = {
 _SOURCE = "fused_ce"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_CODES = {"ce_fwd": 0, "ce_dh": 1, "ce_dw": 2}
-_INSTANCES = {2: "tensor cores", 1: "mma.sync", 0: "scalar"}
-_ERRORS = {-1: "no instance for this dtype", **TMA_ERRORS}
-_TILE = 128                 # the kernels' tile (csrc/fused_ce.cu kTile)
+_INSTANCES = {2: "tensor cores", 0: "scalar"}
+_ERRORS = {-1: "no instance for this dtype",
+           -4: "ce_fwd's splits do not match its instance's workspace", **TMA_ERRORS}
+_TILE = 128                 # the scalar kernels' tile (csrc/fused_ce.cu kTile)
 _MAX_GRID_Y = 65535         # CUDA's grid.y limit: row blocks of 128
 _DL_COLS = 4096             # vocab columns per backward chunk (dlogits scratch)
-_WAVES = 8                  # ce_fwd's CTAs per SM to aim for (vocab splits)
+_FWD_COLS = 256             # the tensor-core ce_fwd's column tile (sm90.cuh pgemm::kCols)
+_WAVES = 8                  # the scalar ce_fwd's CTAs per SM to aim for (vocab splits)
 
 
 def reset_launches() -> None:
@@ -249,18 +250,36 @@ def _kernels():
     return fns
 
 
-def kernel_instance(name: str, dtype: torch.dtype) -> str:
-    """Which CUDA instance ``name`` (ce_fwd, ce_dh or ce_dw) runs for
-    ``dtype``, as the built library dispatches it: ``"tensor cores"``
-    (wgmma + TMA), ``"mma.sync"`` or ``"scalar"`` (float32 FMA). Builds
-    the library on first use, so it needs nvcc."""
+@functools.cache
+def _route(kernel: int, dtype: int) -> int:
     route = load(_SOURCE).lib.ce_route
     route.argtypes = [ctypes.c_int] * 2
     route.restype = ctypes.c_int
-    got = route(_KERNEL_CODES[name], _DTYPE_CODES.get(dtype, -1))
+    return route(kernel, dtype)
+
+
+def kernel_instance(name: str, dtype: torch.dtype) -> str:
+    """Which CUDA instance ``name`` (ce_fwd, ce_dh or ce_dw) runs for
+    ``dtype``, as the built library dispatches it: ``"tensor cores"``
+    (wgmma + TMA) or ``"scalar"`` (float32 FMA). Builds the library on
+    first use, so it needs nvcc."""
+    got = _route(_KERNEL_CODES[name], _DTYPE_CODES.get(dtype, -1))
     if got < 0:
         raise ValueError(f"{name} has no instance for {dtype}")
     return _INSTANCES[got]
+
+
+def fwd_splits(instance: str, N: int, V: int, sms: int) -> int:
+    """The vocab splits of ce_fwd's partials workspace ``[3, splits, N]``
+    for the instance that runs: the tensor-core one writes one partial per
+    256-column tile of its persistent grid; the scalar one splits its
+    128-column tiles so that about ``_WAVES`` CTAs of 128 rows run per SM,
+    with no split left without a tile."""
+    if instance == "tensor cores":
+        return -(-V // _FWD_COLS)
+    n_tiles = -(-V // _TILE)
+    splits = max(1, min(n_tiles, -(-_WAVES * sms // -(-N // _TILE))))
+    return -(-n_tiles // -(-n_tiles // splits))
 
 
 def _ready(t: torch.Tensor) -> torch.Tensor:
@@ -321,10 +340,8 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
         return ce_fwd_plain(h, w, tgt, block_v)
     h, w, t32 = _cuda_operands(h, w, tgt)
     N, (D, V) = h.shape[0], w.shape
-    n_tiles = -(-V // _TILE)
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    splits = max(1, min(n_tiles, -(-_WAVES * sms // -(-N // _TILE))))
-    splits = -(-n_tiles // -(-n_tiles // splits))     # no split without a tile
+    splits = fwd_splits(kernel_instance("ce_fwd", h.dtype), N, V, sms)
     part = torch.empty((3, splits, N), dtype=torch.float32, device=h.device)
     lse = torch.empty(N, dtype=torch.float32, device=h.device)
     tl = torch.empty_like(lse)
@@ -458,5 +475,5 @@ def reference_ce_tokens(h: torch.Tensor, w: torch.Tensor,
 __all__ = [
     "LAUNCHES", "ce_bwd", "ce_dh_plain", "ce_dw_chunk", "ce_dw_plain", "ce_fwd",
     "ce_fwd_plain", "dlogits_chunks", "f32_matmul_route", "fused_ce_tokens",
-    "kernel_instance", "reference_ce_tokens", "reset_launches",
+    "fwd_splits", "kernel_instance", "reference_ce_tokens", "reset_launches",
 ]

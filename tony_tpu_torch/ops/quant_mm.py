@@ -17,10 +17,16 @@ Where it runs is decided by the tensors' device alone:
 
 - CUDA tensors launch the hand-written kernel ``csrc/quant_mm.cu`` (built
   with ``nvcc`` at first use, ``ops/_build.py``), or raise. There is no
-  fallback.
+  fallback. bfloat16 x runs on the tensor cores, every row of x up to 128
+  in one CTA so the weight is read once, D split :func:`split_k` ways for
+  narrow N; float32 x on scalar FMA (:func:`kernel_instance` says which,
+  from the library's ``quant_mm_route``).
 - CPU tensors take :func:`quant_matmul_plain`, the plain PyTorch version.
 
-``LAUNCHES`` counts both.
+``LAUNCHES`` counts both. The kernel's sums do not depend on how many rows
+share a call: the split of D comes from the weight's shape and the card
+alone, so a row decodes to the same bits alone, in 8 slots or in a
+verify step's 128 rows.
 """
 
 from __future__ import annotations
@@ -36,6 +42,14 @@ LAUNCHES: dict[str, int] = {"quant_mm": 0, "quant_mm_plain": 0}
 
 _KERNEL = "quant_mm"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INSTANCES = {1: "tensor cores", 0: "scalar"}
+# the entry point's own return codes; other nonzero returns are cudaError_t
+_ERRORS = {-1: "no instance for this dtype", -2: "a split of D outside 1..8"}
+# the tensor-core instance's tiles and its largest split (csrc/quant_mm.cu
+# tc::kCols, kDepth, kMaxSplits: a portable cluster of CTAs)
+_COLS = 256
+_DEPTH = 64
+_MAX_SPLITS = 8
 
 
 def reset_launches() -> None:
@@ -70,15 +84,57 @@ def quant_matmul_plain(x2: torch.Tensor, wq: torch.Tensor,
     return out.to(x2.dtype)
 
 
+def split_k(D: int, N: int, sms: int, clusters: dict[int, int]) -> int:
+    """How many ways the tensor-core instance splits D for a ``[D, N]``
+    weight on a card of ``sms`` SMs that holds ``clusters[s]`` clusters of
+    ``s`` CTAs at once: the most splits, up to a cluster of 8 (the split
+    partials meet in the cluster's shared memory), that keep every CTA of
+    the call in one wave (no more CTAs than SMs, a column tile's cluster
+    for each), no split without a 64-deep slice. It reads no row count, so
+    a row's float32 sum runs in the same order at every M."""
+    tiles = -(-N // _COLS)
+    slices = -(-D // _DEPTH)
+    want = max([1] + [s for s in range(2, min(_MAX_SPLITS, slices) + 1)
+                      if tiles * s <= sms and tiles <= clusters[s]])
+    per = -(-slices // want)
+    return -(-slices // per)
+
+
 @functools.cache
-def _kernel():
-    """The kernel's C entry point, built and bound on first use."""
+def _lib():
+    """The library's entry points, built and bound on first use."""
     from tony_tpu_torch.ops._build import load
 
-    fn = load(_KERNEL).lib.quant_mm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load(_KERNEL).lib
+    lib.quant_mm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.quant_mm.restype = ctypes.c_int
+    lib.quant_mm_route.argtypes = [ctypes.c_int]
+    lib.quant_mm_route.restype = ctypes.c_int
+    lib.quant_mm_max_clusters.argtypes = [ctypes.c_int]
+    lib.quant_mm_max_clusters.restype = ctypes.c_int
+    return lib
+
+
+def kernel_instance(dtype: torch.dtype) -> str:
+    """Which CUDA instance quant_mm runs for x of ``dtype``, as the built
+    library dispatches it: ``"tensor cores"`` (bfloat16) or ``"scalar"``
+    (float32). Builds the library on first use, so it needs nvcc."""
+    got = _lib().quant_mm_route(_DTYPE_CODES.get(dtype, -1))
+    if got < 0:
+        raise ValueError(f"quant_mm has no instance for {dtype}")
+    return _INSTANCES[got]
+
+
+@functools.cache
+def card_shape(index: int) -> tuple[int, dict[int, int]]:
+    """Card ``index``'s SM count and how many clusters of 1 to 8 CTAs of
+    the tensor-core instance it holds at once (the library asks the
+    occupancy calculator); what :func:`split_k` reads of the card."""
+    with torch.cuda.device(index):
+        clusters = {s: _lib().quant_mm_max_clusters(s) for s in range(1, _MAX_SPLITS + 1)}
+    if min(clusters.values()) < 1:
+        raise RuntimeError(f"quant_mm cluster occupancy query failed: {clusters}")
+    return torch.cuda.get_device_properties(index).multi_processor_count, clusters
 
 
 def _quant_mm_cuda(x2: torch.Tensor, wq: torch.Tensor,
@@ -102,11 +158,13 @@ def _quant_mm_cuda(x2: torch.Tensor, wq: torch.Tensor,
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0 or N == 0:
         return out
+    splits = (split_k(D, N, *card_shape(x2.device.index))
+              if kernel_instance(x2.dtype) == "tensor cores" else 1)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    err = _kernel()(x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                    M, D, N, _DTYPE_CODES[x2.dtype], stream)
+    err = _lib().quant_mm(x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                          M, D, N, splits, _DTYPE_CODES[x2.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"quant_mm launch failed: cudaError {err}")
+        raise RuntimeError(f"quant_mm launch failed: {_ERRORS.get(err, f'cudaError {err}')}")
     LAUNCHES[_KERNEL] += 1
     return out
 
@@ -134,6 +192,6 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torc
 
 
 __all__ = [
-    "LAUNCHES", "WEIGHT_QMAX", "quant_matmul", "quant_matmul_plain",
-    "quantize_weights", "reset_launches",
+    "LAUNCHES", "WEIGHT_QMAX", "card_shape", "kernel_instance", "quant_matmul",
+    "quant_matmul_plain", "quantize_weights", "reset_launches", "split_k",
 ]

@@ -63,10 +63,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tensor cores, fp32 scalar), beside the repeat-expanded
    ``reference_decode_attention``; and the bench's layer-scanned loop (24
    calls, each output the next query), whose 24 launches are the kernel's
-   path. Each kernel with its time beside its bound, the plain version's
-   time and one PyTorch library call's time (the scan CE head's cuBLAS
-   passes for the CE kernels, SDPA over the repeat-expanded cache for the
-   decode kernels);
+   path; then (3g) the fsdp ring's chunk matmul (kernel 14) against its
+   plain version at bench_1b4's ring chunks at fsdp 2 (8192 local rows:
+   the four forward projections' shapes, w1's dx with the shard read
+   transposed and its dW with the activations read transposed, and a
+   ragged N), in bf16 and fp32, each with its instance (bf16 on wgmma with
+   TMA staging, fp32 scalar), two launches held bit-equal, torch.matmul
+   beside it (bf16 output for bf16 inputs), and the four tensor-core
+   instances' registers and spills. Each kernel with its time beside its
+   bound, the plain version's time and one PyTorch library call's time
+   (the scan CE head's cuBLAS passes for the CE kernels, SDPA over the
+   repeat-expanded cache for the decode kernels);
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
    launch count must equal decode steps x layers. Then a few decode steps
@@ -116,7 +123,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    step, no plain version on the card, the grouped-matmul and flash
    kernels on their tensor-core instances. Then one step under torch.profiler,
    and a 2-layer cross-check of one train step with the kernels against
-   the plain grouped matmul.
+   the plain grouped matmul;
+7. fsdp training: two rank processes on this one card (``--fsdp-rank``),
+   each bringing up a gloo group over tcp://localhost and calling the
+   port's own ``fit()`` on bench_1b4 at full width and depth with
+   ``mesh_shape=MeshShape(fsdp=2)`` and ``overlap_impl="pallas"``, phase
+   5's recipe, data (global batch 8 x 2048, 4 x 2048 a rank) and initial
+   parameters (each rank its blocks), 4 steps: each loss within 2e-2 of
+   phase 5's at the same step; on each rank kernel 14 launched exactly
+   24 layers x 7 projections x 4 x 2 times a step (the ring's forward, its
+   recompute under remat, dx and dW, two chunks each) on its tensor-core
+   instance, its plain version never, and each flash kernel once per
+   layer and step. The step time is printed beside the transport (gloo,
+   host-staged): two ranks on one card, not an NCCL time.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -126,8 +145,9 @@ matched by their tensor-core kernels' names (``tc::``), so a window in
 which one ran another instance is short of events; a decode breakdown's attention share
 counts the merge of a row's splits (``tc::decode_merge_kernel``) too.
 
-The last three lines are the ``kernels`` JSON (thirteen kernels; quant_mm's
-times are one decode step's 225 launches at their five shapes, summed),
+The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
+times are one decode step's 225 launches at their five shapes, summed;
+chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -172,7 +192,7 @@ GMM_DW_TOLERANCE = (1e-2, 1e-4)
 # sums' order alone
 QUANT_MM_TOLERANCE = {torch.bfloat16: (1e-2, 2**-7), torch.float32: (1e-4, 1e-4)}
 KERNEL_SOURCES = ("paged_decode_attention", "flash_attention", "grouped_mm",
-                  "quant_mm", "fused_ce")
+                  "quant_mm", "fused_ce", "overlap")
 # the bf16 paged decode kernel's tensor-core instance, whose device time a
 # breakdown counts: the split kernel, and the merge of a row's splits,
 # launched when the table spans more than one split (the engine sizes its
@@ -197,6 +217,7 @@ KERNEL_EVENTS = {
     "gmm_dw": ("tc::gmm_dw_kernel",),
     "ce_fwd": ("tc::ce_fwd_kernel", "ce_fwd_merge_kernel"),
     "ce_dh": ("tc::ce_dlogits_kernel", "tc::ce_dh_kernel"), "ce_dw": ("tc::ce_dw_kernel",),
+    "chunk_mm": ("tc::chunk_mm_kernel",),
 }
 # the CE head's profiler ranges (ops/fused_ce.py), one per pass
 CE_RANGES = ("fused_ce.fwd", "fused_ce.bwd")
@@ -987,12 +1008,13 @@ def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
          "proposed": m.draft_proposed, "accepted": m.draft_accepted, "wall_s": wall,
          "mean_step_ms": m.decode_s / max(m.decode_steps, 1) * 1e3}
     if profile:
-        # 1 + 4 timed steps, then 1 + 4 a traced window, each up to G tokens
-        n = ((PROFILE_ATTEMPTS + 1) * (4 + 1) + 1) * (SPEC_DRAFT + 1)
+        # 1 + k timed steps, then 1 + k a traced window, each up to G tokens
+        k = VERIFY_PROFILE_STEPS
+        n = ((PROFILE_ATTEMPTS + 1) * (k + 1) + 1) * (SPEC_DRAFT + 1)
         kernels = {"attention": QUANT_TC_EVENTS if quant else PAGED_TC_EVENTS}
         if quant:
             kernels["quant_mm"] = KERNEL_EVENTS["quant_mm"]
-        r.update(decode_breakdown(engine, cfg, None, kernels, steps=4, requests=reqs(n)))
+        r.update(decode_breakdown(engine, cfg, None, kernels, steps=k, requests=reqs(n)))
     del engine
     torch.cuda.empty_cache()
     return r
@@ -1107,7 +1129,8 @@ def kernel_modules() -> list:
     import importlib
 
     return [importlib.import_module(f"tony_tpu_torch.ops.{m}") for m in
-            ("attention", "decode_attention", "fused_ce", "grouped_mm", "quant_mm")]
+            ("attention", "decode_attention", "fused_ce", "grouped_mm", "quant_mm",
+             "overlap")]
 
 
 def launch_counts() -> dict[str, int]:
@@ -1132,6 +1155,11 @@ def has_kernel(key: str, kernel: str) -> bool:
 # of 1800 quant_mm events once), and a window short of any is traced again
 # rather than read
 PROFILE_ATTEMPTS = 3
+# verify steps a phase-4c window traces after its warm-up step. A quantized
+# verify step enqueues about 16,800 kernels; with 1 + 4 steps a window (about
+# 84,000 kernel events) a run on a slow host lost 3-10 of 900 quant_mm events
+# in each of three windows, so a window traces 1 + 2
+VERIFY_PROFILE_STEPS = 2
 
 
 def profile_window(run, steps: int) -> dict:
@@ -1259,18 +1287,18 @@ def _pairs(B: int, S: int, H: int, causal: bool) -> int:
 def tensor_core_resources(log: str) -> list[dict]:
     """Registers, stack and spills of each tensor-core instance (namespace
     ``tc``, e.g. ``flash_fwd_kernel<128>``, ``gmm_fwd_kernel``,
-    ``paged_quant_decode_kernel<1, int8>``) from nvcc's ``-Xptxas -v``
-    lines."""
+    ``paged_quant_decode_kernel<1, int8>``, ``chunk_mm_kernel<0, 1>``) from
+    nvcc's ``-Xptxas -v`` lines."""
     payloads = {"a": "int8", "13__nv_fp8_e4m3": "fp8_e4m3"}
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"2tc\d+(\w+?_kernel)(?:ILi(\d+)E(a|13__nv_fp8_e4m3)?)?",
-                          m.group(1))
+            k = re.search(r"2tc\d+(\w+?_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?"
+                          r"(a|13__nv_fp8_e4m3)?)?", m.group(1))
             cur = None
             if k:
-                args = [a for a in (k.group(2), payloads.get(k.group(3))) if a]
+                args = [a for a in (k.group(2), k.group(3), payloads.get(k.group(4))) if a]
                 cur = {"kernel": k.group(1) + (f"<{', '.join(args)}>" if args else "")}
             if cur:
                 out.append(cur)
@@ -2144,6 +2172,207 @@ def train_moe_phase(card: str) -> dict:
     }
 
 
+# --- phase 3g: the ring's chunk matmul (kernel 14) ----------------------------------
+
+# bench_1b4's ring chunks at fsdp 2 and global batch 8 x 2048 (8192 local
+# rows): (label, M, K, N, a's view, b's view). Forward, gather dim 0: a
+# column slice of x (row stride D 2048) against a row shard of wq/wk/wv or
+# w1/w3; gather dim 1: x or the gate against a column shard of wo or w2.
+# Backward at w1: dx reads the shard transposed (b K-major), dW the
+# activations' slice transposed (a MN-major). The ragged N is no multiple
+# of the 256-column tile (_pick_block cuts it into tiles of 8).
+CHUNK_SHAPES = (("wq/wk/wv", 8192, 1024, 2048, "slice", "row"),
+                ("w1/w3", 8192, 1024, 5504, "slice", "row"),
+                ("wo", 8192, 2048, 1024, "dense", "row"),
+                ("w2", 8192, 5504, 1024, "dense", "row"),
+                ("w1 dx", 8192, 5504, 1024, "dense", "transposed"),
+                ("w1 dW", 1024, 8192, 5504, "transposed", "row"),
+                ("ragged N", 8192, 1024, 1000, "slice", "sliced"))
+# kernel 14 against its plain version on the same views: products of either
+# input type are exact in float32 and only the order of the float32 sums
+# differs (up to 8192 terms), so within 1e-4 of the largest output
+CHUNK_RTOL = 1e-4
+
+
+def chunk_operands(M: int, K: int, N: int, a_view: str, b_view: str, dtype: torch.dtype):
+    """a [M, K] and b [K, N] from a seed, as the views the ring hands the
+    kernel (activations ~ N(0, 1), weights ~ N(0, 1/K))."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N)
+    if a_view == "slice":            # columns [K, 2K) of a [M, 2K] activation
+        a = torch.randn((M, 2 * K), generator=gen, device="cuda").to(dtype)[:, K:]
+    elif a_view == "transposed":     # a column slice of [K, 2M], transposed
+        a = torch.randn((K, 2 * M), generator=gen, device="cuda").to(dtype)[:, :M].T
+    else:
+        a = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((K, N + 8), generator=gen, device="cuda") / math.sqrt(K)
+    if b_view == "transposed":       # a [N, K] shard read as its transpose
+        b = w[:, :N].T.contiguous().to(dtype).T
+    elif b_view == "sliced":         # the first N columns of a wider shard
+        b = w.to(dtype)[:, :N]
+    else:
+        b = w[:, :N].contiguous().to(dtype)
+    return a, b
+
+
+def chunk_cases(dtype: torch.dtype, flush: torch.Tensor) -> list[dict]:
+    """Kernel 14 at each ring chunk: against its plain version, two
+    launches bit-equal, the instance that ran, its time beside its bound,
+    the plain version's and torch.matmul's (bf16 in, bf16 out: marked)."""
+    from tony_tpu_torch.ops import overlap as ov
+
+    cases = []
+    for label, M, K, N, a_view, b_view in CHUNK_SHAPES:
+        a, b = chunk_operands(M, K, N, a_view, b_view, dtype)
+        got = ov.chunk_mm(a, b)
+        # a second launch on the same inputs: no atomics, a fixed order
+        bit_equal = bits_equal(got, ov.chunk_mm(a, b))
+        want = ov.chunk_mm_plain(a, b)
+        lib = torch.matmul(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        limit = CHUNK_RTOL * want.abs().max().item()
+        lib_err = (lib.float() - want).abs().max().item()
+        item = a.element_size()
+        ops, nbytes = 2 * M * K * N, (M * K + K * N) * item + M * N * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+        cases.append({
+            "label": label, "dtype": str(dtype).replace("torch.", ""), "M": M, "K": K,
+            "N": N, "a": a_view, "b": b_view, "max_abs_err": err, "limit": limit,
+            "bit_equal": bit_equal, "ok": err <= limit and bit_equal,
+            "instance": ov.kernel_instance(dtype),
+            "ms": time_ms(lambda: ov.chunk_mm(a, b), flush),
+            "plain_ms": time_ms(lambda: ov.chunk_mm_plain(a, b), flush, reps=2),
+            "library_ms": time_ms(lambda: torch.matmul(a, b), flush),
+            "library_out": str(lib.dtype).replace("torch.", ""), "library_max_abs_err": lib_err,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops": ops, "bytes": nbytes,
+        })
+        del a, b, got, want, lib
+    return cases
+
+
+# --- phase 7: fit() at fsdp 2, two ranks on one card ------------------------------
+
+FSDP = 2
+FSDP_STEPS = 4
+# the trunk projections the fsdp ring takes (models/llama.py _proj)
+RING_PROJECTIONS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+FSDP_TIMEOUT_S = 420
+
+
+def fsdp_rank(rank: int, port: int, out: str) -> int:
+    """One rank of phase 7: bring up a gloo group over tcp://localhost on
+    this card, then the port's own fit() at fsdp 2 with the ring's pallas
+    form; write what it saw to ``out``."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.ops import attention, overlap
+    from tony_tpu_torch.parallel.dist import transport
+    from tony_tpu_torch.parallel.mesh import MeshShape, get_default_mesh
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=FSDP)
+    cfg = dense_train_config()
+    steps: list[dict] = []
+    overlap.reset_launches()
+    attention.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = fit(FitConfig(model=cfg, data=DataConfig(global_batch=8, seq_len=2048,
+                                                     vocab_size=cfg.vocab_size),
+                          mesh_shape=MeshShape(fsdp=FSDP), overlap_impl="pallas",
+                          steps=FSDP_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
+                          mu_dtype="bfloat16", on_metrics=steps.append), device="cuda")
+    wall = time.perf_counter() - t0
+    mesh = get_default_mesh()
+    res = {"rank": rank, "metrics": steps, "final": final, "wall_s": wall,
+           "launches": {**overlap.LAUNCHES, **attention.LAUNCHES},
+           "instance": overlap.kernel_instance(cfg.dtype),
+           "transport": transport(mesh.axis("fsdp"), torch.device("cuda")),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def fsdp_phase(card: str, dense: dict) -> dict:
+    """Phase 7: two rank processes on this card, each bringing up its gloo
+    group and calling fit() on bench_1b4 at fsdp 2 with overlap_impl=
+    "pallas", phase 5's recipe, data and initial parameters (each rank its
+    blocks). Each step's loss within 2e-2 of phase 5's (the same bf16
+    model and batches; the ring sums each projection's partial products
+    in another order, and the schedule matches phase 5's up to step
+    FSDP_STEPS); on each rank kernel 14 launched exactly the count the
+    ring implies and its plain version never."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="fsdp-")
+    outs = [f"{tmp}/rank{r}.json" for r in range(FSDP)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--fsdp-rank", str(r), str(port),
+                               outs[r]]) for r in range(FSDP)]
+    try:
+        codes = [p.wait(timeout=max(1.0, FSDP_TIMEOUT_S - (time.perf_counter() - t0)))
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"fsdp ranks exited {codes}")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    cfg = dense_train_config()
+    # kernel 14 a step: each trunk projection's ring runs n chunks in the
+    # forward, n again in the backward's recompute (remat re-runs the
+    # layer's projections; save_attn_kernel keeps q/k/v after RoPE but not
+    # the matmuls that made them), n in dx's mirrored ring and n in dW's
+    # reduce-scatter ring
+    per_step = cfg.n_layers * len(RING_PROJECTIONS) * 4 * FSDP
+    for r in ranks:
+        want = {"chunk_mm": per_step * FSDP_STEPS, "chunk_mm_plain": 0,
+                **{n: cfg.n_layers * FSDP_STEPS for n in FLASH_KERNELS},
+                **{f"{n}_plain": 0 for n in FLASH_KERNELS}}
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"rank {r['rank']} launches {got} != {want}")
+        if r["instance"] != "tensor cores":
+            raise AssertionError(f"kernel 14 ran {r['instance']} in bf16")
+    metrics = ranks[0]["metrics"]
+    losses = [m["loss"] for m in metrics]
+    if len(losses) != FSDP_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fsdp losses {losses}")
+    if ranks[1]["metrics"]:
+        raise AssertionError("rank 1 reported metrics: rank 0 alone reports")
+    diffs = [abs(a - b) for a, b in zip(losses, dense["losses"])]
+    if max(diffs) > 2e-2:
+        raise AssertionError(f"fsdp losses {losses} against phase 5's "
+                             f"{dense['losses'][:FSDP_STEPS]}")
+    for m, ref in zip(metrics, dense["losses"]):
+        log(f"train fsdp={FSDP} step {m['step']}: loss {m['loss']:.4f} (phase 5 "
+            f"{ref:.4f}) grad_norm {m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms "
+            f"over {ranks[0]['transport']}  [{card}]")
+    timed = [m["step_time_s"] for m in metrics[2:]]     # 2 warm-up steps
+    return {"ranks": ranks, "losses": losses, "loss_diffs": diffs, "wall_s": wall,
+            "per_step": per_step, "mean_step_ms": sum(timed) / len(timed) * 1e3,
+            "transport": ranks[0]["transport"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -2394,6 +2623,29 @@ def main() -> int:
         f"query, bf16): {loop['launches']} launches; {loop['ms']:.3f} ms  plain "
         f"{loop['plain_ms']:.3f} ms  reference_decode_attention {loop['oracle_ms']:.3f} "
         f"ms; max|err| against the plain loop {loop['max_abs_err']:.3e}  [{card}]")
+    # 3g: kernel 14 at the ring's chunks, bf16 then fp32
+    chunks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in chunk_cases(dtype, flush):
+            chunks.append(c)
+            log(f"kernel chunk_mm {c['label']} {c['dtype']} ({c['instance']}) M={c['M']} "
+                f"K={c['K']} N={c['N']} a {c['a']} b {c['b']}"
+                f"{' (two launches bit-equal)' if c['bit_equal'] else ' (LAUNCHES DIFFER)'}: "
+                f"max|err| {c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'} limit "
+                f"{c['limit']:.3g})  {c['ms']:.3f} ms  (bound {c['bound_ms']:.3f} ms by "
+                f"{c['bound_by']}: {c['ops']:.4g} ops, {c['bytes'] / 1e6:.1f} MB)  plain "
+                f"{c['plain_ms']:.3f} ms  torch.matmul {c['library_ms']:.3f} ms "
+                f"({c['library_out']} output, max|err| {c['library_max_abs_err']:.3e})  "
+                f"[{card}]")
+        torch.cuda.empty_cache()
+    bad = [(c["label"], c["dtype"]) for c in chunks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"chunk_mm over tolerance or launches not bit-equal: {bad}")
+    wrong = [(c["label"], c["dtype"], c["instance"]) for c in chunks
+             if c["instance"] != ("tensor cores" if c["dtype"] == "bfloat16" else "scalar")]
+    if wrong:
+        raise AssertionError(f"chunk_mm cases on an unexpected instance: {wrong}")
+    log_resources(builds, "overlap", 4)
     del flush
     torch.cuda.empty_cache()
     sync = moe_sync_check()
@@ -2509,6 +2761,20 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1%}" for k, v in m["profile_share"].items())
         + f"  [{card}]")
     model_crosscheck(card, moe_train_config(), "moe_gmm_impl", "pallas", "scan")
+    torch.cuda.empty_cache()
+
+    f = fsdp_phase(card, t)
+    r0 = f["ranks"][0]
+    log(f"train bench_1b4 at fsdp={FSDP} through fit() (two rank processes on this one "
+        f"card, overlap_impl=pallas, phase 5's recipe, data and initial parameters): "
+        f"{FSDP_STEPS} steps, loss {f['losses'][0]:.4f} -> {f['losses'][-1]:.4f}, max "
+        f"|loss - phase 5's| {max(f['loss_diffs']):.3e}; mean step {f['mean_step_ms']:.1f} "
+        f"ms over steps 3-{FSDP_STEPS} with the fsdp ring over {f['transport']} (two ranks "
+        f"share the card and the ring's hops go through host memory: not an NCCL time); "
+        f"kernel 14 launches per rank {r0['launches']['chunk_mm']} = {f['per_step']} a "
+        f"step ({r0['instance']}), plain 0; peak allocated per rank "
+        + ", ".join(f"{r['peak_allocated_gb']:.2f}" for r in f["ranks"])
+        + f" GB; phase wall {f['wall_s']:.1f} s  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -2586,6 +2852,15 @@ def main() -> int:
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
+    # kernel 14 at the largest forward chunk (w1/w3), bf16; launches: rank 0's
+    # over phase 7's fit()
+    c = next(c for c in chunks if c["label"] == "w1/w3" and c["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "chunk_mm", "route": "cuda", "source": "tony_tpu_torch/csrc/overlap.cu",
+        "replaces": "tony_tpu/ops/overlap.py:75", "launches": r0["launches"]["chunk_mm"],
+        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2596,4 +2871,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fsdp-rank"]:      # one rank of phase 7, started by main()
+        sys.exit(fsdp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -22,7 +22,8 @@ def csrc_copy(tmp_path, monkeypatch):
     return tmp_path
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "grouped_mm", "fused_ce", "quant_mm"])
+@pytest.mark.parametrize("name", ["flash_attention", "grouped_mm", "fused_ce", "quant_mm",
+                                  "overlap"])
 def test_header_edit_changes_library_name(csrc_copy, name):
     """An edit to a header the source includes gives the library another
     name, so a stale build is never loaded; an unchanged tree keeps it."""
@@ -36,11 +37,11 @@ def test_header_edit_changes_library_name(csrc_copy, name):
 
 def test_includes_name_files_in_csrc():
     """Every ``#include "..."`` of a csrc/*.cu source names a file in
-    csrc/, and the four wgmma sources share sm90.cuh."""
+    csrc/, and the five wgmma sources share sm90.cuh."""
     included = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         for inc in INCLUDE.findall(src.read_text()):
             assert (_build.CSRC / inc).is_file(), f"{src.name} includes missing {inc}"
             included.setdefault(inc, set()).add(src.name)
     assert included.get("sm90.cuh") == {"flash_attention.cu", "grouped_mm.cu", "fused_ce.cu",
-                                        "quant_mm.cu"}
+                                        "quant_mm.cu", "overlap.cu"}

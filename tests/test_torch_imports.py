@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch/CUDA port: no module of tony_tpu_torch, not
-chip_smoke.py, not the card's test file and not scripts/torch_kernel_ab.py
-imports jax or anything of the JAX package. Read from
+chip_smoke.py, not the card's test file, not the gloo ranks' runner
+(tests/torch_ranks.py) and not scripts/torch_kernel_ab.py imports jax or
+anything of the JAX package. Read from
 the source with ``ast`` (not ``sys.modules``: the interpreter may have
 imported jax before any test runs)."""
 
@@ -14,7 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # to the same rule
 FILES = sorted((ROOT / "tony_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests/test_torch_kernels_cuda.py",
-    ROOT / "scripts/torch_kernel_ab.py"]
+    ROOT / "tests/torch_ranks.py", ROOT / "scripts/torch_kernel_ab.py"]
 
 
 def _banned(name: str) -> bool:
@@ -46,9 +47,11 @@ def test_every_port_module_is_checked():
                  "tony_tpu_torch/train/checkpoint.py",
                  "tony_tpu_torch/ops/grouped_mm.py", "tony_tpu_torch/parallel/moe.py",
                  "tony_tpu_torch/parallel/__init__.py", "tony_tpu_torch/ops/quant_mm.py",
-                 "chip_smoke.py",
-                 "tests/test_torch_kernels_cuda.py"):
+                 "tony_tpu_torch/parallel/dist.py", "tony_tpu_torch/parallel/mesh.py",
+                 "tony_tpu_torch/parallel/sharding.py", "tony_tpu_torch/ops/overlap.py",
+                 "tony_tpu_torch/models/convert.py", "chip_smoke.py",
+                 "tests/test_torch_kernels_cuda.py", "tests/torch_ranks.py"):
         assert want in names
     for src in ("paged_decode_attention", "flash_attention", "grouped_mm", "quant_mm",
-                "fused_ce"):
+                "fused_ce", "overlap"):
         assert (ROOT / f"tony_tpu_torch/csrc/{src}.cu").exists()

@@ -1247,3 +1247,98 @@ def test_ce_bwd_tensor_cores_match_plain_on_card(cuda, N, D, V):
     assert {k: v for k, v in LAUNCHES.items() if v} == {"ce_dh": chunks, "ce_dw": chunks}
     _ce_close(dh, ce_dh_plain(h, w, t, lse, g), torch.bfloat16, "dh")
     _ce_close(dw, ce_dw_plain(h, w, t, lse, g), torch.bfloat16, "dW")
+
+
+# --- ring chunk matmul (kernel 14) -------------------------------------------------
+
+# bench_1b4's ring chunks at fsdp 2 and global batch 8 x 2048 (8192 local
+# rows): (label, M, K, N, a's view, b's view). Forward: gather dim 0 reads a
+# column slice of x (row stride D 2048) against a row shard of wq/w1;
+# gather dim 1 x (or the gate) against a column shard of wo/w2. Backward:
+# dx reads the shard transposed (b K-major), dW reads the activations'
+# slice transposed (a MN-major). The ragged case's N is no multiple of the
+# 256-column tile (_pick_block cuts it into tiles of 8).
+K14_SHAPES = [("wq", 8192, 1024, 2048, "slice", "row"), ("w1", 8192, 1024, 5504, "slice", "row"),
+              ("wo", 8192, 2048, 1024, "dense", "row"), ("w2", 8192, 5504, 1024, "dense", "row"),
+              ("w1-dx", 8192, 5504, 1024, "dense", "transposed"),
+              ("w1-dw", 1024, 8192, 5504, "transposed", "row"),
+              ("ragged", 8192, 1024, 1000, "slice", "sliced")]
+
+
+def _k14_operands(M, K, N, a_view, b_view, dtype, seed):
+    """a [M, K] and b [K, N] as the views the ring hands the kernel."""
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    if a_view == "slice":            # columns [K, 2K) of a [M, 2K] activation
+        a = torch.from_numpy(rng.standard_normal((M, 2 * K), np.float32)).to(dev, dtype)[:, K:]
+    elif a_view == "transposed":     # a column slice of [K, 2M], transposed
+        a = torch.from_numpy(rng.standard_normal((K, 2 * M), np.float32)).to(dev, dtype)[:, :M].T
+    else:
+        a = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(dev, dtype)
+    w = rng.standard_normal((K, N + 8), np.float32) / math.sqrt(K)
+    if b_view == "transposed":       # a weight shard [N, K] read as its transpose
+        b = torch.from_numpy(np.ascontiguousarray(w[:, :N].T)).to(dev, dtype).T
+    elif b_view == "sliced":         # the first N columns of a wider shard
+        b = torch.from_numpy(w).to(dev, dtype)[:, :N]
+    else:
+        b = torch.from_numpy(np.ascontiguousarray(w[:, :N])).to(dev, dtype)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("label,M,K,N,a_view,b_view", K14_SHAPES,
+                         ids=[s[0] for s in K14_SHAPES])
+def test_chunk_mm_matches_plain_on_card(cuda, dtype, label, M, K, N, a_view, b_view):
+    """Kernel 14 against its plain version on the same views: the products
+    of either input type are exact in float32 and only the order of the
+    float32 sums differs (over up to 8192 terms), so within 1e-4 of the
+    largest output; each launch counted once, on the instance its dtype
+    routes to (bf16 on the tensor cores, fp32 scalar), and two launches
+    bit-equal (no atomics, one fixed order per element)."""
+    from tony_tpu_torch.ops import overlap as ov
+
+    a, b = _k14_operands(M, K, N, a_view, b_view, dtype, seed=M + K + N)
+    ov.reset_launches()
+    got = ov.chunk_mm(a, b)
+    again = ov.chunk_mm(a, b)
+    want = ov.chunk_mm_plain(a, b)
+    torch.cuda.synchronize()
+    assert ov.LAUNCHES == {"chunk_mm": 2, "chunk_mm_plain": 0}
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), (label, err)
+    assert ov.kernel_instance(dtype) == ("tensor cores" if dtype == torch.bfloat16
+                                         else "scalar")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather_dim", [0, 1])
+def test_ring_on_one_rank_launches_kernel_14_on_card(cuda, gather_dim):
+    """The ring's autograd function on a one-rank mesh (no hops): the
+    forward, dx and dW each launch kernel 14 once, through the views the
+    ring reads (the backward's transposes), and match the float32
+    products of the same bf16 operands within bf16 rounding of the
+    outputs (2^-7 of the largest)."""
+    from tony_tpu_torch.ops import overlap as ov
+    from tony_tpu_torch.parallel.mesh import MeshShape, build_mesh
+
+    rng = np.random.default_rng(gather_dim)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 256), np.float32)).cuda().bfloat16()
+    w = torch.from_numpy(rng.standard_normal((256, 384), np.float32) / 16).cuda().bfloat16()
+    dy = torch.from_numpy(rng.standard_normal((2, 128, 384), np.float32)).cuda().bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    ov.reset_launches()
+    y = ov.all_gather_matmul_local(x, w, "fsdp", gather_dim, "pallas",
+                                   mesh=build_mesh(MeshShape()))
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    torch.cuda.synchronize()
+    assert ov.LAUNCHES == {"chunk_mm": 3, "chunk_mm_plain": 0}
+    x2, dy2 = x.detach().float().reshape(-1, 256), dy.float().reshape(-1, 384)
+    for got, want in ((y.reshape(-1, 384), x2 @ w.detach().float()),
+                      (dx.reshape(-1, 256), dy2 @ w.detach().float().T),
+                      (dw, x2.T @ dy2)):
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2**-7 * want.abs().max().item()

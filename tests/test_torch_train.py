@@ -22,6 +22,7 @@ from tony_tpu_torch.models.convert import params_from_numpy
 from tony_tpu_torch.models.llama import LlamaConfig, loss_from_pairs
 from tony_tpu_torch.ops import fused_ce as ce_ops
 from tony_tpu_torch.ops.attention import LAUNCHES, reset_launches
+from tony_tpu_torch.parallel.mesh import MeshShape as PortMeshShape
 from tony_tpu_torch.train import DataConfig, FitConfig, fit
 from tony_tpu_torch.train.checkpoint import CheckpointManager
 from tony_tpu_torch.train.data import make_batches, synthetic_batches
@@ -261,13 +262,19 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         make_train_state(LlamaConfig.tiny(), opt)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batches(DataConfig())
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        fit(FitConfig(mesh_shape=MeshShape(dp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fit(FitConfig(mesh_shape=PortMeshShape(tp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fit(FitConfig(mesh_shape=PortMeshShape(sp=2, fsdp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fit(FitConfig(pp_microbatches=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fit(FitConfig(elastic_members=2), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         make_train_step(LlamaConfig.tiny_moe(moe_overlap_impl="scan"), opt)
     with pytest.raises(NotImplementedError, match="dots"):
         make_train_step(LlamaConfig.tiny(remat=True, remat_policy="dots"), opt)
     with pytest.raises(NotImplementedError, match="native"):
         make_batches(DataConfig(path="tokens.bin"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step(LlamaConfig.tiny(), opt, grad_bucket_bytes=1 << 20)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_step(LlamaConfig.tiny(), opt, n_microbatches=2)

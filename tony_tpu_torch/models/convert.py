@@ -6,6 +6,8 @@ turns it into nested dicts of numpy arrays, and :func:`params_from_numpy`
 turns those into this package's tensors with the same keys, shapes and
 dtypes. Every parity test carries weights across this way, because the two
 frameworks' random generators give different numbers from one seed.
+:func:`shards_from_numpy` gives a rank of a mesh its blocks of the same
+tree, cut on the host by the rules' specs (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from tony_tpu_torch._device import resolve_device
-from tony_tpu_torch.models.llama import LlamaConfig, Params, param_shapes
+from tony_tpu_torch.models.llama import LlamaConfig, Params, logical_axes, param_shapes
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, shard, tree_specs
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -56,4 +59,21 @@ def params_from_numpy(tree: Params, cfg: LlamaConfig,
     return conv(tree)
 
 
-__all__ = ["params_from_numpy"]
+def shards_from_numpy(tree: Params, cfg: LlamaConfig, mesh, rules: Rules = DEFAULT_RULES,
+                      device: str | torch.device | None = None) -> Params:
+    """The reference's parameter tree (numpy) -> this rank's blocks of it
+    under the rules' specs of ``logical_axes(cfg)`` over ``mesh``, on
+    ``device`` (``None`` means CUDA, and raises without it). Each block is
+    cut on the host, so the whole tree never reaches the device."""
+    device = resolve_device(device)
+    _check(tree, param_shapes(cfg), "")
+
+    def conv(node, spec):
+        if isinstance(node, dict):
+            return {k: conv(v, spec[k]) for k, v in node.items()}
+        return shard(_to_tensor(node, "cpu"), spec, mesh).to(device)
+
+    return conv(tree, tree_specs(logical_axes(cfg), rules))
+
+
+__all__ = ["params_from_numpy", "shards_from_numpy"]

@@ -25,8 +25,15 @@ run again but the flash forward kernel never does. MoE layers
 (``n_experts > 0``) run ``parallel/moe.py``'s ``moe_block`` in place of the
 dense FFN (its grouped matmuls recomputed in the backward, as the FFN is)
 and add ``moe_aux_coef`` times the layers' mean aux loss to the loss.
-``overlap_impl``, ``moe_overlap_impl`` and the ring/Ulysses attentions are
-not ported yet and raise.
+
+Meshes. :func:`logical_axes` names every parameter dimension as the
+reference does; ``parallel/sharding.py`` turns the names into each rank's
+blocks. With ``overlap_impl`` set, a trunk projection whose weight the
+rules shard over fsdp runs through the decomposed ring
+(``ops/overlap.py`` ``overlap_matmul``, the weight this rank's shard);
+anywhere the ring does not apply it is the plain matmul over the weight
+the trainer gathered. ``moe_overlap_impl`` and the ring/Ulysses attentions
+are not ported yet and raise (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -191,6 +198,31 @@ def param_shapes(cfg: LlamaConfig) -> Params:
     }
 
 
+def logical_axes(cfg: LlamaConfig) -> Params:
+    """The tree of :func:`param_shapes` with each leaf's logical axis
+    names (the reference's ``logical_axes``): wide dims (heads, ffn,
+    vocab) on ``tp``, the model dim on ``fsdp`` under the default rules;
+    the stacked-layer dim is never sharded."""
+    if cfg.is_moe:
+        ffn = {"router": ("layers", "embed", "expert"),
+               "w1": ("layers", "expert", "embed", "ffn"),
+               "w3": ("layers", "expert", "embed", "ffn"),
+               "w2": ("layers", "expert", "ffn", "embed")}
+    else:
+        ffn = {"w1": ("layers", "embed", "ffn"), "w3": ("layers", "embed", "ffn"),
+               "w2": ("layers", "ffn", "embed")}
+    return {
+        "tok_emb": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "norm"), "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"), "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"), "ffn_norm": ("layers", "norm"), **ffn,
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
                 device: str | torch.device | None = None) -> Params:
     """Random parameters in the reference layout: every matrix a normal
@@ -349,18 +381,28 @@ def _get_attention(cfg: LlamaConfig) -> Callable:
     if cfg.attention_impl in ("ring", "ring_flash", "ulysses"):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} is not ported yet (ROADMAP "
-            "queue 1, parallelism); use 'flash' or 'dot'"
+            "queue 1, item 8); use 'flash' or 'dot'"
         )
     raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """One trunk projection ``x [B, S, D] @ w``."""
+def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
+          axes: tuple[str | None, ...]) -> torch.Tensor:
+    """One trunk projection ``x [B, S, D] @ w``. With ``cfg.overlap_impl``
+    set, the fsdp weight all-gather streams chunk by chunk through the
+    decomposed ring (``ops/overlap.py``), ``w`` this rank's shard; ``axes``
+    are the weight's per-layer logical axes, and which dim rides the ring
+    is read off the sharding rules. The plain matmul wherever the
+    decomposition does not apply, as in the reference."""
     if cfg.overlap_impl:
-        raise NotImplementedError(
-            f"overlap_impl={cfg.overlap_impl!r} needs the ring-chunk matmul "
-            "(TPU kernel 14), not ported yet (ROADMAP queue 1)"
-        )
+        from tony_tpu_torch.ops.overlap import overlap_matmul
+        from tony_tpu_torch.parallel.sharding import overlap_gather_dim
+
+        gd = overlap_gather_dim(axes)
+        if gd is not None:
+            y = overlap_matmul(x, w, gather_dim=gd, impl=cfg.overlap_impl)
+            if y is not None:
+                return y
     return x @ w
 
 
@@ -369,9 +411,9 @@ def attention_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
     B, S, _ = x.shape
     hd = cfg.head_dim
     tag = checkpoint_name if cfg.remat else _no_tag
-    q = _proj(x, lp["wq"], cfg).reshape(B, S, cfg.n_heads, hd)
-    k = _proj(x, lp["wk"], cfg).reshape(B, S, cfg.n_kv_heads, hd)
-    v = _proj(x, lp["wv"], cfg).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _proj(x, lp["wq"], cfg, ("embed", "heads")).reshape(B, S, cfg.n_heads, hd)
+    k = _proj(x, lp["wk"], cfg, ("embed", "kv_heads")).reshape(B, S, cfg.n_kv_heads, hd)
+    v = _proj(x, lp["wv"], cfg, ("embed", "kv_heads")).reshape(B, S, cfg.n_kv_heads, hd)
     q = tag(apply_rope(q, cos, sin), "attn_qkv")
     k = tag(apply_rope(k, cos, sin), "attn_qkv")
     v = tag(v, "attn_qkv")
@@ -382,14 +424,15 @@ def attention_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     out = tag(_get_attention(cfg)(q, k, v, cfg), "attn_out")
-    return _proj(out.reshape(B, S, cfg.n_heads * hd), lp["wo"], cfg)
+    return _proj(out.reshape(B, S, cfg.n_heads * hd), lp["wo"], cfg,
+                 ("heads", "embed"))
 
 
 def ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
     tag = checkpoint_name if cfg.remat else _no_tag
-    gate = tag(F.silu(_proj(x, lp["w1"], cfg)) * _proj(x, lp["w3"], cfg),
-               "ffn_gate")
-    return _proj(gate, lp["w2"], cfg)
+    gate = tag(F.silu(_proj(x, lp["w1"], cfg, ("embed", "ffn")))
+               * _proj(x, lp["w3"], cfg, ("embed", "ffn")), "ffn_gate")
+    return _proj(gate, lp["w2"], cfg, ("ffn", "embed"))
 
 
 def moe_ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig
@@ -427,7 +470,7 @@ def _check_trainable(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             f"moe_overlap_impl={cfg.moe_overlap_impl!r} overlaps the "
             "expert-parallel combine on an ep mesh, not ported yet (ROADMAP "
-            "queue 1 item 8); use 'off'"
+            "queue 1, item 8); use 'off'"
         )
 
 
@@ -518,8 +561,8 @@ def train_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
 __all__ = [
     "CHECKPOINT_NAME_OP", "LlamaConfig", "Params", "apply_rope", "ce_tokens",
     "checkpoint_name", "dot_attention", "embed_tokens", "forward",
-    "forward_with_aux", "hidden_states_with_aux", "init_params", "loss_and_aux",
-    "loss_fn", "loss_from_pairs", "moe_ffn_block", "param_shapes",
+    "forward_with_aux", "hidden_states_with_aux", "init_params", "logical_axes",
+    "loss_and_aux", "loss_fn", "loss_from_pairs", "moe_ffn_block", "param_shapes",
     "rms_norm", "rope_freqs", "rope_table", "train_flops_per_token",
     "transformer_block",
 ]

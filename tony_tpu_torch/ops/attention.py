@@ -448,7 +448,7 @@ def sharded_flash_attention(q, k, v, cfg=None, *, mesh=None, **kwargs) -> torch.
         if size > 1:
             raise NotImplementedError(
                 "sharded flash attention over a multi-device mesh is not "
-                "ported yet (ROADMAP queue 1, parallelism)"
+                "ported yet (ROADMAP queue 1, item 8)"
             )
     return flash_attention(q, k, v, cfg, **kwargs)
 

@@ -1,4 +1,5 @@
-"""Training library on one device: train step, loop, data, checkpointing."""
+"""Training library: train step (one device, or dp x fsdp over a mesh), loop,
+data, checkpointing."""
 
 from tony_tpu_torch.train.data import DataConfig, make_batches
 from tony_tpu_torch.train.loop import FitConfig, fit

@@ -9,7 +9,10 @@ resumes either stream where step N would have read.
 
 :func:`make_batches` places each batch on the device: on CUDA through
 pinned host memory, on a background thread when ``prefetch > 0``
-(``train/prefetch.py``). The C++ prefetching loader the reference routes
+(``train/prefetch.py``). Over a mesh of more than one rank every rank
+draws the same global batch and keeps its rows, by the rules' spec of
+``("batch", "seq")`` (``parallel/sharding.py``), as the reference places
+the batch with that spec's ``NamedSharding``. The C++ prefetching loader the reference routes
 token files through (``native=True``) is not ported yet: a token file with
 ``native=True`` raises, and the synthetic default never touches it.
 """
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, local_shape, shard, spec_for
 
 Batch = tuple[torch.Tensor, torch.Tensor]  # (inputs [B, S], targets [B, S])
 
@@ -100,16 +104,22 @@ def _make_batches_raw(cfg: DataConfig, start_step: int = 0) -> Iterator[Batch]:
 
 
 def make_batches(cfg: DataConfig, device: str | torch.device | None = None,
-                 start_step: int = 0) -> Iterator[Batch]:
+                 start_step: int = 0, *, mesh=None,
+                 rules: Rules = DEFAULT_RULES) -> Iterator[Batch]:
     """The configured batch stream on ``device`` (``None`` means CUDA, and
     raises without it). With ``cfg.prefetch > 0`` it is a
     :class:`~tony_tpu_torch.train.prefetch.PrefetchIterator` (same order,
     batch making and host-to-device copies on a background thread), whose
-    ``close()`` ``fit()`` calls on exit."""
+    ``close()`` ``fit()`` calls on exit. Over a ``mesh`` of more than one
+    rank each batch is this rank's block of the global one."""
     from tony_tpu_torch.train.prefetch import PrefetchIterator, to_device
 
     device = resolve_device(device)
     it = _make_batches_raw(cfg, start_step)
+    if mesh is not None and mesh.size > 1:
+        spec = spec_for(("batch", "seq"), rules)
+        local_shape((cfg.global_batch, cfg.seq_len), spec, mesh)   # even blocks or raise
+        it = ((shard(i, spec, mesh), shard(t, spec, mesh)) for i, t in it)
     if cfg.prefetch > 0:
         return PrefetchIterator(it, depth=cfg.prefetch, device=device)
     return (to_device(batch, device) for batch in it)

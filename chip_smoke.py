@@ -32,8 +32,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    instance (all three in bf16 on wgmma with TMA staging, with their
    registers and spills; fp32 scalar), the forward's padding rows and the
    empty expert's dW exactly 0, and torch._grouped_mm's time beside each
-   (dW's with a float32 output where this torch computes one), and one bench_moe
-   MoE block forward and backward under ``set_sync_debug_mode("error")``;
+   (dW's with a float32 output where this torch computes one), then the
+   three again in bf16 at phase 8's layout (ep rank 0's 4 local experts
+   over every token's routes, the other rank's riding in group 0), and one
+   bench_moe MoE block forward and backward under
+   ``set_sync_debug_mode("error")``;
    then (3d) the quantized decode-attention kernel against its plain
    version at Llama-3-8B decode shapes (8 rows of about 512 positions) over
    int8 and fp8 e4m3 pools, G 1 and 5 and the verify step's G 16 (rows
@@ -135,7 +138,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    recompute under remat, dx and dW, two chunks each) on its tensor-core
    instance, its plain version never, and each flash kernel once per
    layer and step. The step time is printed beside the transport (gloo,
-   host-staged): two ranks on one card, not an NCCL time.
+   host-staged): two ranks on one card, not an NCCL time;
+8. ep training: two rank processes on this one card (``--ep-rank``), each
+   calling ``fit()`` on bench_moe at full width and depth at
+   ``mesh_shape=MeshShape(ep=2)`` (each rank its 4 experts and 4 x 2048
+   rows of phase 6's batch), phase 6's recipe, data and initial
+   parameters, 4 steps with the blocking ep combine and 4 with the
+   overlapped one (``moe_overlap_impl="pallas"``, the auto split into 4
+   token chunks): each step's loss and aux within 2e-2 of phase 6's, and
+   the two combines' losses side by side; on each rank the grouped-matmul
+   kernels launched exactly phase 6's count per layer and step (times the
+   chunks with the overlap) and each flash kernel once per layer and
+   step, on their tensor-core instances, no plain version. Its step time,
+   payload bytes a rank a step and peak memory are printed beside the
+   transport (gloo, host-staged). 8b, in the same processes: bench_moe
+   at full width and 2 layers at ep 2, 4 steps uninterrupted, then 2
+   steps, a sharded checkpoint save, a restore into a template drawn from
+   another seed (every leaf bit-equal to the saved one) and 2 more steps,
+   the losses within 1e-3 of the uninterrupted ones; each rank's file
+   size and the save and restore seconds.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -147,7 +168,9 @@ counts the merge of a row's splits (``tc::decode_merge_kernel``) too.
 
 The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
-chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7),
+chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
+each kernel's ``phases`` holds its launches on every path that runs it,
+phases 7 and 8 rank 0's),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -156,6 +179,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1432,13 +1456,17 @@ def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
 MOE_T, MOE_D, MOE_F, MOE_E, MOE_K, MOE_BLOCK = 16384, 1024, 2816, 8, 2, 128
 
 
-def gmm_inputs() -> dict:
+def gmm_inputs(ep: int = 1) -> dict:
     """bench_moe's grouped-matmul operands, float32 on the card: a real
     router draw (normal activations, a float32 router scaled as
     ``init_moe_params`` scales it) with expert 7 forced empty, its top-2
     routes laid out as the MoE block lays them out (``route_rows``), the
     buffer's routed rows normal and its padding rows zero; the weights and
-    the output grads of both SwiGLU directions (w1/w3: D -> F, w2: F -> D)."""
+    the output grads of both SwiGLU directions (w1/w3: D -> F, w2: F -> D).
+    With ``ep`` above 1, ep rank 0's layout at phase 8's shape: every
+    token's routes (the batch's rows gathered over ep), those to the rank's
+    E / ep experts in their groups, the others riding along in group 0
+    (``parallel/moe.py`` ``_chunk_ffn``)."""
     from tony_tpu_torch.parallel.moe import (
         MoEConfig, _route_tokens, _top_k_select, route_rows,
     )
@@ -1451,6 +1479,9 @@ def gmm_inputs() -> dict:
     logits[:, E - 1] = -1e9                     # expert 7 receives no route
     sel = _top_k_select(torch.softmax(logits, dim=-1),
                         MoEConfig(dim=D, ffn_dim=F, n_experts=E, top_k=MOE_K))[0]
+    if ep > 1:
+        E //= ep
+        sel = torch.where(sel < E, sel, 0)
     dst, sizes, tile_group = route_rows(sel.reshape(-1), E, MOE_BLOCK)
     N, R = tile_group.shape[0] * MOE_BLOCK, dst.shape[0]
 
@@ -1460,7 +1491,7 @@ def gmm_inputs() -> dict:
     groups = torch.arange(E, dtype=torch.int32, device="cuda")
     ends = torch.searchsorted(tile_group, groups, right=True) * MOE_BLOCK
     return {
-        "sizes": sizes.tolist(), "tile_group": tile_group, "rows": N, "routes": R,
+        "sizes": sizes.tolist(), "tile_group": tile_group, "rows": N, "routes": R, "ep": ep,
         # group g ends at offs[g] in the buffer (torch._grouped_mm's offsets)
         "offs": ends.to(torch.int32),
         "w1": (rows(flat.index_select(0, _route_tokens(T, MOE_K, "cuda"))),
@@ -1506,7 +1537,7 @@ def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dic
 
     tg, offs, N, R = inputs["tile_group"], inputs["offs"], inputs["rows"], inputs["routes"]
     empty = [g for g, n in enumerate(inputs["sizes"]) if n == 0]
-    if not empty:
+    if not empty and inputs["ep"] == 1:
         raise AssertionError(f"no empty expert in the draw: {inputs['sizes']}")
     cases = []
     for label in ("w1", "w2"):
@@ -1549,6 +1580,7 @@ def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dic
             ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
             cases.append({
                 "name": name, "direction": label, "dtype": str(dtype).replace("torch.", ""),
+                "ep": inputs["ep"],
                 "instance": kernel_instance(name, dtype, MOE_BLOCK),
                 "rows": N, "routes": R, "d_in": d_in, "d_out": d_out, "experts": E,
                 "max_abs_err": max_err, "ok": ok, "atol": atol, "rtol": rtol,
@@ -2373,6 +2405,231 @@ def fsdp_phase(card: str, dense: dict) -> dict:
             "transport": ranks[0]["transport"]}
 
 
+# --- phase 8: MoE training at ep 2, two ranks on one card --------------------------
+
+EP = 2
+EP_STEPS = 4
+EP_IMPLS = ("off", "pallas")
+# 8b: the sharded checkpoint's round trip at full width, depth cut to 2
+CKPT_LAYERS = 2
+CKPT_STEPS = 4
+EP_TIMEOUT_S = 720
+
+
+def ep_checkpoint_round_trip(ckpt_dir: str) -> dict:
+    """Phase 8b on this rank: bench_moe at full width and CKPT_LAYERS
+    layers at ep 2, CKPT_STEPS steps uninterrupted; then 2 steps, a
+    sharded save, a restore into a template drawn from another seed, and
+    the 2 steps after. The restored leaves against the saved ones, bit for
+    bit; the resumed losses against the uninterrupted ones."""
+    from tony_tpu_torch.parallel.mesh import MeshShape, build_mesh, set_default_mesh
+    from tony_tpu_torch.train.checkpoint import CheckpointManager
+    from tony_tpu_torch.train.data import DataConfig, make_batches
+    from tony_tpu_torch.train.prefetch import close_batches
+    from tony_tpu_torch.train.trainer import (
+        default_optimizer, make_train_state, make_train_step, state_specs, tree_leaves,
+    )
+
+    cfg = dataclasses.replace(moe_train_config(), n_layers=CKPT_LAYERS)
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    mesh = build_mesh(MeshShape(ep=EP))
+    set_default_mesh(mesh)
+    # fit()'s optimizer for a run of CKPT_STEPS steps
+    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=CKPT_STEPS,
+                            mu_dtype="bfloat16")
+    step = make_train_step(cfg, opt, mesh=mesh)
+
+    def run(state, start: int, n: int):
+        batches = make_batches(data, device="cuda", start_step=start, mesh=mesh)
+        losses = []
+        try:
+            for _ in range(n):
+                state, m = step(state, *next(batches))
+                losses.append(float(m["loss"]))
+        finally:
+            close_batches(batches)
+        return state, losses
+
+    def leaves(state):
+        return (tree_leaves(state.params) + tree_leaves(state.opt_state["mu"])
+                + tree_leaves(state.opt_state["nu"]))
+
+    _, straight = run(make_train_state(cfg, opt, seed=0, device="cuda", mesh=mesh), 0,
+                      CKPT_STEPS)
+    state, first = run(make_train_state(cfg, opt, seed=0, device="cuda", mesh=mesh), 0, 2)
+    manager = CheckpointManager(ckpt_dir, mesh=mesh, specs=state_specs(cfg).params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save(2, state, force=True)
+    save_s = time.perf_counter() - t0
+    template = make_train_state(cfg, opt, seed=1, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, at = manager.restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    equal = (at == 2 and restored.step == state.step
+             and restored.opt_state["count"] == state.opt_state["count"]
+             and all(torch.equal(a, b) for a, b in zip(leaves(restored), leaves(state))))
+    _, rest = run(restored, 2, CKPT_STEPS - 2)
+    set_default_mesh(None)
+    return {"straight": straight, "first": first, "resumed": rest, "bit_equal": equal,
+            "save_s": save_s, "restore_s": restore_s,
+            "bytes": os.path.getsize(os.path.join(ckpt_dir, "2", f"rank{mesh.rank}.pt"))}
+
+
+def ep_rank(rank: int, port: int, out: str, ckpt_dir: str) -> int:
+    """One rank of phase 8: bring up a gloo group over tcp://localhost on
+    this card, then fit() on bench_moe at ep 2, the blocking combine and
+    then the overlapped one on the grouped kernels; then 8b's round trip;
+    write what it saw to ``out``."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.ops import attention, grouped_mm
+    from tony_tpu_torch.ops.moe_overlap import overlap_chunks
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.parallel.mesh import MeshShape, get_default_mesh
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=EP)
+    cfg = moe_train_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    runs = {}
+    for impl in EP_IMPLS:
+        steps: list[dict] = []
+        grouped_mm.reset_launches()
+        attention.reset_launches()
+        pdist.reset_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final = fit(FitConfig(model=cfg, data=data, mesh_shape=MeshShape(ep=EP),
+                              steps=EP_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
+                              mu_dtype="bfloat16", moe_overlap_impl=impl,
+                              moe_overlap_chunk=0, on_metrics=steps.append), device="cuda")
+        runs[impl] = {"metrics": steps, "final": final, "wall_s": time.perf_counter() - t0,
+                      "launches": {**grouped_mm.LAUNCHES, **attention.LAUNCHES},
+                      "bytes_per_step": {k: v / EP_STEPS for k, v in pdist.BYTES.items()},
+                      "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.empty_cache()
+    mesh = get_default_mesh()
+    tokens = data.global_batch * data.seq_len
+    res = {"rank": rank, "runs": runs,
+           "transport": pdist.transport(mesh.axis("ep"), torch.device("cuda")),
+           "instances": check_tensor_core_path(cfg),
+           # the (dp, fsdp) block's rows gathered over ep: here every row
+           "n_chunks": overlap_chunks(tokens, 0)}
+    torch.cuda.empty_cache()
+    res["ckpt"] = ep_checkpoint_round_trip(ckpt_dir)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def ep_phase(card: str, moe: dict) -> dict:
+    """Phase 8: two rank processes on this card, each bringing up its gloo
+    group and calling fit() on bench_moe at full width and depth at ep 2
+    (each rank its 4 experts and 4 rows of phase 6's batch), phase 6's
+    recipe, data and initial parameters, with the blocking ep combine and
+    then the overlapped one (``moe_overlap_impl="pallas"``, the auto
+    split). Each step's loss and aux within 2e-2 of phase 6's (the same
+    bf16 model and batches; the combine and the statistics' sums run in
+    another order, and the schedule matches phase 6's up to step
+    EP_STEPS); on each rank kernels 11-13 launched exactly the count remat
+    and the chunks imply and their plain versions never. Then 8b: the
+    sharded checkpoint's round trip in the same processes."""
+    import shutil
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="ep-")
+    outs = [f"{tmp}/rank{r}.json" for r in range(EP)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--ep-rank", str(r), str(port),
+                               outs[r], f"{tmp}/ckpt"]) for r in range(EP)]
+    try:
+        codes = [p.wait(timeout=max(1.0, EP_TIMEOUT_S - (time.perf_counter() - t0)))
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"ep ranks exited {codes}")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    cfg = moe_train_config()
+    n_chunks = ranks[0]["n_chunks"]
+    if n_chunks != 4:
+        raise AssertionError(f"the auto split gave {n_chunks} chunks, not 4")
+    for r in ranks:
+        for impl, run in r["runs"].items():
+            # the grouped kernels once per chunk where the combine is split
+            k = n_chunks if impl != "off" else 1
+            want = {n: per * cfg.n_layers * EP_STEPS * (k if n in GMM_KERNELS else 1)
+                    for n, per in MOE_LAUNCHES_PER_LAYER_STEP.items()}
+            want.update({f"{n}_plain": 0 for n in MOE_LAUNCHES_PER_LAYER_STEP})
+            got = {n: run["launches"][n] for n in want}
+            if got != want:
+                raise AssertionError(f"rank {r['rank']} {impl}: launches {got} != {want}")
+        if any(v != "tensor cores" for v in r["instances"].values()):
+            raise AssertionError(f"rank {r['rank']} off the tensor cores: {r['instances']}")
+        if r["runs"]["off"]["metrics"] and r["rank"]:
+            raise AssertionError("rank 1 reported metrics: rank 0 alone reports")
+    out = {"ranks": ranks, "wall_s": wall, "n_chunks": n_chunks,
+           "transport": ranks[0]["transport"]}
+    for impl in EP_IMPLS:
+        metrics = ranks[0]["runs"][impl]["metrics"]
+        losses = [m["loss"] for m in metrics]
+        aux = [m["aux"] for m in metrics]
+        if len(losses) != EP_STEPS or not all(math.isfinite(x) for x in losses + aux):
+            raise AssertionError(f"ep {impl} losses {losses} aux {aux}")
+        diffs = [abs(a - b) for a, b in zip(losses, moe["losses"])]
+        aux_diffs = [abs(a - b) for a, b in zip(aux, moe["aux"])]
+        if max(diffs + aux_diffs) > 2e-2:
+            raise AssertionError(f"ep {impl} losses {losses}, aux {aux} against phase 6's "
+                                 f"{moe['losses'][:EP_STEPS]}, {moe['aux'][:EP_STEPS]}")
+        timed = [m["step_time_s"] for m in metrics[2:]]      # 2 warm-up steps
+        out[impl] = {"losses": losses, "aux": aux, "loss_diffs": diffs,
+                     "aux_diffs": aux_diffs, "mean_step_ms": sum(timed) / len(timed) * 1e3,
+                     "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+                     "bytes_per_step": ranks[0]["runs"][impl]["bytes_per_step"],
+                     "peak_gb": [r["runs"][impl]["peak_allocated_gb"] for r in ranks],
+                     "launches": ranks[0]["runs"][impl]["launches"]}
+        for m, ref, ref_aux in zip(metrics, moe["losses"], moe["aux"]):
+            log(f"train bench_moe ep={EP} {impl} step {m['step']}: loss {m['loss']:.4f} "
+                f"(phase 6 {ref:.4f}) aux {m['aux']:.5f} ({ref_aux:.5f}) grad_norm "
+                f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms over "
+                f"{out['transport']}  [{card}]")
+    out["pallas_vs_off"] = [abs(a - b) for a, b in zip(out["pallas"]["losses"],
+                                                       out["off"]["losses"])]
+    ck = [r["ckpt"] for r in ranks]
+    if not all(c["bit_equal"] for c in ck):
+        raise AssertionError("8b: restored leaves differ from the saved ones")
+    # steps 1-2 and the resumed 3-4 against the uninterrupted run: the same
+    # model and batches; the card's scatter-adds may add in another order
+    diffs = [abs(a - b) for a, b in zip(ck[0]["first"] + ck[0]["resumed"], ck[0]["straight"])]
+    if len(diffs) != CKPT_STEPS or max(diffs) > 1e-3:
+        raise AssertionError(f"8b: losses {ck[0]['first']} then resumed {ck[0]['resumed']} "
+                             f"against {ck[0]['straight']}")
+    out["ckpt"] = {"ranks": ck, "diffs": diffs}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -2478,6 +2735,26 @@ def main() -> int:
     if wrong:
         raise AssertionError(f"grouped matmul cases on an unexpected instance: {wrong}")
     log_resources(builds, "grouped_mm", 3)
+    del inputs
+    # phase 8's path: ep rank 0's local experts, bf16
+    inputs = gmm_inputs(ep=EP)
+    log(f"grouped matmul inputs at ep={EP}, rank 0: {inputs['routes']} routes in "
+        f"{inputs['rows']} buffer rows; routes per local expert {inputs['sizes']} (group 0 "
+        f"holds the routes to the other rank's experts at weight 0)")
+    gmm_ep = gmm_cases(torch.bfloat16, flush, inputs)
+    for c in gmm_ep:
+        log(f"kernel {c['name']} {c['direction']} bf16 ep={EP} rank layout ({c['instance']}) "
+            f"rows={c['rows']} {c['d_in']}->{c['d_out']} E={c['experts']}: max|err| "
+            f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'})  {c['ms']:.3f} ms  "
+            f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: {c['ops']:.4g} ops, "
+            f"{c['bytes'] / 1e6:.1f} MB)  plain {c['plain_ms']:.3f} ms  torch._grouped_mm "
+            + (f"{c['library_ms']:.3f} ms" if c["library_ms"] is not None else "-")
+            + f"  [{card}]")
+    bad = [(c["name"], c["direction"]) for c in gmm_ep
+           if not c["ok"] or c["instance"] != "tensor cores"]
+    if bad:
+        raise AssertionError(f"grouped matmul at the ep rank's layout: over tolerance or "
+                             f"off the tensor cores: {bad}")
     del inputs
 
     # 3d: the quantized serving kernels. Decode attention over int8 and fp8
@@ -2775,6 +3052,38 @@ def main() -> int:
         f"step ({r0['instance']}), plain 0; peak allocated per rank "
         + ", ".join(f"{r['peak_allocated_gb']:.2f}" for r in f["ranks"])
         + f" GB; phase wall {f['wall_s']:.1f} s  [{card}]")
+
+    e = ep_phase(card, m)
+    for impl in EP_IMPLS:
+        x = e[impl]
+        split = f" in {e['n_chunks']} chunks" if impl != "off" else ""
+        log(f"train bench_moe at ep={EP} through fit() (two rank processes on this one card, "
+            f"4 experts and 4 x 2048 rows a rank, moe_overlap_impl={impl}{split}, "
+            f"phase 6's recipe, data and initial parameters): {EP_STEPS} steps, loss "
+            f"{x['losses'][0]:.4f} -> {x['losses'][-1]:.4f}, max |loss - phase 6's| "
+            f"{max(x['loss_diffs']):.3e}, max |aux - phase 6's| {max(x['aux_diffs']):.3e}; "
+            f"mean step {x['mean_step_ms']:.1f} ms over steps 3-{EP_STEPS} (each "
+            + ", ".join(f"{t:.1f}" for t in x["step_ms"])
+            + f" ms) with the ep collectives over {e['transport']} (two ranks share the "
+            f"card and every collective goes through host memory: not an NCCL time); "
+            f"payload bytes a rank a step: "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in x["bytes_per_step"].items() if v)
+            + "; launches a rank " + ", ".join(f"{k} {x['launches'][k]}"
+                                                for k in MOE_LAUNCHES_PER_LAYER_STEP)
+            + ", plain 0; peak allocated per rank "
+            + ", ".join(f"{g:.2f}" for g in x["peak_gb"]) + f" GB  [{card}]")
+    log(f"ep={EP} |loss pallas - loss off| per step: "
+        + ", ".join(f"{d:.3e}" for d in e["pallas_vs_off"])
+        + f"; phase wall {e['wall_s']:.1f} s  [{card}]")
+    ck = e["ckpt"]
+    log(f"8b: sharded checkpoint at ep={EP}, bench_moe at full width and {CKPT_LAYERS} "
+        f"layers: restored leaves bit-equal to the saved ones on both ranks; losses "
+        + ", ".join(f"{v:.4f}" for v in ck["ranks"][0]["straight"])
+        + " uninterrupted, max |difference| of steps 1-2 and of the resumed 3-4 "
+        f"{max(ck['diffs']):.3e}; per rank: file "
+        + ", ".join(f"{c['bytes'] / 1e9:.3f}" for c in ck["ranks"]) + " GB, save "
+        + ", ".join(f"{c['save_s']:.2f}" for c in ck["ranks"]) + " s, restore "
+        + ", ".join(f"{c['restore_s']:.2f}" for c in ck["ranks"]) + f" s  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -2783,14 +3092,15 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:214",
-        "launches": loop["launches"], "max_abs_err": c7["max_abs_err"],
+        "launches": loop["launches"], "phases": {"3f": loop["launches"]},
+        "max_abs_err": c7["max_abs_err"],
         "ms": c7["ms"], "plain_ms": c7["plain_ms"], "bound_ms": c7["bound_ms"],
         "bound_by": c7["bound_by"], "library_ms": c7["library_ms"],
     }, {
         "name": "paged_decode_attention", "route": "cuda",
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:346",
-        "launches": s["launches"],
+        "launches": s["launches"], "phases": {"4": s["launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -2802,6 +3112,7 @@ def main() -> int:
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:358",
         "launches": ql["paged_decode_attention_quant"],
+        "phases": {"4b": ql["paged_decode_attention_quant"]},
         "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
         "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
         "bound_by": qmain["bound_by"], "library_ms": qmain["library_ms"],
@@ -2810,6 +3121,7 @@ def main() -> int:
     kernels.append({
         "name": "quant_mm", "route": "cuda", "source": "tony_tpu_torch/csrc/quant_mm.cu",
         "replaces": "tony_tpu/ops/quant_mm.py:84", "launches": ql["quant_mm"],
+        "phases": {"4b": ql["quant_mm"]},
         "max_abs_err": step_mm["max_abs_err"], "ms": step_mm["ms"],
         "plain_ms": step_mm["plain_ms"], "bound_ms": step_mm["bound_ms"],
         "bound_by": step_mm["bound_by"], "library_ms": step_mm["library_ms"],
@@ -2823,7 +3135,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "tony_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"tony_tpu/ops/attention.py:{line}",
-            "launches": t["launches"][name], "max_abs_err": c["max_abs_err"],
+            "launches": t["launches"][name],
+            # each path that runs it: its launches there (7 and 8 rank 0's)
+            "phases": {"5": t["launches"][name], "5b": tc["launches"][name],
+                       "6": m["launches"][name], "7": r0["launches"][name],
+                       **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS}},
+            "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
@@ -2836,7 +3153,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "tony_tpu_torch/csrc/grouped_mm.cu",
             "replaces": f"tony_tpu/ops/grouped_mm.py:{line}",
-            "launches": m["launches"][name], "max_abs_err": c["max_abs_err"],
+            "launches": m["launches"][name],
+            "phases": {"6": m["launches"][name],
+                       **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS}},
+            "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
@@ -2848,7 +3168,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "tony_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"tony_tpu/ops/fused_ce.py:{line}",
-            "launches": tc["launches"][name], "max_abs_err": c["max_abs_err"],
+            "launches": tc["launches"][name], "phases": {"5b": tc["launches"][name]},
+            "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
@@ -2858,6 +3179,7 @@ def main() -> int:
     kernels.append({
         "name": "chunk_mm", "route": "cuda", "source": "tony_tpu_torch/csrc/overlap.cu",
         "replaces": "tony_tpu/ops/overlap.py:75", "launches": r0["launches"]["chunk_mm"],
+        "phases": {"7": r0["launches"]["chunk_mm"]},
         "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
     })
@@ -2873,4 +3195,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fsdp-rank"]:      # one rank of phase 7, started by main()
         sys.exit(fsdp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--ep-rank"]:        # one rank of phase 8, started by main()
+        sys.exit(ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

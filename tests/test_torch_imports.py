@@ -49,6 +49,7 @@ def test_every_port_module_is_checked():
                  "tony_tpu_torch/parallel/__init__.py", "tony_tpu_torch/ops/quant_mm.py",
                  "tony_tpu_torch/parallel/dist.py", "tony_tpu_torch/parallel/mesh.py",
                  "tony_tpu_torch/parallel/sharding.py", "tony_tpu_torch/ops/overlap.py",
+                 "tony_tpu_torch/ops/moe_overlap.py",
                  "tony_tpu_torch/models/convert.py", "chip_smoke.py",
                  "tests/test_torch_kernels_cuda.py", "tests/torch_ranks.py"):
         assert want in names

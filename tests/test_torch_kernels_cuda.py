@@ -653,6 +653,42 @@ def test_gmm_kernels_match_plain_on_card(cuda, dtype, sizes, D, F, block):
                 assert torch.count_nonzero(dw[g]) == 0
 
 
+# an ep rank's layout at bench_moe's ep 2 (chip_smoke phase 8): its 4 local
+# experts over the 16,384 gathered rows' 32,768 routes, the routes to the
+# other rank's experts riding along in local group 0 at weight 0
+EP_RANK_SIZES = [20480, 4096, 4096, 4096]
+
+
+@pytest.mark.cuda
+def test_gmm_kernels_at_an_ep_ranks_layout(cuda):
+    """gmm_fwd, gmm_dx and gmm_dw in bf16 at row tile 128 on an ep rank's
+    local-expert layout (bench_moe's D 1024 and F 2816, both directions)
+    against their plain versions, on their tensor-core instances. dW sums
+    over 20,480 rows in group 0, so its absolute tolerance is chip_smoke's
+    for bench_moe's groups (1e-2, rtol 1e-4); y and dx at the bf16
+    tolerance."""
+    from tony_tpu_torch.ops.grouped_mm import (
+        LAUNCHES, gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
+        kernel_instance, reset_launches,
+    )
+
+    for name in ("gmm_fwd", "gmm_dx", "gmm_dw"):
+        assert kernel_instance(name, torch.bfloat16, 128) == "tensor cores"
+    tol = GMM_TOL[torch.bfloat16]
+    for d_in, d_out in ((1024, 2816), (2816, 1024)):
+        x, w, tg, dy = _gmm_case(cuda, torch.bfloat16, EP_RANK_SIZES, d_in, d_out, 128,
+                                 seed=d_out)
+        reset_launches()
+        y, dx, dw = gmm_fwd(x, w, tg), gmm_dx(dy, w, tg), gmm_dw(x, dy, tg, 4)
+        torch.cuda.synchronize()
+        assert LAUNCHES["gmm_fwd"] == LAUNCHES["gmm_dx"] == LAUNCHES["gmm_dw"] == 1
+        torch.testing.assert_close(y.float(), gmm_fwd_plain(x, w, tg).float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(dx.float(), gmm_dx_plain(dy, w, tg).float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(dw, gmm_dw_plain(x, dy, tg, 4), atol=1e-2, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_gmm_dw_is_deterministic_on_card(cuda):
     """Two bf16 gmm_dw launches on the same inputs, at row tile 128 (the

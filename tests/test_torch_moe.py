@@ -142,11 +142,19 @@ def test_routing_stats_match_reference(capacity_factor):
 
 
 def test_unported_and_unknown_options_raise():
+    """Unknown options raise. The overlapped combine is ported: without a
+    mesh (so no ep axis) it is inert, the plain grouped path bit for bit,
+    as the reference's ``test_no_ep_axis_falls_back_to_plain_grouped``."""
     _, cfg = _cfgs()
     params = pm.init_moe_params(cfg, dtype=torch.float32, device="cpu")
     x = torch.zeros((1, 8, 64))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pm.moe_block(params, x, dataclasses.replace(cfg, overlap_impl="scan"))
+    xr = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 8, 64),
+                                                                   dtype=np.float32))
+    off_y, off_aux = pm.moe_block(params, xr, cfg)
+    for impl in ("scan", "pallas"):
+        y, aux = pm.moe_block(params, xr, dataclasses.replace(cfg, overlap_impl=impl,
+                                                              overlap_chunk=4))
+        assert torch.equal(y, off_y) and float(aux) == float(off_aux)
     with pytest.raises(ValueError, match="overlap"):
         pm.moe_block(params, x, dataclasses.replace(cfg, overlap_impl="ring"))
     with pytest.raises(ValueError, match="dispatch"):

@@ -701,3 +701,23 @@ def test_unknown_quant_kv_raises(setup):
     with pytest.raises(ValueError, match="int4"):
         Engine(params, cfg, ServeConfig(slots=1, max_len=16, kv_block=8,
                                         quant_kv="int4"), device="cpu")
+
+
+def test_the_verify_notes_name_kernel_10_as_built():
+    """The build notes (``.claude/skills/verify/SKILL.md``) describe kernel
+    10's split of D as the code has it: over a thread-block cluster, by
+    ``split_k`` with its real parameters."""
+    import inspect
+    import re
+    from pathlib import Path
+
+    from tony_tpu_torch.ops import quant_mm
+
+    notes = (Path(__file__).resolve().parent.parent / ".claude" / "skills" / "verify"
+             / "SKILL.md").read_text()
+    passage = " ".join(notes[notes.index("`csrc/quant_mm.cu` (int8"):
+                             notes.index("`quant_mm_route`)")].split())
+    assert "cluster" in passage and "workspace and counters" not in passage
+    for name, args in re.findall(r"`(\w+)\(([^)]*)\)`", passage):
+        want = list(inspect.signature(getattr(quant_mm, name)).parameters)
+        assert [a.strip() for a in args.split(",")] == want, name

@@ -169,19 +169,22 @@ def test_fit_trains_at_fsdp_2_on_the_cpu(tmp_path):
     """fit() over two gloo ranks that brought their group up themselves:
     the mesh is fsdp 2, the ring's pallas form runs (the plain chunk),
     rank 0 alone calls on_metrics, and both ranks return the same final
-    loss."""
+    loss. With a checkpoint directory the same run saves sharded (each
+    rank's blocks and rank 0's manifest) and trains the same losses."""
     run = {"model": {"attention_impl": "dot"}, "data": DATA, "mesh": {"fsdp": 2},
            "steps": 3, "overlap_impl": "pallas"}
     ranks = spawn(2, "fit", {"runs": [run, {**run, "checkpoint_dir": str(tmp_path / "ck")}]},
                   tmp_path)
-    # a checkpoint of a mesh of more than one rank waits for sharded ones
-    assert all("item 8" in r["runs"][1]["refused"] for r in ranks)
+    assert sorted(p.name for p in (tmp_path / "ck" / "3").iterdir()) == [
+        "manifest.json", "rank0.pt", "rank1.pt"]
     first, second = (r["runs"][0] for r in ranks)
     assert [m["step"] for m in first["metrics"]] == [1, 2, 3]
     assert second["metrics"] == []
     assert first["final"]["final_loss"] == second["final"]["final_loss"]
     assert np.isfinite(first["final"]["final_loss"])
     assert first["final"]["steps"] == 3
+    saving = ranks[0]["runs"][1]
+    assert [m["loss"] for m in saving["metrics"]] == [m["loss"] for m in first["metrics"]]
     assert not any(r["jax_loaded"] for r in ranks)
 
 
@@ -193,8 +196,10 @@ def _mesh(shape) -> "Mesh":
 
 
 def test_what_the_mesh_does_not_train_over_raises():
-    """tp, sp, pp and ep above 1, and MoE over more than one rank, raise
-    and cite ROADMAP queue 1, item 8; a one-rank mesh trains as no mesh."""
+    """tp, sp and pp above 1 raise and cite ROADMAP queue 1, item 8; ep
+    trains (MoE's expert parallelism), and a MoE step over a mesh that is
+    not the default mesh raises, since its MoE blocks read their mesh
+    there; a one-rank mesh trains as no mesh."""
     from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step,
@@ -202,12 +207,13 @@ def test_what_the_mesh_does_not_train_over_raises():
 
     opt = default_optimizer()
     cfg = pl.LlamaConfig.tiny()
-    for shape in (MeshShape(tp=2), MeshShape(fsdp=2, sp=2), MeshShape(pp=2), MeshShape(ep=2)):
+    for shape in (MeshShape(tp=2), MeshShape(fsdp=2, sp=2), MeshShape(pp=2)):
         with pytest.raises(NotImplementedError, match="item 8"):
             make_train_step(cfg, opt, mesh=_mesh(shape))
         with pytest.raises(NotImplementedError, match="item 8"):
             make_train_state(cfg, opt, mesh=_mesh(shape), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    make_train_step(cfg, opt, mesh=_mesh(MeshShape(ep=2)))
+    with pytest.raises(ValueError, match="default mesh"):
         make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=_mesh(MeshShape(fsdp=2)))
     state = make_train_state(cfg, opt, mesh=_mesh(MeshShape()), device="cpu")
     assert state.params["layers"]["wq"].shape == (2, 64, 64)

@@ -148,7 +148,8 @@ def test_fit_applies_the_moe_overrides(monkeypatch):
     """fit() on tiny_moe: the grouped dispatch runs the grouped matmul at
     the model's row tile or at ``moe_group_block``'s, the
     ``moe_dispatch='gather'`` override runs none; each step reports its aux
-    loss; the expert-parallel overlap still raises."""
+    loss; the expert-parallel overlap's overrides run the plain grouped path
+    on one device."""
     blocks = []
     layout = pm.grouped_layout
 
@@ -172,5 +173,9 @@ def test_fit_applies_the_moe_overrides(monkeypatch):
         assert (LAUNCHES["gmm_fwd_plain"] > 0) == bool(want)
         assert [m["step"] for m in seen] == [1, 2]
         assert all(0.9 < m["aux"] < 2.0 for m in seen)
-    with pytest.raises(NotImplementedError, match="moe_overlap_chunk"):
-        fit(dataclasses.replace(base, moe_overlap_chunk=64), device="cpu")
+    # the ep overlap's overrides apply; one device has no ep axis, so the
+    # plain grouped path runs (the reference's decline), the same losses
+    seen = [[], []]
+    for i, knobs in enumerate(({}, {"moe_overlap_impl": "scan", "moe_overlap_chunk": 32})):
+        fit(dataclasses.replace(base, on_metrics=seen[i].append, **knobs), device="cpu")
+    assert [m["loss"] for m in seen[0]] == [m["loss"] for m in seen[1]]

@@ -7,7 +7,8 @@ turns those into this package's tensors with the same keys, shapes and
 dtypes. Every parity test carries weights across this way, because the two
 frameworks' random generators give different numbers from one seed.
 :func:`shards_from_numpy` gives a rank of a mesh its blocks of the same
-tree, cut on the host by the rules' specs (``parallel/sharding.py``).
+tree, cut on the host by the rules' specs (``parallel/sharding.py``): the
+MoE expert weights over ep and fsdp, the router over fsdp and ep.
 """
 
 from __future__ import annotations

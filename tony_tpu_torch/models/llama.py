@@ -32,8 +32,10 @@ blocks. With ``overlap_impl`` set, a trunk projection whose weight the
 rules shard over fsdp runs through the decomposed ring
 (``ops/overlap.py`` ``overlap_matmul``, the weight this rank's shard);
 anywhere the ring does not apply it is the plain matmul over the weight
-the trainer gathered. ``moe_overlap_impl`` and the ring/Ulysses attentions
-are not ported yet and raise (ROADMAP queue 1, item 8).
+the trainer gathered. MoE layers over a mesh take the router's global
+statistics and, at ep above 1, the expert-parallel dispatch with its
+blocking or overlapped combine (``parallel/moe.py``). The ring/Ulysses
+attentions are not ported yet and raise (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -445,6 +447,7 @@ def moe_ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig
         top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
         dispatch=cfg.moe_dispatch, group_block=cfg.moe_group_block,
         gmm_impl=cfg.moe_gmm_impl, overlap_impl=cfg.moe_overlap_impl,
+        overlap_chunk=cfg.moe_overlap_chunk,
     )
     return moe_block({name: lp[name] for name in ("router", "w1", "w3", "w2")},
                      x, mcfg)
@@ -465,15 +468,6 @@ def transformer_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
     return h + delta, aux
 
 
-def _check_trainable(cfg: LlamaConfig) -> None:
-    if cfg.is_moe and cfg.moe_overlap_impl not in ("", "off"):
-        raise NotImplementedError(
-            f"moe_overlap_impl={cfg.moe_overlap_impl!r} overlaps the "
-            "expert-parallel combine on an ep mesh, not ported yet (ROADMAP "
-            "queue 1, item 8); use 'off'"
-        )
-
-
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding gather ``[B, S] -> [B, S, D]``."""
     return F.embedding(tokens.long(), params["tok_emb"])
@@ -486,7 +480,6 @@ def hidden_states_with_aux(params: Params, tokens: torch.Tensor,
     consumes directly. Layer i reads the i-th slice of each stacked
     parameter (one ``unbind`` per leaf, so the backward stacks the layer
     grads once)."""
-    _check_trainable(cfg)
     x = embed_tokens(params, tokens)
     cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
     layers = {name: t.unbind(0) for name, t in params["layers"].items()}

@@ -8,8 +8,8 @@ order (rank = the flat index of its coordinates), and gives each axis of
 size above 1 a process group over the ranks that differ only along it
 (:class:`~tony_tpu_torch.parallel.dist.Axis`). One rank is one device.
 
-Training takes dp and fsdp. The other axes build, but the trainer refuses
-them above 1 (tp, sp, pp and ep are ROADMAP queue 1, item 8).
+Training takes dp, fsdp and ep. The other axes build, but the trainer
+refuses them above 1 (tp, sp and pp are ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations

@@ -18,16 +18,35 @@ The router, its softmax, the gates and the Switch aux loss are float32
 whatever the activations' dtype; the expert FFN runs in the input dtype.
 The grouped path has no host sync: group sizes are one-hot sums into a
 fixed ``[E]``, each route's row in the padded buffer comes from a cumsum,
-and every shape is static. The expert-parallel formulation
-(``_moe_grouped_ep`` on an ``ep`` mesh) and the overlapped combine
-(``overlap_impl``) are not ported yet: a mesh does not exist in the port,
-and ``overlap_impl != 'off'`` raises.
+and every shape is static.
+
+Over a mesh (the default mesh, ``parallel/mesh.py``, of more than one
+rank; the reference's GSPMD sees the global batch where a rank here holds
+its rows of it, split over the rules' batch axes dp, fsdp and ep):
+
+- the router's statistics are the global batch's: the per-expert route
+  counts and probability sums are all-reduced over the batch axes under
+  autograd (the backward an all-reduce, the transpose of a psum), so the
+  aux loss is the reference's over every token;
+- with ``ep > 1`` the grouped dispatch is the reference's
+  ``_moe_grouped_ep``: each rank routes its rows, all-gathers them (and
+  their routes) over ep into its (dp, fsdp) block, runs the grouped FFN
+  for its ``E / ep`` local experts (``_chunk_ffn``; routes to other
+  ranks' experts ride along to local group 0 at weight 0, so shapes stay
+  static and nothing syncs with the host), and reduce-scatters the
+  ``[T_ep, D]`` partial over ep back to its rows: the reference's psum
+  and GSPMD's slice. ``overlap_impl`` splits that combine into token
+  chunks that overlap the FFN (``ops/moe_overlap.py``);
+- the capacity dispatches ('gather', 'einsum') place routes by queue
+  positions over the global batch and are not ported over a mesh: they
+  raise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -35,6 +54,11 @@ import torch.nn.functional as F
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.ops.grouped_mm import grouped_layout, grouped_matmul
+from tony_tpu_torch.parallel import dist as pdist
+from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh
+
+# the mesh axes a batch's rows are split over (DEFAULT_RULES["batch"])
+BATCH_AXES = ("dp", "fsdp", "ep")
 
 
 @dataclass(frozen=True)
@@ -53,8 +77,15 @@ class MoEConfig:
     # dispatch='grouped': 'scan' (the plain version, any device) | 'pallas'
     # (the CUDA kernels for CUDA tensors)
     gmm_impl: str = "scan"
-    # the expert-parallel overlapped combine: only 'off' is ported
+    # dispatch='grouped' on an ep mesh: 'off' keeps the single blocking
+    # combine; 'scan' | 'pallas' split it into token chunks whose
+    # reduce-scatters overlap the next chunk's FFN (ops/moe_overlap.py),
+    # the impl naming the chunk FFN's grouped-matmul kernel
     overlap_impl: str = "off"
+    # overlap_impl != 'off': tokens per combine chunk, per (dp, fsdp)
+    # block of ep-gathered rows (0: the largest clean split in {4, 3, 2});
+    # a size that does not divide them keeps the single combine
+    overlap_chunk: int = 0
 
     def capacity(self, n_tokens: int) -> int:
         """Per-expert token slots, rounded up to a multiple of 8 as the
@@ -104,6 +135,14 @@ def _route_tokens(T: int, k: int, device) -> torch.Tensor:
     return torch.arange(T, device=device).unsqueeze(1).expand(T, k).reshape(-1)
 
 
+def _batch_axes(mesh: Mesh | None) -> list[pdist.Axis]:
+    """The batch axes of ``mesh`` this rank's rows are split over (size
+    above 1); none without a mesh."""
+    if mesh is None:
+        return []
+    return [mesh.axis(a) for a in BATCH_AXES if mesh.shape[a] > 1]
+
+
 def _top_k_select(probs: torch.Tensor, cfg: MoEConfig):
     """One top-k routing pass shared by every dispatch.
 
@@ -135,6 +174,22 @@ def _top_k_select(probs: torch.Tensor, cfg: MoEConfig):
     importance = onehot.mean(dim=0).sum(dim=0)                   # [E]
     aux = cfg.n_experts * torch.sum(importance / k * p32.mean(dim=0))
     return sel.to(torch.int32), gates, pos.to(torch.int32), aux
+
+
+def _route(probs: torch.Tensor, cfg: MoEConfig, mesh: Mesh | None):
+    """(experts [T, k], gates [T, k], aux) of :func:`_top_k_select`, the
+    aux loss over ``mesh``'s global batch: each expert's route count and
+    probability sum are summed over the batch axes (the probability sums
+    differentiably), then divided by the global token count."""
+    sel, gates, _, aux = _top_k_select(probs, cfg)     # pos unused: dropless
+    axes = _batch_axes(mesh)
+    if axes:
+        E, k = cfg.n_experts, cfg.top_k
+        counts = _one_hot(sel.reshape(-1), E).sum(dim=0)
+        stats = pdist.all_reduce_ad(torch.cat([counts, probs.float().sum(dim=0)]), axes)
+        n = probs.shape[0] * math.prod(a.size for a in axes)
+        aux = E * torch.sum(stats[:E] / n / k * (stats[E:] / n))
+    return sel, gates, aux
 
 
 def routing_stats(probs: torch.Tensor, cfg: MoEConfig) -> dict[str, float]:
@@ -258,12 +313,12 @@ def _grouped_ffn(params: dict[str, Any], flat: torch.Tensor, tok: torch.Tensor,
 
 
 def _moe_grouped(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
-                 probs: torch.Tensor):
+                 probs: torch.Tensor, mesh: Mesh | None = None):
     """Dropless grouped dispatch: every route is served, the combine weight
     is the gate renormalised over all k selections."""
     T = flat.shape[0]
     k = cfg.top_k
-    sel, gates, _, aux = _top_k_select(probs, cfg)   # pos unused: dropless
+    sel, gates, aux = _route(probs, cfg, mesh)
     denom = torch.clamp(gates.sum(dim=1), min=1e-9)
     tok = _route_tokens(T, k, flat.device)
     weight = (gates / denom[:, None]).reshape(T * k)
@@ -272,22 +327,101 @@ def _moe_grouped(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
     return y, aux
 
 
+def _chunk_ffn(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+               flat: torch.Tensor, sel: torch.Tensor, weight: torch.Tensor, *,
+               cfg: MoEConfig, e_local: int, offset: int) -> torch.Tensor:
+    """The rank-local grouped FFN over rows ``flat [t, D]`` and their routes
+    ``sel``/``weight [t, k]``: the routes to this rank's ``e_local``
+    experts (from ``offset``) run through them, every other route rides
+    along to local group 0 at weight 0. Returns the local partial ``[t,
+    D]``; the combine over ep stays with the caller."""
+    t, k = flat.shape[0], cfg.top_k
+    rel = sel - offset
+    mine = (rel >= 0) & (rel < e_local)
+    group = torch.where(mine, rel, 0).reshape(t * k)
+    wgt = torch.where(mine, weight, 0.0).reshape(t * k)
+    return _grouped_ffn({"w1": w1, "w3": w3, "w2": w2}, flat,
+                        _route_tokens(t, k, flat.device), group, wgt, e_local, cfg)
+
+
+def _moe_grouped_ep(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
+                    probs: torch.Tensor, mesh: Mesh):
+    """Expert-parallel grouped dispatch (see the module docstring).
+    ``params``' expert weights are this rank's ``E / ep`` experts; the rows
+    gathered over ep are this rank's (dp, fsdp) block in index order,
+    because ep is the innermost of the batch axes that cut the rows
+    (``train/data.py``)."""
+    from tony_tpu_torch.ops.moe_overlap import overlap_chunks, overlapped_combine
+
+    ep = mesh.axis("ep")
+    e_local = cfg.n_experts // ep.size
+    sel, gates, aux = _route(probs, cfg, mesh)
+    weight = gates / torch.clamp(gates.sum(dim=1), min=1e-9)[:, None]   # [T, k]
+    flat_g = pdist.all_gather_ad(flat, ep, 0)
+    sel_g = pdist.all_gather(sel, ep, 0)
+    weight_g = pdist.all_gather_ad(weight, ep, 0)
+    w = (params["w1"], params["w3"], params["w2"])
+    n_chunks = None
+    if cfg.overlap_impl not in ("", "off"):
+        # the reference's chunk count over the (dp, fsdp) block's rows; it
+        # must also split this rank's rows, else the single combine runs
+        n_chunks = overlap_chunks(flat_g.shape[0], cfg.overlap_chunk)
+        if n_chunks is not None and flat.shape[0] % n_chunks:
+            n_chunks = None
+    local = functools.partial(_chunk_ffn, e_local=e_local, offset=ep.index * e_local)
+    if n_chunks is not None:
+        # the overlap impl names the chunk FFN's grouped-matmul kernel
+        ffn = functools.partial(local, cfg=replace(cfg, gmm_impl=cfg.overlap_impl))
+        y = overlapped_combine(ffn, ep, n_chunks, *w, flat_g, sel_g, weight_g)
+    else:
+        y = pdist.reduce_scatter_ad(local(*w, flat_g, sel_g, weight_g, cfg=cfg), ep, 0)
+    return y, aux
+
+
+def _moe_grouped_entry(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
+                       probs: torch.Tensor, mesh: Mesh | None):
+    """The reference's ``_moe_grouped_entry``: the ep path where the mesh
+    has ep above 1 (and tp 1, and experts that ep divides); else the plain
+    grouped path, whose statistics are the mesh's global batch's. Where the
+    reference would fall back to GSPMD over an ep-sharded expert dim (tp
+    above 1, E not a multiple of ep), the port raises: it holds no such
+    blocks (tp is refused by the trainer, uneven blocks by the sharding).
+    The reference's third condition, rows that dp x fsdp split evenly,
+    always holds here: each rank holds its own even block of the rows
+    (``train/data.py`` raises otherwise)."""
+    ep = mesh.shape["ep"] if mesh is not None else 1
+    if ep > 1:
+        if mesh.shape["tp"] > 1:
+            raise NotImplementedError("MoE over ep x tp is not ported yet (ROADMAP "
+                                      "queue 1, item 8)")
+        if cfg.n_experts % ep:
+            raise ValueError(f"{cfg.n_experts} experts do not split over ep={ep}: the "
+                             "port cuts even blocks only")
+        return _moe_grouped_ep(params, flat, cfg, probs, mesh)
+    return _moe_grouped(params, flat, cfg, probs, mesh)
+
+
 def moe_block(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     """MoE SwiGLU FFN: x ``[B, S, D]`` -> (y ``[B, S, D]``, aux float32
     scalar). Capacity dispatches pass dropped tokens through with a zero
     FFN delta (the residual outside keeps them); 'grouped' serves every
-    route."""
+    route. Over the default mesh (more than one rank) ``x`` is this rank's
+    rows, the router whole, and with ep above 1 the expert weights this
+    rank's ``E / ep`` experts; ``aux`` is the global batch's."""
     B, S, D = x.shape
     T = B * S
     flat = x.reshape(T, D)
-    if cfg.dispatch == "grouped" and cfg.overlap_impl not in ("", "off"):
-        if cfg.overlap_impl not in ("scan", "pallas"):
-            raise ValueError(f"unknown MoE overlap impl {cfg.overlap_impl!r}; "
-                             "expected 'off' | 'scan' | 'pallas'")
+    mesh = get_default_mesh()
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if cfg.dispatch == "grouped" and cfg.overlap_impl not in ("", "off", "scan", "pallas"):
+        raise ValueError(f"unknown MoE overlap impl {cfg.overlap_impl!r}; "
+                         "expected 'off' | 'scan' | 'pallas'")
+    if mesh is not None and cfg.dispatch != "grouped":
         raise NotImplementedError(
-            f"moe_overlap_impl={cfg.overlap_impl!r} overlaps the expert-parallel "
-            "combine on an ep mesh, not ported yet (ROADMAP queue 1 item 8); "
-            "use 'off'")
+            f"dispatch={cfg.dispatch!r} over a mesh of more than one rank (capacity "
+            "slots over the global batch) is not ported yet (ROADMAP queue 1, item 8); "
+            "use 'grouped'")
 
     # router math is always float32: a bf16 softmax loses about two
     # decimal digits, and the aux loss is a mean of small fractions
@@ -295,7 +429,7 @@ def moe_block(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     probs = torch.softmax(logits, dim=-1)
 
     if cfg.dispatch == "grouped":
-        y, aux = _moe_grouped(params, flat, cfg, probs)
+        y, aux = _moe_grouped_entry(params, flat, cfg, probs, mesh)
         return y.reshape(B, S, D), aux
     capacity = cfg.capacity(T)
     if cfg.dispatch == "gather":

@@ -99,7 +99,7 @@ def tree_specs(logical_tree: Any, rules: Rules = DEFAULT_RULES) -> Any:
     return {k: tree_specs(v, rules) for k, v in logical_tree.items()}
 
 
-def _entry_axes(entry) -> tuple[str, ...]:
+def entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
@@ -120,7 +120,7 @@ def local_shape(shape: tuple[int, ...], spec: Spec, mesh: Mesh) -> tuple[int, ..
     split dimension is not a multiple of its blocks."""
     out = []
     for i, (n, entry) in enumerate(zip(shape, _padded(spec, len(shape)))):
-        _, count = _block(mesh, _entry_axes(entry))
+        _, count = _block(mesh, entry_axes(entry))
         if n % count:
             raise ValueError(f"dim {i} of {tuple(shape)} ({n}) is not a multiple of its "
                              f"{count} blocks over {entry}: the port cuts even blocks only")
@@ -140,7 +140,7 @@ def shard(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     sizes = local_shape(tuple(t.shape), spec, mesh)
     out = t
     for dim, entry in enumerate(_padded(spec, t.ndim)):
-        idx, count = _block(mesh, _entry_axes(entry))
+        idx, count = _block(mesh, entry_axes(entry))
         if count > 1:
             out = out.narrow(dim, idx * sizes[dim], sizes[dim])
     return out if out is t else out.contiguous()
@@ -152,7 +152,7 @@ def unshard(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     axis first. Every rank of the split axes calls it."""
     out = t
     for dim, entry in enumerate(_padded(spec, t.ndim)):
-        for a in reversed(_entry_axes(entry)):
+        for a in reversed(entry_axes(entry)):
             out = pdist.all_gather(out, mesh.axis(a), dim)
     return out
 
@@ -172,5 +172,5 @@ def unshard_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
     return unshard(tree, specs, mesh)
 
 
-__all__ = ["DEFAULT_RULES", "Rules", "Spec", "local_shape", "overlap_gather_dim",
+__all__ = ["DEFAULT_RULES", "Rules", "Spec", "entry_axes", "local_shape", "overlap_gather_dim",
            "shard", "shard_tree", "spec_for", "tree_specs", "unshard", "unshard_tree"]

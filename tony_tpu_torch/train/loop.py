@@ -13,18 +13,19 @@ step-time figures, as in the reference.
 Meshes. ``fit()`` joins the default process group from the ``pytorch``
 runtime's env contract, or uses one the caller brought up
 (``parallel/dist.py``), builds the mesh of ``mesh_shape`` (None: fsdp over
-every rank), sets it as the default mesh and trains over dp and fsdp
+every rank), sets it as the default mesh and trains over dp, fsdp and ep
 (``train/trainer.py``), each rank on its rows of every global batch. Rank
 0 alone logs and calls ``on_metrics``; every rank returns the final
-report.
+report. A checkpoint of a mesh of more than one rank is sharded: each rank
+writes and reads its own blocks (``train/checkpoint.py``), and a step
+restores onto whatever mesh this run has.
 
-The model overrides ``ce_impl``, ``moe_dispatch``, ``moe_group_block`` and
-``overlap_impl`` apply to ``cfg.model`` as in the reference. Not ported
-yet, and raising when set to a non-default: the mesh axes tp, sp, pp and
-ep above 1, pipeline parallelism (``pp_*``), elastic training
-(``elastic_*``), the expert-parallel overlap (``moe_overlap_impl``,
-``moe_overlap_chunk``) and checkpoints of a mesh of more than one rank
-(ROADMAP queue 1, item 8). The reference's observability hooks
+The model overrides ``ce_impl``, ``moe_dispatch``, ``moe_group_block``,
+``overlap_impl``, ``moe_overlap_impl`` and ``moe_overlap_chunk`` apply to
+``cfg.model`` as in the reference. Not ported yet, and raising when set
+to a non-default: the mesh axes tp, sp and pp above 1, pipeline
+parallelism (``pp_*``) and elastic training (``elastic_*``) (ROADMAP
+queue 1, item 8). The reference's observability hooks
 (``install_from_env``), the metrics push to a job's AM and compile-ahead
 (PyTorch runs eagerly, with nothing to compile) are left out.
 """
@@ -48,7 +49,7 @@ from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules
 from tony_tpu_torch.train.data import DataConfig, make_batches
 from tony_tpu_torch.train.prefetch import close_batches
 from tony_tpu_torch.train.trainer import (
-    check_mesh_axes, default_optimizer, make_train_state, make_train_step,
+    check_mesh_axes, default_optimizer, make_train_state, make_train_step, state_specs,
 )
 
 log = logging.getLogger(__name__)
@@ -85,7 +86,11 @@ class FitConfig:
     # dp > 1 to be read
     grad_bucket_mb: float = 0.0
     moe_group_block: int = 0
+    # '' keeps model.moe_overlap_impl; 'scan'/'pallas' split the ep combine
+    # into token chunks that overlap the expert FFN (ops/moe_overlap.py),
+    # 'off' keeps the single blocking combine
     moe_overlap_impl: str = ""
+    # 0 keeps model.moe_overlap_chunk: tokens per combine chunk
     moe_overlap_chunk: int = 0
     elastic_members: int = 0
     elastic_plan: dict | None = None
@@ -95,12 +100,13 @@ class FitConfig:
 
 # fields this slice does not port: setting one to a non-default raises
 _UNPORTED = (
-    "pp_microbatches", "pp_schedule", "moe_overlap_impl", "moe_overlap_chunk",
+    "pp_microbatches", "pp_schedule",
     "elastic_members", "elastic_plan", "elastic_dir", "elastic_shadow_steps",
 )
 # FitConfig fields that override the model config's field of the same name
-# when set (the reference's overrides, tony_tpu/train/loop.py:411-420)
-_MODEL_OVERRIDES = ("ce_impl", "moe_dispatch", "moe_group_block", "overlap_impl")
+# when set (the reference's overrides, tony_tpu/train/loop.py:411-426)
+_MODEL_OVERRIDES = ("ce_impl", "moe_dispatch", "moe_group_block", "overlap_impl",
+                    "moe_overlap_impl", "moe_overlap_chunk")
 
 
 def _check_ported(cfg: FitConfig) -> None:
@@ -128,10 +134,6 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
     lead = mesh.rank == 0
     if lead:
         log.info("mesh: %s over %d ranks", mesh.shape, mesh.size)
-    if cfg.checkpoint_dir and mesh.size > 1:
-        raise NotImplementedError(
-            "checkpoints of a mesh of more than one rank (sharded checkpoints) are "
-            "not ported yet (ROADMAP queue 1, item 8)")
     model = replace(cfg.model, **{name: getattr(cfg, name) for name in _MODEL_OVERRIDES
                                   if getattr(cfg, name)})
 
@@ -150,7 +152,8 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
         from tony_tpu_torch.train.checkpoint import CheckpointManager
 
         manager = CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
-                                    save_interval_steps=cfg.checkpoint_every)
+                                    save_interval_steps=cfg.checkpoint_every, mesh=mesh,
+                                    specs=state_specs(model, cfg.rules).params)
         if cfg.resume:
             state, restored = manager.restore(state)
             if restored >= 0:

@@ -21,27 +21,35 @@ come in the parameters' dtype and the loss is the float32 mean over
 the same chain leaf by leaf: the ``[L, E, D, F]`` expert weights and the
 float32 router, whose second moment is float32 with it.
 
-Meshes (dp and fsdp; the counterpart of the reference's GSPMD step). Each
-rank holds its blocks of the parameters and moments under the rules'
+Meshes (dp, fsdp and ep; the counterpart of the reference's GSPMD step).
+Each rank holds its blocks of the parameters and moments under the rules'
 specs (:func:`state_specs`, ``parallel/sharding.py``) and its rows of the
-global batch. In the step:
+global batch, split over (dp, fsdp, ep). In the step:
 
-- a weight the fsdp ring does not take (``ops/overlap.py``, with
-  ``overlap_impl`` set and the mesh the default one) is all-gathered
-  blocking before the forward, as GSPMD would, and its gradient
-  reduce-scattered back to the shard in the backward; the trunk
-  projections the ring takes stay shards, and the ring's backward
-  reduce-scatters their gradients;
-- a replicated leaf's gradient (the norms) is summed over fsdp, and every
-  gradient over dp: one all-reduce, or with ``grad_bucket_bytes > 0`` and
-  dp > 1 the reference's manual-dp path (each dp shard's mean loss, grads
-  scaled by 1/dp, ``bucketed_psum`` buckets in leaf order);
-- ``global_norm`` sums the squares across shards with one all-reduce over
-  fsdp, and AdamW updates the local blocks.
+- a weight is all-gathered blocking over each axis that splits it before
+  the forward, as GSPMD would, and its gradient reduce-scattered back to
+  the block in the backward, except where its consumer takes the block
+  itself: the trunk projections the fsdp ring takes (``ops/overlap.py``,
+  with ``overlap_impl`` set and the mesh the default one; the ring's
+  backward reduce-scatters their gradients), and the MoE expert weights
+  at ep above 1, whose ep block is this rank's experts (their fsdp split
+  still takes the blocking gather);
+- a gradient is summed over each of fsdp and ep that does not split its
+  leaf, and every gradient over dp: one all-reduce, or with
+  ``grad_bucket_bytes > 0`` and dp > 1 the reference's manual-dp path
+  (each dp shard's mean loss, grads scaled by 1/dp, ``bucketed_psum``
+  buckets in leaf order);
+- ``global_norm`` sums the squares across the blocks, each block once,
+  with one all-reduce over fsdp and one over ep, and AdamW updates the
+  local blocks.
 
-tp, sp, pp and ep above 1, MoE over a mesh, pipeline microbatches and the
-numerics-health monitors are not ported yet and raise (ROADMAP queue 1,
-item 8 for the parallelism, item 6 for the monitors).
+A MoE step over a mesh reads the mesh from the default mesh, as its
+``moe_block`` does (``fit()`` sets it): the router's statistics are the
+global batch's, and ep above 1 runs the expert-parallel dispatch.
+
+tp, sp and pp above 1, pipeline microbatches and the numerics-health
+monitors are not ported yet and raise (ROADMAP queue 1, item 8 for the
+parallelism, item 6 for the monitors).
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from tony_tpu_torch.ops.overlap import bucketed_psum
 from tony_tpu_torch.parallel import dist as pdist
 from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh
 from tony_tpu_torch.parallel.sharding import (
-    DEFAULT_RULES, Rules, local_shape, shard_tree, tree_specs,
+    DEFAULT_RULES, Rules, entry_axes, local_shape, shard_tree, tree_specs,
 )
 
 Params = dict[str, Any]
@@ -171,31 +179,31 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                  grad_clip=grad_clip, mu_dtype=_dtype(mu_dtype))
 
 
-# the trunk projections _proj routes through the fsdp ring (models/llama.py)
+# the dense trunk projections _proj routes through the fsdp ring
+# (models/llama.py); a MoE layer's w1/w3/w2 are expert weights, never these
 _RING_LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+_EXPERT_LEAVES = ("w1", "w3", "w2")
+# the mesh axes the port trains over
+_TRAIN_AXES = ("dp", "fsdp", "ep")
 
 
 def check_mesh_axes(shape: dict[str, int]) -> None:
     """Raise for what the port does not train over: mesh axes other than
-    dp and fsdp above 1."""
+    dp, fsdp and ep above 1."""
     for name, n in shape.items():
-        if n > 1 and name not in ("dp", "fsdp"):
+        if n > 1 and name not in _TRAIN_AXES:
             raise NotImplementedError(
-                f"mesh axis {name}={n}: the port trains over dp and fsdp; tp, sp, pp "
-                "and ep are not ported yet (ROADMAP queue 1, item 8, multi-process "
+                f"mesh axis {name}={n}: the port trains over dp, fsdp and ep; tp, sp "
+                "and pp are not ported yet (ROADMAP queue 1, item 8, multi-process "
                 "parallelism)")
 
 
-def _check_mesh(mesh: Mesh | None, cfg: llama.LlamaConfig) -> bool:
+def _check_mesh(mesh: Mesh | None) -> bool:
     """Whether ``mesh`` spans more than one rank; raises for what the port
     does not train over."""
     if mesh is None or mesh.size == 1:
         return False
     check_mesh_axes(mesh.shape)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE over a mesh of more than one rank (expert parallelism and the "
-            "router's global statistics) is not ported yet (ROADMAP queue 1, item 8)")
     return True
 
 
@@ -231,7 +239,7 @@ def make_train_state(cfg: llama.LlamaConfig, optimizer: AdamW, *, seed: int = 0,
     rank's blocks under the rules' specs: random parameters are drawn
     whole (every rank the same numbers) and cut; given ``params`` must be
     the rank's blocks already (``models.convert.shards_from_numpy``)."""
-    sharded = _check_mesh(mesh, cfg)
+    sharded = _check_mesh(mesh)
     specs = state_specs(cfg, rules).params
     if params is None:
         device = resolve_device(device)
@@ -251,78 +259,89 @@ def make_train_state(cfg: llama.LlamaConfig, optimizer: AdamW, *, seed: int = 0,
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
 
 
-class _Gather(torch.autograd.Function):
-    """A blocking all-gather of a weight's fsdp blocks; its gradient is
-    reduce-scattered back to the block."""
-
-    @staticmethod
-    def forward(ctx, t, axis, dim):
-        ctx.axis, ctx.dim = axis, dim
-        return pdist.all_gather(t, axis, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return pdist.reduce_scatter(g, ctx.axis, ctx.dim), None, None
-
-
 def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: Rules,
                   grad_bucket_bytes: int) -> Callable:
-    """The step over a dp x fsdp mesh (see the module's docstring)."""
-    fsdp, dp = mesh.axis("fsdp"), mesh.axis("dp")
+    """The step over a dp x fsdp x ep mesh (see the module's docstring)."""
+    fsdp, dp, ep = mesh.axis("fsdp"), mesh.axis("dp"), mesh.axis("ep")
     specs = state_specs(cfg, rules).params
     bucketed = grad_bucket_bytes > 0 and dp.size > 1
+    if cfg.is_moe and get_default_mesh() is not mesh:
+        raise ValueError("a MoE step over a mesh reads the mesh its rows are split over "
+                         "from the default mesh: set_default_mesh(mesh) first, as fit() "
+                         "does")
+    # the ring takes a dense trunk projection where overlap_matmul will apply
+    ring = bool(cfg.overlap_impl) and get_default_mesh() is mesh
 
-    def fsdp_dim(path: tuple) -> int | None:
-        """The dim the rules split over fsdp (None: replicated there)."""
+    def plan(path: tuple) -> tuple[list[tuple[int, str]], set[str]]:
+        """(the (dim, axis) all-gathers before the forward, in order; the
+        axes that split the stored block)."""
         spec = _at(specs, path)
+        split = []
         for d, entry in enumerate(spec):
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            if any(a is not None and a != "fsdp" and mesh.shape[a] > 1 for a in axes):
-                raise NotImplementedError(
-                    f"{'.'.join(path)}: spec {spec} splits a parameter over a mesh axis "
-                    "other than fsdp (ROADMAP queue 1, item 8)")
-            if "fsdp" in axes and fsdp.size > 1:
-                return d
-        return None
+            for a in reversed(entry_axes(entry)):      # innermost first, as unshard
+                if mesh.shape[a] > 1:
+                    if a not in _TRAIN_AXES:
+                        raise NotImplementedError(
+                            f"{'.'.join(path)}: spec {spec} splits a parameter over {a} "
+                            "(ROADMAP queue 1, item 8)")
+                    split.append((d, a))
+        expert = cfg.is_moe and path[0] == "layers" and path[-1] in _EXPERT_LEAVES
+        if expert:
+            kept = "ep"            # the MoE block consumes this rank's experts
+        elif ring and path[0] == "layers" and path[-1] in _RING_LEAVES:
+            kept = "fsdp"          # the ring streams the fsdp blocks
+        else:
+            kept = None
+        return [(d, a) for d, a in split if a != kept], {a for _, a in split}
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
         paths = _paths(state.params)
         leaves = tree_leaves(state.params)
-        dims = [fsdp_dim(p) for p in paths]
-        # the ring takes a trunk projection where overlap_matmul will apply
-        ring = bool(cfg.overlap_impl) and get_default_mesh() is mesh
-        used = [t if d is None or (ring and p[0] == "layers" and p[-1] in _RING_LEAVES)
-                else _Gather.apply(t, fsdp, d) for p, t, d in zip(paths, leaves, dims)]
+        plans = [plan(p) for p in paths]
+        used = []
+        for t, (gathers, _) in zip(leaves, plans):
+            for d, a in gathers:
+                t = pdist.all_gather_ad(t, mesh.axis(a), d)
+            used.append(t)
         it = iter(used)
         view = tree_map(lambda _: next(it), state.params)
-        loss, _ = llama.loss_and_aux(view, inputs, targets, cfg)
+        loss, aux = llama.loss_and_aux(view, inputs, targets, cfg)
         # every rank's loss is the mean over its rows; bucketed, the
         # gradient is the dp shard's mean loss's, scaled by 1/dp below
-        scale = 1.0 / fsdp.size if bucketed else 1.0 / (fsdp.size * dp.size)
+        scale = 1.0 / (fsdp.size * ep.size * (1 if bucketed else dp.size))
         grads = list(torch.autograd.grad(loss * scale, leaves))
-        rep = [i for i, d in enumerate(dims) if d is None]
-        if fsdp.size > 1 and rep:
-            summed = bucketed_psum([grads[i] for i in rep], "fsdp", mesh=mesh,
-                                   bucket_bytes=_total_bytes([grads[i] for i in rep]))
-            for i, g in zip(rep, summed):
-                grads[i] = g
+        for axis in (fsdp, ep):
+            # a block this axis does not split was used whole on each of its ranks
+            rep = [i for i, (_, split) in enumerate(plans) if axis.name not in split]
+            if axis.size > 1 and rep:
+                summed = bucketed_psum([grads[i] for i in rep], axis.name, mesh=mesh,
+                                       bucket_bytes=_total_bytes([grads[i] for i in rep]))
+                for i, g in zip(rep, summed):
+                    grads[i] = g
         if dp.size > 1:
             if bucketed:
                 grads = [g / dp.size for g in grads]
             grads = bucketed_psum(grads, "dp", mesh=mesh, bucket_bytes=grad_bucket_bytes
                                   if bucketed else _total_bytes(grads))
-        # squares of fsdp blocks summed across the blocks, replicated
-        # leaves counted once
+        # squares of the blocks summed across them, each block counted on
+        # the first index of every axis it is not split over
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for g, d in zip(grads, dims):
-            if d is not None or fsdp.index == 0:
+        for g, (_, split) in zip(grads, plans):
+            if all(a.name in split or a.index == 0 for a in (fsdp, ep)):
                 sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32).square()
-        gnorm = pdist.all_reduce(sq.reshape(1), fsdp)[0].sqrt()
-        mean = pdist.all_reduce(loss.detach().reshape(1) / fsdp.size, fsdp)
-        mean = pdist.all_reduce(mean / dp.size, dp)[0]
+        sq = sq.reshape(1)
+        mean = loss.detach().reshape(1)
+        for axis in (fsdp, ep):
+            sq = pdist.all_reduce(sq, axis)
+        for axis in (fsdp, ep, dp):
+            mean = pdist.all_reduce(mean / axis.size, axis)
+        gnorm = sq[0].sqrt()
         optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm)
         state.step += 1
-        return state, {"loss": mean, "grad_norm": gnorm, "step": state.step}
+        metrics = {"loss": mean[0], "grad_norm": gnorm, "step": state.step}
+        if cfg.is_moe:
+            metrics["aux"] = aux.detach()       # the global batch's on every rank
+        return state, metrics
 
     return step
 
@@ -349,7 +368,7 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
     reference."""
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r} (expected gpipe | 1f1b)")
-    sharded = _check_mesh(mesh, cfg)
+    sharded = _check_mesh(mesh)
     if n_microbatches:
         raise NotImplementedError("pipeline microbatches need a pp mesh, not ported yet "
                                   "(ROADMAP queue 1, item 8)")
@@ -357,7 +376,6 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
         raise NotImplementedError(
             "the numerics-health monitors are not ported yet (ROADMAP queue 1, "
             "observability)")
-    llama._check_trainable(cfg)
     if cfg.remat:
         llama._remat_policy(cfg.remat_policy)     # an unknown name fails here
     if sharded:

@@ -21,10 +21,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (kernels 7, 8 and the merge, and kernel 9's over int8 and fp8); then
    the flash-attention forward, dq and dk/dv
    kernels against theirs at bench_1b4's training shape, bench_moe's
-   (head_dim 64), a Llama-3-8B GQA shape and one non-causal shape, in bf16
-   and fp32, each case logged with the instance that ran (every bf16
-   kernel on the tensor cores, wgmma with TMA staging; fp32 scalar), and
-   the six tensor-core instances' registers and spills from the build log;
+   (head_dim 64), a Llama-3-8B GQA shape, one non-causal shape and phase
+   9's three (a tp 2 rank's 8 heads; ring_flash's 1024-row chunk pairs at
+   sp 2, causal and full, through the ring's per-pair entries on K/V views
+   of one stacked buffer), in bf16 and fp32, each case logged with the
+   instance that ran (every bf16 kernel on the tensor cores, wgmma with
+   TMA staging; fp32 scalar), and the six tensor-core instances'
+   registers and spills from the build log;
    then (3c) the grouped-matmul forward, dx and dW kernels against theirs
    at bench_moe's shapes (33,792 buffer rows from a real router draw with
    one expert forced empty, D 1024, F 2816, 8 experts, row tile 128), in
@@ -156,7 +159,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    steps, a sharded checkpoint save, a restore into a template drawn from
    another seed (every leaf bit-equal to the saved one) and 2 more steps,
    the losses within 1e-3 of the uninterrupted ones; each rank's file
-   size and the save and restore seconds.
+   size and the save and restore seconds;
+9. tp and sp training: two rank processes on this one card (``--par-rank``),
+   each calling ``fit()`` on bench_1b4 at full width and depth from phase
+   5's initial parameters and batches (8 x 2048), 3 steps each: (9a)
+   ``mesh_shape=MeshShape(tp=2)``, Megatron's trunk on each rank's 8 of
+   the 16 heads and half the FFN, flash attention and ``ce_impl="pallas"``
+   over the whole vocab; (9b) ``MeshShape(sp=2)`` with
+   ``attention_impl="ring_flash"``, each rank its 1024-position block, K/V
+   and the dk/dv accumulators riding the ring. Each step's loss within
+   5e-3 of phase 5's and its grad norm within 2e-3 of it, relative; on
+   each rank the flash kernels (and in 9a the CE kernels) launched
+   exactly as the path implies (9a: 24 a step each, CE as phase 5b; 9b:
+   24 x (r + 1) a step on sp rank r, the chunk pairs it runs), on their
+   tensor-core instances, no plain version. Each run's step time, its
+   transport (gloo, host-staged: not an NCCL time), its payload a rank a
+   step by collective kind and peak memory are printed.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -170,7 +188,7 @@ The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
-phases 7 and 8 rank 0's),
+phases 7 and 8 rank 0's, phase 9 each rank's),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1294,12 +1312,18 @@ def decode_breakdown(engine, cfg, rng, kernels: dict[str, tuple[str, ...]],
 
 # --- phase 3b: flash attention kernels against their plain versions -----------
 
-# (label, B, S, H, Hkv, hd, causal)
+# (label, B, S, H, Hkv, hd, causal, pair): the last three are phase 9's
+# shapes, each tp 2 rank's 8 heads and sp 2's ring_flash chunk pairs (the
+# diagonal causal, the one below it full), the pairs through the ring's
+# per-pair entries with K/V views of one stacked buffer, as a hop gives them
 FLASH_SHAPES = (
-    ("bench_1b4", 8, 2048, 16, 16, 128, True),
-    ("bench_moe", 8, 2048, 16, 16, 64, True),
-    ("llama3_8b_gqa", 2, 2048, 32, 8, 128, True),
-    ("full", 2, 2048, 16, 16, 128, False),
+    ("bench_1b4", 8, 2048, 16, 16, 128, True, False),
+    ("bench_moe", 8, 2048, 16, 16, 64, True, False),
+    ("llama3_8b_gqa", 2, 2048, 32, 8, 128, True, False),
+    ("full", 2, 2048, 16, 16, 128, False, False),
+    ("tp2_rank", 8, 2048, 8, 8, 128, True, False),
+    ("ring_pair_diagonal", 8, 1024, 16, 16, 128, True, True),
+    ("ring_pair_below", 8, 1024, 16, 16, 128, False, True),
 )
 
 
@@ -1358,30 +1382,40 @@ def log_resources(builds: list, source: str, expected: int) -> list[dict]:
 
 
 def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
-                S: int, H: int, Hkv: int, hd: int, causal: bool) -> list[dict]:
+                S: int, H: int, Hkv: int, hd: int, causal: bool,
+                pair: bool) -> list[dict]:
     """flash_fwd, flash_dq and flash_dkv at one shape: each against its
     plain version on the same inputs, its time, its bound, the plain
     version's time, and SDPA's forward / backward time as the library
-    yardstick (the port never calls SDPA)."""
+    yardstick (the port never calls SDPA). A ring chunk ``pair`` runs
+    through ring_flash's entries (``flash_chunk_fwd`` / ``flash_chunk_bwd``)
+    on K/V views of one stacked ``[2, B, S, Hkv, hd]`` buffer."""
     from tony_tpu_torch.ops.attention import (
-        _delta, _dkv, _dq, _fwd, flash_dkv_plain, flash_dq_plain, flash_fwd_plain,
-        kernel_instance,
+        _delta, _dkv, _dq, _fwd, flash_chunk_bwd, flash_chunk_fwd, flash_dkv_plain,
+        flash_dq_plain, flash_fwd_plain, kernel_instance,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(S + H + Hkv)
     q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
              for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
-            for _ in range(2))
+    if pair:
+        kv = torch.randn((2, B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+        k, v = kv[0], kv[1]
+    else:
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
     scale = 1.0 / math.sqrt(hd)
-    out, lse = _fwd(q, k, v, scale, causal)
     ref_out, ref_lse = flash_fwd_plain(q, k, v, scale=scale, causal=causal)
     delta = _delta(do, ref_out)
-    got = {
-        "flash_fwd": (out, lse),
-        "flash_dq": (_dq(q, k, v, do, ref_lse, delta, scale, causal),),
-        "flash_dkv": _dkv(q, k, v, do, ref_lse, delta, scale, causal),
-    }
+    if pair:
+        out, lse = flash_chunk_fwd(q, k, v, scale=scale, causal=causal)
+        dq, dk, dv = flash_chunk_bwd(q, k, v, do, ref_lse, delta, scale=scale,
+                                     causal=causal)
+    else:
+        out, lse = _fwd(q, k, v, scale, causal)
+        dq = _dq(q, k, v, do, ref_lse, delta, scale, causal)
+        dk, dv = _dkv(q, k, v, do, ref_lse, delta, scale, causal)
+    got = {"flash_fwd": (out, lse), "flash_dq": (dq,), "flash_dkv": (dk, dv)}
     torch.cuda.synchronize()
     want = {
         "flash_fwd": (ref_out, ref_lse),
@@ -1955,8 +1989,8 @@ def train_phase(card: str) -> dict:
     tokens = data.global_batch * data.seq_len
     flops = train_flops_per_token(cfg, data.seq_len)
     return {
-        "losses": losses, "launches": launches, "wall_s": wall, "final": final,
-        "instances": instances,
+        "losses": losses, "grad_norms": [m["grad_norm"] for m in steps],
+        "launches": launches, "wall_s": wall, "final": final, "instances": instances,
         "mean_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "mfu": tokens / step_s * flops / 989e12, "flops_per_token": flops,
         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2294,6 +2328,19 @@ RING_PROJECTIONS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 FSDP_TIMEOUT_S = 420
 
 
+def rank_transport() -> str:
+    """How a rank phase's ranks move CUDA tensors: every mesh axis fit()
+    builds over them is a group of the world group's backend (fit() gives
+    its mesh back when it returns, so the axis itself is gone by then)."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.parallel.dist import Axis, transport
+
+    n = dist.get_world_size()
+    return transport(Axis("world", n, dist.get_rank(), tuple(range(n)), dist.group.WORLD),
+                     torch.device("cuda"))
+
+
 def fsdp_rank(rank: int, port: int, out: str) -> int:
     """One rank of phase 7: bring up a gloo group over tcp://localhost on
     this card, then the port's own fit() at fsdp 2 with the ring's pallas
@@ -2301,8 +2348,7 @@ def fsdp_rank(rank: int, port: int, out: str) -> int:
     import torch.distributed as dist
 
     from tony_tpu_torch.ops import attention, overlap
-    from tony_tpu_torch.parallel.dist import transport
-    from tony_tpu_torch.parallel.mesh import MeshShape, get_default_mesh
+    from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
     torch.cuda.set_device(0)
@@ -2321,11 +2367,10 @@ def fsdp_rank(rank: int, port: int, out: str) -> int:
                           steps=FSDP_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
                           mu_dtype="bfloat16", on_metrics=steps.append), device="cuda")
     wall = time.perf_counter() - t0
-    mesh = get_default_mesh()
     res = {"rank": rank, "metrics": steps, "final": final, "wall_s": wall,
            "launches": {**overlap.LAUNCHES, **attention.LAUNCHES},
            "instance": overlap.kernel_instance(cfg.dtype),
-           "transport": transport(mesh.axis("fsdp"), torch.device("cuda")),
+           "transport": rank_transport(),
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     dist.barrier()
     dist.destroy_process_group()
@@ -2488,7 +2533,7 @@ def ep_rank(rank: int, port: int, out: str, ckpt_dir: str) -> int:
     from tony_tpu_torch.ops import attention, grouped_mm
     from tony_tpu_torch.ops.moe_overlap import overlap_chunks
     from tony_tpu_torch.parallel import dist as pdist
-    from tony_tpu_torch.parallel.mesh import MeshShape, get_default_mesh
+    from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
     torch.cuda.set_device(0)
@@ -2515,10 +2560,8 @@ def ep_rank(rank: int, port: int, out: str, ckpt_dir: str) -> int:
                       "bytes_per_step": {k: v / EP_STEPS for k, v in pdist.BYTES.items()},
                       "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
         torch.cuda.empty_cache()
-    mesh = get_default_mesh()
     tokens = data.global_batch * data.seq_len
-    res = {"rank": rank, "runs": runs,
-           "transport": pdist.transport(mesh.axis("ep"), torch.device("cuda")),
+    res = {"rank": rank, "runs": runs, "transport": rank_transport(),
            "instances": check_tensor_core_path(cfg),
            # the (dp, fsdp) block's rows gathered over ep: here every row
            "n_chunks": overlap_chunks(tokens, 0)}
@@ -2630,6 +2673,169 @@ def ep_phase(card: str, moe: dict) -> dict:
     return out
 
 
+# --- phase 9: tp and sp training, two ranks on one card -----------------------------
+
+PAR = 2
+PAR_STEPS = 3
+PAR_TIMEOUT_S = 420
+# each step's loss (absolute) and grad norm (relative) against phase 5's:
+# about 10x the gaps measured on the H100 (loss 5e-4, grad norm 1.4e-4
+# relative at step 3, where warm-up's end makes the loss jump); a gradient
+# counted twice over tp or missing its 1/sp moves the norm far past it
+PAR_LOSS_ATOL = 5e-3
+PAR_GRAD_NORM_RTOL = 2e-3
+# (label, mesh axis, attention_impl, ce_impl): 9a Megatron tp on the flash
+# and CE kernels, 9b sp through ring_flash on the flash kernels
+PAR_RUNS = (("9a", "tp", "flash", "pallas"), ("9b", "sp", "ring_flash", "scan"))
+
+
+def par_rank(rank: int, port: int, out: str) -> int:
+    """One rank of phase 9: bring up a gloo group over tcp://localhost on
+    this card, then the port's own fit() at tp 2 (9a) and at sp 2 (9b);
+    write what each run saw to ``out``."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.ops import attention, fused_ce
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.parallel.mesh import MeshShape
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=PAR)
+    base = dense_train_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=base.vocab_size)
+    runs = {}
+    for label, axis, impl, head in PAR_RUNS:
+        cfg = dataclasses.replace(base, attention_impl=impl, ce_impl=head)
+        steps: list[dict] = []
+        attention.reset_launches()
+        fused_ce.reset_launches()
+        pdist.reset_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final = fit(FitConfig(model=cfg, data=data, mesh_shape=MeshShape(**{axis: PAR}),
+                              steps=PAR_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
+                              mu_dtype="bfloat16", on_metrics=steps.append), device="cuda")
+        runs[label] = {"metrics": steps, "final": final, "wall_s": time.perf_counter() - t0,
+                       "launches": {**attention.LAUNCHES, **fused_ce.LAUNCHES},
+                       "bytes_per_step": {k: v / PAR_STEPS for k, v in pdist.BYTES.items()},
+                       "transport": rank_transport(),
+                       "instances": check_tensor_core_path(cfg),
+                       "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "runs": runs}, f)
+    return 0
+
+
+def par_launches(label: str, rank: int, layers: int, chunks: int) -> dict[str, int]:
+    """The launches phase 9's run ``label`` implies on ``rank`` over
+    PAR_STEPS steps. 9a: each flash kernel once per layer and step on the
+    rank's heads (remat keeps the forward), ce_fwd once a step, ce_dh and
+    ce_dw once per vocab chunk a step, on the whole vocabulary. 9b: sp
+    rank r runs r + 1 chunk pairs a layer (the diagonal causal, the
+    earlier ones full; none for keys after its queries), forward, dq and
+    dk/dv alike; the scan head runs no CE kernel. No plain version."""
+    if label == "9a":
+        want = {**{n: layers * PAR_STEPS for n in FLASH_KERNELS}, "ce_fwd": PAR_STEPS,
+                "ce_dh": PAR_STEPS * chunks, "ce_dw": PAR_STEPS * chunks}
+    else:
+        want = {**{n: layers * (rank + 1) * PAR_STEPS for n in FLASH_KERNELS},
+                **{n: 0 for n in CE_KERNELS}}
+    want.update({f"{n}_plain": 0 for n in list(want)})
+    return want
+
+
+def par_phase(card: str, dense: dict) -> dict:
+    """Phase 9: two rank processes on this card, each bringing up its gloo
+    group and calling fit() on bench_1b4 at full width and depth from
+    phase 5's initial parameters and batches (8 x 2048): 9a at tp 2 (the
+    flash and CE kernels on each rank's 8 heads and the whole vocab), 9b
+    at sp 2 under ring_flash (each rank its 1024-position block). Each
+    step's loss and grad norm within PAR_LOSS_ATOL and PAR_GRAD_NORM_RTOL
+    of phase 5's (the same bf16 model and batches; the tp all-reduces, the
+    ring's merges and the CE head sum in another order, and the schedule
+    matches phase 5's up to step PAR_STEPS); on each rank the kernels
+    launched exactly the count the path implies (``par_launches``), on
+    their tensor-core instances, no plain version."""
+    import socket
+    import tempfile
+
+    from tony_tpu_torch.ops import fused_ce
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="par-")
+    outs = [f"{tmp}/rank{r}.json" for r in range(PAR)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--par-rank", str(r), str(port),
+                               outs[r]]) for r in range(PAR)]
+    try:
+        codes = [p.wait(timeout=max(1.0, PAR_TIMEOUT_S - (time.perf_counter() - t0)))
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"phase 9 ranks exited {codes}")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    cfg = dense_train_config()
+    chunks = len(fused_ce.dlogits_chunks(cfg.vocab_size))
+    out = {"wall_s": wall, "ranks": ranks}
+    for label, axis, impl, _ in PAR_RUNS:
+        for r in ranks:
+            run = r["runs"][label]
+            want = par_launches(label, r["rank"], cfg.n_layers, chunks)
+            got = {k: run["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"{label} rank {r['rank']} launches {got} != {want}")
+            if any(v != "tensor cores" for v in run["instances"].values()):
+                raise AssertionError(f"{label} rank {r['rank']} off the tensor cores: "
+                                     f"{run['instances']}")
+        if ranks[1]["runs"][label]["metrics"]:
+            raise AssertionError(f"{label}: rank 1 reported metrics: rank 0 alone reports")
+        metrics = ranks[0]["runs"][label]["metrics"]
+        losses = [m["loss"] for m in metrics]
+        if len(losses) != PAR_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label} losses {losses}")
+        diffs = [abs(a - b) for a, b in zip(losses, dense["losses"])]
+        if max(diffs) > PAR_LOSS_ATOL:
+            raise AssertionError(f"{label} losses {losses} against phase 5's "
+                                 f"{dense['losses'][:PAR_STEPS]}")
+        norms = [m["grad_norm"] for m in metrics]
+        norm_diffs = [abs(a - b) / b for a, b in zip(norms, dense["grad_norms"])]
+        if not all(math.isfinite(x) for x in norms) or max(norm_diffs) > PAR_GRAD_NORM_RTOL:
+            raise AssertionError(f"{label} grad norms {norms} against phase 5's "
+                                 f"{dense['grad_norms'][:PAR_STEPS]}")
+        run0 = ranks[0]["runs"][label]
+        timed = [m["step_time_s"] for m in metrics[2:]]     # 2 warm-up steps
+        out[label] = {"axis": axis, "impl": impl, "losses": losses, "loss_diffs": diffs,
+                      "grad_norms": norms, "grad_norm_rel_diffs": norm_diffs,
+                      "mean_step_ms": sum(timed) / len(timed) * 1e3,
+                      "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+                      "transport": run0["transport"],
+                      "bytes_per_step": run0["bytes_per_step"],
+                      "launches": [r["runs"][label]["launches"] for r in ranks],
+                      "peak_gb": [r["runs"][label]["peak_allocated_gb"] for r in ranks]}
+        for m, ref, ref_norm in zip(metrics, dense["losses"], dense["grad_norms"]):
+            log(f"train {label} {axis}={PAR} {impl} step {m['step']}: loss {m['loss']:.4f} "
+                f"(phase 5 {ref:.4f}) grad_norm {m['grad_norm']:.4f} ({ref_norm:.4f}) "
+                f"{m['step_time_s'] * 1e3:.1f} ms over {run0['transport']}  [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -2686,9 +2892,9 @@ def main() -> int:
     log_resources(builds, "paged_decode_attention", 17)
 
     flash = []
-    for label, B, S, H, Hkv, hd, causal in FLASH_SHAPES:
+    for label, B, S, H, Hkv, hd, causal, pair in FLASH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            for c in flash_cases(dtype, flush, label, B, S, H, Hkv, hd, causal):
+            for c in flash_cases(dtype, flush, label, B, S, H, Hkv, hd, causal, pair):
                 flash.append(c)
                 log(f"kernel {c['name']} {label} {c['dtype']} ({c['instance']}) B={B} "
                     f"S={S} H={H} Hkv={Hkv} hd={hd} causal={causal}: max|err| "
@@ -3084,6 +3290,24 @@ def main() -> int:
         + ", ".join(f"{c['bytes'] / 1e9:.3f}" for c in ck["ranks"]) + " GB, save "
         + ", ".join(f"{c['save_s']:.2f}" for c in ck["ranks"]) + " s, restore "
         + ", ".join(f"{c['restore_s']:.2f}" for c in ck["ranks"]) + f" s  [{card}]")
+    par = par_phase(card, t)
+    for label, axis, impl, head in PAR_RUNS:
+        x = par[label]
+        log(f"train bench_1b4 {label} at {axis}={PAR} through fit() (two rank processes on "
+            f"this one card, attention_impl={impl}, ce_impl={head}, phase 5's weights and "
+            f"8 x 2048 batches): {PAR_STEPS} steps, loss {x['losses'][0]:.4f} -> "
+            f"{x['losses'][-1]:.4f}, max |loss - phase 5's| {max(x['loss_diffs']):.3e}; "
+            f"step 3's time {x['mean_step_ms']:.1f} ms (each "
+            + ", ".join(f"{t:.1f}" for t in x["step_ms"])
+            + f" ms) over {x['transport']} (two ranks share the card and every transfer "
+            f"goes through host memory: not an NCCL time); payload bytes a rank a step: "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in x["bytes_per_step"].items() if v)
+            + "; launches per rank "
+            + "; ".join(", ".join(f"{k} {v}" for k, v in lc.items()
+                                  if v and not k.endswith("_plain")) for lc in x["launches"])
+            + ", plain 0; peak allocated per rank "
+            + ", ".join(f"{g:.2f}" for g in x["peak_gb"]) + f" GB  [{card}]")
+    log(f"phase 9 wall {par['wall_s']:.1f} s  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -3136,10 +3360,13 @@ def main() -> int:
             "source": "tony_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"tony_tpu/ops/attention.py:{line}",
             "launches": t["launches"][name],
-            # each path that runs it: its launches there (7 and 8 rank 0's)
+            # each path that runs it: its launches there (7 and 8 rank 0's,
+            # 9a and 9b each rank's)
             "phases": {"5": t["launches"][name], "5b": tc["launches"][name],
                        "6": m["launches"][name], "7": r0["launches"][name],
-                       **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS}},
+                       **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS},
+                       **{f"{label} rank {r}": par[label]["launches"][r][name]
+                          for label, *_ in PAR_RUNS for r in range(PAR)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -3168,7 +3395,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "tony_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"tony_tpu/ops/fused_ce.py:{line}",
-            "launches": tc["launches"][name], "phases": {"5b": tc["launches"][name]},
+            "launches": tc["launches"][name],
+            "phases": {"5b": tc["launches"][name],
+                       **{f"9a rank {r}": par["9a"]["launches"][r][name] for r in range(PAR)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -3197,4 +3426,6 @@ if __name__ == "__main__":
         sys.exit(fsdp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--ep-rank"]:        # one rank of phase 8, started by main()
         sys.exit(ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--par-rank"]:       # one rank of phase 9, started by main()
+        sys.exit(par_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -100,7 +100,9 @@ def test_flash_attention_grad_matches_jax_grad(H, Hkv, causal):
 
 
 def test_contract_errors_match_the_reference():
-    """The reference's ValueErrors; a multi-device mesh is not ported."""
+    """The reference's ValueErrors. The mesh-level hooks read the default
+    mesh, as the reference's do: ``flash`` is the plain entry without one,
+    and the ring hooks raise the reference's RuntimeError."""
     q = torch.zeros(1, 64, 4, HD)
     with pytest.raises(ValueError, match="multiple of n_kv_heads"):
         flash_attention(q, torch.zeros(1, 64, 3, HD), torch.zeros(1, 64, 3, HD))
@@ -108,13 +110,11 @@ def test_contract_errors_match_the_reference():
         flash_attention(q, torch.zeros(1, 64, 2, HD), torch.zeros(1, 64, 4, HD))
     with pytest.raises(ValueError, match="multiple of block sizes"):
         flash_attention(q, q, q, block_q=48)
+    from tony_tpu_torch.parallel.ring_attention import ring_flash_attention
+
     torch.testing.assert_close(sharded_flash_attention(q, q, q), flash_attention(q, q, q))
-
-    class Mesh:
-        size = 4
-
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sharded_flash_attention(q, q, q, mesh=Mesh())
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        ring_flash_attention(q, q, q)
 
 
 def test_tma_rule_copies_unaligned_inputs():

@@ -1,14 +1,16 @@
 """Sharded checkpoints of the port's training (train/checkpoint.py through
 fit()) on gloo ranks of ``tests/torch_ranks.py``, on the CPU.
 
-- At fsdp 2, dp 2 x fsdp 2 and ep 2 x fsdp 2 (a MoE model, the scan
-  overlap of its ep combine), ``fit()`` runs five steps saving at step 3
+- At fsdp 2, tp 2, dp 2 x fsdp 2 and ep 2 x fsdp 2 (a MoE model, the
+  scan overlap of its ep combine), ``fit()`` runs five steps saving at step 3
   and at the end. Fresh rank processes then resume from a directory that
   holds step 3 alone and run steps 4 and 5: their losses and the blocks
   they save at step 5 are bit-equal to the uninterrupted run's (float32;
   the same operations in the same order on the same data).
 - A step saved at fsdp 2 restores at fsdp 4, at dp 2 x fsdp 2 and onto
-  one process to the same global tensors, bit for bit.
+  one process to the same global tensors, bit for bit; a step saved at tp
+  2 restores at fsdp 2 and onto one process the same way, and
+  ``shards_from_numpy`` gives each tp rank its blocks.
 - A save whose second rank is killed once its file is on disk publishes
   nothing, and the next manager reaps its temp directory.
 - An unreadable newest step (one rank's file torn) makes every rank fall
@@ -31,6 +33,7 @@ DATA = dict(global_batch=4, seq_len=32, vocab_size=256)
 DENSE = {"attention_impl": "dot"}
 # name -> (world, mesh, model knobs, further FitConfig fields)
 CONFIGS = {"fsdp2": (2, {"fsdp": 2}, DENSE, {}),
+           "tp2": (2, {"tp": 2}, DENSE, {}),
            "dp2-fsdp2": (4, {"dp": 2, "fsdp": 2}, DENSE, {}),
            "ep2-fsdp2": (4, {"ep": 2, "fsdp": 2}, {**DENSE, "n_experts": 4},
                          {"moe_overlap_impl": "scan"})}
@@ -71,14 +74,15 @@ def runs(tmp_path_factory):
     first = {name: tmp / f"first-{name}" for name in CONFIGS}
     kill_dir = tmp / "killed"
     two = spawn(2, "fit", {"runs": [_fit_run("fsdp2", first["fsdp2"]),
+                                    _fit_run("tp2", first["tp2"]),
                                     {"task": "killed_save", "mesh": {"fsdp": 2},
                                      "model": DENSE, "checkpoint_dir": str(kill_dir)}],
                            "timeout_s": 30}, tmp / "a2", may_die=(1,))
     four = spawn(4, "fit", {"runs": [_fit_run(n, first[n]) for n in ("dp2-fsdp2", "ep2-fsdp2")]},
                  tmp / "a4")
     killed = {"dir": kill_dir, "listing": sorted(p.name for p in kill_dir.iterdir()),
-              "ranks": [r and r["runs"][1] for r in two]}
-    uninterrupted = {"fsdp2": two[0]["runs"][0],
+              "ranks": [r and r["runs"][2] for r in two]}
+    uninterrupted = {"fsdp2": two[0]["runs"][0], "tp2": two[0]["runs"][1],
                      **{n: four[0]["runs"][j] for j, n in enumerate(("dp2-fsdp2", "ep2-fsdp2"))}}
     first_listing = {n: (sorted(p.name for p in d.iterdir()),
                          sorted(p.name for p in (d / "3").iterdir())) for n, d in first.items()}
@@ -95,19 +99,23 @@ def runs(tmp_path_factory):
     restore = {"task": "restore", "model": DENSE, "checkpoint_dir": str(first["fsdp2"])}
     two_b = spawn(2, "fit", {"runs": [_fit_run("fsdp2", resumed_dirs["fsdp2"]),
                                       {**restore, "mesh": {"fsdp": 2},
-                                       "checkpoint_dir": str(torn)}]}, tmp / "b2")
+                                       "checkpoint_dir": str(torn)},
+                                      _fit_run("tp2", resumed_dirs["tp2"]),
+                                      {**restore, "mesh": {"fsdp": 2},
+                                       "checkpoint_dir": str(first["tp2"])}]}, tmp / "b2")
     four_b = spawn(4, "fit", {"runs": [_fit_run(n, resumed_dirs[n])
                                        for n in ("dp2-fsdp2", "ep2-fsdp2")]
                               + [{**restore, "mesh": {"fsdp": 4}},
                                  {**restore, "mesh": {"dp": 2, "fsdp": 2}}]},
                    tmp / "b4")
-    resumed = {"fsdp2": two_b[0]["runs"][0],
+    resumed = {"fsdp2": two_b[0]["runs"][0], "tp2": two_b[0]["runs"][2],
                **{n: four_b[0]["runs"][j] for j, n in enumerate(("dp2-fsdp2", "ep2-fsdp2"))}}
     return {"first": first, "first_listing": first_listing, "resumed_dirs": resumed_dirs,
             "uninterrupted": uninterrupted, "resumed": resumed, "killed": killed,
             "fell_back": [r["runs"][1] for r in two_b],
             "resharded": {"fsdp4": [r["runs"][2] for r in four_b],
                           "dp2-fsdp2": [r["runs"][3] for r in four_b]},
+            "tp2_at_fsdp2": [r["runs"][3] for r in two_b],
             "jax_loaded": any(r["jax_loaded"] or r["tony_tpu_loaded"]
                               for r in two + four + two_b + four_b if r)}
 
@@ -157,6 +165,59 @@ def test_a_step_saved_at_fsdp_2_restores_onto_other_meshes(runs):
         parts = [b[key] for b in blocks]
         joined = parts[0] if dim is None else torch.cat(parts, dim)
         assert torch.equal(joined, want.detach()), key
+
+
+def test_a_step_saved_at_tp_2_restores_at_fsdp_2_and_in_one_process(runs):
+    """tp 2's step 5 restored at fsdp 2 and onto one process: the same
+    global parameters and moments, bit for bit, and the one-process
+    restore is the two tp ranks' blocks laid side by side along their tp
+    dims (tp-replicated leaves, the norms, equal on both)."""
+    one, step = CheckpointManager(str(runs["first"]["tp2"])).restore(_template())
+    assert step == 5 and one.step == 5
+    whole = {"params": one.params, "mu": one.opt_state["mu"], "nu": one.opt_state["nu"]}
+    for got in runs["tp2_at_fsdp2"]:
+        assert got["step"] == 5 and got["count"] == one.opt_state["count"]
+        for part, tree in whole.items():
+            for key, want in _leaves(tree).items():
+                np.testing.assert_array_equal(got["whole"][part][key],
+                                              want.detach().numpy(), err_msg=key)
+    specs = _leaves(tree_specs(logical_axes(LlamaConfig.tiny(**DENSE))))
+    blocks = [_leaves(_blocks(runs["first"]["tp2"] / "5", r)["params"]) for r in range(2)]
+    for key, want in _leaves(one.params).items():
+        dim = next((d for d, e in enumerate(specs[key]) if e == "tp"), None)
+        parts = [b[key] for b in blocks]
+        if dim is None:
+            assert torch.equal(parts[0], parts[1]), key
+        joined = parts[0] if dim is None else torch.cat(parts, dim)
+        assert torch.equal(joined, want.detach()), key
+
+
+def test_shards_from_numpy_gives_each_tp_rank_its_blocks():
+    """``shards_from_numpy`` at tp 2 (and fsdp 2 x tp 2): each rank's block
+    of every leaf is the numpy tree cut along the dims the rules split,
+    tp's blocks in tp index order; the norms whole."""
+    from tony_tpu_torch.models.convert import shards_from_numpy
+    from tony_tpu_torch.parallel.dist import Axis
+    from tony_tpu_torch.parallel.mesh import MESH_AXES, Mesh, MeshShape
+
+    cfg = LlamaConfig.tiny(**DENSE)
+    rng = np.random.default_rng(0)
+    tree = {k: (rng.standard_normal(v.shape).astype(np.float32) if not isinstance(v, dict)
+                else {n: rng.standard_normal(t.shape).astype(np.float32) for n, t in v.items()})
+            for k, v in make_train_state(cfg, default_optimizer(), device="cpu").params.items()}
+    specs = _leaves(tree_specs(logical_axes(cfg)))
+    for shape in (MeshShape(tp=2), MeshShape(fsdp=2, tp=2)):
+        for rank in range(shape.n_devices):
+            coords = np.unravel_index(rank, shape.sizes)
+            mesh = Mesh(shape, rank, {a: Axis(a, n, int(i)) for a, n, i in
+                                      zip(MESH_AXES, shape.sizes, coords)})
+            got = _leaves(shards_from_numpy(tree, cfg, mesh, device="cpu"))
+            for key, want in _leaves(tree).items():
+                for d, entry in enumerate(specs[key]):
+                    axis = mesh.axis(entry) if isinstance(entry, str) else None
+                    if axis is not None and axis.size > 1:
+                        want = np.split(want, axis.size, d)[axis.index]
+                np.testing.assert_array_equal(got[key].numpy(), want, err_msg=key)
 
 
 def test_a_killed_save_publishes_nothing_and_is_reaped(runs):

@@ -529,6 +529,69 @@ def test_flash_kernels_follow_permuted_layout_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["diagonal", "below"])
+def test_flash_kernels_at_a_ring_chunk_pair_on_card(cuda, dtype, causal):
+    """A ring_flash chunk pair as the ring hands it to the kernels: 1024
+    query rows against 1024 keys at bench_1b4's heads (16, hd 128), k and v
+    views of the one fresh ``[2, B, S, H, hd]`` buffer a hop delivers,
+    through the ring's per-pair entries (``flash_chunk_fwd`` /
+    ``flash_chunk_bwd``): the causal instance on the diagonal, the
+    non-causal one for a pair below it, each launched with the chunk's
+    own S, against the plain versions; one launch of each kernel and no
+    copy of the hopped buffer for TMA."""
+    from tony_tpu_torch.ops.attention import (
+        LAUNCHES, _delta, _tma_ready, flash_chunk_bwd, flash_chunk_fwd, flash_dkv_plain,
+        flash_dq_plain, flash_fwd_plain, reset_launches,
+    )
+
+    q, k, v, do = _flash_case(cuda, dtype, 2, 1024, 16, 16, 128, seed=17)
+    kc, vc = torch.stack([k, v]).unbind(0)
+    assert all(a is b for a, b in zip(_tma_ready(kc, vc), (kc, vc)))
+    scale = 1.0 / math.sqrt(128)
+    reset_launches()
+    out, lse = flash_chunk_fwd(q, kc, vc, scale=scale, causal=causal)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, scale=scale, causal=causal)
+    _close(out, ref_out, dtype, "out")
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    delta = _delta(do, ref_out)
+    dq, dk, dv = flash_chunk_bwd(q, kc, vc, do, ref_lse, delta, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    _close(dq, flash_dq_plain(q, k, v, do, ref_lse, delta, scale=scale, causal=causal),
+           dtype, "dq")
+    ref_dk, ref_dv = flash_dkv_plain(q, k, v, do, ref_lse, delta, scale=scale, causal=causal)
+    _close(dk, ref_dk, dtype, "dk")
+    _close(dv, ref_dv, dtype, "dv")
+    assert {n: LAUNCHES[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert LAUNCHES["flash_fwd_plain"] == LAUNCHES["flash_dq_plain"] == 0
+    assert LAUNCHES["flash_dkv_plain"] == 0
+
+
+@pytest.mark.cuda
+def test_ring_flash_on_one_rank_is_the_flash_kernel_on_card(cuda):
+    """ring_flash over a one-index axis is its diagonal pair alone: the
+    causal kernels once each, out and the q, k, v gradients bit-equal to
+    ``flash_attention``'s (the same launches on the same inputs), no hop."""
+    from tony_tpu_torch.ops.attention import LAUNCHES, flash_attention, reset_launches
+    from tony_tpu_torch.parallel.dist import Axis
+    from tony_tpu_torch.parallel.ring_attention import ring_flash_attention_local
+
+    q, k, v, do = _flash_case(cuda, torch.bfloat16, 2, 512, 16, 16, 128, seed=19)
+    got = {}
+    for name, attn in (("ring", lambda a, b, c: ring_flash_attention_local(
+            a, b, c, Axis("sp"))), ("flash", flash_attention)):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_launches()
+        out = attn(*xs)
+        got[name] = (out, *torch.autograd.grad(out, xs, do))
+        assert {n: LAUNCHES[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")} == {
+            "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}, name
+    for a, b in zip(got["ring"], got["flash"]):
+        torch.testing.assert_close(a.detach(), b.detach(), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
 def test_flash_attention_grad_and_folded_layout_on_card(cuda):
     """The autograd entry on the card (kernels) against the same entry on
     the CPU (plain versions) in float32 within 1e-4, and the

@@ -196,22 +196,36 @@ def _mesh(shape) -> "Mesh":
 
 
 def test_what_the_mesh_does_not_train_over_raises():
-    """tp, sp and pp above 1 raise and cite ROADMAP queue 1, item 8; ep
-    trains (MoE's expert parallelism), and a MoE step over a mesh that is
-    not the default mesh raises, since its MoE blocks read their mesh
-    there; a one-rank mesh trains as no mesh."""
-    from tony_tpu_torch.parallel.mesh import MeshShape
+    """pp above 1 and MoE at tp above 1 raise and cite ROADMAP queue 1,
+    item 8; tp and sp build, from the default mesh (the trunk and its
+    attention hooks read their axes there), each rank holding its tp
+    block of the wide dims; ep trains (MoE's expert parallelism), and a
+    MoE step over a mesh that is not the default mesh raises, since its
+    MoE blocks read their mesh there; a one-rank mesh trains as no mesh."""
+    from tony_tpu_torch.parallel.mesh import MeshShape, set_default_mesh
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step,
     )
 
     opt = default_optimizer()
     cfg = pl.LlamaConfig.tiny()
-    for shape in (MeshShape(tp=2), MeshShape(fsdp=2, sp=2), MeshShape(pp=2)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make_train_step(cfg, opt, mesh=_mesh(shape))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make_train_state(cfg, opt, mesh=_mesh(shape), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_step(cfg, opt, mesh=_mesh(MeshShape(pp=2)))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_state(cfg, opt, mesh=_mesh(MeshShape(pp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=_mesh(MeshShape(tp=2)))
+    for shape, wq in ((MeshShape(tp=2), (2, 64, 32)), (MeshShape(fsdp=2, sp=2), (2, 32, 64))):
+        mesh = _mesh(shape)
+        with pytest.raises(ValueError, match="default mesh"):
+            make_train_step(cfg, opt, mesh=mesh)
+        set_default_mesh(mesh)
+        try:
+            make_train_step(cfg, opt, mesh=mesh)
+            assert make_train_state(cfg, opt, mesh=mesh, device="cpu").params[
+                "layers"]["wq"].shape == wq
+        finally:
+            set_default_mesh(None)
     make_train_step(cfg, opt, mesh=_mesh(MeshShape(ep=2)))
     with pytest.raises(ValueError, match="default mesh"):
         make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=_mesh(MeshShape(fsdp=2)))
@@ -220,3 +234,33 @@ def test_what_the_mesh_does_not_train_over_raises():
     with pytest.raises(ValueError, match="block"):
         make_train_state(cfg, opt, mesh=_mesh(MeshShape(fsdp=2)), device="cpu",
                          params=state.params)
+
+
+def test_fit_scopes_its_default_mesh():
+    """fit() makes its mesh the default only while it runs and gives the
+    caller's back after it; a step under a default mesh of more than one
+    rank that is not its own raises, where it would read tp there."""
+    from tony_tpu_torch.parallel.mesh import MeshShape, get_default_mesh, set_default_mesh
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+    from tony_tpu_torch.train.data import synthetic_batches
+    from tony_tpu_torch.train.trainer import (
+        default_optimizer, make_train_state, make_train_step,
+    )
+
+    cfg = pl.LlamaConfig.tiny()
+    data = DataConfig(global_batch=2, seq_len=16, vocab_size=cfg.vocab_size)
+    during: list = []
+    fit(FitConfig(model=cfg, data=data, steps=1,
+                  on_metrics=lambda m: during.append(get_default_mesh())), device="cpu")
+    assert during[0] is not None and get_default_mesh() is None
+    stale = _mesh(MeshShape(tp=2))
+    set_default_mesh(stale)
+    try:
+        fit(FitConfig(model=cfg, data=data, steps=1), device="cpu")
+        assert get_default_mesh() is stale
+        opt = default_optimizer()
+        step = make_train_step(cfg, opt)
+        with pytest.raises(ValueError, match="not this step's mesh"):
+            step(make_train_state(cfg, opt, device="cpu"), *next(synthetic_batches(data)))
+    finally:
+        set_default_mesh(None)

@@ -128,11 +128,40 @@ def _ring(args: dict, mesh) -> dict:
     return out
 
 
+def _attention(args: dict, mesh) -> dict:
+    """An attention hook (``args["impl"]``: ring, ring_flash or ulysses)
+    over this rank's block of q, k, v (rows, sequence block over sp, heads
+    over tp): the output and the gradients of ``sum(out ** 2)``, each
+    all-gathered whole, and the flash passes' plain launches."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.ops import attention as at
+    from tony_tpu_torch.parallel.ring_attention import (
+        make_ring_attention, make_ring_flash_attention,
+    )
+    from tony_tpu_torch.parallel.sharding import attn_spec, shard, unshard
+    from tony_tpu_torch.parallel.ulysses import make_ulysses_attention
+
+    data = np.load(args["inputs"])
+    spec = attn_spec(mesh, seq_axis="sp")
+    make = {"ring": make_ring_attention, "ring_flash": make_ring_flash_attention,
+            "ulysses": make_ulysses_attention}[args["impl"]]
+    xs = [shard(torch.from_numpy(data[n]), spec, mesh).requires_grad_(True)
+          for n in ("q", "k", "v")]
+    at.reset_launches()
+    out = make(mesh)(*xs)
+    grads = torch.autograd.grad((out * out).sum(), xs)
+    return {"out": unshard(out.detach(), spec, mesh).numpy(),
+            "grads": [unshard(g, spec, mesh).numpy() for g in grads],
+            "launches": dict(at.LAUNCHES)}
+
+
 def _train(args: dict, mesh) -> dict:
     """``make_train_step`` from the reference's parameters (cut into this
     rank's blocks) over ``args["steps"]`` synthetic batches: each step's
-    loss and grad norm, kernel 14's plain launches per step and the final
-    parameters, unsharded."""
+    loss and grad norm, kernel 14's plain launches per step (and the
+    flash and CE kernels') and the final parameters, unsharded."""
     import dataclasses
 
     import numpy as np
@@ -140,6 +169,8 @@ def _train(args: dict, mesh) -> dict:
 
     from tony_tpu_torch.models.convert import shards_from_numpy
     from tony_tpu_torch.models.llama import LlamaConfig, logical_axes
+    from tony_tpu_torch.ops import attention as at
+    from tony_tpu_torch.ops import fused_ce as fc
     from tony_tpu_torch.ops import overlap as ov
     from tony_tpu_torch.parallel.mesh import set_default_mesh
     from tony_tpu_torch.parallel.sharding import tree_specs, unshard_tree
@@ -175,13 +206,16 @@ def _train(args: dict, mesh) -> dict:
             return select(probs, mcfg)
 
         pm._top_k_select = recording
-    losses, norms, launches, aux = [], [], [], []
+    losses, norms, launches, aux, kernels = [], [], [], [], []
     for _ in range(args["steps"]):
         ov.reset_launches()
+        at.reset_launches()
+        fc.reset_launches()
         state, m = step(state, *next(batches))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         launches.append(dict(ov.LAUNCHES))
+        kernels.append({**at.LAUNCHES, **fc.LAUNCHES})
         if "aux" in m:
             aux.append(float(m["aux"]))
     def flat(node, prefix=""):
@@ -196,7 +230,7 @@ def _train(args: dict, mesh) -> dict:
     if cfg.is_moe:
         pm._top_k_select = select
     return {"loss": losses, "grad_norm": norms, "launches": launches, "aux": aux,
-            "margin": min(margins, default=None), "params": flat(full)}
+            "kernels": kernels, "margin": min(margins, default=None), "params": flat(full)}
 
 
 def _load_tree(path: str) -> dict:
@@ -349,8 +383,8 @@ def _killed_save(args: dict, mesh) -> dict:
     return {"raised": None}
 
 
-TASKS = {"ring": _ring, "train": _train, "fit": _fit, "moe_block": _moe_block,
-         "restore": _restore, "killed_save": _killed_save}
+TASKS = {"ring": _ring, "attention": _attention, "train": _train, "fit": _fit,
+         "moe_block": _moe_block, "restore": _restore, "killed_save": _killed_save}
 
 
 def main(path: str) -> None:

@@ -34,8 +34,22 @@ rules shard over fsdp runs through the decomposed ring
 anywhere the ring does not apply it is the plain matmul over the weight
 the trainer gathered. MoE layers over a mesh take the router's global
 statistics and, at ep above 1, the expert-parallel dispatch with its
-blocking or overlapped combine (``parallel/moe.py``). The ring/Ulysses
-attentions are not ported yet and raise (ROADMAP queue 1, item 8).
+blocking or overlapped combine (``parallel/moe.py``).
+
+tp and sp (the default mesh's axes, as the reference's hooks read them;
+``train/trainer.py`` sets the mesh). At tp above 1 a rank holds its tp
+block of the wide dims and the trunk is Megatron's: wq, wk, wv, w1 and w3
+column-parallel after :func:`~tony_tpu_torch.parallel.dist.copy_to_tp`,
+wo and w2 row-parallel before
+:func:`~tony_tpu_torch.parallel.dist.reduce_from_tp`, attention on the
+rank's heads. Where tp does not divide the kv heads the trainer hands the
+trunk wk and wv whole, and each local query head takes the kv head it
+reads (the reference expands K/V to full width there). At sp above 1 a
+rank holds its block of the sequence: RoPE starts at the block's offset
+and the attention hook decides how the blocks meet (``dot`` and
+``flash`` gather the sequence, ``ring`` and ``ring_flash`` rotate K/V
+around the sp ring, ``ulysses`` trades sequence for heads by two
+all-to-alls; ``parallel/ring_attention.py``, ``parallel/ulysses.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from torch.utils.checkpoint import (
 )
 
 from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.parallel import dist as pdist
 
 Params = dict[str, Any]
 
@@ -334,8 +349,8 @@ _POLICY_NAMES: dict[str, tuple[str, ...]] = {
 
 def _remat_policy(name: str) -> Callable:
     """The selective-checkpoint policy for ``cfg.remat_policy``: MUST_SAVE
-    for the tags it names (and for the flash forward op under
-    ``flash_res``), recompute for everything else."""
+    for the tags it names (and for the flash and ring-flash forward ops
+    under ``flash_res``), recompute for everything else."""
     if name in ("dots", "checkpoint_dots"):
         raise NotImplementedError(
             f"remat_policy={name!r} is not ported yet (ROADMAP); use one of "
@@ -346,11 +361,12 @@ def _remat_policy(name: str) -> Callable:
                          f"{sorted(_POLICY_NAMES) + ['checkpoint_dots', 'dots']})")
     names = frozenset(_POLICY_NAMES[name])
     from tony_tpu_torch.ops.attention import FLASH_FWD_OP
+    from tony_tpu_torch.parallel.ring_attention import RING_FLASH_FWD_OP
 
     def policy(ctx, op, *args, **kwargs):
         if op == CHECKPOINT_NAME_OP and args[1] in names:
             return CheckpointPolicy.MUST_SAVE
-        if op == FLASH_FWD_OP and "flash_res" in names:
+        if op in (FLASH_FWD_OP, RING_FLASH_FWD_OP) and "flash_res" in names:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -375,17 +391,40 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _get_attention(cfg: LlamaConfig) -> Callable:
     if cfg.attention_impl == "dot":
-        return dot_attention
+        # over the whole sequence where the default mesh splits it over sp,
+        # as GSPMD runs the reference's
+        from tony_tpu_torch.ops.attention import sequence_gathered
+
+        return functools.partial(sequence_gathered, dot_attention)
     if cfg.attention_impl == "flash":
         from tony_tpu_torch.ops.attention import sharded_flash_attention
 
         return sharded_flash_attention
-    if cfg.attention_impl in ("ring", "ring_flash", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported yet (ROADMAP "
-            "queue 1, item 8); use 'flash' or 'dot'"
-        )
+    if cfg.attention_impl == "ring":
+        from tony_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention
+    if cfg.attention_impl == "ring_flash":
+        from tony_tpu_torch.parallel.ring_attention import ring_flash_attention
+
+        return ring_flash_attention
+    if cfg.attention_impl == "ulysses":
+        from tony_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention
     raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+
+
+def mesh_axis(name: str):
+    """The default mesh's axis ``name`` when it spans more than one rank,
+    else None: the trunk then runs as on one device."""
+    from tony_tpu_torch.parallel.mesh import get_default_mesh
+
+    mesh = get_default_mesh()
+    if mesh is None:
+        return None
+    axis = mesh.axis(name)
+    return axis if axis.size > 1 else None
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
@@ -410,31 +449,48 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
 
 def attention_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
                     cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Attention on this rank's heads: all of them on one device, its tp
+    block of them at tp above 1 (read off the weights' widths)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     tag = checkpoint_name if cfg.remat else _no_tag
-    q = _proj(x, lp["wq"], cfg, ("embed", "heads")).reshape(B, S, cfg.n_heads, hd)
-    k = _proj(x, lp["wk"], cfg, ("embed", "kv_heads")).reshape(B, S, cfg.n_kv_heads, hd)
-    v = _proj(x, lp["wv"], cfg, ("embed", "kv_heads")).reshape(B, S, cfg.n_kv_heads, hd)
-    q = tag(apply_rope(q, cos, sin), "attn_qkv")
-    k = tag(apply_rope(k, cos, sin), "attn_qkv")
-    v = tag(v, "attn_qkv")
-    # GQA: the flash kernels read each kv head n_heads / n_kv_heads times by
-    # index; the plain impl gets the expanded tensors
-    if cfg.n_kv_heads != cfg.n_heads and cfg.attention_impl != "flash":
+    tp = mesh_axis("tp")
+    if tp is not None:
+        x = pdist.copy_to_tp(x, tp)
+    q = _proj(x, lp["wq"], cfg, ("embed", "heads"))
+    k = _proj(x, lp["wk"], cfg, ("embed", "kv_heads"))
+    v = _proj(x, lp["wv"], cfg, ("embed", "kv_heads"))
+    H = q.shape[-1] // hd
+    q = tag(apply_rope(q.reshape(B, S, H, hd), cos, sin), "attn_qkv")
+    k = tag(apply_rope(k.reshape(B, S, -1, hd), cos, sin), "attn_qkv")
+    v = tag(v.reshape(B, S, -1, hd), "attn_qkv")
+    if tp is not None and cfg.n_kv_heads % tp.size:
+        # every kv head computed: each local query head takes the one it reads
         rep = cfg.n_heads // cfg.n_kv_heads
+        idx = torch.arange(tp.index * H, (tp.index + 1) * H, device=q.device) // rep
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    # GQA: the flash kernels read each kv head H / Hkv times by index; the
+    # plain impls get the expanded tensors
+    if k.shape[2] != H and cfg.attention_impl not in ("flash", "ring_flash"):
+        rep = H // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     out = tag(_get_attention(cfg)(q, k, v, cfg), "attn_out")
-    return _proj(out.reshape(B, S, cfg.n_heads * hd), lp["wo"], cfg,
-                 ("heads", "embed"))
+    y = _proj(out.reshape(B, S, H * hd), lp["wo"], cfg, ("heads", "embed"))
+    return y if tp is None else pdist.reduce_from_tp(y, tp)
 
 
 def ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
+    """The SwiGLU FFN on this rank's ffn columns (its tp block at tp above
+    1)."""
     tag = checkpoint_name if cfg.remat else _no_tag
+    tp = mesh_axis("tp")
+    if tp is not None:
+        x = pdist.copy_to_tp(x, tp)
     gate = tag(F.silu(_proj(x, lp["w1"], cfg, ("embed", "ffn")))
                * _proj(x, lp["w3"], cfg, ("embed", "ffn")), "ffn_gate")
-    return _proj(gate, lp["w2"], cfg, ("ffn", "embed"))
+    y = _proj(gate, lp["w2"], cfg, ("ffn", "embed"))
+    return y if tp is None else pdist.reduce_from_tp(y, tp)
 
 
 def moe_ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig
@@ -481,7 +537,10 @@ def hidden_states_with_aux(params: Params, tokens: torch.Tensor,
     parameter (one ``unbind`` per leaf, so the backward stacks the layer
     grads once)."""
     x = embed_tokens(params, tokens)
-    cos, sin = rope_table(cfg, tokens.shape[1], device=x.device)
+    # under sp the rows are this rank's block of the sequence
+    sp = mesh_axis("sp")
+    offset = sp.index * tokens.shape[1] if sp is not None else 0
+    cos, sin = rope_table(cfg, tokens.shape[1], offset, device=x.device)
     layers = {name: t.unbind(0) for name, t in params["layers"].items()}
     block = transformer_block
     if cfg.remat:
@@ -555,7 +614,7 @@ __all__ = [
     "CHECKPOINT_NAME_OP", "LlamaConfig", "Params", "apply_rope", "ce_tokens",
     "checkpoint_name", "dot_attention", "embed_tokens", "forward",
     "forward_with_aux", "hidden_states_with_aux", "init_params", "logical_axes",
-    "loss_and_aux", "loss_fn", "loss_from_pairs", "moe_ffn_block", "param_shapes",
-    "rms_norm", "rope_freqs", "rope_table", "train_flops_per_token",
+    "loss_and_aux", "loss_fn", "loss_from_pairs", "mesh_axis", "moe_ffn_block",
+    "param_shapes", "rms_norm", "rope_freqs", "rope_table", "train_flops_per_token",
     "transformer_block",
 ]

@@ -34,6 +34,12 @@ Where each runs is decided by the tensors' device alone:
 an op it can see is what lets a selective-checkpoint policy keep the
 forward's residuals (``models/llama.py``'s ``flash_res``) so that the
 backward never re-runs the forward kernel.
+
+Over a mesh: the model-level ``flash`` hook (:func:`sharded_flash_attention`)
+runs on the rank's heads over the whole sequence, gathered where sp
+splits it (:func:`sequence_gathered`); ``parallel/ring_attention.py``'s
+ring_flash runs the kernels per chunk pair through
+:func:`flash_chunk_fwd` and :func:`flash_chunk_bwd`.
 """
 
 from __future__ import annotations
@@ -439,23 +445,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg=None,
     return _flash_fwd_op(q, k, v, float(scale), bool(causal))[0]
 
 
-def sharded_flash_attention(q, k, v, cfg=None, *, mesh=None, **kwargs) -> torch.Tensor:
-    """The model-level ``flash`` hook. On one device (``mesh`` None or of
-    size 1) it is :func:`flash_attention`; a multi-device mesh is not
-    ported yet."""
-    if mesh is not None:
-        size = mesh.size() if callable(mesh.size) else mesh.size
-        if size > 1:
-            raise NotImplementedError(
-                "sharded flash attention over a multi-device mesh is not "
-                "ported yet (ROADMAP queue 1, item 8)"
-            )
-    return flash_attention(q, k, v, cfg, **kwargs)
+def flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                    causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out ``[B, S, H, hd]``, lse ``[B, H, S]`` float32) of one (q chunk,
+    kv chunk) pair of equal lengths, in the kernels' own layout: the
+    forward kernel for CUDA tensors, its plain version for CPU ones. A
+    ring's per-pair entry (``parallel/ring_attention.py``); ``causal``
+    masks by position within the pair, as on the diagonal."""
+    return _fwd(q, k, v, scale, causal)
+
+
+def flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor, *, scale: float, causal: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of one chunk pair from explicit lse and delta ``[B, H,
+    S]`` (the ring's global ones): the dq and dk/dv kernels, or their
+    plain versions for CPU tensors."""
+    dq = _dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = _dkv(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+def sequence_gathered(attn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg=None,
+                      **kwargs) -> torch.Tensor:
+    """``attn(q, k, v, cfg)`` over the whole sequence where the default mesh
+    splits it over sp: q, k and v all-gathered over sp (their gradients
+    reduce-scattered back), attention on this rank's heads, and this
+    rank's rows of the output kept. The reference's semantics for ``dot``
+    and ``flash``: its flash spec leaves the sequence device-local, so
+    GSPMD gathers it. Without sp it is ``attn`` itself."""
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.parallel.mesh import get_default_mesh
+
+    mesh = get_default_mesh()
+    sp = mesh.axis("sp") if mesh is not None else None
+    if sp is None or sp.size == 1:
+        return attn(q, k, v, cfg, **kwargs)
+    S = q.shape[1]
+    q, k, v = (pdist.all_gather_ad(t, sp, 1) for t in (q, k, v))
+    return attn(q, k, v, cfg, **kwargs).narrow(1, sp.index * S, S)
+
+
+def sharded_flash_attention(q, k, v, cfg=None, **kwargs) -> torch.Tensor:
+    """The model-level ``flash`` hook, over the default mesh as the
+    reference's reads it: :func:`flash_attention` on this rank's heads
+    (its tp block), over the whole sequence (gathered where sp splits it,
+    :func:`sequence_gathered`). Without a mesh, or on one rank, it is
+    :func:`flash_attention`."""
+    return sequence_gathered(flash_attention, q, k, v, cfg, **kwargs)
 
 
 __all__ = [
-    "FLASH_FWD_OP", "LAUNCHES", "flash_attention", "flash_dkv_pass",
-    "flash_dkv_plain", "flash_dq_pass", "flash_dq_plain", "flash_fwd_pass",
-    "flash_fwd_plain", "kernel_instance", "reset_launches",
-    "sharded_flash_attention",
+    "FLASH_FWD_OP", "LAUNCHES", "flash_attention", "flash_chunk_bwd", "flash_chunk_fwd",
+    "flash_dkv_pass", "flash_dkv_plain", "flash_dq_pass", "flash_dq_plain",
+    "flash_fwd_pass", "flash_fwd_plain", "kernel_instance", "reset_launches",
+    "sequence_gathered", "sharded_flash_attention",
 ]

@@ -12,10 +12,13 @@ CUDA device (two ranks on one card, which NCCL refuses) without a knob.
 
 This module is also the one place where a mesh axis's communication
 happens: the ring hop (:func:`start_hop`, the reference's
-``lax.ppermute`` to the next index) and the all-gather, reduce-scatter and
-all-reduce over an axis, each blocking or issued (``start_*``, waited on
+``lax.ppermute`` to the next index) and the all-gather, reduce-scatter,
+all-reduce and all-to-all over an axis, each blocking or issued (``start_*``, waited on
 later), and each also under autograd (``*_ad``, the backward its
-forward's transpose). On a gloo group a CUDA tensor goes through host
+forward's transpose), and Megatron's tp pair (:func:`copy_to_tp`,
+:func:`reduce_from_tp`) with the tp gather of a whole table
+(:func:`gather_whole`), whose backwards do not sum what every tp rank
+computed alike. On a gloo group a CUDA tensor goes through host
 memory, explicitly: copied to the host, sent or reduced there, copied
 back. That copy is never taken on an NCCL group, and its first use is
 logged, so a time measured over gloo is not read as NCCL's.
@@ -40,7 +43,8 @@ _staged_logged = False
 
 # the payload bytes this rank hands to each kind of transfer (a tensor's
 # size once per call, whatever the transport's algorithm moves on the wire)
-BYTES: dict[str, int] = {"hop": 0, "all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+BYTES: dict[str, int] = {"hop": 0, "all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
+                         "all_to_all": 0}
 
 
 def reset_bytes() -> None:
@@ -138,16 +142,23 @@ def _source(t: torch.Tensor, axis: Axis, kind: str, clone: bool = False) -> torc
     return src.cpu() if _staged(src, axis) else src
 
 
-def start_hop(t: torch.Tensor, axis: Axis) -> Pending:
-    """Send ``t`` to the next index of ``axis`` and receive the previous
-    index's tensor of the same shape and dtype (the reference's
-    ``ppermute`` over ``[(i, (i + 1) % n)]``). Both transfers are in
-    flight when this returns; the caller runs its chunk and then waits."""
+def start_hop(t: torch.Tensor, axis: Axis, shift: int = 1, tag: int = 0) -> Pending:
+    """Send ``t`` to the index ``shift`` places on along ``axis`` and
+    receive the tensor of the same shape and dtype from the index
+    ``shift`` places back (the reference's ``ppermute`` over ``[(i, (i +
+    shift) % n)]``; ``shift=-1`` is its transpose). Both transfers are in
+    flight when this returns; the caller runs its chunk and then waits.
+    Hops in flight together on one axis carry distinct ``tag``s. At size 1
+    the hop is ``t`` itself."""
     n = axis.size
+    if n == 1:
+        return Pending([], lambda: t)
     send = _source(t, axis, "hop")
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, axis.ranks[(axis.index + 1) % n], axis.group),
-           dist.P2POp(dist.irecv, recv, axis.ranks[(axis.index - 1) % n], axis.group)]
+    ops = [dist.P2POp(dist.isend, send, axis.ranks[(axis.index + shift) % n], axis.group,
+                      tag),
+           dist.P2POp(dist.irecv, recv, axis.ranks[(axis.index - shift) % n], axis.group,
+                      tag)]
     return Pending(dist.batch_isend_irecv(ops), lambda: recv.to(t.device))
 
 
@@ -186,6 +197,22 @@ def start_all_reduce(t: torch.Tensor, axis: Axis) -> Pending:
     buf = _source(t, axis, "all_reduce", clone=True)
     work = dist.all_reduce(buf, group=axis.group, async_op=True)
     return Pending([work], lambda: buf.to(t.device))
+
+
+def all_to_all(t: torch.Tensor, axis: Axis, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The reference's tiled ``all_to_all``: ``t`` cut into the axis's
+    blocks along ``split_dim``, block i sent to index i, and the blocks
+    received concatenated along ``concat_dim`` in index order. One
+    ``all_to_all_single`` over the blocks stacked (gloo has no list form)."""
+    if axis.size == 1:
+        return t
+    if t.shape[split_dim] % axis.size:
+        raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not split over "
+                         f"{axis.name}={axis.size}")
+    src = _source(torch.stack(t.chunk(axis.size, split_dim)), axis, "all_to_all")
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=axis.group)
+    return torch.cat(out.to(t.device).unbind(0), concat_dim)
 
 
 def all_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
@@ -248,6 +275,106 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, split_dim, concat_dim):
+        ctx.axis, ctx.dims = axis, (split_dim, concat_dim)
+        return all_to_all(t, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(g, ctx.axis, concat_dim, split_dim), None, None, None
+
+
+# Megatron's pair over tp (Shoeybi et al., 2019): every rank of the axis
+# computes the same loss from the same rows, each through its own block of
+# the wide dims. Their gradients are therefore not summed the way a batch
+# axis's are.
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.index].contiguous(), None, None
+
+
+class _Arrival(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sent, received, axis):
+        ctx.axis = axis
+        return received.view_as(received)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a hop to the next index: back to the previous one
+        return start_hop(g, ctx.axis, shift=-1).wait(), None, None
+
+
+def all_to_all_ad(t: torch.Tensor, axis: Axis, split_dim: int, concat_dim: int
+                  ) -> torch.Tensor:
+    """:func:`all_to_all` whose gradient goes back by the inverse
+    all-to-all (``concat_dim`` split, ``split_dim`` concatenated)."""
+    return t if axis.size == 1 else _AllToAll.apply(t, axis, split_dim, concat_dim)
+
+
+def copy_to_tp(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Megatron's f: the identity, whose gradient is all-reduced over
+    ``axis``. It goes before a column-parallel projection, whose ranks each
+    send back the part of the input's gradient their block gives."""
+    return t if axis.size == 1 else _CopyTo.apply(t, axis)
+
+
+def reduce_from_tp(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Megatron's g: the all-reduce over ``axis``, whose gradient passes
+    through as it is. It goes after a row-parallel projection: each rank
+    holds a partial product, and the sum's gradient is every rank's."""
+    return t if axis.size == 1 else _ReduceFrom.apply(t, axis)
+
+
+def gather_whole(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """:func:`all_gather` for a consumer that every rank of ``axis`` runs
+    alike on the whole tensor (tok_emb and lm_head over tp): each rank's
+    gradient is already the whole gradient, so the backward takes this
+    rank's block without summing (a reduce-scatter would count it
+    ``axis.size`` times)."""
+    return t if axis.size == 1 else _GatherWhole.apply(t, axis, dim)
+
+
+def hop_arrived(sent: torch.Tensor, received: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``received``, the tensor a hop of ``sent`` to the next index brought
+    in (:func:`start_hop`), tied into autograd: its gradient goes to the
+    previous index and becomes ``sent``'s there. The hop is issued and
+    waited on by the caller, so a ring can run its chunk between."""
+    return _Arrival.apply(sent, received, axis)
+
+
 def all_gather_ad(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """:func:`all_gather` whose gradient is reduce-scattered back."""
     return t if axis.size == 1 else _AllGather.apply(t, axis, dim)
@@ -266,6 +393,7 @@ def all_reduce_ad(t: torch.Tensor, axes: list[Axis]) -> torch.Tensor:
 
 
 __all__ = ["BYTES", "ENV_KEYS", "Axis", "Pending", "all_gather", "all_gather_ad", "all_reduce",
-           "all_reduce_ad", "initialize", "reduce_scatter", "reduce_scatter_ad", "reset_bytes",
-           "start_all_gather", "start_all_reduce", "start_hop", "start_reduce_scatter",
-           "transport", "world"]
+           "all_reduce_ad", "all_to_all", "all_to_all_ad", "copy_to_tp", "gather_whole",
+           "hop_arrived", "initialize", "reduce_from_tp", "reduce_scatter",
+           "reduce_scatter_ad", "reset_bytes", "start_all_gather", "start_all_reduce",
+           "start_hop", "start_reduce_scatter", "transport", "world"]

@@ -8,8 +8,8 @@ order (rank = the flat index of its coordinates), and gives each axis of
 size above 1 a process group over the ranks that differ only along it
 (:class:`~tony_tpu_torch.parallel.dist.Axis`). One rank is one device.
 
-Training takes dp, fsdp and ep. The other axes build, but the trainer
-refuses them above 1 (tp, sp and pp are ROADMAP queue 1, item 8).
+Training takes dp, fsdp, ep, tp and sp. pp builds, but the trainer
+refuses it above 1 (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -108,8 +108,9 @@ def build_mesh(shape: MeshShape | None = None) -> Mesh:
     return Mesh(shape, rank, axes)
 
 
-# The mesh the model-level hooks (overlap_matmul) resolve against; fit()
-# registers its mesh here, as the reference's fit() does.
+# The mesh the model-level hooks (the trunk's tp and sp, the attention
+# hooks, overlap_matmul, moe_block) resolve against; fit() registers its
+# mesh here, as the reference's fit() does.
 _DEFAULT_MESH: Mesh | None = None
 _MANUAL_DEPTH = 0
 

@@ -22,12 +22,14 @@ and every shape is static.
 
 Over a mesh (the default mesh, ``parallel/mesh.py``, of more than one
 rank; the reference's GSPMD sees the global batch where a rank here holds
-its rows of it, split over the rules' batch axes dp, fsdp and ep):
+its block of it, rows split over the rules' batch axes dp, fsdp and ep
+and the sequence over sp):
 
 - the router's statistics are the global batch's: the per-expert route
   counts and probability sums are all-reduced over the batch axes under
-  autograd (the backward an all-reduce, the transpose of a psum), so the
-  aux loss is the reference's over every token;
+  autograd (the backward an all-reduce, the transpose of a psum) over
+  dp, fsdp, ep and sp, so the aux loss is the reference's over every
+  token;
 - with ``ep > 1`` the grouped dispatch is the reference's
   ``_moe_grouped_ep``: each rank routes its rows, all-gathers them (and
   their routes) over ep into its (dp, fsdp) block, runs the grouped FFN
@@ -38,8 +40,8 @@ its rows of it, split over the rules' batch axes dp, fsdp and ep):
   and GSPMD's slice. ``overlap_impl`` splits that combine into token
   chunks that overlap the FFN (``ops/moe_overlap.py``);
 - the capacity dispatches ('gather', 'einsum') place routes by queue
-  positions over the global batch and are not ported over a mesh: they
-  raise.
+  positions over the global batch and are not ported over a mesh, nor is
+  any dispatch at tp above 1 (the expert weights' ffn split): they raise.
 """
 
 from __future__ import annotations
@@ -57,8 +59,10 @@ from tony_tpu_torch.ops.grouped_mm import grouped_layout, grouped_matmul
 from tony_tpu_torch.parallel import dist as pdist
 from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh
 
-# the mesh axes a batch's rows are split over (DEFAULT_RULES["batch"])
-BATCH_AXES = ("dp", "fsdp", "ep")
+# the mesh axes a batch's tokens are split over: its rows'
+# (DEFAULT_RULES["batch"]) and its sequence's (sp); MoE is token-wise, so
+# a rank's (rows, sequence block) are just more tokens
+BATCH_AXES = ("dp", "fsdp", "ep", "sp")
 
 
 @dataclass(frozen=True)
@@ -381,19 +385,16 @@ def _moe_grouped_ep(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
 def _moe_grouped_entry(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
                        probs: torch.Tensor, mesh: Mesh | None):
     """The reference's ``_moe_grouped_entry``: the ep path where the mesh
-    has ep above 1 (and tp 1, and experts that ep divides); else the plain
-    grouped path, whose statistics are the mesh's global batch's. Where the
+    has ep above 1 (and experts that ep divides); else the plain grouped
+    path, whose statistics are the mesh's global batch's. Where the
     reference would fall back to GSPMD over an ep-sharded expert dim (tp
     above 1, E not a multiple of ep), the port raises: it holds no such
-    blocks (tp is refused by the trainer, uneven blocks by the sharding).
+    blocks (``moe_block`` refuses tp, the sharding uneven blocks).
     The reference's third condition, rows that dp x fsdp split evenly,
     always holds here: each rank holds its own even block of the rows
     (``train/data.py`` raises otherwise)."""
     ep = mesh.shape["ep"] if mesh is not None else 1
     if ep > 1:
-        if mesh.shape["tp"] > 1:
-            raise NotImplementedError("MoE over ep x tp is not ported yet (ROADMAP "
-                                      "queue 1, item 8)")
         if cfg.n_experts % ep:
             raise ValueError(f"{cfg.n_experts} experts do not split over ep={ep}: the "
                              "port cuts even blocks only")
@@ -417,6 +418,10 @@ def moe_block(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     if cfg.dispatch == "grouped" and cfg.overlap_impl not in ("", "off", "scan", "pallas"):
         raise ValueError(f"unknown MoE overlap impl {cfg.overlap_impl!r}; "
                          "expected 'off' | 'scan' | 'pallas'")
+    if mesh is not None and mesh.shape["tp"] > 1:
+        raise NotImplementedError(
+            f"MoE at tp={mesh.shape['tp']}: the expert weights' ffn split over tp is not "
+            "ported yet (ROADMAP queue 1, item 8)")
     if mesh is not None and cfg.dispatch != "grouped":
         raise NotImplementedError(
             f"dispatch={cfg.dispatch!r} over a mesh of more than one rank (capacity "

@@ -88,6 +88,19 @@ def overlap_gather_dim(
     return dims[0] if len(dims) == 1 else None
 
 
+def attn_spec(mesh: Mesh, seq_axis: str | None = None) -> Spec:
+    """Spec of a ``[B, S, H, head_dim]`` attention activation (the
+    reference's ``attn_spec``): batch over dp, fsdp and ep, heads over tp,
+    the sequence over ``seq_axis`` when given (ring and Ulysses context
+    parallelism; the trunk's activations always hold their sp block, and
+    ``flash`` and ``dot`` gather it whole)."""
+    axes = set(mesh.shape)
+    batch = tuple(a for a in ("dp", "fsdp", "ep") if a in axes) or None
+    heads = "tp" if "tp" in axes else None
+    seq = seq_axis if seq_axis in axes else None
+    return (batch, seq, heads, None)
+
+
 def _is_leaf(x: Any) -> bool:
     return isinstance(x, tuple)
 
@@ -172,5 +185,6 @@ def unshard_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
     return unshard(tree, specs, mesh)
 
 
-__all__ = ["DEFAULT_RULES", "Rules", "Spec", "entry_axes", "local_shape", "overlap_gather_dim",
-           "shard", "shard_tree", "spec_for", "tree_specs", "unshard", "unshard_tree"]
+__all__ = ["DEFAULT_RULES", "Rules", "Spec", "attn_spec", "entry_axes", "local_shape",
+           "overlap_gather_dim", "shard", "shard_tree", "spec_for", "tree_specs", "unshard",
+           "unshard_tree"]

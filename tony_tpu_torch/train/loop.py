@@ -13,8 +13,9 @@ step-time figures, as in the reference.
 Meshes. ``fit()`` joins the default process group from the ``pytorch``
 runtime's env contract, or uses one the caller brought up
 (``parallel/dist.py``), builds the mesh of ``mesh_shape`` (None: fsdp over
-every rank), sets it as the default mesh and trains over dp, fsdp and ep
-(``train/trainer.py``), each rank on its rows of every global batch. Rank
+every rank), sets it as the default mesh and trains over dp, fsdp, ep, tp
+and sp (``train/trainer.py``), each rank on its block of every global
+batch (its rows, and under sp its block of the sequence). Rank
 0 alone logs and calls ``on_metrics``; every rank returns the final
 report. A checkpoint of a mesh of more than one rank is sharded: each rank
 writes and reads its own blocks (``train/checkpoint.py``), and a step
@@ -23,9 +24,9 @@ restores onto whatever mesh this run has.
 The model overrides ``ce_impl``, ``moe_dispatch``, ``moe_group_block``,
 ``overlap_impl``, ``moe_overlap_impl`` and ``moe_overlap_chunk`` apply to
 ``cfg.model`` as in the reference. Not ported yet, and raising when set
-to a non-default: the mesh axes tp, sp and pp above 1, pipeline
-parallelism (``pp_*``) and elastic training (``elastic_*``) (ROADMAP
-queue 1, item 8). The reference's observability hooks
+to a non-default: the mesh axis pp above 1, pipeline parallelism
+(``pp_*``), MoE at tp above 1 and elastic training (``elastic_*``)
+(ROADMAP queue 1, item 8). The reference's observability hooks
 (``install_from_env``), the metrics push to a job's AM and compile-ahead
 (PyTorch runs eagerly, with nothing to compile) are left out.
 """
@@ -44,12 +45,15 @@ from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.models.llama import LlamaConfig, train_flops_per_token
 from tony_tpu_torch.obs.metrics import StepTimer, chip_peak_flops
 from tony_tpu_torch.parallel.dist import initialize
-from tony_tpu_torch.parallel.mesh import MESH_AXES, MeshShape, build_mesh, set_default_mesh
+from tony_tpu_torch.parallel.mesh import (
+    MESH_AXES, Mesh, MeshShape, build_mesh, get_default_mesh, set_default_mesh,
+)
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules
 from tony_tpu_torch.train.data import DataConfig, make_batches
 from tony_tpu_torch.train.prefetch import close_batches
 from tony_tpu_torch.train.trainer import (
-    check_mesh_axes, default_optimizer, make_train_state, make_train_step, state_specs,
+    check_mesh_axes, check_model_mesh, default_optimizer, make_train_state, make_train_step,
+    state_specs,
 )
 
 log = logging.getLogger(__name__)
@@ -118,7 +122,9 @@ def _check_ported(cfg: FitConfig) -> None:
                 "(ROADMAP queue 1, item 8)"
             )
     if cfg.mesh_shape is not None:
-        check_mesh_axes(dict(zip(MESH_AXES, cfg.mesh_shape.sizes)))
+        shape = dict(zip(MESH_AXES, cfg.mesh_shape.sizes))
+        check_mesh_axes(shape)
+        check_model_mesh(cfg.model, shape)
 
 
 def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
@@ -129,8 +135,19 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
     _check_ported(cfg)
     initialize(device)
     mesh = build_mesh(cfg.mesh_shape)
-    # the model-level hooks (overlap_matmul) resolve this mesh
+    # the model-level hooks (the trunk's tp and sp, attention, overlap_matmul,
+    # moe_block) resolve this mesh while fit() runs; the caller's comes back
+    # after it, so no later step or forward in the process reads this one
+    before = get_default_mesh()
     set_default_mesh(mesh)
+    try:
+        return _fit(cfg, device, mesh)
+    finally:
+        set_default_mesh(before)
+
+
+def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
+    """fit()'s run over ``mesh``, which is the default mesh meanwhile."""
     lead = mesh.rank == 0
     if lead:
         log.info("mesh: %s over %d ranks", mesh.shape, mesh.size)

@@ -21,35 +21,48 @@ come in the parameters' dtype and the loss is the float32 mean over
 the same chain leaf by leaf: the ``[L, E, D, F]`` expert weights and the
 float32 router, whose second moment is float32 with it.
 
-Meshes (dp, fsdp and ep; the counterpart of the reference's GSPMD step).
-Each rank holds its blocks of the parameters and moments under the rules'
-specs (:func:`state_specs`, ``parallel/sharding.py``) and its rows of the
-global batch, split over (dp, fsdp, ep). In the step:
+Meshes (dp, fsdp, ep, tp and sp; the counterpart of the reference's GSPMD
+step). Each rank holds its blocks of the parameters and moments under the
+rules' specs (:func:`state_specs`, ``parallel/sharding.py``) and its block
+of the global batch: rows split over (dp, fsdp, ep), the sequence over
+sp. tp splits no rows: every rank of a tp group trains on the same ones.
+In the step:
 
 - a weight is all-gathered blocking over each axis that splits it before
   the forward, as GSPMD would, and its gradient reduce-scattered back to
   the block in the backward, except where its consumer takes the block
   itself: the trunk projections the fsdp ring takes (``ops/overlap.py``,
   with ``overlap_impl`` set and the mesh the default one; the ring's
-  backward reduce-scatters their gradients), and the MoE expert weights
-  at ep above 1, whose ep block is this rank's experts (their fsdp split
-  still takes the blocking gather);
-- a gradient is summed over each of fsdp and ep that does not split its
-  leaf, and every gradient over dp: one all-reduce, or with
+  backward reduce-scatters their gradients), the MoE expert weights at ep
+  above 1, whose ep block is this rank's experts (their fsdp split still
+  takes the blocking gather), and at tp above 1 every trunk projection's
+  tp block (Megatron's column- and row-parallel trunk, ``models/llama.py``);
+- over tp the weights the trunk does not take as blocks are gathered for
+  a consumer every tp rank runs alike (tok_emb, lm_head: the reference
+  pins a replicated table and its pallas CE hook takes W whole), their
+  gradients cut back without a sum (``parallel/dist.py``
+  :func:`~tony_tpu_torch.parallel.dist.gather_whole`); wk and wv, where
+  tp does not divide the kv heads, are gathered and their gradients
+  summed, each rank's query heads reading their own kv heads;
+- the batch axes are dp, fsdp, ep and sp: the loss is scaled by their
+  size, and a gradient is summed over each of fsdp, ep and sp that does
+  not split its leaf, and every gradient over dp: one all-reduce, or with
   ``grad_bucket_bytes > 0`` and dp > 1 the reference's manual-dp path
   (each dp shard's mean loss, grads scaled by 1/dp, ``bucketed_psum``
-  buckets in leaf order);
-- ``global_norm`` sums the squares across the blocks, each block once,
-  with one all-reduce over fsdp and one over ep, and AdamW updates the
-  local blocks.
+  buckets in leaf order). tp is not a batch axis: no scale and no sum;
+- ``global_norm`` sums the squares across the blocks, each block once
+  (a leaf that an axis does not split counted on that axis's index 0),
+  with one all-reduce over each of fsdp, ep, tp and sp, and AdamW updates
+  the local blocks.
 
-A MoE step over a mesh reads the mesh from the default mesh, as its
-``moe_block`` does (``fit()`` sets it): the router's statistics are the
+A step over a mesh with tp or sp above 1, or of a MoE config, reads the
+mesh from the default mesh, as the trunk, its attention hooks and
+``moe_block`` do (``fit()`` sets it): the router's statistics are the
 global batch's, and ep above 1 runs the expert-parallel dispatch.
 
-tp, sp and pp above 1, pipeline microbatches and the numerics-health
-monitors are not ported yet and raise (ROADMAP queue 1, item 8 for the
-parallelism, item 6 for the monitors).
+pp above 1, pipeline microbatches, MoE at tp above 1 and the
+numerics-health monitors are not ported yet and raise (ROADMAP queue 1,
+item 8 for the parallelism, item 6 for the monitors).
 """
 
 from __future__ import annotations
@@ -179,23 +192,39 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                  grad_clip=grad_clip, mu_dtype=_dtype(mu_dtype))
 
 
-# the dense trunk projections _proj routes through the fsdp ring
-# (models/llama.py); a MoE layer's w1/w3/w2 are expert weights, never these
-_RING_LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+# the dense trunk projections (models/llama.py _proj): the fsdp ring takes
+# them under overlap_impl, and at tp the trunk runs on their tp blocks; a
+# MoE layer's w1/w3/w2 are expert weights, never these
+_TRUNK_LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 _EXPERT_LEAVES = ("w1", "w3", "w2")
 # the mesh axes the port trains over
-_TRAIN_AXES = ("dp", "fsdp", "ep")
+_TRAIN_AXES = ("dp", "fsdp", "ep", "tp", "sp")
 
 
 def check_mesh_axes(shape: dict[str, int]) -> None:
     """Raise for what the port does not train over: mesh axes other than
-    dp, fsdp and ep above 1."""
+    dp, fsdp, ep, tp and sp above 1 (pp)."""
     for name, n in shape.items():
         if n > 1 and name not in _TRAIN_AXES:
             raise NotImplementedError(
-                f"mesh axis {name}={n}: the port trains over dp, fsdp and ep; tp, sp "
-                "and pp are not ported yet (ROADMAP queue 1, item 8, multi-process "
-                "parallelism)")
+                f"mesh axis {name}={n}: the port trains over dp, fsdp, ep, tp and sp; "
+                "pp and the pipeline schedules are not ported yet (ROADMAP queue 1, "
+                "item 8, multi-process parallelism)")
+
+
+def check_model_mesh(cfg: llama.LlamaConfig, shape: dict[str, int]) -> None:
+    """Raise for a model the mesh cannot split: MoE at tp above 1 (not
+    ported), query heads that tp does not split, and Ulysses with local
+    heads that sp does not split (the reference's error)."""
+    tp, sp = shape.get("tp", 1), shape.get("sp", 1)
+    if cfg.is_moe and tp > 1:
+        raise NotImplementedError(
+            f"MoE at tp={tp}: the expert weights' ffn split over tp is not ported yet "
+            "(ROADMAP queue 1, item 8)")
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} does not split over tp={tp}")
+    if cfg.attention_impl == "ulysses" and (cfg.n_heads // tp) % sp:
+        raise ValueError(f"n_heads={cfg.n_heads // tp} not divisible by sp size {sp}")
 
 
 def _check_mesh(mesh: Mesh | None) -> bool:
@@ -205,6 +234,18 @@ def _check_mesh(mesh: Mesh | None) -> bool:
         return False
     check_mesh_axes(mesh.shape)
     return True
+
+
+def _check_default_mesh(mesh: Mesh | None) -> None:
+    """The trunk reads tp and sp off the default mesh, so a step raises
+    when the default mesh spans more than one rank and is not the step's
+    own: a mesh left set by the caller would split its model silently."""
+    default = get_default_mesh()
+    if default is not None and default is not mesh and default.size > 1:
+        raise ValueError(
+            f"the default mesh ({default.size} ranks) is not this step's mesh, and the "
+            "trunk reads tp and sp there: set_default_mesh() to the step's mesh, or to "
+            "None for a one-device step")
 
 
 def state_specs(cfg: llama.LlamaConfig, rules: Rules = DEFAULT_RULES) -> TrainState:
@@ -261,20 +302,23 @@ def make_train_state(cfg: llama.LlamaConfig, optimizer: AdamW, *, seed: int = 0,
 
 def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: Rules,
                   grad_bucket_bytes: int) -> Callable:
-    """The step over a dp x fsdp x ep mesh (see the module's docstring)."""
+    """The step over a dp x fsdp x ep x tp x sp mesh (see the module's
+    docstring)."""
     fsdp, dp, ep = mesh.axis("fsdp"), mesh.axis("dp"), mesh.axis("ep")
+    tp, sp = mesh.axis("tp"), mesh.axis("sp")
     specs = state_specs(cfg, rules).params
     bucketed = grad_bucket_bytes > 0 and dp.size > 1
-    if cfg.is_moe and get_default_mesh() is not mesh:
-        raise ValueError("a MoE step over a mesh reads the mesh its rows are split over "
-                         "from the default mesh: set_default_mesh(mesh) first, as fit() "
-                         "does")
+    if (cfg.is_moe or tp.size > 1 or sp.size > 1) and get_default_mesh() is not mesh:
+        raise ValueError("a step over tp or sp, or of a MoE model, reads its mesh from the "
+                         "default mesh: set_default_mesh(mesh) first, as fit() does")
     # the ring takes a dense trunk projection where overlap_matmul will apply
     ring = bool(cfg.overlap_impl) and get_default_mesh() is mesh
+    # tp does not divide the kv heads: wk and wv reach the trunk whole
+    whole_kv = tp.size > 1 and cfg.n_kv_heads % tp.size != 0
 
-    def plan(path: tuple) -> tuple[list[tuple[int, str]], set[str]]:
-        """(the (dim, axis) all-gathers before the forward, in order; the
-        axes that split the stored block)."""
+    def plan(path: tuple) -> tuple[list[tuple[int, str, Callable]], set[str]]:
+        """(the (dim, axis, gather) all-gathers before the forward, in
+        order; the axes that split the stored block)."""
         spec = _at(specs, path)
         split = []
         for d, entry in enumerate(spec):
@@ -285,32 +329,45 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
                             f"{'.'.join(path)}: spec {spec} splits a parameter over {a} "
                             "(ROADMAP queue 1, item 8)")
                     split.append((d, a))
-        expert = cfg.is_moe and path[0] == "layers" and path[-1] in _EXPERT_LEAVES
-        if expert:
-            kept = "ep"            # the MoE block consumes this rank's experts
-        elif ring and path[0] == "layers" and path[-1] in _RING_LEAVES:
-            kept = "fsdp"          # the ring streams the fsdp blocks
-        else:
-            kept = None
-        return [(d, a) for d, a in split if a != kept], {a for _, a in split}
+        trunk = path[0] == "layers" and path[-1] in _TRUNK_LEAVES
+        kv = trunk and path[-1] in ("wk", "wv")
+        kept = set()
+        if cfg.is_moe and path[0] == "layers" and path[-1] in _EXPERT_LEAVES:
+            kept.add("ep")         # the MoE block consumes this rank's experts
+        elif ring and trunk:
+            kept.add("fsdp")       # the ring streams the fsdp blocks
+        if trunk and not (kv and whole_kv):
+            kept.add("tp")         # Megatron: the trunk runs on its tp block
+
+        def gather(a: str) -> Callable:
+            # over tp, a whole tensor every tp rank consumes alike keeps its
+            # gradient's block unsummed; wk/wv's per-rank parts are summed
+            if a == "tp" and not kv:
+                return pdist.gather_whole
+            return pdist.all_gather_ad
+
+        return ([(d, a, gather(a)) for d, a in split if a not in kept],
+                {a for _, a in split})
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
+        _check_default_mesh(mesh)
         paths = _paths(state.params)
         leaves = tree_leaves(state.params)
         plans = [plan(p) for p in paths]
         used = []
         for t, (gathers, _) in zip(leaves, plans):
-            for d, a in gathers:
-                t = pdist.all_gather_ad(t, mesh.axis(a), d)
+            for d, a, gather in gathers:
+                t = gather(t, mesh.axis(a), d)
             used.append(t)
         it = iter(used)
         view = tree_map(lambda _: next(it), state.params)
         loss, aux = llama.loss_and_aux(view, inputs, targets, cfg)
-        # every rank's loss is the mean over its rows; bucketed, the
-        # gradient is the dp shard's mean loss's, scaled by 1/dp below
-        scale = 1.0 / (fsdp.size * ep.size * (1 if bucketed else dp.size))
+        # every rank's loss is the mean over its rows (its sequence block
+        # under sp); bucketed, the gradient is the dp shard's mean loss's,
+        # scaled by 1/dp below. tp ranks share their rows: no scale
+        scale = 1.0 / (fsdp.size * ep.size * sp.size * (1 if bucketed else dp.size))
         grads = list(torch.autograd.grad(loss * scale, leaves))
-        for axis in (fsdp, ep):
+        for axis in (fsdp, ep, sp):
             # a block this axis does not split was used whole on each of its ranks
             rep = [i for i, (_, split) in enumerate(plans) if axis.name not in split]
             if axis.size > 1 and rep:
@@ -325,15 +382,16 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
                                   if bucketed else _total_bytes(grads))
         # squares of the blocks summed across them, each block counted on
         # the first index of every axis it is not split over
+        counted = (fsdp, ep, tp, sp)
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
         for g, (_, split) in zip(grads, plans):
-            if all(a.name in split or a.index == 0 for a in (fsdp, ep)):
+            if all(a.name in split or a.index == 0 for a in counted):
                 sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32).square()
         sq = sq.reshape(1)
         mean = loss.detach().reshape(1)
-        for axis in (fsdp, ep):
+        for axis in counted:
             sq = pdist.all_reduce(sq, axis)
-        for axis in (fsdp, ep, dp):
+        for axis in (fsdp, ep, sp, dp):
             mean = pdist.all_reduce(mean / axis.size, axis)
         gnorm = sq[0].sqrt()
         optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm)
@@ -369,6 +427,8 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r} (expected gpipe | 1f1b)")
     sharded = _check_mesh(mesh)
+    if sharded:
+        check_model_mesh(cfg, mesh.shape)
     if n_microbatches:
         raise NotImplementedError("pipeline microbatches need a pp mesh, not ported yet "
                                   "(ROADMAP queue 1, item 8)")
@@ -382,6 +442,7 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
         return _sharded_step(cfg, optimizer, mesh, rules, int(grad_bucket_bytes or 0))
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
+        _check_default_mesh(None)
         leaves = tree_leaves(state.params)
         loss, aux = llama.loss_and_aux(state.params, inputs, targets, cfg)
         grads = torch.autograd.grad(loss, leaves)
@@ -397,6 +458,7 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
 
 
 __all__ = [
-    "AdamW", "TrainState", "check_mesh_axes", "default_optimizer", "global_norm",
+    "AdamW", "TrainState", "check_mesh_axes", "check_model_mesh", "default_optimizer",
+    "global_norm",
     "make_train_state", "make_train_step", "state_specs", "tree_leaves", "tree_map",
 ]

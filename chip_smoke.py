@@ -130,23 +130,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernels on their tensor-core instances. Then one step under torch.profiler,
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul;
-7. fsdp training: two rank processes on this one card (``--fsdp-rank``),
+7. fsdp training: two rank processes on this one card (``--rank``; phases
+   7-10 share them, one process start and one warm-up for all four),
    each bringing up a gloo group over tcp://localhost and calling the
    port's own ``fit()`` on bench_1b4 at full width and depth with
    ``mesh_shape=MeshShape(fsdp=2)`` and ``overlap_impl="pallas"``, phase
    5's recipe, data (global batch 8 x 2048, 4 x 2048 a rank) and initial
-   parameters (each rank its blocks), 4 steps: each loss within 2e-2 of
+   parameters (each rank its blocks), 3 steps: each loss within 2e-2 of
    phase 5's at the same step; on each rank kernel 14 launched exactly
    24 layers x 7 projections x 4 x 2 times a step (the ring's forward, its
    recompute under remat, dx and dW, two chunks each) on its tensor-core
    instance, its plain version never, and each flash kernel once per
    layer and step. The step time is printed beside the transport (gloo,
    host-staged): two ranks on one card, not an NCCL time;
-8. ep training: two rank processes on this one card (``--ep-rank``), each
+8. ep training: in the same two rank processes, each
    calling ``fit()`` on bench_moe at full width and depth at
    ``mesh_shape=MeshShape(ep=2)`` (each rank its 4 experts and 4 x 2048
    rows of phase 6's batch), phase 6's recipe, data and initial
-   parameters, 4 steps with the blocking ep combine and 4 with the
+   parameters, 3 steps with the blocking ep combine and 3 with the
    overlapped one (``moe_overlap_impl="pallas"``, the auto split into 4
    token chunks): each step's loss and aux within 2e-2 of phase 6's, and
    the two combines' losses side by side; on each rank the grouped-matmul
@@ -160,7 +161,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    another seed (every leaf bit-equal to the saved one) and 2 more steps,
    the losses within 1e-3 of the uninterrupted ones; each rank's file
    size and the save and restore seconds;
-9. tp and sp training: two rank processes on this one card (``--par-rank``),
+9. tp and sp training: in the same two rank processes,
    each calling ``fit()`` on bench_1b4 at full width and depth from phase
    5's initial parameters and batches (8 x 2048), 3 steps each: (9a)
    ``mesh_shape=MeshShape(tp=2)``, Megatron's trunk on each rank's 8 of
@@ -174,7 +175,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    24 x (r + 1) a step on sp rank r, the chunk pairs it runs), on their
    tensor-core instances, no plain version. Each run's step time, its
    transport (gloo, host-staged: not an NCCL time), its payload a rank a
-   step by collective kind and peak memory are printed.
+   step by collective kind and peak memory are printed;
+10. pipeline training: in the same two rank processes,
+   ``fit()`` on bench_1b4 at full width and depth at
+   ``MeshShape(pp=2)`` (12 layers a stage) from phase 5's initial
+   parameters and batches, flash attention, remat, ``ce_impl="pallas"``:
+   3 steps under ``pp_schedule="gpipe"`` and 3 under ``"1f1b"`` at 4
+   microbatches, then one step of each at 8. Each step's loss and grad
+   norm held as phase 9 holds them; on each rank the flash and CE kernels
+   launched exactly as its stage's schedule implies (GPipe: the flash
+   forward 2 x 12 x M a step, dq and dk/dv 12 x M, the CE head once on
+   every rank; 1F1B: the forward 3 x 12 x M on the first stage, 2 x on
+   the last, the CE head M times on the last stage alone), kernel 14
+   never, no plain version; each run's step times, transport, payload a
+   rank a step by kind and peak memory per rank printed, M 4 beside M 8.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -188,7 +202,7 @@ The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
-phases 7 and 8 rank 0's, phase 9 each rank's),
+phases 7 and 8 rank 0's, phases 9 and 10 each rank's),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2322,10 +2336,9 @@ def chunk_cases(dtype: torch.dtype, flush: torch.Tensor) -> list[dict]:
 # --- phase 7: fit() at fsdp 2, two ranks on one card ------------------------------
 
 FSDP = 2
-FSDP_STEPS = 4
+FSDP_STEPS = 3      # 4 until phase 10 came: the run's time limit
 # the trunk projections the fsdp ring takes (models/llama.py _proj)
 RING_PROJECTIONS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
-FSDP_TIMEOUT_S = 420
 
 
 def rank_transport() -> str:
@@ -2341,20 +2354,14 @@ def rank_transport() -> str:
                      torch.device("cuda"))
 
 
-def fsdp_rank(rank: int, port: int, out: str) -> int:
-    """One rank of phase 7: bring up a gloo group over tcp://localhost on
-    this card, then the port's own fit() at fsdp 2 with the ring's pallas
-    form; write what it saw to ``out``."""
-    import torch.distributed as dist
-
+def fsdp_runs(rank: int) -> dict:
+    """Phase 7 on this rank of the shared rank processes (``rank_main``):
+    the port's own fit() at fsdp 2 with the ring's pallas form; what it
+    saw."""
     from tony_tpu_torch.ops import attention, overlap
     from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=FSDP)
     cfg = dense_train_config()
     steps: list[dict] = []
     overlap.reset_launches()
@@ -2366,54 +2373,27 @@ def fsdp_rank(rank: int, port: int, out: str) -> int:
                           mesh_shape=MeshShape(fsdp=FSDP), overlap_impl="pallas",
                           steps=FSDP_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
                           mu_dtype="bfloat16", on_metrics=steps.append), device="cuda")
-    wall = time.perf_counter() - t0
-    res = {"rank": rank, "metrics": steps, "final": final, "wall_s": wall,
+    res = {"rank": rank, "metrics": steps, "final": final,
+           "wall_s": time.perf_counter() - t0,
            "launches": {**overlap.LAUNCHES, **attention.LAUNCHES},
            "instance": overlap.kernel_instance(cfg.dtype),
            "transport": rank_transport(),
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
-    dist.barrier()
-    dist.destroy_process_group()
-    with open(out, "w") as f:
-        json.dump(res, f)
-    return 0
+    torch.cuda.empty_cache()
+    return res
 
 
-def fsdp_phase(card: str, dense: dict) -> dict:
-    """Phase 7: two rank processes on this card, each bringing up its gloo
-    group and calling fit() on bench_1b4 at fsdp 2 with overlap_impl=
+def fsdp_phase(card: str, dense: dict, shared: list) -> dict:
+    """Phase 7, from the shared rank processes' results (``rank_phases``):
+    two ranks on this card, each calling fit() on bench_1b4 at fsdp 2 with overlap_impl=
     "pallas", phase 5's recipe, data and initial parameters (each rank its
     blocks). Each step's loss within 2e-2 of phase 5's (the same bf16
     model and batches; the ring sums each projection's partial products
     in another order, and the schedule matches phase 5's up to step
     FSDP_STEPS); on each rank kernel 14 launched exactly the count the
     ring implies and its plain version never."""
-    import socket
-    import tempfile
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    tmp = tempfile.mkdtemp(prefix="fsdp-")
-    outs = [f"{tmp}/rank{r}.json" for r in range(FSDP)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, __file__, "--fsdp-rank", str(r), str(port),
-                               outs[r]]) for r in range(FSDP)]
-    try:
-        codes = [p.wait(timeout=max(1.0, FSDP_TIMEOUT_S - (time.perf_counter() - t0)))
-                 for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(codes):
-        raise AssertionError(f"fsdp ranks exited {codes}")
-    wall = time.perf_counter() - t0
-    ranks = []
-    for path in outs:
-        with open(path) as f:
-            ranks.append(json.load(f))
+    ranks = [r["7"] for r in shared]
+    wall = max(r["wall_s"] for r in ranks)
     cfg = dense_train_config()
     # kernel 14 a step: each trunk projection's ring runs n chunks in the
     # forward, n again in the backward's recompute (remat re-runs the
@@ -2453,12 +2433,11 @@ def fsdp_phase(card: str, dense: dict) -> dict:
 # --- phase 8: MoE training at ep 2, two ranks on one card --------------------------
 
 EP = 2
-EP_STEPS = 4
+EP_STEPS = 3        # 4 until phase 10 came: the run's time limit
 EP_IMPLS = ("off", "pallas")
 # 8b: the sharded checkpoint's round trip at full width, depth cut to 2
 CKPT_LAYERS = 2
 CKPT_STEPS = 4
-EP_TIMEOUT_S = 720
 
 
 def ep_checkpoint_round_trip(ckpt_dir: str) -> dict:
@@ -2523,23 +2502,17 @@ def ep_checkpoint_round_trip(ckpt_dir: str) -> dict:
             "bytes": os.path.getsize(os.path.join(ckpt_dir, "2", f"rank{mesh.rank}.pt"))}
 
 
-def ep_rank(rank: int, port: int, out: str, ckpt_dir: str) -> int:
-    """One rank of phase 8: bring up a gloo group over tcp://localhost on
-    this card, then fit() on bench_moe at ep 2, the blocking combine and
-    then the overlapped one on the grouped kernels; then 8b's round trip;
-    write what it saw to ``out``."""
-    import torch.distributed as dist
-
+def ep_runs(rank: int, ckpt_dir: str) -> dict:
+    """Phase 8 on this rank of the shared rank processes: fit() on
+    bench_moe at ep 2, the blocking combine and then the overlapped one on
+    the grouped kernels; then 8b's round trip; what it saw."""
     from tony_tpu_torch.ops import attention, grouped_mm
     from tony_tpu_torch.ops.moe_overlap import overlap_chunks
     from tony_tpu_torch.parallel import dist as pdist
     from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=EP)
+    t_phase = time.perf_counter()
     cfg = moe_train_config()
     data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
     runs = {}
@@ -2567,16 +2540,14 @@ def ep_rank(rank: int, port: int, out: str, ckpt_dir: str) -> int:
            "n_chunks": overlap_chunks(tokens, 0)}
     torch.cuda.empty_cache()
     res["ckpt"] = ep_checkpoint_round_trip(ckpt_dir)
-    dist.barrier()
-    dist.destroy_process_group()
-    with open(out, "w") as f:
-        json.dump(res, f)
-    return 0
+    res["wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return res
 
 
-def ep_phase(card: str, moe: dict) -> dict:
-    """Phase 8: two rank processes on this card, each bringing up its gloo
-    group and calling fit() on bench_moe at full width and depth at ep 2
+def ep_phase(card: str, moe: dict, shared: list) -> dict:
+    """Phase 8, from the shared rank processes' results: two ranks on this
+    card, each calling fit() on bench_moe at full width and depth at ep 2
     (each rank its 4 experts and 4 rows of phase 6's batch), phase 6's
     recipe, data and initial parameters, with the blocking ep combine and
     then the overlapped one (``moe_overlap_impl="pallas"``, the auto
@@ -2586,35 +2557,8 @@ def ep_phase(card: str, moe: dict) -> dict:
     EP_STEPS); on each rank kernels 11-13 launched exactly the count remat
     and the chunks imply and their plain versions never. Then 8b: the
     sharded checkpoint's round trip in the same processes."""
-    import shutil
-    import socket
-    import tempfile
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    tmp = tempfile.mkdtemp(prefix="ep-")
-    outs = [f"{tmp}/rank{r}.json" for r in range(EP)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, __file__, "--ep-rank", str(r), str(port),
-                               outs[r], f"{tmp}/ckpt"]) for r in range(EP)]
-    try:
-        codes = [p.wait(timeout=max(1.0, EP_TIMEOUT_S - (time.perf_counter() - t0)))
-                 for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(codes):
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise AssertionError(f"ep ranks exited {codes}")
-    wall = time.perf_counter() - t0
-    ranks = []
-    for path in outs:
-        with open(path) as f:
-            ranks.append(json.load(f))
-    shutil.rmtree(tmp, ignore_errors=True)
+    ranks = [r["8"] for r in shared]
+    wall = max(r["wall_s"] for r in ranks)
     cfg = moe_train_config()
     n_chunks = ranks[0]["n_chunks"]
     if n_chunks != 4:
@@ -2677,7 +2621,6 @@ def ep_phase(card: str, moe: dict) -> dict:
 
 PAR = 2
 PAR_STEPS = 3
-PAR_TIMEOUT_S = 420
 # each step's loss (absolute) and grad norm (relative) against phase 5's:
 # about 10x the gaps measured on the H100 (loss 5e-4, grad norm 1.4e-4
 # relative at step 3, where warm-up's end makes the loss jump); a gradient
@@ -2689,21 +2632,15 @@ PAR_GRAD_NORM_RTOL = 2e-3
 PAR_RUNS = (("9a", "tp", "flash", "pallas"), ("9b", "sp", "ring_flash", "scan"))
 
 
-def par_rank(rank: int, port: int, out: str) -> int:
-    """One rank of phase 9: bring up a gloo group over tcp://localhost on
-    this card, then the port's own fit() at tp 2 (9a) and at sp 2 (9b);
-    write what each run saw to ``out``."""
-    import torch.distributed as dist
-
+def par_runs(rank: int) -> dict:
+    """Phase 9 on this rank of the shared rank processes: the port's own
+    fit() at tp 2 (9a) and at sp 2 (9b); what each run saw."""
     from tony_tpu_torch.ops import attention, fused_ce
     from tony_tpu_torch.parallel import dist as pdist
     from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=PAR)
+    t_phase = time.perf_counter()
     base = dense_train_config()
     data = DataConfig(global_batch=8, seq_len=2048, vocab_size=base.vocab_size)
     runs = {}
@@ -2726,11 +2663,7 @@ def par_rank(rank: int, port: int, out: str) -> int:
                        "instances": check_tensor_core_path(cfg),
                        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
         torch.cuda.empty_cache()
-    dist.barrier()
-    dist.destroy_process_group()
-    with open(out, "w") as f:
-        json.dump({"rank": rank, "runs": runs}, f)
-    return 0
+    return {"rank": rank, "runs": runs, "wall_s": time.perf_counter() - t_phase}
 
 
 def par_launches(label: str, rank: int, layers: int, chunks: int) -> dict[str, int]:
@@ -2751,9 +2684,9 @@ def par_launches(label: str, rank: int, layers: int, chunks: int) -> dict[str, i
     return want
 
 
-def par_phase(card: str, dense: dict) -> dict:
-    """Phase 9: two rank processes on this card, each bringing up its gloo
-    group and calling fit() on bench_1b4 at full width and depth from
+def par_phase(card: str, dense: dict, shared: list) -> dict:
+    """Phase 9, from the shared rank processes' results: two ranks on this
+    card, each calling fit() on bench_1b4 at full width and depth from
     phase 5's initial parameters and batches (8 x 2048): 9a at tp 2 (the
     flash and CE kernels on each rank's 8 heads and the whole vocab), 9b
     at sp 2 under ring_flash (each rank its 1024-position block). Each
@@ -2763,34 +2696,10 @@ def par_phase(card: str, dense: dict) -> dict:
     matches phase 5's up to step PAR_STEPS); on each rank the kernels
     launched exactly the count the path implies (``par_launches``), on
     their tensor-core instances, no plain version."""
-    import socket
-    import tempfile
-
     from tony_tpu_torch.ops import fused_ce
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    tmp = tempfile.mkdtemp(prefix="par-")
-    outs = [f"{tmp}/rank{r}.json" for r in range(PAR)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, __file__, "--par-rank", str(r), str(port),
-                               outs[r]]) for r in range(PAR)]
-    try:
-        codes = [p.wait(timeout=max(1.0, PAR_TIMEOUT_S - (time.perf_counter() - t0)))
-                 for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(codes):
-        raise AssertionError(f"phase 9 ranks exited {codes}")
-    wall = time.perf_counter() - t0
-    ranks = []
-    for path in outs:
-        with open(path) as f:
-            ranks.append(json.load(f))
+    ranks = [r["9"] for r in shared]
+    wall = max(r["wall_s"] for r in ranks)
     cfg = dense_train_config()
     chunks = len(fused_ce.dlogits_chunks(cfg.vocab_size))
     out = {"wall_s": wall, "ranks": ranks}
@@ -2834,6 +2743,196 @@ def par_phase(card: str, dense: dict) -> dict:
                 f"(phase 5 {ref:.4f}) grad_norm {m['grad_norm']:.4f} ({ref_norm:.4f}) "
                 f"{m['step_time_s'] * 1e3:.1f} ms over {run0['transport']}  [{card}]")
     return out
+
+
+# --- phase 10: pipeline parallelism at pp 2, two ranks on one card ------------------
+
+PP = 2
+PP_STEPS = 3
+# (label, schedule, microbatches, steps): 3 steps of each schedule at M 4,
+# then one of each at M 8 beside them for the peak memory
+PP_RUNS = (("gpipe", "gpipe", 4, PP_STEPS), ("1f1b", "1f1b", 4, PP_STEPS),
+           ("gpipe M8", "gpipe", 8, 1), ("1f1b M8", "1f1b", 8, 1))
+
+
+def pp_runs() -> dict:
+    """Phase 10 on this rank of the shared rank processes: the port's own
+    fit() at pp 2 under each of PP_RUNS; what each run saw, and the
+    phase's wall time on this rank."""
+    from tony_tpu_torch.ops import attention, fused_ce, overlap
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.parallel.mesh import MeshShape
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    cfg = dataclasses.replace(dense_train_config(), ce_impl="pallas")
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    runs: dict = {}
+    t_phase = time.perf_counter()
+    for label, schedule, M, n in PP_RUNS:
+        steps: list[dict] = []
+        for module in (attention, fused_ce, overlap):
+            module.reset_launches()
+        pdist.reset_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final = fit(FitConfig(model=cfg, data=data, mesh_shape=MeshShape(pp=PP),
+                              pp_schedule=schedule, pp_microbatches=M, steps=n, log_every=1,
+                              lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
+                              on_metrics=steps.append), device="cuda")
+        runs[label] = {"metrics": steps, "final": final, "wall_s": time.perf_counter() - t0,
+                       "launches": {**attention.LAUNCHES, **fused_ce.LAUNCHES,
+                                    **overlap.LAUNCHES},
+                       "bytes_per_step": {k: v / n for k, v in pdist.BYTES.items()},
+                       "transport": rank_transport(),
+                       "instances": check_tensor_core_path(cfg),
+                       "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"runs": runs, "wall_s": time.perf_counter() - t_phase}
+
+
+def pp_launches(schedule: str, rank: int, M: int, steps: int, per_stage: int,
+                chunks: int) -> dict[str, int]:
+    """The launches a pp 2 run implies on ``rank`` (its stage) over
+    ``steps`` steps of M microbatches, ``per_stage`` layers a stage, remat
+    saving nothing inside a stage. GPipe: each layer and microbatch runs
+    the flash forward twice (the forward, the block's remat in the
+    backward), dq and dk/dv once; the CE head once a step on every rank
+    over the broadcast outputs (ce_fwd 1, ce_dh and ce_dw once per vocab
+    chunk). 1F1B: the first stage runs the forward three times (the
+    forward slot, the backward slot's recompute, the block's remat), the
+    last stage twice (its forward slot passes nothing on, so it only keeps
+    the input); the CE head on the last stage alone, once a microbatch.
+    Kernel 14 never (no fsdp ring inside a stage), and no plain version."""
+    last = rank == PP - 1
+    if schedule == "gpipe":
+        fwd, heads = 2, 1
+    else:
+        fwd, heads = (2, M) if last else (3, 0)
+    mb = per_stage * M * steps
+    want = {"flash_fwd": fwd * mb, "flash_dq": mb, "flash_dkv": mb, "ce_fwd": heads * steps,
+            "ce_dh": heads * chunks * steps, "ce_dw": heads * chunks * steps, "chunk_mm": 0}
+    want.update({f"{n}_plain": 0 for n in list(want)})
+    return want
+
+
+def pp_phase(card: str, dense: dict, shared: list) -> dict:
+    """Phase 10, from the shared rank processes' results: fit() on bench_1b4 at full width and depth at pp 2
+    (12 layers a stage) from phase 5's initial parameters and batches (8 x
+    2048), flash attention, remat, ``ce_impl="pallas"``: 3 steps under
+    GPipe and 3 under 1F1B at 4 microbatches, then one of each at 8. Each
+    step's loss and grad norm within PAR_LOSS_ATOL and PAR_GRAD_NORM_RTOL
+    of phase 5's (the same bf16 model and batches; the microbatches sum
+    their gradients in another order, and the schedule matches phase 5's
+    up to step PP_STEPS); on each rank the kernels launched exactly as the
+    schedule implies (``pp_launches``), on their tensor-core instances, no
+    plain version."""
+    from tony_tpu_torch.ops import fused_ce
+
+    ranks = [{"rank": r["rank"], "runs": r["10"]["runs"]} for r in shared]
+    wall = max(r["10"]["wall_s"] for r in shared)
+    cfg = dense_train_config()
+    chunks = len(fused_ce.dlogits_chunks(cfg.vocab_size))
+    out = {"wall_s": wall, "ranks": ranks}
+    for label, schedule, M, n in PP_RUNS:
+        for r in ranks:
+            run = r["runs"][label]
+            want = pp_launches(schedule, r["rank"], M, n, cfg.n_layers // PP, chunks)
+            got = {k: run["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"pp {label} rank {r['rank']} launches {got} != {want}")
+            if any(v != "tensor cores" for v in run["instances"].values()):
+                raise AssertionError(f"pp {label} rank {r['rank']} off the tensor cores: "
+                                     f"{run['instances']}")
+        if ranks[1]["runs"][label]["metrics"]:
+            raise AssertionError(f"pp {label}: rank 1 reported metrics: rank 0 alone reports")
+        metrics = ranks[0]["runs"][label]["metrics"]
+        losses = [m["loss"] for m in metrics]
+        if len(losses) != n or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"pp {label} losses {losses}")
+        diffs = [abs(a - b) for a, b in zip(losses, dense["losses"])]
+        if max(diffs) > PAR_LOSS_ATOL:
+            raise AssertionError(f"pp {label} losses {losses} against phase 5's "
+                                 f"{dense['losses'][:n]}")
+        norms = [m["grad_norm"] for m in metrics]
+        norm_diffs = [abs(a - b) / b for a, b in zip(norms, dense["grad_norms"])]
+        if not all(math.isfinite(x) for x in norms) or max(norm_diffs) > PAR_GRAD_NORM_RTOL:
+            raise AssertionError(f"pp {label} grad norms {norms} against phase 5's "
+                                 f"{dense['grad_norms'][:n]}")
+        out[label] = {"schedule": schedule, "M": M, "losses": losses, "loss_diffs": diffs,
+                      "grad_norms": norms, "grad_norm_rel_diffs": norm_diffs,
+                      "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+                      # each rank's fit() p50 over its steps after the first
+                      "p50_ms": [r["runs"][label]["final"].get("step_time_p50_s", math.nan)
+                                 * 1e3 for r in ranks],
+                      "transport": ranks[0]["runs"][label]["transport"],
+                      "bytes_per_step": [r["runs"][label]["bytes_per_step"] for r in ranks],
+                      "launches": [r["runs"][label]["launches"] for r in ranks],
+                      "peak_gb": [r["runs"][label]["peak_allocated_gb"] for r in ranks]}
+    return out
+
+
+# --- phases 7-10: one pair of rank processes on the card ----------------------------
+
+RANKS = 2
+RANK_TIMEOUT_S = 900
+
+
+def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
+    """One of the two rank processes phases 7-10 share: bring up a gloo
+    group over tcp://localhost on this card, then run phase 7's, 8's, 9's
+    and 10's fit() calls in turn (one process start and one warm-up for
+    all four), and write what each saw to ``out``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=RANKS)
+    res = {"rank": rank, "7": fsdp_runs(rank), "8": ep_runs(rank, ckpt_dir),
+           "9": par_runs(rank), "10": pp_runs()}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def rank_phases() -> list[dict]:
+    """Start the two rank processes of phases 7-10 (``--rank``), wait for
+    both within RANK_TIMEOUT_S, and return what each rank saw; the phases'
+    checks read it (``fsdp_phase``, ``ep_phase``, ``par_phase``,
+    ``pp_phase``). A rank that fails fails them all."""
+    import shutil
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    outs = [f"{tmp}/rank{r}.json" for r in range(RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--rank", str(r), str(port),
+                               outs[r], f"{tmp}/ckpt"]) for r in range(RANKS)]
+    try:
+        codes = [p.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"phase 7-10 rank processes exited {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phases 7-10 rank processes: {time.perf_counter() - t0:.1f} s")
+    return ranks
 
 
 def main() -> int:
@@ -3246,7 +3345,8 @@ def main() -> int:
     model_crosscheck(card, moe_train_config(), "moe_gmm_impl", "pallas", "scan")
     torch.cuda.empty_cache()
 
-    f = fsdp_phase(card, t)
+    shared = rank_phases()
+    f = fsdp_phase(card, t, shared)
     r0 = f["ranks"][0]
     log(f"train bench_1b4 at fsdp={FSDP} through fit() (two rank processes on this one "
         f"card, overlap_impl=pallas, phase 5's recipe, data and initial parameters): "
@@ -3259,7 +3359,7 @@ def main() -> int:
         + ", ".join(f"{r['peak_allocated_gb']:.2f}" for r in f["ranks"])
         + f" GB; phase wall {f['wall_s']:.1f} s  [{card}]")
 
-    e = ep_phase(card, m)
+    e = ep_phase(card, m, shared)
     for impl in EP_IMPLS:
         x = e[impl]
         split = f" in {e['n_chunks']} chunks" if impl != "off" else ""
@@ -3290,7 +3390,7 @@ def main() -> int:
         + ", ".join(f"{c['bytes'] / 1e9:.3f}" for c in ck["ranks"]) + " GB, save "
         + ", ".join(f"{c['save_s']:.2f}" for c in ck["ranks"]) + " s, restore "
         + ", ".join(f"{c['restore_s']:.2f}" for c in ck["ranks"]) + f" s  [{card}]")
-    par = par_phase(card, t)
+    par = par_phase(card, t, shared)
     for label, axis, impl, head in PAR_RUNS:
         x = par[label]
         log(f"train bench_1b4 {label} at {axis}={PAR} through fit() (two rank processes on "
@@ -3308,6 +3408,30 @@ def main() -> int:
             + ", plain 0; peak allocated per rank "
             + ", ".join(f"{g:.2f}" for g in x["peak_gb"]) + f" GB  [{card}]")
     log(f"phase 9 wall {par['wall_s']:.1f} s  [{card}]")
+    pp = pp_phase(card, t, shared)
+    for label, schedule, M, n in PP_RUNS:
+        x = pp[label]
+        log(f"train bench_1b4 at pp={PP} {schedule} through fit() (two rank processes on "
+            f"this one card, 12 layers a stage, {M} microbatches of {8 // M} rows, flash, "
+            f"remat, ce_impl=pallas, phase 5's weights and 8 x 2048 batches): {n} steps, "
+            f"loss " + ", ".join(f"{v:.4f}" for v in x["losses"])
+            + f", max |loss - phase 5's| {max(x['loss_diffs']):.3e}, max |grad norm - "
+            f"phase 5's| / phase 5's {max(x['grad_norm_rel_diffs']):.3e}; step ms "
+            + ", ".join(f"{v:.1f}" for v in x["step_ms"])
+            + " (p50 of steps 2-3 per rank " + ", ".join(f"{v:.1f}" for v in x["p50_ms"])
+            + f") over {x['transport']} (two ranks share the card and every transfer goes "
+            f"through host memory: not an NCCL time); payload bytes a step per rank: "
+            + "; ".join(", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in b.items() if v)
+                        for b in x["bytes_per_step"])
+            + "; launches per rank "
+            + "; ".join(", ".join(f"{k} {v}" for k, v in lc.items()
+                                  if v and not k.endswith("_plain")) for lc in x["launches"])
+            + ", plain 0; peak allocated per rank "
+            + ", ".join(f"{g:.2f}" for g in x["peak_gb"]) + f" GB  [{card}]")
+    log("pp=2 peak allocated per rank (GB), M 4 beside M 8: " + "; ".join(
+        f"{s_} rank {r}: {pp[s_]['peak_gb'][r]:.2f} -> {pp[s_ + ' M8']['peak_gb'][r]:.2f}"
+        for s_ in ("gpipe", "1f1b") for r in range(PP)) + f"  [{card}]")
+    log(f"phase 10 wall {pp['wall_s']:.1f} s  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -3366,7 +3490,9 @@ def main() -> int:
                        "6": m["launches"][name], "7": r0["launches"][name],
                        **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS},
                        **{f"{label} rank {r}": par[label]["launches"][r][name]
-                          for label, *_ in PAR_RUNS for r in range(PAR)}},
+                          for label, *_ in PAR_RUNS for r in range(PAR)},
+                       **{f"10 {label} rank {r}": pp[label]["launches"][r][name]
+                          for label, *_ in PP_RUNS for r in range(PP)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -3397,7 +3523,9 @@ def main() -> int:
             "replaces": f"tony_tpu/ops/fused_ce.py:{line}",
             "launches": tc["launches"][name],
             "phases": {"5b": tc["launches"][name],
-                       **{f"9a rank {r}": par["9a"]["launches"][r][name] for r in range(PAR)}},
+                       **{f"9a rank {r}": par["9a"]["launches"][r][name] for r in range(PAR)},
+                       **{f"10 {label} rank {r}": pp[label]["launches"][r][name]
+                          for label, *_ in PP_RUNS for r in range(PP)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -3422,10 +3550,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--fsdp-rank"]:      # one rank of phase 7, started by main()
-        sys.exit(fsdp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
-    if sys.argv[1:2] == ["--ep-rank"]:        # one rank of phase 8, started by main()
-        sys.exit(ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
-    if sys.argv[1:2] == ["--par-rank"]:       # one rank of phase 9, started by main()
-        sys.exit(par_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--rank"]:           # one rank of phases 7-10, started by main()
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

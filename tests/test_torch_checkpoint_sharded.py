@@ -1,16 +1,19 @@
 """Sharded checkpoints of the port's training (train/checkpoint.py through
 fit()) on gloo ranks of ``tests/torch_ranks.py``, on the CPU.
 
-- At fsdp 2, tp 2, dp 2 x fsdp 2 and ep 2 x fsdp 2 (a MoE model, the
-  scan overlap of its ep combine), ``fit()`` runs five steps saving at step 3
+- At fsdp 2, tp 2, pp 2 (GPipe, one layer a stage), dp 2 x fsdp 2 and
+  ep 2 x fsdp 2 (a MoE model, the scan overlap of its ep combine),
+  ``fit()`` runs five steps saving at step 3
   and at the end. Fresh rank processes then resume from a directory that
   holds step 3 alone and run steps 4 and 5: their losses and the blocks
   they save at step 5 are bit-equal to the uninterrupted run's (float32;
   the same operations in the same order on the same data).
 - A step saved at fsdp 2 restores at fsdp 4, at dp 2 x fsdp 2 and onto
   one process to the same global tensors, bit for bit; a step saved at tp
-  2 restores at fsdp 2 and onto one process the same way, and
-  ``shards_from_numpy`` gives each tp rank its blocks.
+  2 restores at fsdp 2 and onto one process the same way, as does one
+  saved at pp 2 (each stage's file holding its layers), and
+  ``shards_from_numpy`` gives each tp rank its blocks and each pp stage
+  its layers.
 - A save whose second rank is killed once its file is on disk publishes
   nothing, and the next manager reaps its temp directory.
 - An unreadable newest step (one rank's file torn) makes every rank fall
@@ -34,6 +37,7 @@ DENSE = {"attention_impl": "dot"}
 # name -> (world, mesh, model knobs, further FitConfig fields)
 CONFIGS = {"fsdp2": (2, {"fsdp": 2}, DENSE, {}),
            "tp2": (2, {"tp": 2}, DENSE, {}),
+           "pp2": (2, {"pp": 2}, DENSE, {}),
            "dp2-fsdp2": (4, {"dp": 2, "fsdp": 2}, DENSE, {}),
            "ep2-fsdp2": (4, {"ep": 2, "fsdp": 2}, {**DENSE, "n_experts": 4},
                          {"moe_overlap_impl": "scan"})}
@@ -75,14 +79,16 @@ def runs(tmp_path_factory):
     kill_dir = tmp / "killed"
     two = spawn(2, "fit", {"runs": [_fit_run("fsdp2", first["fsdp2"]),
                                     _fit_run("tp2", first["tp2"]),
+                                    _fit_run("pp2", first["pp2"]),
                                     {"task": "killed_save", "mesh": {"fsdp": 2},
                                      "model": DENSE, "checkpoint_dir": str(kill_dir)}],
                            "timeout_s": 30}, tmp / "a2", may_die=(1,))
     four = spawn(4, "fit", {"runs": [_fit_run(n, first[n]) for n in ("dp2-fsdp2", "ep2-fsdp2")]},
                  tmp / "a4")
     killed = {"dir": kill_dir, "listing": sorted(p.name for p in kill_dir.iterdir()),
-              "ranks": [r and r["runs"][2] for r in two]}
+              "ranks": [r and r["runs"][3] for r in two]}
     uninterrupted = {"fsdp2": two[0]["runs"][0], "tp2": two[0]["runs"][1],
+                     "pp2": two[0]["runs"][2],
                      **{n: four[0]["runs"][j] for j, n in enumerate(("dp2-fsdp2", "ep2-fsdp2"))}}
     first_listing = {n: (sorted(p.name for p in d.iterdir()),
                          sorted(p.name for p in (d / "3").iterdir())) for n, d in first.items()}
@@ -102,13 +108,17 @@ def runs(tmp_path_factory):
                                        "checkpoint_dir": str(torn)},
                                       _fit_run("tp2", resumed_dirs["tp2"]),
                                       {**restore, "mesh": {"fsdp": 2},
-                                       "checkpoint_dir": str(first["tp2"])}]}, tmp / "b2")
+                                       "checkpoint_dir": str(first["tp2"])},
+                                      _fit_run("pp2", resumed_dirs["pp2"]),
+                                      {**restore, "mesh": {"fsdp": 2},
+                                       "checkpoint_dir": str(first["pp2"])}]}, tmp / "b2")
     four_b = spawn(4, "fit", {"runs": [_fit_run(n, resumed_dirs[n])
                                        for n in ("dp2-fsdp2", "ep2-fsdp2")]
                               + [{**restore, "mesh": {"fsdp": 4}},
                                  {**restore, "mesh": {"dp": 2, "fsdp": 2}}]},
                    tmp / "b4")
     resumed = {"fsdp2": two_b[0]["runs"][0], "tp2": two_b[0]["runs"][2],
+               "pp2": two_b[0]["runs"][4],
                **{n: four_b[0]["runs"][j] for j, n in enumerate(("dp2-fsdp2", "ep2-fsdp2"))}}
     return {"first": first, "first_listing": first_listing, "resumed_dirs": resumed_dirs,
             "uninterrupted": uninterrupted, "resumed": resumed, "killed": killed,
@@ -116,6 +126,7 @@ def runs(tmp_path_factory):
             "resharded": {"fsdp4": [r["runs"][2] for r in four_b],
                           "dp2-fsdp2": [r["runs"][3] for r in four_b]},
             "tp2_at_fsdp2": [r["runs"][3] for r in two_b],
+            "pp2_at_fsdp2": [r["runs"][5] for r in two_b],
             "jax_loaded": any(r["jax_loaded"] or r["tony_tpu_loaded"]
                               for r in two + four + two_b + four_b if r)}
 
@@ -190,6 +201,62 @@ def test_a_step_saved_at_tp_2_restores_at_fsdp_2_and_in_one_process(runs):
             assert torch.equal(parts[0], parts[1]), key
         joined = parts[0] if dim is None else torch.cat(parts, dim)
         assert torch.equal(joined, want.detach()), key
+
+
+def test_a_step_saved_at_pp_2_restores_at_fsdp_2_and_in_one_process(runs):
+    """pp 2's step 5 restored at fsdp 2 and onto one process: the same
+    global parameters and moments, bit for bit; each stage's file holds
+    its layer of the stack (``pp_rules``), the one-process restore the two
+    laid end to end, and the leaves pp does not split equal on both."""
+    from tony_tpu_torch.parallel.sharding import pp_rules
+
+    one, step = CheckpointManager(str(runs["first"]["pp2"])).restore(_template())
+    assert step == 5 and one.step == 5
+    whole = {"params": one.params, "mu": one.opt_state["mu"], "nu": one.opt_state["nu"]}
+    for got in runs["pp2_at_fsdp2"]:
+        assert got["step"] == 5 and got["count"] == one.opt_state["count"]
+        for part, tree in whole.items():
+            for key, want in _leaves(tree).items():
+                np.testing.assert_array_equal(got["whole"][part][key],
+                                              want.detach().numpy(), err_msg=key)
+    specs = _leaves(tree_specs(logical_axes(LlamaConfig.tiny(**DENSE)), pp_rules()))
+    blocks = [_leaves(_blocks(runs["first"]["pp2"] / "5", r)["params"]) for r in range(2)]
+    for key, want in _leaves(one.params).items():
+        parts = [b[key] for b in blocks]
+        if specs[key][:1] == ("pp",):
+            assert parts[0].shape[0] == 1, key
+            assert torch.equal(torch.cat(parts, 0), want.detach()), key
+        else:
+            assert torch.equal(parts[0], parts[1]) and torch.equal(parts[0], want.detach()), key
+
+
+def test_shards_from_numpy_gives_each_pp_stage_its_layers():
+    """``shards_from_numpy`` at pp 2 (and pp 2 x fsdp 2) cuts under
+    ``pp_rules``: each stage's block of a stacked layer leaf is its layer,
+    as the pp step holds it, each other leaf as at pp 1."""
+    from tony_tpu_torch.models.convert import shards_from_numpy
+    from tony_tpu_torch.parallel.dist import Axis
+    from tony_tpu_torch.parallel.mesh import MESH_AXES, Mesh, MeshShape
+
+    cfg = LlamaConfig.tiny(**DENSE)
+    rng = np.random.default_rng(1)
+    tree = {k: (rng.standard_normal(v.shape).astype(np.float32) if not isinstance(v, dict)
+                else {n: rng.standard_normal(t.shape).astype(np.float32) for n, t in v.items()})
+            for k, v in make_train_state(cfg, default_optimizer(), device="cpu").params.items()}
+    specs = _leaves(tree_specs(logical_axes(cfg)))
+    for shape in (MeshShape(pp=2), MeshShape(pp=2, fsdp=2)):
+        for rank in range(shape.n_devices):
+            coords = np.unravel_index(rank, shape.sizes)
+            mesh = Mesh(shape, rank, {a: Axis(a, n, int(i)) for a, n, i in
+                                      zip(MESH_AXES, shape.sizes, coords)})
+            got = _leaves(shards_from_numpy(tree, cfg, mesh, device="cpu"))
+            for key, want in _leaves(tree).items():
+                if key.startswith("layers/"):
+                    want = np.split(want, 2, 0)[mesh.axis("pp").index]
+                for d, entry in enumerate(specs[key]):
+                    if entry == "fsdp" and shape.fsdp > 1:
+                        want = np.split(want, 2, d)[mesh.axis("fsdp").index]
+                np.testing.assert_array_equal(got[key].numpy(), want, err_msg=key)
 
 
 def test_shards_from_numpy_gives_each_tp_rank_its_blocks():

@@ -52,6 +52,7 @@ def test_every_port_module_is_checked():
                  "tony_tpu_torch/ops/moe_overlap.py",
                  "tony_tpu_torch/parallel/ring_attention.py",
                  "tony_tpu_torch/parallel/ulysses.py",
+                 "tony_tpu_torch/parallel/pipeline.py",
                  "tony_tpu_torch/models/convert.py", "chip_smoke.py",
                  "tests/test_torch_kernels_cuda.py", "tests/torch_ranks.py"):
         assert want in names

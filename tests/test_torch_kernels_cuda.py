@@ -592,6 +592,34 @@ def test_ring_flash_on_one_rank_is_the_flash_kernel_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_pipeline_1f1b_on_two_gloo_ranks_is_the_one_rank_schedule_on_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card run the trainer's 1F1B loss
+    (``pipeline_train_1f1b``) on a 2-layer bf16 model with flash
+    attention, one layer a stage, 2 microbatches: the loss and every
+    parameter's gradient equal the one-rank schedule's (both stages in one
+    process) within FLASH_TOL; each rank launched the flash kernels, no
+    plain version."""
+    from tony_tpu_torch.parallel.mesh import build_mesh
+    from torch_ranks import pp_card_run, spawn
+
+    args = {"model": {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 2,
+                      "n_kv_heads": 2, "ffn_dim": 512, "max_seq_len": 256,
+                      "attention_impl": "flash", "remat": True},
+            "seed": 5, "batch": 4, "seq": 256, "microbatches": 2}
+    ranks = spawn(2, "pp_card", {"runs": [{"mesh": {"pp": 2}, **args}], "cuda": True},
+                  tmp_path, timeout_s=600)
+    one = pp_card_run(args, build_mesh())
+    for rank, got in enumerate(r["runs"][0] for r in ranks):
+        _close(torch.tensor(got["loss"]), torch.tensor(one["loss"]), torch.bfloat16, "loss")
+        assert set(got["grads"]) == set(one["grads"])
+        for key, want in one["grads"].items():
+            _close(torch.from_numpy(got["grads"][key]), torch.from_numpy(want),
+                   torch.bfloat16, f"rank {rank} {key}")
+        assert got["launches"]["flash_fwd"] > 0 and got["launches"]["flash_dq"] > 0
+        assert got["launches"]["flash_fwd_plain"] == got["launches"]["flash_dq_plain"] == 0
+
+
+@pytest.mark.cuda
 def test_flash_attention_grad_and_folded_layout_on_card(cuda):
     """The autograd entry on the card (kernels) against the same entry on
     the CPU (plain versions) in float32 within 1e-4, and the

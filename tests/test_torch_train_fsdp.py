@@ -196,12 +196,15 @@ def _mesh(shape) -> "Mesh":
 
 
 def test_what_the_mesh_does_not_train_over_raises():
-    """pp above 1 and MoE at tp above 1 raise and cite ROADMAP queue 1,
-    item 8; tp and sp build, from the default mesh (the trunk and its
-    attention hooks read their axes there), each rank holding its tp
-    block of the wide dims; ep trains (MoE's expert parallelism), and a
-    MoE step over a mesh that is not the default mesh raises, since its
-    MoE blocks read their mesh there; a one-rank mesh trains as no mesh."""
+    """MoE at tp above 1 raises and cites ROADMAP queue 1, item 8; pp
+    builds, each rank holding its stage's block of the stacked layers
+    (``pp_rules``), and refuses 1f1b with MoE and a layer count pp does
+    not split with the reference's messages; tp and sp build, from the
+    default mesh (the trunk and its attention hooks read their axes
+    there), each rank holding its tp block of the wide dims; ep trains
+    (MoE's expert parallelism), and a MoE step over a mesh that is not
+    the default mesh raises, since its MoE blocks read their mesh there;
+    a one-rank mesh trains as no mesh."""
     from tony_tpu_torch.parallel.mesh import MeshShape, set_default_mesh
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step,
@@ -209,10 +212,14 @@ def test_what_the_mesh_does_not_train_over_raises():
 
     opt = default_optimizer()
     cfg = pl.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(cfg, opt, mesh=_mesh(MeshShape(pp=2)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_state(cfg, opt, mesh=_mesh(MeshShape(pp=2)), device="cpu")
+    make_train_step(cfg, opt, mesh=_mesh(MeshShape(pp=2)))
+    assert make_train_state(cfg, opt, mesh=_mesh(MeshShape(pp=2)), device="cpu").params[
+        "layers"]["wq"].shape == (1, 64, 64)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=_mesh(MeshShape(pp=2)),
+                        pp_schedule="1f1b")
+    with pytest.raises(ValueError, match="n_layers=2 not divisible by pp=4"):
+        make_train_step(cfg, opt, mesh=_mesh(MeshShape(pp=4)))
     with pytest.raises(NotImplementedError, match="item 8"):
         make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=_mesh(MeshShape(tp=2)))
     for shape, wq in ((MeshShape(tp=2), (2, 64, 32)), (MeshShape(fsdp=2, sp=2), (2, 32, 64))):

@@ -13,6 +13,8 @@ from __future__ import annotations
 import jax
 import numpy as np
 
+from torch_ranks import tiny_config
+
 STEPS = 5
 DATA = dict(global_batch=4, seq_len=32, vocab_size=256)
 OPT = dict(lr=5e-3, warmup_steps=2, decay_steps=5)
@@ -34,17 +36,19 @@ def reference_params(tmp, key: int = 0, **model) -> tuple[dict, str]:
     from tony_tpu.train import trainer as jtrainer
 
     mesh1 = build_mesh(MeshShape(), devices=jax.devices()[:1])
-    init = jtrainer.make_train_state(jax.random.key(key), jl.LlamaConfig.tiny(**model), mesh1,
-                                     jtrainer.default_optimizer(**OPT))
+    init = jtrainer.make_train_state(jax.random.key(key), tiny_config(jl.LlamaConfig, model),
+                                     mesh1, jtrainer.default_optimizer(**OPT))
     tree = jax.tree.map(np.asarray, init.params)
     path = tmp / f"params-{key}.npz"
     np.savez(path, **flatten(tree))
     return tree, str(path)
 
 
-def reference_run(mesh_d: dict, knobs: dict, key: int = 0) -> dict:
-    """The reference's ``make_train_step`` on a CPU mesh of ``mesh_d``:
-    each step's loss and grad norm, and the final parameters."""
+def reference_run(mesh_d: dict, knobs: dict, key: int = 0, **step_kw) -> dict:
+    """The reference's ``make_train_step`` (``step_kw`` its pipeline
+    arguments) on a CPU mesh of ``mesh_d``: each step's loss and grad norm,
+    and the final parameters. At pp above 1 the state is made under
+    ``pp_rules``, as the reference's own pp tests make it."""
     from tony_tpu.models import llama as jl
     from tony_tpu.parallel.mesh import MeshShape, build_mesh, set_default_mesh
     from tony_tpu.train import data as jdata
@@ -53,10 +57,11 @@ def reference_run(mesh_d: dict, knobs: dict, key: int = 0) -> dict:
     shape = MeshShape(**mesh_d)
     mesh = build_mesh(shape, devices=jax.devices()[:shape.n_devices])
     set_default_mesh(mesh)
-    cfg = jl.LlamaConfig.tiny(**knobs)
+    cfg = tiny_config(jl.LlamaConfig, knobs)
     opt = jtrainer.default_optimizer(**OPT)
-    state = jtrainer.make_train_state(jax.random.key(key), cfg, mesh, opt)
-    step = jtrainer.make_train_step(cfg, mesh, opt)
+    rules = jtrainer.pp_rules() if shape.pp > 1 else jtrainer.DEFAULT_RULES
+    state = jtrainer.make_train_state(jax.random.key(key), cfg, mesh, opt, rules)
+    step = jtrainer.make_train_step(cfg, mesh, opt, **step_kw)
     batches = jdata.synthetic_batches(jdata.DataConfig(**DATA))
     losses, norms = [], []
     for _ in range(STEPS):
@@ -82,7 +87,7 @@ def port_one_rank(knobs: dict, tree: dict) -> dict:
         default_optimizer, make_train_state, make_train_step,
     )
 
-    cfg = LlamaConfig.tiny(**knobs)
+    cfg = tiny_config(LlamaConfig, knobs)
     opt = default_optimizer(**OPT)
     state = make_train_state(cfg, opt, params=params_from_numpy(tree, cfg, device="cpu"))
     step = make_train_step(cfg, opt)
@@ -108,9 +113,11 @@ def _numpy(tree):
             for k, v in tree.items()}
 
 
-def port_runs(configs: dict, params: str, tmp) -> dict:
-    """Each config's ``make_train_step`` run on gloo ranks: one spawn per
-    world size; name -> every rank's result, and ``jax_loaded``."""
+def port_runs(configs: dict, params: str, tmp, step_args: dict | None = None) -> dict:
+    """Each config's ``make_train_step`` run on gloo ranks (``step_args``:
+    name -> its pipeline arguments, ``pp_schedule`` and ``microbatches``):
+    one spawn per world size; name -> every rank's result, and
+    ``jax_loaded``."""
     from torch_ranks import spawn
 
     worlds: dict[int, list[str]] = {}
@@ -119,7 +126,8 @@ def port_runs(configs: dict, params: str, tmp) -> dict:
     out, loaded = {}, False
     for world, names in sorted(worlds.items()):
         args = [{"mesh": configs[n][0], "steps": STEPS, "data": DATA, "opt": OPT,
-                 "params": params, "model": configs[n][1]} for n in names]
+                 "params": params, "model": configs[n][1], **(step_args or {}).get(n, {})}
+                for n in names]
         ranks = spawn(world, "train", {"runs": args}, tmp / f"w{world}")
         for j, name in enumerate(names):
             out[name] = [r["runs"][j] for r in ranks]

@@ -157,6 +157,133 @@ def _attention(args: dict, mesh) -> dict:
             "launches": dict(at.LAUNCHES)}
 
 
+def _pipeline(args: dict, mesh) -> dict:
+    """The pipeline schedules on toy stages over this rank's pp axis, for
+    each case of ``args["cases"]`` (the reference's ``TestPipeline`` and
+    ``Test1F1B`` shapes): ``gpipe`` runs ``pipeline_apply`` and the
+    gradients of ``sum(out ** 2)``; ``1f1b`` runs ``pipeline_train_1f1b``
+    with a CE head. Each returns the values and the gradients, the stage
+    weights' summed over pp into the whole stack."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.parallel.pipeline import (
+        microbatch, pipeline_apply, pipeline_train_1f1b, unmicrobatch,
+    )
+    from tony_tpu_torch.parallel.sharding import shard
+
+    data = np.load(args["inputs"])
+    axis = mesh.axis("pp")
+
+    def head_fn(hw, y, t):
+        logits = y @ hw
+        sel = logits.gather(-1, t.long().unsqueeze(-1)).squeeze(-1)
+        return (torch.logsumexp(logits, dim=-1) - sel).mean()
+
+    out = []
+    for case in args["cases"]:
+        name, M = case["name"], case["M"]
+        Ws = torch.from_numpy(data[f"{name}/Ws"]).requires_grad_(True)
+        x = torch.from_numpy(data[f"{name}/x"]).requires_grad_(True)
+        if case["kind"] == "gpipe":
+            y = unmicrobatch(pipeline_apply(lambda W, h: torch.tanh(h @ W), Ws,
+                                            microbatch(x, M), mesh=mesh))
+            gW, gx = torch.autograd.grad((y * y).sum(), (Ws, x))
+            res = {"out": y.detach().numpy(), "Ws": pdist.all_reduce(gW, axis).numpy(),
+                   "x": gx.numpy()}
+        else:
+            hw = torch.from_numpy(data[f"{name}/head"]).requires_grad_(True)
+            tgt = torch.from_numpy(data[f"{name}/tgt"])
+            block = shard(Ws, ("pp",), mesh)
+            loss = pipeline_train_1f1b(lambda W, h: torch.tanh(h @ W[0]), head_fn, block, hw,
+                                       microbatch(x, M), microbatch(tgt, M), mesh=mesh)
+            gW, gh, gx = torch.autograd.grad(loss, (Ws, hw, x))
+            res = {"loss": float(loss), "Ws": pdist.all_reduce(gW, axis).numpy(),
+                   "head": gh.numpy(), "x": gx.numpy()}
+        out.append(res)
+    return {"cases": out}
+
+
+def _pp_memory(args: dict, mesh) -> dict:
+    """The bytes autograd holds for the backward at their peak, over one
+    forward and backward of each pipeline loss of the trainer on this
+    rank's stage (``saved_tensors_hooks``: each saved tensor counted from
+    its pack until its graph lets it go)."""
+    import dataclasses
+
+    import torch
+
+    from tony_tpu_torch.models.llama import LlamaConfig
+    from tony_tpu_torch.train.data import DataConfig, make_batches
+    from tony_tpu_torch.train.trainer import (
+        default_optimizer, make_train_state, pp_1f1b_loss_from_pairs, pp_loss_from_pairs,
+    )
+
+    cfg = tiny_config(LlamaConfig, args["model"])
+    state = make_train_state(cfg, default_optimizer(), mesh=mesh, device="cpu")
+    M = args["microbatches"]
+    inputs, targets = next(make_batches(
+        dataclasses.replace(DataConfig(**args["data"]), prefetch=0), device="cpu", mesh=mesh,
+        microbatches=M))
+    live, peak = [0], [0]
+
+    class Held:
+        def __init__(self, t):
+            self.t, self.n = t, t.numel() * t.element_size()
+            live[0] += self.n
+            peak[0] = max(peak[0], live[0])
+
+        def __del__(self):
+            live[0] -= self.n
+
+    out = {}
+    for name, loss_fn in (("gpipe", pp_loss_from_pairs), ("1f1b", pp_1f1b_loss_from_pairs)):
+        live[0] = peak[0] = 0
+        with torch.autograd.graph.saved_tensors_hooks(Held, lambda h: h.t):
+            loss, _ = loss_fn(state.params, inputs, targets, cfg=cfg, mesh=mesh,
+                              n_microbatches=M)
+            torch.autograd.grad(loss, [state.params["layers"]["wq"]])
+        out[name] = {"peak_bytes": peak[0], "loss": float(loss)}
+    return out
+
+
+def pp_card_run(args: dict, mesh) -> dict:
+    """The trainer's 1F1B loss (``pipeline_train_1f1b`` over real
+    transformer stages) of a bf16 model from a seed on the card, this
+    rank's stage of it under ``pp_rules``: the loss, every parameter's
+    gradient all-gathered whole (float32), and the flash kernels'
+    launches. At a one-rank ``mesh`` the whole model is one stage: the
+    one-rank schedule."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params, logical_axes
+    from tony_tpu_torch.ops import attention as at
+    from tony_tpu_torch.parallel.sharding import pp_rules, shard_tree, tree_specs, unshard_tree
+    from tony_tpu_torch.train.trainer import pp_1f1b_loss_from_pairs, tree_leaves, tree_map
+
+    cfg = dataclasses.replace(LlamaConfig(**args["model"]), dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args["seed"]),
+                         device="cuda")
+    specs = tree_specs(logical_axes(cfg), pp_rules())
+    local = shard_tree(params, specs, mesh)
+    for t in tree_leaves(local):
+        t.requires_grad_(True)
+    tokens = np.random.default_rng(args["seed"]).integers(
+        0, cfg.vocab_size, (args["batch"], args["seq"] + 1))
+    tokens = torch.from_numpy(tokens).to("cuda")
+    at.reset_launches()
+    loss, _ = pp_1f1b_loss_from_pairs(local, tokens[:, :-1], tokens[:, 1:], cfg=cfg, mesh=mesh,
+                                      n_microbatches=args["microbatches"])
+    grads = iter(torch.autograd.grad(loss, tree_leaves(local)))
+    whole = unshard_tree(tree_map(lambda _: next(grads), local), specs, mesh)
+    return {"loss": float(loss.detach()), "launches": dict(at.LAUNCHES),
+            "grads": {"/".join(p): t.float().cpu().numpy() for p, t in _items(whole)}}
+
+
 def _train(args: dict, mesh) -> dict:
     """``make_train_step`` from the reference's parameters (cut into this
     rank's blocks) over ``args["steps"]`` synthetic batches: each step's
@@ -173,22 +300,27 @@ def _train(args: dict, mesh) -> dict:
     from tony_tpu_torch.ops import fused_ce as fc
     from tony_tpu_torch.ops import overlap as ov
     from tony_tpu_torch.parallel.mesh import set_default_mesh
-    from tony_tpu_torch.parallel.sharding import tree_specs, unshard_tree
+    from tony_tpu_torch.parallel.sharding import (
+        DEFAULT_RULES, mesh_rules, tree_specs, unshard_tree,
+    )
     from tony_tpu_torch.train.data import DataConfig, make_batches
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step,
     )
 
-    cfg = LlamaConfig.tiny(**args["model"])
+    cfg = tiny_config(LlamaConfig, args["model"])
     opt = default_optimizer(**args["opt"])
     tree = _load_tree(args["params"])
     set_default_mesh(mesh)
     state = make_train_state(cfg, opt, mesh=mesh, device="cpu",
                              params=shards_from_numpy(tree, cfg, mesh, device="cpu"))
-    step = make_train_step(cfg, opt, mesh=mesh,
+    pp = mesh.shape["pp"]
+    microbatches = (args.get("microbatches") or 2 * pp) if pp > 1 else 0
+    step = make_train_step(cfg, opt, mesh=mesh, n_microbatches=microbatches,
+                           pp_schedule=args.get("pp_schedule", "gpipe"),
                            grad_bucket_bytes=args.get("grad_bucket_bytes"))
     batches = make_batches(dataclasses.replace(DataConfig(**args["data"]), prefetch=0),
-                           device="cpu", mesh=mesh)
+                           device="cpu", mesh=mesh, microbatches=microbatches)
     # top-k is discrete: the smallest gap between each row's k-th and
     # (k+1)-th router probability over every call, so a test can tell a
     # route that flipped from a numerical error
@@ -226,11 +358,23 @@ def _train(args: dict, mesh) -> dict:
         return out
 
     # the whole parameters again, all-gathered from every rank's blocks
-    full = unshard_tree(state.params, tree_specs(logical_axes(cfg)), mesh)
+    full = unshard_tree(state.params, tree_specs(logical_axes(cfg), mesh_rules(DEFAULT_RULES,
+                                                                               mesh)), mesh)
     if cfg.is_moe:
         pm._top_k_select = select
     return {"loss": losses, "grad_norm": norms, "launches": launches, "aux": aux,
             "kernels": kernels, "margin": min(margins, default=None), "params": flat(full)}
+
+
+def tiny_config(cls, knobs: dict):
+    """``cls.tiny(**knobs)``, with ``n_layers`` among the knobs too (the
+    preset fixes it, so it is replaced after)."""
+    import dataclasses
+
+    knobs = dict(knobs)
+    layers = knobs.pop("n_layers", None)
+    cfg = cls.tiny(**knobs)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
 
 
 def _load_tree(path: str) -> dict:
@@ -256,7 +400,8 @@ def _fit(args: dict, mesh) -> dict:
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
     seen: list = []
-    cfg = FitConfig(model=LlamaConfig.tiny(**args["model"]), data=DataConfig(**args["data"]),
+    cfg = FitConfig(model=tiny_config(LlamaConfig, args["model"]),
+                    data=DataConfig(**args["data"]),
                     mesh_shape=MeshShape(**args["mesh"]), steps=args["steps"], log_every=1,
                     lr=5e-3, warmup_steps=1, overlap_impl=args.get("overlap_impl", ""),
                     checkpoint_dir=args.get("checkpoint_dir", ""), on_metrics=seen.append,
@@ -325,14 +470,16 @@ def _restore(args: dict, mesh) -> dict:
     moments, all-gathered whole."""
     from tony_tpu_torch.models.llama import LlamaConfig, logical_axes
     from tony_tpu_torch.parallel.mesh import set_default_mesh
-    from tony_tpu_torch.parallel.sharding import tree_specs, unshard_tree
+    from tony_tpu_torch.parallel.sharding import (
+        DEFAULT_RULES, mesh_rules, tree_specs, unshard_tree,
+    )
     from tony_tpu_torch.train.checkpoint import CheckpointManager
     from tony_tpu_torch.train.trainer import default_optimizer, make_train_state
 
-    cfg = LlamaConfig.tiny(**args["model"])
+    cfg = tiny_config(LlamaConfig, args["model"])
     set_default_mesh(mesh)
     template = make_train_state(cfg, default_optimizer(), seed=7, mesh=mesh, device="cpu")
-    specs = tree_specs(logical_axes(cfg))
+    specs = tree_specs(logical_axes(cfg), mesh_rules(DEFAULT_RULES, mesh))
     state, step = CheckpointManager(args["checkpoint_dir"], mesh=mesh,
                                     specs=specs).restore(template)
     whole = {k: unshard_tree(t, specs, mesh) for k, t in
@@ -384,7 +531,8 @@ def _killed_save(args: dict, mesh) -> dict:
 
 
 TASKS = {"ring": _ring, "attention": _attention, "train": _train, "fit": _fit,
-         "moe_block": _moe_block, "restore": _restore, "killed_save": _killed_save}
+         "moe_block": _moe_block, "restore": _restore, "killed_save": _killed_save,
+         "pipeline": _pipeline, "pp_memory": _pp_memory, "pp_card": pp_card_run}
 
 
 def main(path: str) -> None:
@@ -395,6 +543,8 @@ def main(path: str) -> None:
     from tony_tpu_torch.parallel.mesh import MeshShape, build_mesh
 
     torch.set_num_threads(1)
+    if job["args"].get("cuda"):
+        torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(job["store"], job["world"]),
                             rank=job["rank"], world_size=job["world"],
                             timeout=timedelta(seconds=job["args"].get("timeout_s", 1800)))

@@ -8,7 +8,8 @@ dtypes. Every parity test carries weights across this way, because the two
 frameworks' random generators give different numbers from one seed.
 :func:`shards_from_numpy` gives a rank of a mesh its blocks of the same
 tree, cut on the host by the rules' specs (``parallel/sharding.py``): the
-MoE expert weights over ep and fsdp, the router over fsdp and ep.
+MoE expert weights over ep and fsdp, the router over fsdp and ep, and
+at pp the stacked layers over pp.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.models.llama import LlamaConfig, Params, logical_axes, param_shapes
-from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, shard, tree_specs
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, mesh_rules, shard, tree_specs
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -64,8 +65,10 @@ def shards_from_numpy(tree: Params, cfg: LlamaConfig, mesh, rules: Rules = DEFAU
                       device: str | torch.device | None = None) -> Params:
     """The reference's parameter tree (numpy) -> this rank's blocks of it
     under the rules' specs of ``logical_axes(cfg)`` over ``mesh``, on
-    ``device`` (``None`` means CUDA, and raises without it). Each block is
-    cut on the host, so the whole tree never reaches the device."""
+    ``device`` (``None`` means CUDA, and raises without it); at pp above 1
+    under ``pp_rules``, each stage its block of the layers, as the step
+    holds them. Each block is cut on the host, so the whole tree never
+    reaches the device."""
     device = resolve_device(device)
     _check(tree, param_shapes(cfg), "")
 
@@ -74,7 +77,7 @@ def shards_from_numpy(tree: Params, cfg: LlamaConfig, mesh, rules: Rules = DEFAU
             return {k: conv(v, spec[k]) for k, v in node.items()}
         return shard(_to_tensor(node, "cpu"), spec, mesh).to(device)
 
-    return conv(tree, tree_specs(logical_axes(cfg), rules))
+    return conv(tree, tree_specs(logical_axes(cfg), mesh_rules(rules, mesh)))
 
 
 __all__ = ["params_from_numpy", "shards_from_numpy"]

@@ -50,6 +50,11 @@ and the attention hook decides how the blocks meet (``dot`` and
 ``flash`` gather the sequence, ``ring`` and ``ring_flash`` rotate K/V
 around the sp ring, ``ulysses`` trades sequence for heads by two
 all-to-alls; ``parallel/ring_attention.py``, ``parallel/ulysses.py``).
+
+Pipeline stages (pp above 1, ``train/trainer.py``) run a block of the
+stacked layers through :func:`run_layers` with the RoPE table of
+:func:`rope_for`, as the one-device trunk does; the ring, ring_flash and
+Ulysses hooks never run inside a stage (the trainer refuses them first).
 """
 
 from __future__ import annotations
@@ -529,31 +534,49 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.long(), params["tok_emb"])
 
 
+def rope_for(cfg: LlamaConfig, seq_len: int, device: str | torch.device
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RoPE table of this rank's ``seq_len`` positions: from 0, or
+    under sp from its block's offset."""
+    sp = mesh_axis("sp")
+    offset = sp.index * seq_len if sp is not None else 0
+    return rope_table(cfg, seq_len, offset, device=device)
+
+
+def run_layers(x: torch.Tensor, layers: Params, block: Callable
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` through the stacked ``layers`` in turn, ``block(x, lp) -> (x,
+    aux)``; returns (x, the layers' aux summed). Layer i reads the i-th
+    slice of each stacked leaf (one ``unbind`` per leaf, so the backward
+    stacks the layer grads once); the stack may be a pipeline stage's
+    block of the layers."""
+    unbound = {name: t.unbind(0) for name, t in layers.items()}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(next(iter(layers.values())).shape[0]):
+        x, a = block(x, {name: t[i] for name, t in unbound.items()})
+        aux = aux + a
+    return x, aux
+
+
 def hidden_states_with_aux(params: Params, tokens: torch.Tensor,
                            cfg: LlamaConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens ``[B, S]`` -> (post-final-norm hidden ``[B, S, D]``, aux
     loss). The trunk without the vocab projection, which the fused CE head
-    consumes directly. Layer i reads the i-th slice of each stacked
-    parameter (one ``unbind`` per leaf, so the backward stacks the layer
-    grads once)."""
+    consumes directly."""
     x = embed_tokens(params, tokens)
     # under sp the rows are this rank's block of the sequence
-    sp = mesh_axis("sp")
-    offset = sp.index * tokens.shape[1] if sp is not None else 0
-    cos, sin = rope_table(cfg, tokens.shape[1], offset, device=x.device)
-    layers = {name: t.unbind(0) for name, t in params["layers"].items()}
-    block = transformer_block
+    cos, sin = rope_for(cfg, tokens.shape[1], x.device)
     if cfg.remat:
         context = functools.partial(create_selective_checkpoint_contexts,
                                     _remat_policy(cfg.remat_policy))
 
-        def block(x, lp, cfg, cos, sin):
+        def block(x, lp):
             return checkpoint(transformer_block, x, lp, cfg, cos, sin,
                               use_reentrant=False, context_fn=context)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = block(x, {name: t[i] for name, t in layers.items()}, cfg, cos, sin)
-        aux = aux + a
+    else:
+        def block(x, lp):
+            return transformer_block(x, lp, cfg, cos, sin)
+    x, aux = run_layers(x, params["layers"], block)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux / cfg.n_layers
 
 
@@ -615,6 +638,6 @@ __all__ = [
     "checkpoint_name", "dot_attention", "embed_tokens", "forward",
     "forward_with_aux", "hidden_states_with_aux", "init_params", "logical_axes",
     "loss_and_aux", "loss_fn", "loss_from_pairs", "mesh_axis", "moe_ffn_block",
-    "param_shapes", "rms_norm", "rope_freqs", "rope_table", "train_flops_per_token",
-    "transformer_block",
+    "param_shapes", "rms_norm", "rope_for", "rope_freqs", "rope_table", "run_layers",
+    "train_flops_per_token", "transformer_block",
 ]

@@ -12,13 +12,16 @@ CUDA device (two ranks on one card, which NCCL refuses) without a knob.
 
 This module is also the one place where a mesh axis's communication
 happens: the ring hop (:func:`start_hop`, the reference's
-``lax.ppermute`` to the next index) and the all-gather, reduce-scatter,
-all-reduce and all-to-all over an axis, each blocking or issued (``start_*``, waited on
-later), and each also under autograd (``*_ad``, the backward its
-forward's transpose), and Megatron's tp pair (:func:`copy_to_tp`,
-:func:`reduce_from_tp`) with the tp gather of a whole table
-(:func:`gather_whole`), whose backwards do not sum what every tp rank
-computed alike. On a gloo group a CUDA tensor goes through host
+``lax.ppermute`` to the next index), the pipeline's one-way stage hop
+(:func:`start_stage_hop`: a send to one neighbour and a receive from the
+other, either side left out where a stage has nothing to pass), the
+broadcast from one index (:func:`broadcast`) and the all-gather,
+reduce-scatter, all-reduce and all-to-all over an axis, each blocking or
+issued (``start_*``, waited on later), and each also under autograd
+(``*_ad``, the backward its forward's transpose), and Megatron's tp pair
+(:func:`copy_to_tp`, :func:`reduce_from_tp`) with the tp gather of a
+whole table (:func:`gather_whole`), whose backwards do not sum what
+every tp rank computed alike. On a gloo group a CUDA tensor goes through host
 memory, explicitly: copied to the host, sent or reduced there, copied
 back. That copy is never taken on an NCCL group, and its first use is
 logged, so a time measured over gloo is not read as NCCL's.
@@ -44,7 +47,7 @@ _staged_logged = False
 # the payload bytes this rank hands to each kind of transfer (a tensor's
 # size once per call, whatever the transport's algorithm moves on the wire)
 BYTES: dict[str, int] = {"hop": 0, "all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
-                         "all_to_all": 0}
+                         "all_to_all": 0, "broadcast": 0}
 
 
 def reset_bytes() -> None:
@@ -160,6 +163,51 @@ def start_hop(t: torch.Tensor, axis: Axis, shift: int = 1, tag: int = 0) -> Pend
            dist.P2POp(dist.irecv, recv, axis.ranks[(axis.index - shift) % n], axis.group,
                       tag)]
     return Pending(dist.batch_isend_irecv(ops), lambda: recv.to(t.device))
+
+
+def start_stage_hop(send: torch.Tensor | None, recv_like: torch.Tensor | None, axis: Axis,
+                    shift: int = 1, tag: int = 0) -> Pending:
+    """The pipeline's hop between neighbouring stages: ``send`` (when not
+    None) to the index ``shift`` places on along ``axis``, and (when
+    ``recv_like`` is not None) a tensor of its shape and dtype from the
+    index ``shift`` places back. The reference's ``ppermute`` over ``[(i,
+    i + shift)]`` without the wrap-around edge, and with either side left
+    out where its stage has nothing to pass or take at this tick, so the
+    first stage never sends backward and the last never forward. Every
+    send meets a receive with the same ``tag`` on its peer. ``wait()``
+    gives the received tensor on ``recv_like``'s device, or None."""
+    n = axis.size
+    for step, side in ((shift, send), (-shift, recv_like)):
+        if side is not None and not 0 <= axis.index + step < n:
+            raise ValueError(f"stage hop past the end of {axis.name}={n} at index "
+                             f"{axis.index}")
+    ops, recv = [], None
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, _source(send, axis, "hop"),
+                              axis.ranks[axis.index + shift], axis.group, tag))
+    if recv_like is not None:
+        recv = torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                           device="cpu" if _staged(recv_like, axis) else recv_like.device)
+        ops.append(dist.P2POp(dist.irecv, recv, axis.ranks[axis.index - shift], axis.group,
+                              tag))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Pending(works, lambda: None if recv is None else recv.to(recv_like.device))
+
+
+def broadcast(t: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
+    """Index ``src``'s ``t`` on every index of ``axis``: the reference's
+    masked ``psum`` of a value one index holds. The other indices pass a
+    tensor of its shape and dtype to receive into; only ``src`` counts
+    bytes."""
+    if axis.size == 1:
+        return t
+    if axis.index == src:
+        buf = _source(t, axis, "broadcast", clone=True)
+    else:
+        buf = torch.empty(t.shape, dtype=t.dtype,
+                          device="cpu" if _staged(t, axis) else t.device)
+    dist.broadcast(buf, axis.ranks[src], group=axis.group)
+    return buf.to(t.device)
 
 
 def start_all_gather(t: torch.Tensor, axis: Axis, dim: int) -> Pending:
@@ -393,7 +441,7 @@ def all_reduce_ad(t: torch.Tensor, axes: list[Axis]) -> torch.Tensor:
 
 
 __all__ = ["BYTES", "ENV_KEYS", "Axis", "Pending", "all_gather", "all_gather_ad", "all_reduce",
-           "all_reduce_ad", "all_to_all", "all_to_all_ad", "copy_to_tp", "gather_whole",
-           "hop_arrived", "initialize", "reduce_from_tp", "reduce_scatter",
+           "all_reduce_ad", "all_to_all", "all_to_all_ad", "broadcast", "copy_to_tp",
+           "gather_whole", "hop_arrived", "initialize", "reduce_from_tp", "reduce_scatter",
            "reduce_scatter_ad", "reset_bytes", "start_all_gather", "start_all_reduce",
-           "start_hop", "start_reduce_scatter", "transport", "world"]
+           "start_hop", "start_reduce_scatter", "start_stage_hop", "transport", "world"]

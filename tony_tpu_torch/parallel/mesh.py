@@ -8,8 +8,8 @@ order (rank = the flat index of its coordinates), and gives each axis of
 size above 1 a process group over the ranks that differ only along it
 (:class:`~tony_tpu_torch.parallel.dist.Axis`). One rank is one device.
 
-Training takes dp, fsdp, ep, tp and sp. pp builds, but the trainer
-refuses it above 1 (ROADMAP queue 1, item 8).
+Training takes every axis: dp, pp (the pipeline schedules,
+``parallel/pipeline.py``), fsdp, ep, tp and sp.
 """
 
 from __future__ import annotations

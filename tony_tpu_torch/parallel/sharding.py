@@ -33,7 +33,7 @@ Spec = tuple  # per dimension: None, a mesh axis, or a tuple of mesh axes
 #   - "vocab"  sharded over tp    (output projection column-parallel)
 #   - "batch"  over dp+fsdp+ep, "seq" over sp (activations)
 #   - "expert" over ep
-#   - "layers" replicated
+#   - "layers" replicated (over pp under pp_rules)
 DEFAULT_RULES: Rules = {
     "batch": ("dp", "fsdp", "ep"),
     "seq": "sp",
@@ -47,6 +47,20 @@ DEFAULT_RULES: Rules = {
     "head_dim": None,
     "norm": None,
 }
+
+
+def pp_rules(rules: Rules = DEFAULT_RULES) -> Rules:
+    """Rules for pipeline training (the reference's ``train/trainer.py``
+    ``pp_rules``): the stacked-layer dim becomes the stage dim, split over
+    ``pp``, so each stage holds its ``n_layers / pp`` layers."""
+    return {**rules, "layers": "pp"}
+
+
+def mesh_rules(rules: Rules, mesh: Mesh | None) -> Rules:
+    """``rules`` as a mesh trains under them: :func:`pp_rules` where the
+    mesh's pp axis is above 1, as the reference's ``make_train_step`` and
+    ``fit()`` apply it."""
+    return pp_rules(rules) if mesh is not None and mesh.shape["pp"] > 1 else rules
 
 
 def spec_for(logical_axes: tuple[str | None, ...], rules: Rules = DEFAULT_RULES) -> Spec:
@@ -186,5 +200,5 @@ def unshard_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
 
 
 __all__ = ["DEFAULT_RULES", "Rules", "Spec", "attn_spec", "entry_axes", "local_shape",
-           "overlap_gather_dim", "shard", "shard_tree", "spec_for", "tree_specs", "unshard",
+           "mesh_rules", "overlap_gather_dim", "pp_rules", "shard", "shard_tree", "spec_for", "tree_specs", "unshard",
            "unshard_tree"]

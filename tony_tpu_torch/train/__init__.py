@@ -1,5 +1,6 @@
-"""Training library: train step (one device, or dp x fsdp over a mesh), loop,
-data, checkpointing."""
+"""Training library: train step (one device, or dp x pp x fsdp x ep x tp x sp
+over a mesh, pp through the GPipe and 1F1B pipeline losses), loop, data,
+checkpointing."""
 
 from tony_tpu_torch.train.data import DataConfig, make_batches
 from tony_tpu_torch.train.loop import FitConfig, fit
@@ -9,6 +10,7 @@ from tony_tpu_torch.train.trainer import (
     default_optimizer,
     make_train_state,
     make_train_step,
+    pp_rules,
 )
 
 __all__ = [
@@ -21,4 +23,5 @@ __all__ = [
     "make_batches",
     "make_train_state",
     "make_train_step",
+    "pp_rules",
 ]

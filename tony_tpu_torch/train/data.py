@@ -12,7 +12,14 @@ pinned host memory, on a background thread when ``prefetch > 0``
 (``train/prefetch.py``). Over a mesh of more than one rank every rank
 draws the same global batch and keeps its rows, by the rules' spec of
 ``("batch", "seq")`` (``parallel/sharding.py``), as the reference places
-the batch with that spec's ``NamedSharding``. The C++ prefetching loader the reference routes
+the batch with that spec's ``NamedSharding``. pp is not a batch axis:
+every pp rank of a (dp, fsdp, ep) block gets the same rows. With
+pipeline microbatches (``microbatches=M``) a rank's rows are its block
+of each global microbatch in turn, microbatch i being the global batch's
+rows ``[i * B/M, (i + 1) * B/M)`` as the reference's ``microbatch``
+reshapes them, each cut over the batch axes; not the i-th M-th of a
+contiguous block of rows. A dense CE mean is the same either way; MoE's
+per-microbatch router statistics are not. The C++ prefetching loader the reference routes
 token files through (``native=True``) is not ported yet: a token file with
 ``native=True`` raises, and the synthetic default never touches it.
 """
@@ -104,22 +111,34 @@ def _make_batches_raw(cfg: DataConfig, start_step: int = 0) -> Iterator[Batch]:
 
 
 def make_batches(cfg: DataConfig, device: str | torch.device | None = None,
-                 start_step: int = 0, *, mesh=None,
-                 rules: Rules = DEFAULT_RULES) -> Iterator[Batch]:
+                 start_step: int = 0, *, mesh=None, rules: Rules = DEFAULT_RULES,
+                 microbatches: int = 0) -> Iterator[Batch]:
     """The configured batch stream on ``device`` (``None`` means CUDA, and
     raises without it). With ``cfg.prefetch > 0`` it is a
     :class:`~tony_tpu_torch.train.prefetch.PrefetchIterator` (same order,
     batch making and host-to-device copies on a background thread), whose
     ``close()`` ``fit()`` calls on exit. Over a ``mesh`` of more than one
-    rank each batch is this rank's block of the global one."""
+    rank each batch is this rank's block of the global one; with
+    ``microbatches`` above 1, its block of each of the global batch's
+    pipeline microbatches in turn (see the module's docstring)."""
     from tony_tpu_torch.train.prefetch import PrefetchIterator, to_device
 
     device = resolve_device(device)
     it = _make_batches_raw(cfg, start_step)
     if mesh is not None and mesh.size > 1:
         spec = spec_for(("batch", "seq"), rules)
-        local_shape((cfg.global_batch, cfg.seq_len), spec, mesh)   # even blocks or raise
-        it = ((shard(i, spec, mesh), shard(t, spec, mesh)) for i, t in it)
+        M = max(1, microbatches)
+        if cfg.global_batch % M:
+            raise ValueError(f"batch {cfg.global_batch} not divisible by "
+                             f"n_microbatches={M}")
+        shape = (M, cfg.global_batch // M, cfg.seq_len)
+        mb_spec = (None, *spec)
+        _, rows, seq = local_shape(shape, mb_spec, mesh)          # even blocks or raise
+
+        def cut(t: torch.Tensor) -> torch.Tensor:
+            return shard(t.reshape(shape), mb_spec, mesh).reshape(M * rows, seq)
+
+        it = ((cut(i), cut(t)) for i, t in it)
     if cfg.prefetch > 0:
         return PrefetchIterator(it, depth=cfg.prefetch, device=device)
     return (to_device(batch, device) for batch in it)

@@ -13,20 +13,23 @@ step-time figures, as in the reference.
 Meshes. ``fit()`` joins the default process group from the ``pytorch``
 runtime's env contract, or uses one the caller brought up
 (``parallel/dist.py``), builds the mesh of ``mesh_shape`` (None: fsdp over
-every rank), sets it as the default mesh and trains over dp, fsdp, ep, tp
-and sp (``train/trainer.py``), each rank on its block of every global
-batch (its rows, and under sp its block of the sequence). Rank
-0 alone logs and calls ``on_metrics``; every rank returns the final
-report. A checkpoint of a mesh of more than one rank is sharded: each rank
-writes and reads its own blocks (``train/checkpoint.py``), and a step
-restores onto whatever mesh this run has.
+every rank), sets it as the default mesh and trains over dp, pp, fsdp, ep,
+tp and sp (``train/trainer.py``), each rank on its block of every global
+batch (its rows, and under sp its block of the sequence). With pp above 1
+it applies ``pp_rules`` to the state, the batches and the checkpoints, as
+the reference does, and trains under ``pp_schedule`` ('gpipe' or '1f1b')
+over ``pp_microbatches`` microbatches (0: two a stage), each rank's rows
+laid out by microbatch (``train/data.py``). Rank 0 alone logs and calls
+``on_metrics``; every rank returns the final report. A checkpoint of a
+mesh of more than one rank is sharded: each rank writes and reads its own
+blocks (``train/checkpoint.py``), and a step restores onto whatever mesh
+this run has.
 
 The model overrides ``ce_impl``, ``moe_dispatch``, ``moe_group_block``,
 ``overlap_impl``, ``moe_overlap_impl`` and ``moe_overlap_chunk`` apply to
 ``cfg.model`` as in the reference. Not ported yet, and raising when set
-to a non-default: the mesh axis pp above 1, pipeline parallelism
-(``pp_*``), MoE at tp above 1 and elastic training (``elastic_*``)
-(ROADMAP queue 1, item 8). The reference's observability hooks
+to a non-default: MoE at tp above 1 (ROADMAP queue 1, item 8) and
+elastic training (``elastic_*``, item 9). The reference's observability hooks
 (``install_from_env``), the metrics push to a job's AM and compile-ahead
 (PyTorch runs eagerly, with nothing to compile) are left out.
 """
@@ -48,12 +51,12 @@ from tony_tpu_torch.parallel.dist import initialize
 from tony_tpu_torch.parallel.mesh import (
     MESH_AXES, Mesh, MeshShape, build_mesh, get_default_mesh, set_default_mesh,
 )
-from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules
+from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, mesh_rules
 from tony_tpu_torch.train.data import DataConfig, make_batches
 from tony_tpu_torch.train.prefetch import close_batches
 from tony_tpu_torch.train.trainer import (
-    check_mesh_axes, check_model_mesh, default_optimizer, make_train_state, make_train_step,
-    state_specs,
+    PP_SCHEDULES, check_1f1b, check_model_mesh, default_optimizer, make_train_state,
+    make_train_step, state_specs,
 )
 
 log = logging.getLogger(__name__)
@@ -102,11 +105,8 @@ class FitConfig:
     elastic_shadow_steps: int = 0
 
 
-# fields this slice does not port: setting one to a non-default raises
-_UNPORTED = (
-    "pp_microbatches", "pp_schedule",
-    "elastic_members", "elastic_plan", "elastic_dir", "elastic_shadow_steps",
-)
+# fields the port does not port yet: setting one to a non-default raises
+_UNPORTED = ("elastic_members", "elastic_plan", "elastic_dir", "elastic_shadow_steps")
 # FitConfig fields that override the model config's field of the same name
 # when set (the reference's overrides, tony_tpu/train/loop.py:411-426)
 _MODEL_OVERRIDES = ("ce_impl", "moe_dispatch", "moe_group_block", "overlap_impl",
@@ -119,12 +119,15 @@ def _check_ported(cfg: FitConfig) -> None:
         if getattr(cfg, name) != defaults[name]:
             raise NotImplementedError(
                 f"FitConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                "(ROADMAP queue 1, item 8)"
+                "(ROADMAP queue 1, item 9)"
             )
+    if cfg.pp_schedule not in PP_SCHEDULES:
+        raise ValueError(f"unknown pp_schedule {cfg.pp_schedule!r} (expected gpipe | 1f1b)")
     if cfg.mesh_shape is not None:
         shape = dict(zip(MESH_AXES, cfg.mesh_shape.sizes))
-        check_mesh_axes(shape)
         check_model_mesh(cfg.model, shape)
+        if shape["pp"] > 1 and cfg.pp_schedule == "1f1b":
+            check_1f1b(cfg.model)
 
 
 def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
@@ -158,10 +161,14 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
         lr=cfg.lr, warmup_steps=cfg.warmup_steps,
         decay_steps=max(cfg.steps, cfg.warmup_steps + 1), mu_dtype=cfg.mu_dtype,
     )
-    step_fn = make_train_step(model, optimizer, mesh=mesh, rules=cfg.rules,
+    rules = mesh_rules(cfg.rules, mesh)
+    pp = mesh.shape["pp"]
+    microbatches = (cfg.pp_microbatches or 2 * pp) if pp > 1 else 0
+    step_fn = make_train_step(model, optimizer, mesh=mesh, rules=rules,
+                              n_microbatches=microbatches, pp_schedule=cfg.pp_schedule,
                               grad_bucket_bytes=int(cfg.grad_bucket_mb * (1 << 20)))
     state = make_train_state(model, optimizer, seed=0, device=device, mesh=mesh,
-                             rules=cfg.rules)
+                             rules=rules)
 
     manager = None
     start_step = 0
@@ -170,7 +177,7 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
 
         manager = CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
                                     save_interval_steps=cfg.checkpoint_every, mesh=mesh,
-                                    specs=state_specs(model, cfg.rules).params)
+                                    specs=state_specs(model, rules).params)
         if cfg.resume:
             state, restored = manager.restore(state)
             if restored >= 0:
@@ -178,7 +185,7 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
                 log.info("resumed from checkpoint step %d", restored)
 
     batches = make_batches(cfg.data, device=device, start_step=start_step, mesh=mesh,
-                           rules=cfg.rules)
+                           rules=rules, microbatches=microbatches)
     flops_per_token = train_flops_per_token(model, cfg.data.seq_len)
     tokens_per_step = cfg.data.global_batch * cfg.data.seq_len
     peak = chip_peak_flops(device) if device.type == "cuda" else None

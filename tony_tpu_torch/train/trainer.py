@@ -21,8 +21,8 @@ come in the parameters' dtype and the loss is the float32 mean over
 the same chain leaf by leaf: the ``[L, E, D, F]`` expert weights and the
 float32 router, whose second moment is float32 with it.
 
-Meshes (dp, fsdp, ep, tp and sp; the counterpart of the reference's GSPMD
-step). Each rank holds its blocks of the parameters and moments under the
+Meshes (dp, pp, fsdp, ep, tp and sp; the counterpart of the reference's
+GSPMD step). Each rank holds its blocks of the parameters and moments under the
 rules' specs (:func:`state_specs`, ``parallel/sharding.py``) and its block
 of the global batch: rows split over (dp, fsdp, ep), the sequence over
 sp. tp splits no rows: every rank of a tp group trains on the same ones.
@@ -60,9 +60,25 @@ mesh from the default mesh, as the trunk, its attention hooks and
 ``moe_block`` do (``fit()`` sets it): the router's statistics are the
 global batch's, and ep above 1 runs the expert-parallel dispatch.
 
-pp above 1, pipeline microbatches, MoE at tp above 1 and the
-numerics-health monitors are not ported yet and raise (ROADMAP queue 1,
-item 8 for the parallelism, item 6 for the monitors).
+pp above 1 (the reference's pipeline loss, ``parallel/pipeline.py``):
+the rules become :func:`pp_rules`, so a rank holds its stage's ``n_layers
+/ pp`` layers, and the loss is :func:`pp_loss_from_pairs` (GPipe) or
+:func:`pp_1f1b_loss_from_pairs` (1F1B) over ``n_microbatches`` (default
+``2 * pp``) microbatches of the rank's rows. Every pp rank of a (dp,
+fsdp, ep, sp) block holds the same rows: pp is not a batch axis, so no
+loss scale. Inside a stage the weights take the blocking gathers (the
+fsdp ring declines there, as the reference's does in a manual region),
+and each leaf's gradient over pp is its own case: a layer leaf is this
+stage's block, summed nowhere over pp; tok_emb's is whole on every pp
+rank, as the pipeline broadcasts the first stage's input gradient; the
+head's is the same on every pp rank (GPipe runs it alike on the
+broadcast outputs; 1F1B broadcasts the last stage's). ``global_norm``
+counts a leaf pp does not split on pp index 0 only.
+
+Pipeline stages refuse the ring, ring_flash and Ulysses attentions, and
+1F1B refuses MoE, with the reference's messages. MoE at tp above 1 and
+the numerics-health monitors are not ported yet and raise (ROADMAP queue
+1, item 8 for the parallelism, item 6 for the monitors).
 """
 
 from __future__ import annotations
@@ -72,14 +88,19 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.models import llama
 from tony_tpu_torch.ops.overlap import bucketed_psum
 from tony_tpu_torch.parallel import dist as pdist
-from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh
+from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh, manual_region
+from tony_tpu_torch.parallel.pipeline import (
+    microbatch, pipeline_local, pipeline_train_1f1b, unmicrobatch,
+)
 from tony_tpu_torch.parallel.sharding import (
-    DEFAULT_RULES, Rules, entry_axes, local_shape, shard_tree, tree_specs,
+    DEFAULT_RULES, Rules, entry_axes, local_shape, mesh_rules, pp_rules, shard_tree,
+    tree_specs,
 )
 
 Params = dict[str, Any]
@@ -197,26 +218,36 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
 # MoE layer's w1/w3/w2 are expert weights, never these
 _TRUNK_LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 _EXPERT_LEAVES = ("w1", "w3", "w2")
-# the mesh axes the port trains over
-_TRAIN_AXES = ("dp", "fsdp", "ep", "tp", "sp")
+PP_SCHEDULES = ("gpipe", "1f1b")
 
 
-def check_mesh_axes(shape: dict[str, int]) -> None:
-    """Raise for what the port does not train over: mesh axes other than
-    dp, fsdp, ep, tp and sp above 1 (pp)."""
-    for name, n in shape.items():
-        if n > 1 and name not in _TRAIN_AXES:
-            raise NotImplementedError(
-                f"mesh axis {name}={n}: the port trains over dp, fsdp, ep, tp and sp; "
-                "pp and the pipeline schedules are not ported yet (ROADMAP queue 1, "
-                "item 8, multi-process parallelism)")
+def _pp_guard(cfg: llama.LlamaConfig, pp: int) -> None:
+    """The reference's refusals for a pipeline over ``pp`` stages."""
+    if cfg.attention_impl in ("ring", "ring_flash", "ulysses"):
+        raise NotImplementedError(
+            f"pp + attention_impl={cfg.attention_impl!r} is not supported: "
+            "sequence-parallel attention cannot nest inside pipeline stages; "
+            "use 'flash' or 'dot' with pp, or sp without pp")
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by pp={pp}")
+
+
+def check_1f1b(cfg: llama.LlamaConfig) -> None:
+    """The reference's refusal of MoE under the 1F1B schedule."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "pp_schedule='1f1b' + MoE not supported (aux loss is not "
+            "threaded through the interleaved schedule); use 'gpipe'")
 
 
 def check_model_mesh(cfg: llama.LlamaConfig, shape: dict[str, int]) -> None:
     """Raise for a model the mesh cannot split: MoE at tp above 1 (not
-    ported), query heads that tp does not split, and Ulysses with local
-    heads that sp does not split (the reference's error)."""
-    tp, sp = shape.get("tp", 1), shape.get("sp", 1)
+    ported), query heads that tp does not split, Ulysses with local heads
+    that sp does not split (the reference's error), and at pp above 1 the
+    reference's pipeline refusals (:func:`_pp_guard`)."""
+    tp, sp, pp = shape.get("tp", 1), shape.get("sp", 1), shape.get("pp", 1)
+    if pp > 1:
+        _pp_guard(cfg, pp)
     if cfg.is_moe and tp > 1:
         raise NotImplementedError(
             f"MoE at tp={tp}: the expert weights' ffn split over tp is not ported yet "
@@ -227,13 +258,9 @@ def check_model_mesh(cfg: llama.LlamaConfig, shape: dict[str, int]) -> None:
         raise ValueError(f"n_heads={cfg.n_heads // tp} not divisible by sp size {sp}")
 
 
-def _check_mesh(mesh: Mesh | None) -> bool:
-    """Whether ``mesh`` spans more than one rank; raises for what the port
-    does not train over."""
-    if mesh is None or mesh.size == 1:
-        return False
-    check_mesh_axes(mesh.shape)
-    return True
+def _sharded(mesh: Mesh | None) -> bool:
+    """Whether ``mesh`` spans more than one rank."""
+    return mesh is not None and mesh.size > 1
 
 
 def _check_default_mesh(mesh: Mesh | None) -> None:
@@ -251,7 +278,8 @@ def _check_default_mesh(mesh: Mesh | None) -> None:
 def state_specs(cfg: llama.LlamaConfig, rules: Rules = DEFAULT_RULES) -> TrainState:
     """Specs for the whole TrainState (the reference's ``state_shardings``):
     the parameters' from their logical axes, the moments mirroring them
-    leaf by leaf, the counts replicated."""
+    leaf by leaf, the counts replicated. A pp mesh's rules are
+    ``pp_rules(rules)`` (``parallel/sharding.py`` ``mesh_rules``)."""
     p = tree_specs(llama.logical_axes(cfg), rules)
     return TrainState(step=(), params=p, opt_state={"count": (), "mu": p, "nu": p})
 
@@ -279,9 +307,10 @@ def make_train_state(cfg: llama.LlamaConfig, optimizer: AdamW, *, seed: int = 0,
     without it). Over a ``mesh`` of more than one rank the state is this
     rank's blocks under the rules' specs: random parameters are drawn
     whole (every rank the same numbers) and cut; given ``params`` must be
-    the rank's blocks already (``models.convert.shards_from_numpy``)."""
-    sharded = _check_mesh(mesh)
-    specs = state_specs(cfg, rules).params
+    the rank's blocks already (``models.convert.shards_from_numpy``). At
+    pp above 1 the blocks are ``pp_rules(rules)``'s, as the step's are."""
+    sharded = _sharded(mesh)
+    specs = state_specs(cfg, mesh_rules(rules, mesh)).params
     if params is None:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -300,19 +329,106 @@ def make_train_state(cfg: llama.LlamaConfig, optimizer: AdamW, *, seed: int = 0,
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
 
 
+# --- the pipeline loss (pp above 1) -------------------------------------------------
+
+
+def _ce_head(final_norm: torch.Tensor, lm_head: torch.Tensor, h: torch.Tensor,
+             targets: torch.Tensor, cfg: llama.LlamaConfig) -> torch.Tensor:
+    """Final norm, lm head and the mean cross-entropy: the one copy both
+    pipeline schedules share, through ``llama.ce_tokens``, so
+    ``ce_impl="pallas"`` runs the fused CE kernels here too."""
+    h = llama.rms_norm(h, final_norm, cfg.norm_eps)
+    return llama.ce_tokens(h, lm_head, targets, cfg).mean()
+
+
+def _pp_stage_fn(cfg: llama.LlamaConfig, cos: torch.Tensor, sin: torch.Tensor) -> Callable:
+    """One pipeline stage: this stage's ``[L/P]`` layers over a microbatch
+    in turn, returning (y, their aux summed). Under ``cfg.remat`` each
+    block is checkpointed saving nothing, whatever ``remat_policy`` says
+    (the reference's ``nothing_saveable``): the flash forward re-runs in
+    the backward. Each block runs as a manual region, so the fsdp ring
+    declines inside it, in the remat recompute too."""
+
+    def block(x, lp):
+        with manual_region():
+            return llama.transformer_block(x, lp, cfg, cos, sin)
+
+    if cfg.remat:
+        plain = block
+
+        def block(x, lp):
+            return checkpoint(plain, x, lp, use_reentrant=False)
+
+    return lambda lp_stack, mb: llama.run_layers(mb, lp_stack, block)
+
+
+def pp_loss_from_pairs(params: Params, inputs: torch.Tensor, targets: torch.Tensor, *,
+                       cfg: llama.LlamaConfig, mesh: Mesh, n_microbatches: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The GPipe pipeline loss, ``(loss, aux)`` as ``llama.loss_and_aux``
+    gives them: the embedding, the layer stack as pp stages
+    (``parallel/pipeline.py`` ``pipeline_local``) over ``n_microbatches``
+    microbatches of this rank's rows, then the head on every pp rank alike
+    over the broadcast outputs, plus ``moe_aux_coef`` times the layers'
+    mean aux (each microbatch's router statistics, averaged over the
+    microbatches). Reference: GPipe (arXiv:1811.06965); bubble (P - 1) /
+    (M + P - 1)."""
+    _pp_guard(cfg, mesh.shape["pp"])
+    x = llama.embed_tokens(params, inputs)
+    cos, sin = llama.rope_for(cfg, inputs.shape[1], x.device)
+    stage = _pp_stage_fn(cfg, cos, sin)
+    xs = microbatch(x, n_microbatches)
+    axis = mesh.axis("pp")
+    if cfg.is_moe:
+        h, aux = pipeline_local(stage, params["layers"], xs, axis=axis, with_aux=True)
+        aux = aux / cfg.n_layers
+    else:
+        h = pipeline_local(lambda lp, mb: stage(lp, mb)[0], params["layers"], xs, axis=axis)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ce = _ce_head(params["final_norm"], params["lm_head"], unmicrobatch(h), targets, cfg)
+    if cfg.is_moe:
+        ce = ce + cfg.moe_aux_coef * aux
+    return ce, aux
+
+
+def pp_1f1b_loss_from_pairs(params: Params, inputs: torch.Tensor, targets: torch.Tensor, *,
+                            cfg: llama.LlamaConfig, mesh: Mesh, n_microbatches: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 1F1B pipeline loss, ``(loss, 0)``: the stage decomposition of
+    :func:`pp_loss_from_pairs` under the hand-scheduled backward
+    (``parallel/pipeline.py`` ``pipeline_train_1f1b``), the head inside
+    the last stage so each microbatch's cotangent is seeded as soon as its
+    forward is done. O(P) saved activations, where GPipe's are O(M)."""
+    check_1f1b(cfg)
+    _pp_guard(cfg, mesh.shape["pp"])
+    x = llama.embed_tokens(params, inputs)
+    cos, sin = llama.rope_for(cfg, inputs.shape[1], x.device)
+    stage = _pp_stage_fn(cfg, cos, sin)
+    head = {"final_norm": params["final_norm"], "lm_head": params["lm_head"]}
+    loss = pipeline_train_1f1b(
+        lambda lp, mb: stage(lp, mb)[0],
+        lambda hp, y, t: _ce_head(hp["final_norm"], hp["lm_head"], y, t, cfg),
+        params["layers"], head, microbatch(x, n_microbatches),
+        microbatch(targets, n_microbatches), mesh=mesh)
+    return loss, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: Rules,
-                  grad_bucket_bytes: int) -> Callable:
-    """The step over a dp x fsdp x ep x tp x sp mesh (see the module's
-    docstring)."""
+                  grad_bucket_bytes: int, n_microbatches: int, pp_schedule: str) -> Callable:
+    """The step over a dp x pp x fsdp x ep x tp x sp mesh (see the
+    module's docstring)."""
     fsdp, dp, ep = mesh.axis("fsdp"), mesh.axis("dp"), mesh.axis("ep")
-    tp, sp = mesh.axis("tp"), mesh.axis("sp")
-    specs = state_specs(cfg, rules).params
-    bucketed = grad_bucket_bytes > 0 and dp.size > 1
+    tp, sp, pp = mesh.axis("tp"), mesh.axis("sp"), mesh.axis("pp")
+    specs = state_specs(cfg, mesh_rules(rules, mesh)).params
+    # the reference reads the bucket size at pp 1 only
+    bucketed = grad_bucket_bytes > 0 and dp.size > 1 and pp.size == 1
+    pp_loss = pp_loss_from_pairs if pp_schedule == "gpipe" else pp_1f1b_loss_from_pairs
     if (cfg.is_moe or tp.size > 1 or sp.size > 1) and get_default_mesh() is not mesh:
         raise ValueError("a step over tp or sp, or of a MoE model, reads its mesh from the "
                          "default mesh: set_default_mesh(mesh) first, as fit() does")
-    # the ring takes a dense trunk projection where overlap_matmul will apply
-    ring = bool(cfg.overlap_impl) and get_default_mesh() is mesh
+    # the ring takes a dense trunk projection where overlap_matmul will
+    # apply: never inside a pipeline stage
+    ring = bool(cfg.overlap_impl) and get_default_mesh() is mesh and pp.size == 1
     # tp does not divide the kv heads: wk and wv reach the trunk whole
     whole_kv = tp.size > 1 and cfg.n_kv_heads % tp.size != 0
 
@@ -324,14 +440,14 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
         for d, entry in enumerate(spec):
             for a in reversed(entry_axes(entry)):      # innermost first, as unshard
                 if mesh.shape[a] > 1:
-                    if a not in _TRAIN_AXES:
+                    if a == "pp" and (path[0], d) != ("layers", 0):
                         raise NotImplementedError(
-                            f"{'.'.join(path)}: spec {spec} splits a parameter over {a} "
-                            "(ROADMAP queue 1, item 8)")
+                            f"{'.'.join(path)}: spec {spec} splits over pp a dim other "
+                            "than the stacked layers', which a pipeline stage takes")
                     split.append((d, a))
         trunk = path[0] == "layers" and path[-1] in _TRUNK_LEAVES
         kv = trunk and path[-1] in ("wk", "wv")
-        kept = set()
+        kept = {"pp"} if path[0] == "layers" else set()     # a stage takes its block
         if cfg.is_moe and path[0] == "layers" and path[-1] in _EXPERT_LEAVES:
             kept.add("ep")         # the MoE block consumes this rank's experts
         elif ring and trunk:
@@ -361,10 +477,14 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
             used.append(t)
         it = iter(used)
         view = tree_map(lambda _: next(it), state.params)
-        loss, aux = llama.loss_and_aux(view, inputs, targets, cfg)
+        if pp.size > 1:
+            loss, aux = pp_loss(view, inputs, targets, cfg=cfg, mesh=mesh,
+                                n_microbatches=n_microbatches)
+        else:
+            loss, aux = llama.loss_and_aux(view, inputs, targets, cfg)
         # every rank's loss is the mean over its rows (its sequence block
         # under sp); bucketed, the gradient is the dp shard's mean loss's,
-        # scaled by 1/dp below. tp ranks share their rows: no scale
+        # scaled by 1/dp below. tp and pp ranks share their rows: no scale
         scale = 1.0 / (fsdp.size * ep.size * sp.size * (1 if bucketed else dp.size))
         grads = list(torch.autograd.grad(loss * scale, leaves))
         for axis in (fsdp, ep, sp):
@@ -382,7 +502,7 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
                                   if bucketed else _total_bytes(grads))
         # squares of the blocks summed across them, each block counted on
         # the first index of every axis it is not split over
-        counted = (fsdp, ep, tp, sp)
+        counted = (fsdp, ep, tp, sp, pp)
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
         for g, (_, split) in zip(grads, plans):
             if all(a.name in split or a.index == 0 for a in counted):
@@ -421,17 +541,20 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
     ``moe_aux_coef``. Over a ``mesh`` of more than one rank, ``state`` is
     this rank's blocks and ``inputs``/``targets`` its rows
     (``make_batches(mesh=)``), and the metrics are the global batch's.
-    ``grad_bucket_bytes`` (> 0, dp > 1) reduces the dp gradients in
+    ``grad_bucket_bytes`` (> 0, dp > 1, pp 1) reduces the dp gradients in
     buckets of that many bytes; elsewhere it is not read, as in the
+    reference. A mesh with pp above 1 trains under ``pp_rules(rules)``
+    with the ``pp_schedule`` pipeline ('gpipe' or '1f1b') over
+    ``n_microbatches`` microbatches (0: two a stage); at pp 1 neither is
+    read, but an unknown schedule raises there too, as in the
     reference."""
-    if pp_schedule not in ("gpipe", "1f1b"):
+    if pp_schedule not in PP_SCHEDULES:
         raise ValueError(f"unknown pp_schedule {pp_schedule!r} (expected gpipe | 1f1b)")
-    sharded = _check_mesh(mesh)
+    sharded = _sharded(mesh)
     if sharded:
         check_model_mesh(cfg, mesh.shape)
-    if n_microbatches:
-        raise NotImplementedError("pipeline microbatches need a pp mesh, not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+        if mesh.shape["pp"] > 1 and pp_schedule == "1f1b":
+            check_1f1b(cfg)
     if monitors:
         raise NotImplementedError(
             "the numerics-health monitors are not ported yet (ROADMAP queue 1, "
@@ -439,7 +562,8 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
     if cfg.remat:
         llama._remat_policy(cfg.remat_policy)     # an unknown name fails here
     if sharded:
-        return _sharded_step(cfg, optimizer, mesh, rules, int(grad_bucket_bytes or 0))
+        return _sharded_step(cfg, optimizer, mesh, rules, int(grad_bucket_bytes or 0),
+                             n_microbatches or 2 * mesh.shape["pp"], pp_schedule)
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
         _check_default_mesh(None)
@@ -458,7 +582,8 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
 
 
 __all__ = [
-    "AdamW", "TrainState", "check_mesh_axes", "check_model_mesh", "default_optimizer",
-    "global_norm",
-    "make_train_state", "make_train_step", "state_specs", "tree_leaves", "tree_map",
+    "AdamW", "PP_SCHEDULES", "TrainState", "check_1f1b", "check_model_mesh",
+    "default_optimizer", "global_norm", "make_train_state", "make_train_step",
+    "pp_1f1b_loss_from_pairs", "pp_loss_from_pairs", "pp_rules", "state_specs",
+    "tree_leaves", "tree_map",
 ]

@@ -37,7 +37,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    empty expert's dW exactly 0, and torch._grouped_mm's time beside each
    (dW's with a float32 output where this torch computes one), then the
    three again in bf16 at phase 8's layout (ep rank 0's 4 local experts
-   over every token's routes, the other rank's riding in group 0), and one
+   over every token's routes, the other rank's riding in group 0) and at
+   phase 11's (a tp 2 rank's 1408 of 2816 ffn columns of every expert: a
+   128-column tail past the 256-column tiles), and one
    bench_moe MoE block forward and backward under
    ``set_sync_debug_mode("error")``;
    then (3d) the quantized decode-attention kernel against its plain
@@ -106,7 +108,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    breakdown, bf16 and quantized (the dequant-matmul's ms a step). Then a
    2-layer
    cross-check of the quantized engine on the card against the same
-   engine on the CPU (plain versions);
+   engine on the CPU (plain versions). Then (4d) phase 4's engine and 16
+   requests with ``chunk_tokens=256``: the decode kernel once per layer
+   and decode step, the chunks the prompts imply, each greedy request's
+   tokens teacher-forced as 4c holds them (the limit from phase 4's own
+   trail), TTFT of the long prompts and the step times with and without
+   a chunk beside phase 4's; and (4e) the KV handoff: a bf16 and an int8
+   engine of phase 4's config export the shared 256-token prefix's
+   blocks, which cross the wire form into a fresh engine: adopted (4, 0)
+   then (0, 4), read back byte-equal, and the adopter's greedy tokens on
+   a prompt extending the prefix equal the exporter's;
 5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
    batch 8 x 2048, the production recipe: flash attention, remat
    ``save_attn_kernel``, scan CE, bf16 Adam first moment), 10 steps from
@@ -131,7 +142,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul;
 7. fsdp training: two rank processes on this one card (``--rank``; phases
-   7-10 share them, one process start and one warm-up for all four),
+   7-12 share them, one process start and one warm-up for all six),
    each bringing up a gloo group over tcp://localhost and calling the
    port's own ``fit()`` on bench_1b4 at full width and depth with
    ``mesh_shape=MeshShape(fsdp=2)`` and ``overlap_impl="pallas"``, phase
@@ -188,7 +199,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    every rank; 1F1B: the forward 3 x 12 x M on the first stage, 2 x on
    the last, the CE head M times on the last stage alone), kernel 14
    never, no plain version; each run's step times, transport, payload a
-   rank a step by kind and peak memory per rank printed, M 4 beside M 8.
+   rank a step by kind and peak memory per rank printed, M 4 beside M 8;
+11. MoE at tp: in the same two rank processes, ``fit()`` on bench_moe at
+   full width and depth at ``MeshShape(tp=2)`` (each rank every expert's
+   1408 of 2816 ffn columns, 8 of the 16 heads, all 8 x 2048 rows), phase
+   6's recipe, data and initial parameters, 3 steps: each step's loss and
+   aux within 2e-2 of phase 6's and its grad norm within 1e-2 relative;
+   kernels 11-13 and the flash kernels launched phase 6's count per layer
+   and step on each rank, on their tensor-core instances, no plain
+   version; step time, payload a rank a step by kind and peak memory per
+   rank printed;
+12. a capacity dispatch over a mesh: in the same two rank processes,
+   ``fit()`` on bench_moe at full width cut to 2 layers with
+   ``moe_dispatch="gather"`` at ``MeshShape(dp=2)``, 2 steps, against the
+   same fit() in the main process: losses and aux within 2e-2, each flash
+   kernel once per layer and step, no grouped kernel, payload printed.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -202,7 +227,7 @@ The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
-phases 7 and 8 rank 0's, phases 9 and 10 each rank's),
+phases 7 and 8 rank 0's, phases 9 to 12 each rank's),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -737,8 +762,10 @@ def serve_run(engine, cfg, reqs, rng) -> tuple[dict, dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_attn()
     reset_mm()
+    chunks0 = engine.prefill_chunks
     t0 = time.perf_counter()
     ids = [engine.submit(r) for r in reqs]
+    steps = serve_steps(engine)
     out = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -752,8 +779,9 @@ def serve_run(engine, cfg, reqs, rng) -> tuple[dict, dict, dict]:
                                  f"{c.finish_reason!r}")
         if not all(0 <= t < cfg.vocab_size for t in c.tokens):
             raise AssertionError(f"request {rid}: token outside the vocabulary")
-    if m.prefix_hit_tokens < 256:
+    if m.prefix_hit_tokens < 256 and not engine.serve.chunk_tokens:
         raise AssertionError(f"prefix reuse did not fire ({m.prefix_hit_tokens})")
+    decoding = [r["wall_ms"] for r in steps if r["decode_ms"] > 0]
     figures = {
         "requests": len(out), "decode_steps": m.decode_steps,
         "decode_tokens_per_s": m.decode_tokens_per_sec,
@@ -762,8 +790,27 @@ def serve_run(engine, cfg, reqs, rng) -> tuple[dict, dict, dict]:
         "prefix_hit_tokens": m.prefix_hit_tokens,
         "kv_bytes_per_token": m.kv_bytes_per_token,
         "wall_s": wall, "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "steps": steps, "prefill_chunks": engine.prefill_chunks - chunks0,
+        # the engine steps with slots decoding: their wall time is what a
+        # decoding stream waits between two tokens
+        "p50_step_ms": float(np.median(decoding)), "max_step_ms": max(decoding),
     }
     return {i: out[rid] for i, rid in enumerate(ids)}, launches, figures
+
+
+def serve_steps(engine) -> list[dict]:
+    """Drive ``engine`` step by step until its queue and slots drain: each
+    step's wall time, its decode step's own time (``DecodeMetrics``; 0
+    where no slot decoded) and the prompt chunks it prefilled."""
+    rows = []
+    while engine.stats_snapshot()["queue_depth"] or engine.n_live:
+        m = engine.metrics
+        t0, d0, c0 = time.perf_counter(), m.decode_s, engine.prefill_chunks
+        engine.step()
+        rows.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "decode_ms": (m.decode_s - d0) * 1e3,
+                     "chunks": engine.prefill_chunks - c0})
+    return rows
 
 
 def serve_phase(cfg, params) -> dict:
@@ -790,7 +837,8 @@ def serve_phase(cfg, params) -> dict:
     if solo[0, len(prompts[0]):].tolist() != out[0].tokens:
         raise AssertionError("generate() differs from the engine on request 0")
     return {**figures, **breakdown, "launches": launches["paged_decode_attention"],
-            "tokens": [c.tokens for c in out.values()]}
+            "tokens": [c.tokens for c in out.values()],
+            "ttft_s": [c.ttft_s for c in out.values()]}
 
 
 def quant_serve_phase(cfg, params, bf16: dict) -> dict:
@@ -1178,6 +1226,155 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
     return res
 
 
+# --- phase 4d: chunked prefill at full width -----------------------------------
+
+# phase 4's engine with prompts past this many tokens prefilled a chunk per
+# engine step (4 kv blocks of 64)
+CHUNK_TOKENS = 256
+
+
+def chunked_serve_phase(cfg, params, bf16: dict) -> dict:
+    """Phase 4d: phase 4's engine, weights and 16 requests with
+    ``chunk_tokens=CHUNK_TOKENS``. Held: the paged decode kernel once per
+    layer and decode step, no plain version; as many chunks as the
+    prompts imply (a prompt of n > 256 tokens ceil(n / 256), the others
+    none: the two sharing a prefix are admitted in one step, so neither
+    finds the other's blocks registered yet); and each greedy request's
+    tokens, teacher-forced through the plain float32 forward
+    (``teacher_forced``), within the limit of phase 4c's rule: twice the
+    larger of twice the bf16 noise and how far phase 4's unchunked tokens
+    of the same request trail. A chunk attends the bf16 K/V earlier chunks
+    wrote, where an unchunked prefill attends its own: the same values,
+    summed by other matmul shapes, so near-ties may part. Reported: TTFT of
+    the prompts over 256 tokens beside phase 4's, the decode step's time
+    and the step's wall time while a prompt chunks beside the other steps
+    and phase 4's."""
+    from tony_tpu_torch.serve import Engine, ServeConfig
+
+    sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True, chunk_tokens=CHUNK_TOKENS)
+    engine = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+    prompts, reqs, rng = serve_requests(cfg)
+    out, launches, figures = serve_run(engine, cfg, reqs, rng)
+    del engine
+    torch.cuda.empty_cache()
+    want = figures["decode_steps"] * cfg.n_layers
+    if launches["paged_decode_attention"] != want or launches["paged_decode_attention_plain"]:
+        raise AssertionError(f"chunked: launches {launches} != decode steps x {cfg.n_layers}")
+    long = [i for i, p in enumerate(prompts) if len(p) > CHUNK_TOKENS]
+    chunks = sum(-(-len(prompts[i]) // CHUNK_TOKENS) for i in long)
+    if figures["prefill_chunks"] != chunks:
+        raise AssertionError(f"chunked: {figures['prefill_chunks']} chunks, the prompts "
+                             f"imply {chunks}")
+    greedy = [i for i in range(len(reqs)) if i % 2 == 0]
+    gaps_on, gaps_off, noise = [], [], 0.0
+    for i in greedy:
+        gaps, n = teacher_forced(params, cfg, prompts[i], [out[i].tokens, bf16["tokens"][i]],
+                                 False)
+        gaps_on.append(gaps[0])
+        gaps_off.append(gaps[1])
+        noise = max(noise, n)
+        torch.cuda.empty_cache()
+    trail_on = max(float(g.max()) for g in gaps_on)
+    trail_off = max(float(g.max()) for g in gaps_off)
+    limit = 2 * max(2 * noise, trail_off)
+    if not trail_on <= limit:
+        raise AssertionError(f"chunked: an emitted token trails the reference's top logit by "
+                             f"{trail_on:.4e}, over the limit {limit:.4e}")
+    rows = figures["steps"]
+    chunking = [r for r in rows if r["chunks"] and r["decode_ms"]]
+    plain = [r for r in rows if not r["chunks"] and r["decode_ms"]]
+    mean = lambda xs: sum(xs) / len(xs) if xs else math.nan  # noqa: E731
+    return {**figures, "launches": launches["paged_decode_attention"], "chunks": chunks,
+            "long": long, "trail_on": trail_on, "trail_off": trail_off, "noise": noise,
+            "limit": limit,
+            "equal": sum(out[i].tokens == bf16["tokens"][i] for i in greedy),
+            "top": sum(int((g == 0).sum()) for g in gaps_on), "greedy": len(greedy),
+            "ttft_long_s": mean([out[i].ttft_s for i in long]),
+            "ttft_long_phase4_s": mean([bf16["ttft_s"][i] for i in long]),
+            "decode_ms_chunking": mean([r["decode_ms"] for r in chunking]),
+            "decode_ms_other": mean([r["decode_ms"] for r in plain]),
+            "wall_ms_chunking": mean([r["wall_ms"] for r in chunking]),
+            "wall_ms_other": mean([r["wall_ms"] for r in plain]),
+            "steps_chunking": len(chunking)}
+
+
+# --- phase 4e: the blockwise KV handoff between engines ---------------------------
+
+HANDOFF_PREFIX = 256
+HANDOFF_NEW = 32
+
+
+def handoff_phase(cfg, params) -> dict:
+    """Phase 4e: for a bf16 engine and an int8 one (int8 KV pools and int8
+    decode weights), each with phase 4's ServeConfig on phase 4's weights:
+    the exporter serves request 6 (whose first 256 tokens request 7
+    shares) and exports the shared prefix's blocks; they cross the wire
+    form (``pack_payload`` / ``unpack_payload``) and a fresh engine of the
+    same config adopts them. Held: the first adopt takes every block and a
+    second frees them all; the adopted blocks and scale rows, read back,
+    byte-equal to the export; request 7's greedy tokens on the adopter
+    equal the exporter's served from its own store (both a tail prefill
+    over the same bytes, then the same decode steps), both hitting the
+    whole prefix; the decode kernel (kernel 9 when quantized) once per
+    layer and decode step, no plain version."""
+    from tony_tpu_torch.serve import Engine, Request, ServeConfig
+    from tony_tpu_torch.serve.cache import export_blocks, pack_payload, unpack_payload
+
+    prompts, _, _ = serve_requests(cfg)
+    prefix = prompts[6][:HANDOFF_PREFIX].tolist()
+    out = {}
+    for label, quant in (("bf16", {}), ("int8", dict(quant_kv="int8", quant_weights=True))):
+        sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True, **quant)
+        src = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+        src.run([Request(prompt=prompts[6], max_new_tokens=1)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        covered, payload = src.export_prefix_blocks(prefix)
+        export_s = time.perf_counter() - t0
+        wire = pack_payload(payload)
+        back = unpack_payload(**wire)
+        n = payload.n_blocks
+        dst = Engine(params, cfg, ServeConfig(**sv), device="cuda")
+        t0 = time.perf_counter()
+        first = dst.adopt_blocks(covered, back)
+        torch.cuda.synchronize()
+        adopt_s = time.perf_counter() - t0
+        second = dst.adopt_blocks(covered, back)
+        if covered != prefix or (first, second) != ((n, 0), (0, n)):
+            raise AssertionError(f"handoff {label}: covered {len(covered)} tokens, adopt "
+                                 f"{first} then {second}, not ({n}, 0) then (0, {n})")
+        again = export_blocks(dst.cache, list(dst._store.match(covered, len(covered)).full))
+        parts = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+        for part in parts:
+            a, b = getattr(again, part), getattr(payload, part)
+            if a.dtype != b.dtype or not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"handoff {label}: adopted {part} differs from the export")
+        tokens, launches = [], []
+        for engine in (dst, src):
+            reset_counts()
+            res = engine.run([Request(prompt=prompts[7], max_new_tokens=HANDOFF_NEW)])
+            c = next(iter(res.values()))
+            counts = launch_counts()
+            kernel = "paged_decode_attention_quant" if quant else "paged_decode_attention"
+            steps = engine.metrics.decode_steps
+            if counts[kernel] != (HANDOFF_NEW - 1) * cfg.n_layers or any(
+                    v for k, v in counts.items() if k.endswith("_plain")):
+                raise AssertionError(f"handoff {label}: launches {counts} ({steps} steps)")
+            tokens.append(c.tokens)
+            launches.append(counts[kernel])
+        hits = [e.metrics.prefix_hit_tokens for e in (dst, src)]
+        if tokens[0] != tokens[1] or hits[0] < HANDOFF_PREFIX:
+            raise AssertionError(f"handoff {label}: adopter's tokens {tokens[0][:8]}... differ "
+                                 f"from the exporter's {tokens[1][:8]}..., or prefix hits {hits}")
+        out[label] = {"blocks": n, "payload_bytes": payload.nbytes,
+                      "wire_bytes": sum(len(v) for v in wire.values() if isinstance(v, bytes)),
+                      "export_s": export_s, "adopt_s": adopt_s, "hits": hits,
+                      "launches": launches[0], "first": first, "second": second}
+        del src, dst, payload, back, again
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_modules() -> list:
     """Every module of ``tony_tpu_torch.ops`` that holds a kernel wrapper
     (the package exports a function named decode_attention, so the modules
@@ -1504,7 +1701,7 @@ def flash_cases(dtype: torch.dtype, flush: torch.Tensor, label: str, B: int,
 MOE_T, MOE_D, MOE_F, MOE_E, MOE_K, MOE_BLOCK = 16384, 1024, 2816, 8, 2, 128
 
 
-def gmm_inputs(ep: int = 1) -> dict:
+def gmm_inputs(ep: int = 1, tp: int = 1) -> dict:
     """bench_moe's grouped-matmul operands, float32 on the card: a real
     router draw (normal activations, a float32 router scaled as
     ``init_moe_params`` scales it) with expert 7 forced empty, its top-2
@@ -1514,12 +1711,15 @@ def gmm_inputs(ep: int = 1) -> dict:
     With ``ep`` above 1, ep rank 0's layout at phase 8's shape: every
     token's routes (the batch's rows gathered over ep), those to the rank's
     E / ep experts in their groups, the others riding along in group 0
-    (``parallel/moe.py`` ``_chunk_ffn``)."""
+    (``parallel/moe.py`` ``_chunk_ffn``). With ``tp`` above 1, a tp rank's
+    block at phase 11's shape: every expert's routes, each expert's
+    ``F / tp`` ffn columns (1408 at tp 2: 5.5 of the kernels' 256-column
+    tiles, so every forward and dW launch has a 128-column tail)."""
     from tony_tpu_torch.parallel.moe import (
         MoEConfig, _route_tokens, _top_k_select, route_rows,
     )
 
-    T, D, F, E = MOE_T, MOE_D, MOE_F, MOE_E
+    T, D, F, E = MOE_T, MOE_D, MOE_F // tp, MOE_E
     gen = torch.Generator(device="cuda").manual_seed(7)
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
     flat = randn(T, D)
@@ -1540,6 +1740,7 @@ def gmm_inputs(ep: int = 1) -> dict:
     ends = torch.searchsorted(tile_group, groups, right=True) * MOE_BLOCK
     return {
         "sizes": sizes.tolist(), "tile_group": tile_group, "rows": N, "routes": R, "ep": ep,
+        "tp": tp,
         # group g ends at offs[g] in the buffer (torch._grouped_mm's offsets)
         "offs": ends.to(torch.int32),
         "w1": (rows(flat.index_select(0, _route_tokens(T, MOE_K, "cuda"))),
@@ -1628,7 +1829,7 @@ def gmm_cases(dtype: torch.dtype, flush: torch.Tensor, inputs: dict) -> list[dic
             ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
             cases.append({
                 "name": name, "direction": label, "dtype": str(dtype).replace("torch.", ""),
-                "ep": inputs["ep"],
+                "ep": inputs["ep"], "tp": inputs["tp"],
                 "instance": kernel_instance(name, dtype, MOE_BLOCK),
                 "rows": N, "routes": R, "d_in": d_in, "d_out": d_out, "experts": E,
                 "max_abs_err": max_err, "ok": ok, "atol": atol, "rtol": rtol,
@@ -2242,7 +2443,7 @@ def train_moe_phase(card: str) -> dict:
     flops = train_flops_per_token(cfg, data.seq_len)
     return {
         "losses": losses, "aux": [m["aux"] for m in steps], "launches": launches,
-        "instances": instances,
+        "grad_norms": [m["grad_norm"] for m in steps], "instances": instances,
         "wall_s": wall, "final": final, "mean_step_ms": step_s * 1e3,
         "tokens_per_s": tokens / step_s, "mfu": tokens / step_s * flops / 989e12,
         "flops_per_token": flops, "n_params": cfg.n_params,
@@ -2872,17 +3073,211 @@ def pp_phase(card: str, dense: dict, shared: list) -> dict:
     return out
 
 
-# --- phases 7-10: one pair of rank processes on the card ----------------------------
+# --- phase 11: MoE at tp 2, two ranks on one card ----------------------------------
+
+MOE_TP = 2
+MOE_TP_STEPS = 3
+# each step's loss and aux (absolute) and grad norm (relative) against phase
+# 6's: the bf16 expert FFN's two ffn halves rounded apart and summed over tp
+# move a near-tie route now and then, as phase 8's ep sums do (2e-2 there),
+# and the two runs part further with each update: the H100 measured 1.7e-3
+# (loss), 4.3e-3 (aux) and 1.6e-3 (grad norm, relative) at step 3. The CPU
+# tests hold the router's gradient over tp to 1e-4 (tests/test_torch_moe_tp.py)
+MOE_TP_ATOL = 2e-2
+MOE_TP_GRAD_NORM_RTOL = 1e-2
+
+
+def moe_tp_runs(rank: int) -> dict:
+    """Phase 11 on this rank of the shared rank processes: the port's own
+    fit() on bench_moe at tp 2, phase 6's recipe; what it saw."""
+    from tony_tpu_torch.ops import attention, grouped_mm
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.parallel.mesh import MeshShape
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    cfg = moe_train_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    steps: list[dict] = []
+    grouped_mm.reset_launches()
+    attention.reset_launches()
+    pdist.reset_bytes()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = fit(FitConfig(model=cfg, data=data, mesh_shape=MeshShape(tp=MOE_TP),
+                          steps=MOE_TP_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
+                          mu_dtype="bfloat16", on_metrics=steps.append), device="cuda")
+    res = {"rank": rank, "metrics": steps, "final": final, "wall_s": time.perf_counter() - t0,
+           "launches": {**grouped_mm.LAUNCHES, **attention.LAUNCHES},
+           "bytes_per_step": {k: v / MOE_TP_STEPS for k, v in pdist.BYTES.items()},
+           "transport": rank_transport(), "instances": check_tensor_core_path(cfg),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_tp_phase(card: str, moe: dict, shared: list) -> dict:
+    """Phase 11, from the shared rank processes' results: fit() on
+    bench_moe at full width and depth at tp 2 (each rank every expert's
+    1408 of 2816 ffn columns, 8 of the 16 heads, and all 8 x 2048 rows),
+    phase 6's recipe, data and initial parameters, the grouped kernels
+    (``moe_gmm_impl="pallas"``). Each step's loss and aux within
+    MOE_TP_ATOL of phase 6's and its grad norm within MOE_TP_GRAD_NORM_RTOL
+    (the same bf16 model and batches; the schedule matches phase 6's up to
+    step MOE_TP_STEPS); on each rank kernels 11-13 and the flash kernels
+    launched phase 6's count per layer and step (each rank runs every
+    route through its ffn block), on their tensor-core instances, no plain
+    version."""
+    ranks = [r["11"] for r in shared]
+    cfg = moe_train_config()
+    want = {n: per * cfg.n_layers * MOE_TP_STEPS
+            for n, per in MOE_LAUNCHES_PER_LAYER_STEP.items()}
+    want.update({f"{n}_plain": 0 for n in MOE_LAUNCHES_PER_LAYER_STEP})
+    for r in ranks:
+        got = {n: r["launches"][n] for n in want}
+        if got != want:
+            raise AssertionError(f"moe tp rank {r['rank']}: launches {got} != {want}")
+        if any(v != "tensor cores" for v in r["instances"].values()):
+            raise AssertionError(f"moe tp rank {r['rank']} off the tensor cores: "
+                                 f"{r['instances']}")
+    if ranks[1]["metrics"]:
+        raise AssertionError("moe tp: rank 1 reported metrics: rank 0 alone reports")
+    metrics = ranks[0]["metrics"]
+    losses = [m["loss"] for m in metrics]
+    aux = [m["aux"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    if len(losses) != MOE_TP_STEPS or not all(math.isfinite(x) for x in losses + aux + norms):
+        raise AssertionError(f"moe tp losses {losses} aux {aux} grad norms {norms}")
+    diffs = [abs(a - b) for a, b in zip(losses, moe["losses"])]
+    aux_diffs = [abs(a - b) for a, b in zip(aux, moe["aux"])]
+    norm_diffs = [abs(a - b) / b for a, b in zip(norms, moe["grad_norms"])]
+    if max(diffs + aux_diffs) > MOE_TP_ATOL or max(norm_diffs) > MOE_TP_GRAD_NORM_RTOL:
+        raise AssertionError(f"moe tp losses {losses}, aux {aux}, grad norms {norms} against "
+                             f"phase 6's {moe['losses'][:MOE_TP_STEPS]}, "
+                             f"{moe['aux'][:MOE_TP_STEPS]}, {moe['grad_norms'][:MOE_TP_STEPS]}")
+    for m, ref, ref_aux, ref_norm in zip(metrics, moe["losses"], moe["aux"],
+                                         moe["grad_norms"]):
+        log(f"train bench_moe tp={MOE_TP} step {m['step']}: loss {m['loss']:.4f} (phase 6 "
+            f"{ref:.4f}) aux {m['aux']:.5f} ({ref_aux:.5f}) grad_norm {m['grad_norm']:.4f} "
+            f"({ref_norm:.4f}) {m['step_time_s'] * 1e3:.1f} ms over "
+            f"{ranks[0]['transport']}  [{card}]")
+    return {"ranks": ranks, "losses": losses, "aux": aux, "grad_norms": norms,
+            "loss_diffs": diffs, "aux_diffs": aux_diffs, "grad_norm_rel_diffs": norm_diffs,
+            "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+            "bytes_per_step": ranks[0]["bytes_per_step"], "transport": ranks[0]["transport"],
+            "launches": [r["launches"] for r in ranks],
+            "peak_gb": [r["peak_allocated_gb"] for r in ranks],
+            "wall_s": max(r["wall_s"] for r in ranks)}
+
+
+# --- phase 12: a capacity dispatch at dp 2, two ranks on one card --------------------
+
+CAPACITY_LAYERS = 2
+CAPACITY_STEPS = 2
+# the same bf16 model and batches: the slot buffer's sum over dp adds each
+# slot to zeros (exact) and the router's statistics sum in another order;
+# the dp all-reduce sums the bf16 gradients in another order, which the
+# second step's loss carries
+CAPACITY_ATOL = 2e-2
+
+
+def capacity_config():
+    """bench_moe at full width, 2 layers, the capacity dispatch 'gather'
+    (capacity factor 1.25, the reference's default), phase 6's recipe
+    otherwise."""
+    return dataclasses.replace(moe_train_config(), n_layers=CAPACITY_LAYERS,
+                               moe_dispatch="gather")
+
+
+def capacity_fit(mesh_shape) -> dict:
+    """fit() on ``capacity_config()`` for CAPACITY_STEPS steps over
+    ``mesh_shape`` (None: one process): the metrics, the flash launches,
+    the payload a step and the peak memory."""
+    from tony_tpu_torch.ops import attention, grouped_mm
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    cfg = capacity_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+    steps: list[dict] = []
+    attention.reset_launches()
+    grouped_mm.reset_launches()
+    pdist.reset_bytes()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit(FitConfig(model=cfg, data=data, mesh_shape=mesh_shape, steps=CAPACITY_STEPS,
+                  log_every=1, lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
+                  on_metrics=steps.append), device="cuda")
+    res = {"metrics": steps, "wall_s": time.perf_counter() - t0,
+           "launches": {**attention.LAUNCHES, **grouped_mm.LAUNCHES},
+           "bytes_per_step": {k: v / CAPACITY_STEPS for k, v in pdist.BYTES.items()},
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+    return res
+
+
+def capacity_runs(rank: int) -> dict:
+    """Phase 12 on this rank of the shared rank processes: the capacity
+    dispatch at dp 2."""
+    from tony_tpu_torch.parallel.mesh import MeshShape
+
+    return {"rank": rank, "transport": rank_transport(),
+            **capacity_fit(MeshShape(dp=2))}
+
+
+def capacity_phase(card: str, one: dict, shared: list) -> dict:
+    """Phase 12, from the shared rank processes' results and ``one``, the
+    same fit() in one process: each rank its 4 of the 8 x 2048 rows, the
+    queue positions and the capacity over the global batch, the slot
+    buffer all-reduced over dp. Each step's loss and aux within
+    CAPACITY_ATOL of the one-process run's; on each rank each flash kernel
+    once per layer and step, no grouped-matmul kernel (the capacity
+    dispatch runs the expert FFN as batched matmuls), no plain version."""
+    ranks = [r["12"] for r in shared]
+    cfg = capacity_config()
+    for r in ranks + [one]:
+        want = {n: cfg.n_layers * CAPACITY_STEPS for n in FLASH_KERNELS}
+        want.update({f"{n}_plain": 0 for n in FLASH_KERNELS})
+        want.update({n: 0 for n in GMM_KERNELS})
+        got = {n: r["launches"][n] for n in want}
+        if got != want:
+            raise AssertionError(f"capacity dp: launches {got} != {want}")
+    if ranks[1]["metrics"]:
+        raise AssertionError("capacity dp: rank 1 reported metrics: rank 0 alone reports")
+    got, ref = ranks[0]["metrics"], one["metrics"]
+    vals = [(m["loss"], m["aux"], r["loss"], r["aux"]) for m, r in zip(got, ref)]
+    diffs = [max(abs(a - c), abs(b - d)) for a, b, c, d in vals]
+    if len(vals) != CAPACITY_STEPS or not all(math.isfinite(x) for v in vals for x in v) \
+            or max(diffs) > CAPACITY_ATOL:
+        raise AssertionError(f"capacity dp (loss, aux, one-process loss, aux): {vals}")
+    for m, r in zip(got, ref):
+        log(f"train bench_moe {CAPACITY_LAYERS} layers dispatch=gather dp=2 step {m['step']}: "
+            f"loss {m['loss']:.4f} (one process {r['loss']:.4f}) aux {m['aux']:.5f} "
+            f"({r['aux']:.5f}) {m['step_time_s'] * 1e3:.1f} ms over {ranks[0]['transport']} "
+            f"(one process {r['step_time_s'] * 1e3:.1f} ms)  [{card}]")
+    return {"ranks": ranks, "diffs": diffs, "bytes_per_step": ranks[0]["bytes_per_step"],
+            "step_ms": [m["step_time_s"] * 1e3 for m in got],
+            "one_step_ms": [m["step_time_s"] * 1e3 for m in ref],
+            "peak_gb": [r["peak_allocated_gb"] for r in ranks],
+            "one_peak_gb": one["peak_allocated_gb"], "transport": ranks[0]["transport"],
+            "launches": [r["launches"] for r in ranks],
+            "wall_s": max(r["wall_s"] for r in ranks)}
+
+
+# --- phases 7-12: one pair of rank processes on the card ----------------------------
 
 RANKS = 2
 RANK_TIMEOUT_S = 900
 
 
 def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
-    """One of the two rank processes phases 7-10 share: bring up a gloo
-    group over tcp://localhost on this card, then run phase 7's, 8's, 9's
-    and 10's fit() calls in turn (one process start and one warm-up for
-    all four), and write what each saw to ``out``."""
+    """One of the two rank processes phases 7-12 share: bring up a gloo
+    group over tcp://localhost on this card, then run phase 7's to 12's
+    fit() calls in turn (one process start and one warm-up for all six),
+    and write what each saw to ``out``."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -2890,7 +3285,8 @@ def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=RANKS)
     res = {"rank": rank, "7": fsdp_runs(rank), "8": ep_runs(rank, ckpt_dir),
-           "9": par_runs(rank), "10": pp_runs()}
+           "9": par_runs(rank), "10": pp_runs(), "11": moe_tp_runs(rank),
+           "12": capacity_runs(rank)}
     dist.barrier()
     dist.destroy_process_group()
     with open(out, "w") as f:
@@ -2899,10 +3295,11 @@ def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
 
 
 def rank_phases() -> list[dict]:
-    """Start the two rank processes of phases 7-10 (``--rank``), wait for
+    """Start the two rank processes of phases 7-12 (``--rank``), wait for
     both within RANK_TIMEOUT_S, and return what each rank saw; the phases'
     checks read it (``fsdp_phase``, ``ep_phase``, ``par_phase``,
-    ``pp_phase``). A rank that fails fails them all."""
+    ``pp_phase``, ``moe_tp_phase``, ``capacity_phase``). A rank that fails
+    fails them all."""
     import shutil
     import socket
     import tempfile
@@ -2925,13 +3322,13 @@ def rank_phases() -> list[dict]:
                 p.wait()
     if any(codes):
         shutil.rmtree(tmp, ignore_errors=True)
-        raise AssertionError(f"phase 7-10 rank processes exited {codes}")
+        raise AssertionError(f"phase 7-12 rank processes exited {codes}")
     ranks = []
     for path in outs:
         with open(path) as f:
             ranks.append(json.load(f))
     shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phases 7-10 rank processes: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 7-12 rank processes: {time.perf_counter() - t0:.1f} s")
     return ranks
 
 
@@ -3059,6 +3456,26 @@ def main() -> int:
            if not c["ok"] or c["instance"] != "tensor cores"]
     if bad:
         raise AssertionError(f"grouped matmul at the ep rank's layout: over tolerance or "
+                             f"off the tensor cores: {bad}")
+    del inputs
+    # phase 11's path: a tp rank's ffn block of every expert, bf16
+    inputs = gmm_inputs(tp=MOE_TP)
+    log(f"grouped matmul inputs at tp={MOE_TP}, rank block: {inputs['routes']} routes in "
+        f"{inputs['rows']} buffer rows, F {MOE_F // MOE_TP} a rank (a 128-column tail past "
+        f"the 256-column tiles)")
+    gmm_tp = gmm_cases(torch.bfloat16, flush, inputs)
+    for c in gmm_tp:
+        log(f"kernel {c['name']} {c['direction']} bf16 tp={MOE_TP} rank block ({c['instance']}) "
+            f"rows={c['rows']} {c['d_in']}->{c['d_out']} E={c['experts']}: max|err| "
+            f"{c['max_abs_err']:.3e} ({'ok' if c['ok'] else 'OVER'})  {c['ms']:.3f} ms  "
+            f"(bound {c['bound_ms']:.3f} ms by {c['bound_by']}: {c['ops']:.4g} ops, "
+            f"{c['bytes'] / 1e6:.1f} MB)  plain {c['plain_ms']:.3f} ms  torch._grouped_mm "
+            + (f"{c['library_ms']:.3f} ms" if c["library_ms"] is not None else "-")
+            + f"  [{card}]")
+    bad = [(c["name"], c["direction"]) for c in gmm_tp
+           if not c["ok"] or c["instance"] != "tensor cores"]
+    if bad:
+        raise AssertionError(f"grouped matmul at the tp rank's block: over tolerance or "
                              f"off the tensor cores: {bad}")
     del inputs
 
@@ -3273,6 +3690,37 @@ def main() -> int:
         f"quant_mm {qs['profile_quant_mm_ms']:.2f} ms = "
         f"{qs['profile_quant_mm_share']:.1%} of device time  [{card}]")
     spec_serve_phase(cfg, params, card)
+    torch.cuda.empty_cache()
+    ch = chunked_serve_phase(cfg, params, s)
+    log(f"serve chunked (chunk_tokens={CHUNK_TOKENS}; phase 4 beside it): {ch['requests']} "
+        f"requests, {ch['chunks']} prompt chunks over {len(ch['long'])} prompts of more than "
+        f"{CHUNK_TOKENS} tokens, {ch['decode_steps']} decode steps ({s['decode_steps']}), "
+        f"{ch['launches']} kernel launches; mean TTFT of those prompts "
+        f"{ch['ttft_long_s'] * 1e3:.1f} ms ({ch['ttft_long_phase4_s'] * 1e3:.1f}); decode "
+        f"step {ch['decode_ms_chunking']:.2f} ms in the {ch['steps_chunking']} steps that "
+        f"prefilled a chunk, {ch['decode_ms_other']:.2f} ms in the others (phase 4's mean "
+        f"{s['mean_decode_step_ms']:.2f}); engine step wall {ch['wall_ms_chunking']:.1f} ms "
+        f"with a chunk, {ch['wall_ms_other']:.1f} without; the largest step a decoding slot "
+        f"waited {ch['max_step_ms']:.1f} ms ({s['max_step_ms']:.1f}), p50 "
+        f"{ch['p50_step_ms']:.1f} ({s['p50_step_ms']:.1f}); decode {ch['decode_tokens_per_s']:.1f} "
+        f"tok/s ({s['decode_tokens_per_s']:.1f}), wall {ch['wall_s']:.1f} s ({s['wall_s']:.1f}), "
+        f"peak allocated {ch['peak_allocated_gb']:.2f} GB  [{card}]")
+    log(f"serve chunked teacher-forced (float32 plain forward over each greedy request's "
+        f"tokens): greedy requests equal to phase 4's {ch['equal']}/{ch['greedy']}; the "
+        f"reference's argmax at {ch['top']}/{64 * ch['greedy']} positions; largest trail "
+        f"chunked {ch['trail_on']:.4e}, phase 4 {ch['trail_off']:.4e}; bf16 noise "
+        f"{ch['noise']:.4e}; limit {ch['limit']:.4e}  [{card}]")
+    torch.cuda.empty_cache()
+    ho = handoff_phase(cfg, params)
+    for label, x in ho.items():
+        quant = ", int8 KV + int8 weights" if label == "int8" else ""
+        log(f"handoff {label} (Llama-3-8B, phase 4's ServeConfig{quant}): "
+            f"{x['blocks']} blocks of the shared {HANDOFF_PREFIX}-token prefix, payload "
+            f"{x['payload_bytes'] / 1e6:.2f} MB ({x['wire_bytes'] / 1e6:.2f} MB on the wire), "
+            f"export {x['export_s'] * 1e3:.1f} ms, adopt {x['adopt_s'] * 1e3:.1f} ms; adopt "
+            f"{x['first']} then {x['second']}; blocks and scale rows read back byte-equal; "
+            f"request 7's {HANDOFF_NEW} greedy tokens on the adopter equal the exporter's, "
+            f"prefix hits {x['hits']}, decode kernel launches {x['launches']}  [{card}]")
     del params
     torch.cuda.empty_cache()
     quant_crosscheck(card)
@@ -3344,6 +3792,7 @@ def main() -> int:
         + f"  [{card}]")
     model_crosscheck(card, moe_train_config(), "moe_gmm_impl", "pallas", "scan")
     torch.cuda.empty_cache()
+    cap_one = capacity_fit(None)            # phase 12's one-process run
 
     shared = rank_phases()
     f = fsdp_phase(card, t, shared)
@@ -3432,6 +3881,38 @@ def main() -> int:
         f"{s_} rank {r}: {pp[s_]['peak_gb'][r]:.2f} -> {pp[s_ + ' M8']['peak_gb'][r]:.2f}"
         for s_ in ("gpipe", "1f1b") for r in range(PP)) + f"  [{card}]")
     log(f"phase 10 wall {pp['wall_s']:.1f} s  [{card}]")
+    mt = moe_tp_phase(card, m, shared)
+    log(f"train bench_moe at tp={MOE_TP} through fit() (two rank processes on this one card, "
+        f"each rank every expert's {MOE_F // MOE_TP} of {MOE_F} ffn columns, 8 of 16 heads and "
+        f"all 8 x 2048 rows, phase 6's recipe, data and initial parameters): {MOE_TP_STEPS} "
+        f"steps, loss {mt['losses'][0]:.4f} -> {mt['losses'][-1]:.4f}, max |loss - phase 6's| "
+        f"{max(mt['loss_diffs']):.3e}, max |aux - phase 6's| {max(mt['aux_diffs']):.3e}, max "
+        f"|grad norm - phase 6's| / phase 6's {max(mt['grad_norm_rel_diffs']):.3e}; step ms "
+        + ", ".join(f"{v:.1f}" for v in mt["step_ms"])
+        + f" over {mt['transport']} (two ranks share the card and every transfer goes through "
+        f"host memory: not an NCCL time); payload bytes a rank a step: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in mt["bytes_per_step"].items() if v)
+        + "; launches per rank "
+        + "; ".join(", ".join(f"{k} {lc[k]}" for k in MOE_LAUNCHES_PER_LAYER_STEP)
+                    for lc in mt["launches"])
+        + ", plain 0; peak allocated per rank "
+        + ", ".join(f"{g:.2f}" for g in mt["peak_gb"])
+        + f" GB; phase wall {mt['wall_s']:.1f} s  [{card}]")
+    cp = capacity_phase(card, cap_one, shared)
+    log(f"train bench_moe {CAPACITY_LAYERS} layers dispatch=gather at dp=2 through fit() (two "
+        f"rank processes on this one card, 4 x 2048 rows a rank, capacity over the global "
+        f"batch) against the same fit() in one process: {CAPACITY_STEPS} steps, max |loss or "
+        f"aux difference| {max(cp['diffs']):.3e}; step ms "
+        + ", ".join(f"{v:.1f}" for v in cp["step_ms"]) + " (one process "
+        + ", ".join(f"{v:.1f}" for v in cp["one_step_ms"])
+        + f") over {cp['transport']}; payload bytes a rank a step: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in cp["bytes_per_step"].items() if v)
+        + "; launches per rank " + "; ".join(
+            ", ".join(f"{k} {lc[k]}" for k in FLASH_KERNELS) for lc in cp["launches"])
+        + ", grouped 0, plain 0; peak allocated per rank "
+        + ", ".join(f"{g:.2f}" for g in cp["peak_gb"])
+        + f" GB (one process {cp['one_peak_gb']:.2f}); phase wall {cp['wall_s']:.1f} s  "
+        f"[{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -3448,7 +3929,8 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:346",
-        "launches": s["launches"], "phases": {"4": s["launches"]},
+        "launches": s["launches"], "phases": {"4": s["launches"], "4d": ch["launches"],
+                                              "4e bf16": ho["bf16"]["launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -3460,7 +3942,8 @@ def main() -> int:
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:358",
         "launches": ql["paged_decode_attention_quant"],
-        "phases": {"4b": ql["paged_decode_attention_quant"]},
+        "phases": {"4b": ql["paged_decode_attention_quant"],
+                   "4e int8": ho["int8"]["launches"]},
         "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
         "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
         "bound_by": qmain["bound_by"], "library_ms": qmain["library_ms"],
@@ -3492,7 +3975,9 @@ def main() -> int:
                        **{f"{label} rank {r}": par[label]["launches"][r][name]
                           for label, *_ in PAR_RUNS for r in range(PAR)},
                        **{f"10 {label} rank {r}": pp[label]["launches"][r][name]
-                          for label, *_ in PP_RUNS for r in range(PP)}},
+                          for label, *_ in PP_RUNS for r in range(PP)},
+                       **{f"11 rank {r}": mt["launches"][r][name] for r in range(MOE_TP)},
+                       **{f"12 rank {r}": cp["launches"][r][name] for r in range(2)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -3508,7 +3993,8 @@ def main() -> int:
             "replaces": f"tony_tpu/ops/grouped_mm.py:{line}",
             "launches": m["launches"][name],
             "phases": {"6": m["launches"][name],
-                       **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS}},
+                       **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS},
+                       **{f"11 rank {r}": mt["launches"][r][name] for r in range(MOE_TP)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -3550,6 +4036,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:           # one rank of phases 7-10, started by main()
+    if sys.argv[1:2] == ["--rank"]:           # one rank of phases 7-12, started by main()
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

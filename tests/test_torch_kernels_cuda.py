@@ -780,6 +780,82 @@ def test_gmm_kernels_at_an_ep_ranks_layout(cuda):
         torch.testing.assert_close(dw, gmm_dw_plain(x, dy, tg, 4), atol=1e-2, rtol=1e-4)
 
 
+# a tp 2 rank's block of bench_moe's experts (chip_smoke phase 11): every
+# expert's routes at 8 x 2048 tokens top-2, F 2816 / 2 = 1408 columns, 5.5
+# of the wgmma body's 256-column tiles; expert 7 empty
+TP_RANK_SIZES = [5120, 4608, 3584, 4096, 5632, 4352, 5376, 0]
+
+
+@pytest.mark.cuda
+def test_gmm_kernels_at_a_tp_ranks_block(cuda):
+    """gmm_fwd, gmm_dx and gmm_dw in bf16 at row tile 128 on a tp rank's
+    ffn block (D 1024, F 1408, both directions) against their plain
+    versions, on their tensor-core instances: every forward and dW tile
+    row ends in a 128-column tail (1408 = 5 x 256 + 128), whose columns
+    past F are neither loaded nor stored; the forward's padding rows and
+    the empty expert's dW exactly 0. Tolerances as the ep layout's."""
+    from tony_tpu_torch.ops.grouped_mm import (
+        LAUNCHES, gmm_dw, gmm_dw_plain, gmm_dx, gmm_dx_plain, gmm_fwd, gmm_fwd_plain,
+        kernel_instance, reset_launches,
+    )
+
+    for name in ("gmm_fwd", "gmm_dx", "gmm_dw"):
+        assert kernel_instance(name, torch.bfloat16, 128) == "tensor cores"
+    tol = GMM_TOL[torch.bfloat16]
+    for d_in, d_out in ((1024, 1408), (1408, 1024)):
+        x, w, tg, dy = _gmm_case(cuda, torch.bfloat16, TP_RANK_SIZES, d_in, d_out, 128,
+                                 seed=d_in)
+        reset_launches()
+        y, dx, dw = gmm_fwd(x, w, tg), gmm_dx(dy, w, tg), gmm_dw(x, dy, tg, 8)
+        torch.cuda.synchronize()
+        assert LAUNCHES["gmm_fwd"] == LAUNCHES["gmm_dx"] == LAUNCHES["gmm_dw"] == 1
+        assert y.shape == (x.shape[0], d_out) and dw.shape == (8, d_in, d_out)
+        torch.testing.assert_close(y.float(), gmm_fwd_plain(x, w, tg).float(),
+                                   atol=tol, rtol=tol)
+        padding = (x == 0).all(dim=1)
+        assert torch.count_nonzero(y[padding]) == 0
+        torch.testing.assert_close(dx.float(), gmm_dx_plain(dy, w, tg).float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(dw, gmm_dw_plain(x, dy, tg, 8), atol=1e-2, rtol=1e-4)
+        assert torch.count_nonzero(dw[7]) == 0
+
+
+@pytest.mark.cuda
+def test_moe_at_tp_on_two_gloo_ranks_is_the_one_rank_step_on_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card run one loss and backward of a MoE
+    model at bench_moe's width (dim 1024, 16 heads, 8 experts of ffn 2816,
+    2 layers, flash attention, the grouped kernels) at tp 2, each rank its
+    1408 ffn columns of every expert: the loss and aux within 1e-5 of the
+    one-rank step's and every parameter's gradient within 1e-3 of it in
+    relative norm, the router's included (summed over tp, or one rank's
+    part only, it is off by half or more); each rank launched kernels
+    11-13, no plain version. Float32 (the kernels' scalar instances): in
+    bf16 the two tp halves round apart, and the router's gradient, a
+    softmax Jacobian's difference of gate gradients, read 12% off in
+    relative norm on the card, too close to the faults it must catch."""
+    from tony_tpu_torch.parallel.mesh import build_mesh
+    from torch_ranks import moe_tp_card_run, spawn
+
+    args = {"preset": "bench_moe", "dtype": "float32", "seed": 6, "batch": 2, "seq": 512,
+            "knobs": {"n_layers": 2, "attention_impl": "flash", "moe_gmm_impl": "pallas"}}
+    ranks = spawn(2, "moe_tp_card", {"runs": [{"mesh": {"tp": 2}, **args}], "cuda": True},
+                  tmp_path, timeout_s=600)
+    one = moe_tp_card_run(args, build_mesh())
+    assert one["shapes"]["w1"] == (2, 8, 1024, 2816)
+    for rank, got in enumerate(r["runs"][0] for r in ranks):
+        assert got["shapes"] == {"w1": (2, 8, 1024, 1408), "w3": (2, 8, 1024, 1408),
+                                 "w2": (2, 8, 1408, 1024)}
+        for key in ("loss", "aux"):
+            assert abs(got[key] - one[key]) <= 1e-5 * abs(one[key]), (rank, key)
+        assert set(got["grads"]) == set(one["grads"])
+        for key, want in one["grads"].items():
+            g, w = torch.from_numpy(got["grads"][key]), torch.from_numpy(want)
+            rel = float((g - w).norm() / w.norm())
+            assert rel < 1e-3, f"rank {rank} {key}: relative error {rel:.3e}"
+        for name in ("gmm_fwd", "gmm_dx", "gmm_dw"):
+            assert got["launches"][name] > 0 and got["launches"][f"{name}_plain"] == 0
+
+
 @pytest.mark.cuda
 def test_gmm_dw_is_deterministic_on_card(cuda):
     """Two bf16 gmm_dw launches on the same inputs, at row tile 128 (the
@@ -1469,3 +1545,44 @@ def test_ring_on_one_rank_launches_kernel_14_on_card(cuda, gather_dim):
                       (dw, x2.T @ dy2)):
         err = (got.float() - want).abs().max().item()
         assert err <= 2**-7 * want.abs().max().item()
+
+
+# --- the blockwise KV handoff between engines -------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["", "int8"], ids=["bf16", "int8"])
+def test_kv_handoff_between_engines_on_card(cuda, quant):
+    """A bf16 (or int8-pool) engine on the card serves a prompt, exports
+    its prefix's blocks, and a fresh engine of the same config adopts them
+    through the wire form: (4, 0), then (0, 4) again; the adopted blocks
+    and scale rows read back byte-equal; a prompt extending the prefix
+    decodes to the same greedy tokens on the adopter as on the exporter
+    from its own store (a tail prefill over the same bytes)."""
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.serve import Engine, Request, ServeConfig
+    from tony_tpu_torch.serve.cache import export_blocks, pack_payload, unpack_payload
+
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                      ffn_dim=512, max_seq_len=512)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    sv = ServeConfig(slots=2, max_len=512, kv_block=64, quant_kv=quant)
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(0, 512, 300)
+    longer = np.concatenate([prompt[:256], rng.integers(0, 512, 40)])
+    src, dst = Engine(params, cfg, sv, device=cuda), Engine(params, cfg, sv, device=cuda)
+    src.run([Request(prompt=prompt, max_new_tokens=1)])
+    covered, payload = src.export_prefix_blocks(prompt[:256].tolist())
+    assert len(covered) == 256 and payload.n_blocks == 4 and payload.k.device.type == "cpu"
+    back = unpack_payload(**pack_payload(payload))
+    assert dst.adopt_blocks(covered, back) == (4, 0)
+    assert dst.adopt_blocks(covered, back) == (0, 4)
+    pids = list(dst._store.match(covered, 256).full)
+    again = export_blocks(dst.cache, pids)
+    for name in ("k", "v", "k_scale", "v_scale") if quant else ("k", "v"):
+        a, b = getattr(again, name), getattr(payload, name)
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    got = dst.run([Request(prompt=longer, max_new_tokens=12)])
+    want = src.run([Request(prompt=longer, max_new_tokens=12)])
+    assert next(iter(got.values())).tokens == next(iter(want.values())).tokens
+    assert dst.metrics.prefix_hit_tokens == src.metrics.prefix_hit_tokens == 256

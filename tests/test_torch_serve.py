@@ -6,7 +6,9 @@ package's, on the tiny float32 config with the reference's weights:
   prefix reuse with a copy-on-write block live;
 - the port's engine equals the port's generate(), greedy and sampled, and a
   request samples the same alone and in a busy engine;
-- knobs that are not ported raise; the default device is CUDA."""
+- chunked prefill serves as unchunked prefill does, the handoff refuses
+  what it cannot adopt, the refusals that stand cite their ROADMAP items;
+  the default device is CUDA."""
 
 import re
 from pathlib import Path
@@ -138,22 +140,44 @@ def test_freed_slots_return_blocks_and_table_shrinks(setup):
     assert int(eng.cache.lengths.sum()) == 0
 
 
-# chunked prefill is refused alone and beside speculative decoding (which
-# serves: tests/test_torch_spec.py)
+# chunked prefill serves alone and beside speculative decoding
+# (tests/test_torch_serve_chunked.py holds it to the JAX engine)
 @pytest.mark.parametrize("knob", [dict(chunk_tokens=8), dict(spec=True, chunk_tokens=8)])
 def test_unported_knobs_raise(setup, knob):
+    """The knobs this test once found refused now serve: the traffic's
+    greedy tokens with ``chunk_tokens`` equal the unchunked engine's, the
+    long prompts prefilled in chunks; only a chunk that is not a multiple
+    of ``kv_block`` raises, with the reference's message."""
     _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, cfg, ServeConfig(**SERVE, **knob), device="cpu")
+    prompts, budgets = _traffic(seed=5)
+    _, plain = _run_port(params, cfg, prompts, budgets)
+    eng = Engine(params, cfg, ServeConfig(**SERVE, **knob), device="cpu")
+    ids = [eng.submit(Request(prompt=p, max_new_tokens=m)) for p, m in zip(prompts, budgets)]
+    out = eng.run()
+    assert [out[i].tokens for i in ids] == [c.tokens for c in plain]
+    # the 25- and 12-token prompts chunk (4 + 2 chunks); the 22-token one's
+    # 3-token tail past its 19-token match does not
+    assert eng.prefill_chunks == 6
+    with pytest.raises(ValueError, match="multiple of kv_block"):
+        Engine(params, cfg, ServeConfig(**SERVE, **{**knob, "chunk_tokens": 12}), device="cpu")
 
 
 def test_pool_handoff_raises(setup):
+    """The handoff serves (tests/test_torch_serve_chunked.py); what it
+    refuses raises ValueError, as the reference's does: a payload this
+    pool cannot adopt, and a token count that is not the payload's."""
     _, _, cfg, params = setup
     eng = Engine(params, cfg, ServeConfig(**SERVE), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.export_prefix_blocks(list(range(8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.adopt_blocks(list(range(8)), None)
+    prompt = np.random.default_rng(3).integers(0, 256, 17)
+    eng.run([Request(prompt=prompt, max_new_tokens=1)])
+    covered, payload = eng.export_prefix_blocks(prompt.tolist())
+    assert len(covered) == 16 and payload.n_blocks == 2
+    int8 = Engine(params, cfg, ServeConfig(**SERVE, quant_kv="int8"), device="cpu")
+    with pytest.raises(ValueError, match="incompatible"):
+        int8.adopt_blocks(covered, payload)
+    with pytest.raises(ValueError, match="tokens were named"):
+        eng.adopt_blocks(covered[:8], payload)
+    assert eng.export_prefix_blocks(prompt[:7].tolist()) is None
     with pytest.raises(TypeError):
         ServeConfig(decode_impl="pallas")
 
@@ -162,18 +186,19 @@ def test_roadmap_items_the_port_cites_name_their_headings(setup):
     """The port's refusals point at ROADMAP.md's queue 1 by item number:
     each number a refusal cites is the queue-1 heading of what it refuses,
     and every ``queue 1, item N`` in the package's source is a heading."""
-    _, _, cfg, params = setup
+    from tony_tpu_torch.models.llama import LlamaConfig as PortConfig
+    from tony_tpu_torch.train import FitConfig, fit
+    from tony_tpu_torch.train.trainer import default_optimizer, make_train_step
+
     root = Path(__file__).resolve().parent.parent
     text = (root / "ROADMAP.md").read_text()
     queue1 = text[text.index("### Queue 1"):text.index("### Queue 2")]
     headings = {int(n): h.lower()
                 for n, h in re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue1, re.M)}
-    eng = Engine(params, cfg, ServeConfig(**SERVE), device="cpu")
     refusals = [
-        ("chunked prefill",
-         lambda: Engine(params, cfg, ServeConfig(**SERVE, chunk_tokens=8), device="cpu")),
-        ("handoff", lambda: eng.export_prefix_blocks(list(range(8)))),
-        ("handoff", lambda: eng.adopt_blocks(list(range(8)), None)),
+        ("elastic", lambda: fit(FitConfig(elastic_members=2), device="cpu")),
+        ("observability", lambda: make_train_step(PortConfig.tiny(), default_optimizer(),
+                                                  monitors=True)),
     ]
     for topic, call in refusals:
         with pytest.raises(NotImplementedError) as err:
@@ -182,8 +207,10 @@ def test_roadmap_items_the_port_cites_name_their_headings(setup):
         assert topic in headings[item], (str(err.value), headings.get(item))
     cited = [(path.name, int(n)) for path in (root / "tony_tpu_torch").rglob("*.py")
              for n in re.findall(r"queue 1,?\s+item (\d+)", path.read_text())]
-    assert len(cited) >= 5
+    assert len(cited) >= 3
     assert all(n in headings for _, n in cited), (cited, sorted(headings))
+    # chunked prefill, the handoff and the rest of item 8 serve now
+    assert not [c for c in cited if c[1] in (4, 8)], cited
 
 
 def test_default_device_is_cuda_and_raises_without_it(setup, monkeypatch):

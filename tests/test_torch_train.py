@@ -263,9 +263,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         make_train_state(LlamaConfig.tiny(), opt)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batches(DataConfig())
-    # tp and sp train (tests/test_torch_train_tp.py, test_torch_train_sp.py);
-    # MoE at tp does not, and Ulysses needs local heads that sp splits
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # tp and sp train (tests/test_torch_train_tp.py, test_torch_train_sp.py),
+    # MoE at tp too (test_torch_moe_tp.py): in one process a tp 2 mesh lacks
+    # its second rank; Ulysses needs local heads that sp splits
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         fit(FitConfig(model=LlamaConfig.tiny_moe(), mesh_shape=PortMeshShape(tp=2)),
             device="cpu")
     with pytest.raises(ValueError, match="n_heads=2 not divisible by sp size 4"):

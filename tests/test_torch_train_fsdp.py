@@ -196,7 +196,8 @@ def _mesh(shape) -> "Mesh":
 
 
 def test_what_the_mesh_does_not_train_over_raises():
-    """MoE at tp above 1 raises and cites ROADMAP queue 1, item 8; pp
+    """MoE at tp above 1 builds from the default mesh, each rank holding
+    its ffn block of every expert and the router whole; pp
     builds, each rank holding its stage's block of the stacked layers
     (``pp_rules``), and refuses 1f1b with MoE and a layer count pp does
     not split with the reference's messages; tp and sp build, from the
@@ -220,8 +221,20 @@ def test_what_the_mesh_does_not_train_over_raises():
                         pp_schedule="1f1b")
     with pytest.raises(ValueError, match="n_layers=2 not divisible by pp=4"):
         make_train_step(cfg, opt, mesh=_mesh(MeshShape(pp=4)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=_mesh(MeshShape(tp=2)))
+    # MoE at tp builds from the default mesh, each rank its ffn block of
+    # every expert (tests/test_torch_moe_tp.py trains it)
+    moe_tp = _mesh(MeshShape(tp=2))
+    with pytest.raises(ValueError, match="default mesh"):
+        make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=moe_tp)
+    set_default_mesh(moe_tp)
+    try:
+        make_train_step(pl.LlamaConfig.tiny_moe(), opt, mesh=moe_tp)
+        layers = make_train_state(pl.LlamaConfig.tiny_moe(), opt, mesh=moe_tp,
+                                  device="cpu").params["layers"]
+        assert (layers["w1"].shape, layers["w2"].shape) == ((2, 4, 64, 64), (2, 4, 64, 64))
+        assert layers["router"].shape == (2, 64, 4)
+    finally:
+        set_default_mesh(None)
     for shape, wq in ((MeshShape(tp=2), (2, 64, 32)), (MeshShape(fsdp=2, sp=2), (2, 32, 64))):
         mesh = _mesh(shape)
         with pytest.raises(ValueError, match="default mesh"):

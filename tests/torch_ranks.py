@@ -284,6 +284,52 @@ def pp_card_run(args: dict, mesh) -> dict:
             "grads": {"/".join(p): t.float().cpu().numpy() for p, t in _items(whole)}}
 
 
+def moe_tp_card_run(args: dict, mesh) -> dict:
+    """One loss and backward of a MoE model from a seed on the card
+    (``args["preset"]`` with ``args["knobs"]``, in ``args["dtype"]``), the
+    layers this rank's tp
+    blocks under the rules' specs and the tables whole, under ``mesh`` as
+    the default mesh: the loss, the aux, every parameter's gradient
+    (float32; the layers' all-gathered whole) and kernels 11-13's
+    launches. At a one-rank ``mesh`` this is the one-rank step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.ops import grouped_mm
+    from tony_tpu_torch.parallel.mesh import set_default_mesh
+    from tony_tpu_torch.parallel.sharding import shard_tree, tree_specs, unshard_tree
+    from tony_tpu_torch.train.trainer import tree_leaves, tree_map
+
+    # the preset fixes n_layers: it is replaced after, as tiny_config does
+    cfg = dataclasses.replace(getattr(llama.LlamaConfig, args["preset"])(
+        dtype=getattr(torch, args["dtype"])), **args["knobs"])
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(args["seed"]),
+                               device="cuda")
+    specs = tree_specs(llama.logical_axes(cfg))["layers"]
+    local = {**params, "layers": shard_tree(params["layers"], specs, mesh)}
+    for t in tree_leaves(local):
+        t.requires_grad_(True)
+    tokens = np.random.default_rng(args["seed"]).integers(
+        0, cfg.vocab_size, (args["batch"], args["seq"] + 1))
+    tokens = torch.from_numpy(tokens).to("cuda")
+    set_default_mesh(mesh)
+    try:
+        grouped_mm.reset_launches()
+        loss, aux = llama.loss_and_aux(local, tokens[:, :-1], tokens[:, 1:], cfg)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(local)))
+        whole = tree_map(lambda _: next(grads), local)
+        whole["layers"] = unshard_tree(whole["layers"], specs, mesh)
+    finally:
+        set_default_mesh(None)
+    return {"loss": float(loss.detach()), "aux": float(aux.detach()),
+            "launches": dict(grouped_mm.LAUNCHES),
+            "shapes": {k: tuple(local["layers"][k].shape) for k in ("w1", "w3", "w2")},
+            "grads": {"/".join(p): t.float().cpu().numpy() for p, t in _items(whole)}}
+
+
 def _train(args: dict, mesh) -> dict:
     """``make_train_step`` from the reference's parameters (cut into this
     rank's blocks) over ``args["steps"]`` synthetic batches: each step's
@@ -414,11 +460,15 @@ def _fit(args: dict, mesh) -> dict:
 
 
 def _moe_block(args: dict, mesh) -> dict:
-    """``moe_block`` on this rank's rows of ``x`` with the whole router and
-    this rank's ep block of the experts, for each case of ``args["cases"]``
-    (overlap impl, chunk, poisoned rows): the global ``y``, ``aux`` and the
-    gradients of ``sum(y * y) + aux`` (each rank adds ``aux / n``) for the
-    router, w1, w3, w2 and x, assembled whole on every rank."""
+    """``moe_block`` on this rank's block of ``x`` (rows over dp, fsdp and
+    ep, the sequence over sp) with the whole router and this rank's block
+    of the experts (``E / ep`` of them, ``F / tp`` ffn columns), for each
+    case of ``args["cases"]`` (overlap impl, chunk, poisoned rows, further
+    ``MoEConfig`` fields): the global ``y``, ``aux`` and the gradients of
+    ``sum(y * y) + aux`` (each rank of the batch axes adds ``aux / n``)
+    for the router, w1, w3, w2 and x, assembled whole on every rank; for
+    a capacity dispatch also the kept-route mask ``[B, S, k]`` and the
+    capacity."""
     import dataclasses
 
     import numpy as np
@@ -430,35 +480,43 @@ def _moe_block(args: dict, mesh) -> dict:
     from tony_tpu_torch.parallel.sharding import shard, unshard
 
     data = np.load(args["inputs"])
-    rows = (("dp", "fsdp", "ep"), None, None)
-    experts = ("ep", None, None)
+    rows = (("dp", "fsdp", "ep"), "sp", None)
+    experts = {"w1": ("ep", None, "tp"), "w3": ("ep", None, "tp"), "w2": ("ep", "tp", None)}
     base = pm.MoEConfig(**args["cfg"])
-    n = mesh.size
+    n = mesh.size // mesh.shape["tp"]          # tp ranks share their rows
     set_default_mesh(mesh)
     out = []
     for case in args["cases"]:
         cfg = dataclasses.replace(base, overlap_impl=case["impl"],
-                                  overlap_chunk=case.get("chunk", 0))
+                                  overlap_chunk=case.get("chunk", 0), **case.get("cfg", {}))
         x_full = data["x_poisoned"] if case.get("poison") else data["x"]
         x = shard(torch.from_numpy(x_full), rows, mesh).requires_grad_(True)
         params = {"router": torch.from_numpy(data["router"]).requires_grad_(True)}
-        for name in ("w1", "w3", "w2"):
-            params[name] = shard(torch.from_numpy(data[name]), experts, mesh).requires_grad_(True)
+        for name, spec in experts.items():
+            params[name] = shard(torch.from_numpy(data[name]), spec, mesh).requires_grad_(True)
         y, aux = pm.moe_block(params, x, cfg)
         loss = (y * y).sum() + aux / n
         names = ["router", "w1", "w3", "w2"]
         grads = dict(zip(names + ["x"], torch.autograd.grad(
             loss, [params[k] for k in names] + [x])))
         router = grads["router"]
-        for a in ("dp", "fsdp", "ep"):
+        for a in ("dp", "fsdp", "ep", "sp"):
             router = pdist.all_reduce(router, mesh.axis(a))
         res = {"y": unshard(y.detach(), rows, mesh).numpy(), "aux": float(aux),
-               "router": router.numpy(), "x": unshard(grads["x"], rows, mesh).numpy()}
-        for name in ("w1", "w3", "w2"):
+               "router": router.numpy(), "x": unshard(grads["x"], rows, mesh).numpy(),
+               "shapes": {k: tuple(params[k].shape) for k in experts}}
+        for name, spec in experts.items():
             g = grads[name]
-            for a in ("dp", "fsdp"):
+            for a in ("dp", "fsdp", "sp"):
                 g = pdist.all_reduce(g, mesh.axis(a))
-            res[name] = unshard(g, experts, mesh).numpy()
+            res[name] = unshard(g, spec, mesh).numpy()
+        if cfg.dispatch != "grouped":
+            B, S, D = x.shape
+            with torch.no_grad():
+                probs = torch.softmax(x.reshape(-1, D) @ params["router"], dim=-1)
+                _, _, pos, cap, _ = pm.capacity_routes(probs, cfg, mesh, (B, S))
+            res["kept"] = unshard((pos < cap).reshape(B, S, -1), rows, mesh).numpy()
+            res["capacity"] = cap
         out.append(res)
     set_default_mesh(None)
     return {"cases": out}
@@ -532,7 +590,8 @@ def _killed_save(args: dict, mesh) -> dict:
 
 TASKS = {"ring": _ring, "attention": _attention, "train": _train, "fit": _fit,
          "moe_block": _moe_block, "restore": _restore, "killed_save": _killed_save,
-         "pipeline": _pipeline, "pp_memory": _pp_memory, "pp_card": pp_card_run}
+         "pipeline": _pipeline, "pp_memory": _pp_memory, "pp_card": pp_card_run,
+         "moe_tp_card": moe_tp_card_run}
 
 
 def main(path: str) -> None:

@@ -40,8 +40,30 @@ and the sequence over sp):
   and GSPMD's slice. ``overlap_impl`` splits that combine into token
   chunks that overlap the FFN (``ops/moe_overlap.py``);
 - the capacity dispatches ('gather', 'einsum') place routes by queue
-  positions over the global batch and are not ported over a mesh, nor is
-  any dispatch at tp above 1 (the expert weights' ffn split): they raise.
+  positions over the global batch, as the reference's ``moe_block`` does
+  on it: every rank all-gathers the int32 routes over the batch axes in
+  the reference's flat ``[B, S]`` order (rows b-major, then s; under sp a
+  rank's tokens are not one run of it), counts the round-major positions
+  there and keeps its own; the capacity is the global token count's. A
+  rank writes its kept tokens into their slots of the ``[E, C, D]``
+  buffer, the buffer is summed over the batch axes (all-reduced over dp,
+  fsdp and sp, reduce-scattered over ep to each rank's ``E / ep``
+  experts), the experts run, their outputs are all-gathered back over ep
+  and each rank combines its own tokens;
+- at ``tp > 1`` the expert weights are Megatron's FFN split on their
+  ``ffn`` dim (the reference's ``("expert", "embed", "ffn")`` axes, which
+  its GSPMD partitions): each rank holds its ``F / tp`` columns of w1/w3
+  and rows of w2 (of its ``E / ep`` experts), never the whole weight.
+  Every tp rank routes the same rows alike with the whole router; the
+  rows and the combine weights enter the expert FFN through
+  :func:`~tony_tpu_torch.parallel.dist.copy_to_tp` (their gradients,
+  each rank's block's part, summed over tp, so the router's and the
+  rows' gradients are whole on every tp rank and the step does not sum
+  the router over tp), and the output leaves through
+  :func:`~tony_tpu_torch.parallel.dist.reduce_from_tp`. With ep the tp
+  sum comes after the ep reduce-scatter (on this rank's ``[T, D]``, not
+  the ``[T_ep, D]`` partial), so the overlapped combine's chunks still
+  reduce-scatter over ep alone.
 """
 
 from __future__ import annotations
@@ -58,11 +80,15 @@ from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.ops.grouped_mm import grouped_layout, grouped_matmul
 from tony_tpu_torch.parallel import dist as pdist
 from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh
+from tony_tpu_torch.parallel.sharding import shard, spec_for, unshard
 
 # the mesh axes a batch's tokens are split over: its rows'
 # (DEFAULT_RULES["batch"]) and its sequence's (sp); MoE is token-wise, so
 # a rank's (rows, sequence block) are just more tokens
 BATCH_AXES = ("dp", "fsdp", "ep", "sp")
+# a [B, S, k] per-token tensor's spec: a rank's block of the global
+# batch's rows and sequence, as train/data.py cuts the batch
+_TOKEN_SPEC = spec_for(("batch", "seq", None))
 
 
 @dataclass(frozen=True)
@@ -171,29 +197,69 @@ def _top_k_select(probs: torch.Tensor, cfg: MoEConfig):
     sel = torch.cat(picks, dim=1)                                # [T, k]
     gates = p32.gather(1, sel)
     onehot = _one_hot(sel, E)                                    # [T, k, E]
-    rm = onehot.transpose(0, 1).reshape(k * T, E)                # round-major
-    pos_rm = _cumsum_rows(rm) - rm                               # [k*T, E]
-    pos = (pos_rm.reshape(k, T, E).transpose(0, 1) * onehot).sum(-1)
     # Switch eq. 4: E * sum(frac_routed * mean_prob)
     importance = onehot.mean(dim=0).sum(dim=0)                   # [E]
     aux = cfg.n_experts * torch.sum(importance / k * p32.mean(dim=0))
-    return sel.to(torch.int32), gates, pos.to(torch.int32), aux
+    return sel.to(torch.int32), gates, _queue_positions(sel, E), aux
+
+
+def _queue_positions(sel: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """[T, k] int32: each route's place in its expert's queue, round-major
+    (every token's round-0 pick queues before any round-1 pick), one
+    cumsum over the ``[k*T, E]`` route sequence."""
+    T, k = sel.shape
+    onehot = _one_hot(sel, n_experts)                            # [T, k, E]
+    rm = onehot.transpose(0, 1).reshape(k * T, n_experts)        # round-major
+    pos_rm = _cumsum_rows(rm) - rm                               # [k*T, E]
+    pos = (pos_rm.reshape(k, T, n_experts).transpose(0, 1) * onehot).sum(-1)
+    return pos.to(torch.int32)
+
+
+def _global_aux(sel: torch.Tensor, probs: torch.Tensor, cfg: MoEConfig,
+                axes: list[pdist.Axis]) -> torch.Tensor:
+    """The Switch aux loss over the global batch: each expert's route
+    count and probability sum summed over the batch ``axes`` (the
+    probability sums differentiably), then divided by the global token
+    count."""
+    E, k = cfg.n_experts, cfg.top_k
+    counts = _one_hot(sel.reshape(-1), E).sum(dim=0)
+    stats = pdist.all_reduce_ad(torch.cat([counts, probs.float().sum(dim=0)]), axes)
+    n = probs.shape[0] * math.prod(a.size for a in axes)
+    return E * torch.sum(stats[:E] / n / k * (stats[E:] / n))
 
 
 def _route(probs: torch.Tensor, cfg: MoEConfig, mesh: Mesh | None):
     """(experts [T, k], gates [T, k], aux) of :func:`_top_k_select`, the
-    aux loss over ``mesh``'s global batch: each expert's route count and
-    probability sum are summed over the batch axes (the probability sums
-    differentiably), then divided by the global token count."""
+    aux loss over ``mesh``'s global batch."""
     sel, gates, _, aux = _top_k_select(probs, cfg)     # pos unused: dropless
     axes = _batch_axes(mesh)
     if axes:
-        E, k = cfg.n_experts, cfg.top_k
-        counts = _one_hot(sel.reshape(-1), E).sum(dim=0)
-        stats = pdist.all_reduce_ad(torch.cat([counts, probs.float().sum(dim=0)]), axes)
-        n = probs.shape[0] * math.prod(a.size for a in axes)
-        aux = E * torch.sum(stats[:E] / n / k * (stats[E:] / n))
+        aux = _global_aux(sel, probs, cfg, axes)
     return sel, gates, aux
+
+
+def capacity_routes(probs: torch.Tensor, cfg: MoEConfig, mesh: Mesh | None,
+                    rows: tuple[int, int]):
+    """The capacity dispatches' routing over ``mesh``'s global batch:
+    ``(experts [T, k], gates [T, k], pos [T, k], capacity, aux)`` for this
+    rank's ``T = B * S`` tokens (``rows = (B, S)``, its block of the
+    global ``[B, S]``). ``pos`` is each route's place in its expert's
+    queue over the global batch in the reference's order (the global
+    ``[B, S]`` flattened b-major, then round-major), ``capacity`` the
+    global token count's; a route is kept where ``pos < capacity``. The
+    routes cross ranks as int32 (an all-gather over each batch axis)."""
+    sel, gates, pos, aux = _top_k_select(probs, cfg)
+    axes = _batch_axes(mesh)
+    if not axes:
+        return sel, gates, pos, cfg.capacity(probs.shape[0]), aux
+    aux = _global_aux(sel, probs, cfg, axes)
+    B, S = rows
+    k = cfg.top_k
+    whole = unshard(sel.reshape(B, S, k), _TOKEN_SPEC, mesh)     # [Bg, Sg, k]
+    Bg, Sg = whole.shape[:2]
+    pos_g = _queue_positions(whole.reshape(Bg * Sg, k), cfg.n_experts)
+    pos = shard(pos_g.reshape(Bg, Sg, k), _TOKEN_SPEC, mesh).reshape(B * S, k)
+    return sel, gates, pos, cfg.capacity(Bg * Sg), aux
 
 
 def routing_stats(probs: torch.Tensor, cfg: MoEConfig) -> dict[str, float]:
@@ -215,20 +281,19 @@ def routing_stats(probs: torch.Tensor, cfg: MoEConfig) -> dict[str, float]:
     }
 
 
-def _top_k_dispatch(probs: torch.Tensor, cfg: MoEConfig, capacity: int):
+def _top_k_dispatch(sel: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
+                    n_experts: int, capacity: int):
     """(dispatch [T, E, C] in {0, 1}, combine [T, E, C] float32 gates
-    renormalised over the kept selections, aux). Routes past an expert's
-    capacity are dropped (combine weight zero), the Switch/GShard
-    contract."""
-    E = probs.shape[1]
-    sel, gates, pos, aux = _top_k_select(probs, cfg)
+    renormalised over the kept selections) from the routes of
+    :func:`capacity_routes`. Routes past an expert's capacity are dropped
+    (combine weight zero), the Switch/GShard contract."""
     within = (pos < capacity).float()                            # [T, k]
-    oh_e = _one_hot(sel, E)                                      # [T, k, E]
+    oh_e = _one_hot(sel, n_experts)                              # [T, k, E]
     oh_c = _one_hot(torch.clamp(pos, 0, capacity - 1), capacity)  # [T, k, C]
     dispatch = torch.einsum("tke,tkc->tec", oh_e * within[..., None], oh_c)
     combine = torch.einsum("tke,tkc->tec", oh_e * (gates * within)[..., None], oh_c)
     denom = combine.sum(dim=(1, 2), keepdim=True)
-    return dispatch, combine / torch.clamp(denom, min=1e-9), aux
+    return dispatch, combine / torch.clamp(denom, min=1e-9)
 
 
 def _expert_ffn(params: dict[str, Any], expert_in: torch.Tensor) -> torch.Tensor:
@@ -238,15 +303,44 @@ def _expert_ffn(params: dict[str, Any], expert_in: torch.Tensor) -> torch.Tensor
     return torch.einsum("ecf,efd->ecd", h, params["w2"])
 
 
+def _into_tp(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``t`` entering the tp-split expert FFN: Megatron's f, whose backward
+    sums the ranks' parts of its gradient over tp (the identity at tp 1)."""
+    return t if mesh is None else pdist.copy_to_tp(t, mesh.axis("tp"))
+
+
+def _out_of_tp(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The expert FFN's tp-partial output summed over tp: Megatron's g."""
+    return t if mesh is None else pdist.reduce_from_tp(t, mesh.axis("tp"))
+
+
+def _slot_ffn(params: dict[str, Any], expert_in: torch.Tensor,
+              mesh: Mesh | None) -> torch.Tensor:
+    """The expert FFN over the capacity slots: ``expert_in [E, C, D]``
+    holds this rank's tokens in their slots (zero elsewhere); over a mesh
+    it is summed over the batch axes (an all-reduce over dp, fsdp and sp,
+    a reduce-scatter over ep to this rank's ``E / ep`` experts, whose
+    weights ``params`` holds), the experts run, and their outputs are
+    all-gathered back over ep. Returns ``[E, C, D]``, tp-partial at tp
+    above 1. Each collective's backward is its transpose, so a slot's
+    gradient reaches the rank whose token fills it."""
+    if mesh is None:
+        return _expert_ffn(params, expert_in)
+    rest = [mesh.axis(a) for a in BATCH_AXES if a != "ep" and mesh.shape[a] > 1]
+    ep = mesh.axis("ep")
+    expert_in = pdist.reduce_scatter_ad(pdist.all_reduce_ad(expert_in, rest), ep, 0)
+    return pdist.all_gather_ad(_expert_ffn(params, expert_in), ep, 0)
+
+
 def _moe_gather(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
-                capacity: int, probs: torch.Tensor):
+                probs: torch.Tensor, mesh: Mesh | None, rows: tuple[int, int]):
     """Scatter/gather capacity dispatch: the slot->token map (one int32
     scatter), tokens gathered into [E, C, D], the expert FFN, and each
     token's expert outputs gathered back gate-weighted. The einsum
     reference's drop semantics with no routing matmuls."""
     T, D = flat.shape
     E, k = cfg.n_experts, cfg.top_k
-    sel, gates, pos, aux = _top_k_select(probs, cfg)
+    sel, gates, pos, capacity, aux = capacity_routes(probs, cfg, mesh, rows)
     valid = pos < capacity                                       # [T, k]
     flat_slot = (sel * capacity + torch.clamp(pos, 0, capacity - 1)).reshape(T * k)
     tok = _route_tokens(T, k, flat.device)
@@ -256,14 +350,26 @@ def _moe_gather(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
     target = torch.where(valid.reshape(T * k), flat_slot, E * capacity).long()
     slot_token = torch.full((E * capacity + 1,), T, dtype=torch.long,
                             device=flat.device).scatter(0, target, tok)[:-1]
-    padded = torch.cat([flat, flat.new_zeros((1, D))], dim=0)
-    expert_out = _expert_ffn(params, padded[slot_token].reshape(E, capacity, D))
+    padded = torch.cat([_into_tp(flat, mesh), flat.new_zeros((1, D))], dim=0)
+    expert_out = _slot_ffn(params, padded[slot_token].reshape(E, capacity, D), mesh)
     denom = torch.clamp((gates * valid).sum(dim=1), min=1e-9)      # [T]
     out_flat = expert_out.reshape(E * capacity, D)
     tok_out = out_flat[torch.where(valid.reshape(T * k), flat_slot, 0).long()]
-    w = ((gates * valid) / denom[:, None]).reshape(T * k).to(flat.dtype)
+    w = _into_tp(((gates * valid) / denom[:, None]).reshape(T * k), mesh).to(flat.dtype)
     y = flat.new_zeros((T, D)).index_add(0, tok, w[:, None] * tok_out)
-    return y, aux
+    return _out_of_tp(y, mesh), aux
+
+
+def _moe_einsum(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
+                probs: torch.Tensor, mesh: Mesh | None, rows: tuple[int, int]):
+    """GShard/Switch one-hot dispatch and combine einsums over the same
+    slots: the parity reference for the other dispatches."""
+    sel, gates, pos, capacity, aux = capacity_routes(probs, cfg, mesh, rows)
+    dispatch, combine = _top_k_dispatch(sel, gates, pos, cfg.n_experts, capacity)
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(flat.dtype), _into_tp(flat, mesh))
+    expert_out = _slot_ffn(params, expert_in, mesh)
+    y = torch.einsum("tec,ecd->td", _into_tp(combine, mesh).to(flat.dtype), expert_out)
+    return _out_of_tp(y, mesh), aux
 
 
 # --- grouped (dropless) dispatch ----------------------------------------------
@@ -325,10 +431,10 @@ def _moe_grouped(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
     sel, gates, aux = _route(probs, cfg, mesh)
     denom = torch.clamp(gates.sum(dim=1), min=1e-9)
     tok = _route_tokens(T, k, flat.device)
-    weight = (gates / denom[:, None]).reshape(T * k)
-    y = _grouped_ffn(params, flat, tok, sel.reshape(T * k), weight,
+    weight = _into_tp((gates / denom[:, None]).reshape(T * k), mesh)
+    y = _grouped_ffn(params, _into_tp(flat, mesh), tok, sel.reshape(T * k), weight,
                      cfg.n_experts, cfg)
-    return y, aux
+    return _out_of_tp(y, mesh), aux
 
 
 def _chunk_ffn(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
@@ -351,19 +457,20 @@ def _chunk_ffn(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
 def _moe_grouped_ep(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
                     probs: torch.Tensor, mesh: Mesh):
     """Expert-parallel grouped dispatch (see the module docstring).
-    ``params``' expert weights are this rank's ``E / ep`` experts; the rows
-    gathered over ep are this rank's (dp, fsdp) block in index order,
-    because ep is the innermost of the batch axes that cut the rows
-    (``train/data.py``)."""
+    ``params``' expert weights are this rank's ``E / ep`` experts (their tp
+    block at tp above 1); the rows gathered over ep are this rank's (dp,
+    fsdp) block in index order, because ep is the innermost of the batch
+    axes that cut the rows (``train/data.py``). At tp above 1 the ep
+    combine's result is tp-partial and is summed over tp after it."""
     from tony_tpu_torch.ops.moe_overlap import overlap_chunks, overlapped_combine
 
     ep = mesh.axis("ep")
     e_local = cfg.n_experts // ep.size
     sel, gates, aux = _route(probs, cfg, mesh)
     weight = gates / torch.clamp(gates.sum(dim=1), min=1e-9)[:, None]   # [T, k]
-    flat_g = pdist.all_gather_ad(flat, ep, 0)
+    flat_g = pdist.all_gather_ad(_into_tp(flat, mesh), ep, 0)
     sel_g = pdist.all_gather(sel, ep, 0)
-    weight_g = pdist.all_gather_ad(weight, ep, 0)
+    weight_g = pdist.all_gather_ad(_into_tp(weight, mesh), ep, 0)
     w = (params["w1"], params["w3"], params["w2"])
     n_chunks = None
     if cfg.overlap_impl not in ("", "off"):
@@ -379,19 +486,21 @@ def _moe_grouped_ep(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
         y = overlapped_combine(ffn, ep, n_chunks, *w, flat_g, sel_g, weight_g)
     else:
         y = pdist.reduce_scatter_ad(local(*w, flat_g, sel_g, weight_g, cfg=cfg), ep, 0)
-    return y, aux
+    return _out_of_tp(y, mesh), aux
 
 
 def _moe_grouped_entry(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfig,
                        probs: torch.Tensor, mesh: Mesh | None):
     """The reference's ``_moe_grouped_entry``: the ep path where the mesh
     has ep above 1 (and experts that ep divides); else the plain grouped
-    path, whose statistics are the mesh's global batch's. Where the
-    reference would fall back to GSPMD over an ep-sharded expert dim (tp
-    above 1, E not a multiple of ep), the port raises: it holds no such
-    blocks (``moe_block`` refuses tp, the sharding uneven blocks).
-    The reference's third condition, rows that dp x fsdp split evenly,
-    always holds here: each rank holds its own even block of the rows
+    path, whose statistics are the mesh's global batch's. At tp above 1
+    the reference declines its ep shard_map and leaves the ffn split to
+    GSPMD; the port keeps the ep dispatch and runs it on the rank's tp
+    block of the experts (see the module docstring). Where the reference
+    would fall back to GSPMD over an ep-sharded expert dim (E not a
+    multiple of ep), the port raises: it cuts even blocks only. The
+    reference's third condition, rows that dp x fsdp split evenly, always
+    holds here: each rank holds its own even block of the rows
     (``train/data.py`` raises otherwise)."""
     ep = mesh.shape["ep"] if mesh is not None else 1
     if ep > 1:
@@ -402,13 +511,29 @@ def _moe_grouped_entry(params: dict[str, Any], flat: torch.Tensor, cfg: MoEConfi
     return _moe_grouped(params, flat, cfg, probs, mesh)
 
 
+def _check_expert_blocks(params: dict[str, Any], cfg: MoEConfig, mesh: Mesh) -> None:
+    """Raise unless the expert weights are this rank's blocks: ``E / ep``
+    experts of ``F / tp`` ffn columns (a whole weight at tp above 1 would
+    be counted tp times by the sum over tp)."""
+    ep, tp = mesh.shape["ep"], mesh.shape["tp"]
+    for name, dim in (("w1", 2), ("w3", 2), ("w2", 1)):
+        shape = tuple(params[name].shape)
+        want = (cfg.n_experts // ep, cfg.ffn_dim // tp)
+        if (shape[0], shape[dim]) != want or cfg.n_experts % ep or cfg.ffn_dim % tp:
+            raise ValueError(
+                f"{name} {shape}: at ep={ep}, tp={tp} a rank holds {cfg.n_experts} / {ep} "
+                f"experts of {cfg.ffn_dim} / {tp} ffn columns (its blocks under the rules' "
+                "specs); the port cuts even blocks only")
+
+
 def moe_block(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     """MoE SwiGLU FFN: x ``[B, S, D]`` -> (y ``[B, S, D]``, aux float32
     scalar). Capacity dispatches pass dropped tokens through with a zero
     FFN delta (the residual outside keeps them); 'grouped' serves every
     route. Over the default mesh (more than one rank) ``x`` is this rank's
-    rows, the router whole, and with ep above 1 the expert weights this
-    rank's ``E / ep`` experts; ``aux`` is the global batch's."""
+    rows (its sequence block under sp), the router whole, and the expert
+    weights this rank's ``E / ep`` experts of ``F / tp`` ffn columns;
+    ``y`` is whole on every tp rank and ``aux`` is the global batch's."""
     B, S, D = x.shape
     T = B * S
     flat = x.reshape(T, D)
@@ -418,15 +543,10 @@ def moe_block(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     if cfg.dispatch == "grouped" and cfg.overlap_impl not in ("", "off", "scan", "pallas"):
         raise ValueError(f"unknown MoE overlap impl {cfg.overlap_impl!r}; "
                          "expected 'off' | 'scan' | 'pallas'")
-    if mesh is not None and mesh.shape["tp"] > 1:
-        raise NotImplementedError(
-            f"MoE at tp={mesh.shape['tp']}: the expert weights' ffn split over tp is not "
-            "ported yet (ROADMAP queue 1, item 8)")
-    if mesh is not None and cfg.dispatch != "grouped":
-        raise NotImplementedError(
-            f"dispatch={cfg.dispatch!r} over a mesh of more than one rank (capacity "
-            "slots over the global batch) is not ported yet (ROADMAP queue 1, item 8); "
-            "use 'grouped'")
+    if cfg.dispatch not in ("grouped", "gather", "einsum"):
+        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
+    if mesh is not None:
+        _check_expert_blocks(params, cfg, mesh)
 
     # router math is always float32: a bf16 softmax loses about two
     # decimal digits, and the aux loss is a mean of small fractions
@@ -435,21 +555,14 @@ def moe_block(params: dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
 
     if cfg.dispatch == "grouped":
         y, aux = _moe_grouped_entry(params, flat, cfg, probs, mesh)
-        return y.reshape(B, S, D), aux
-    capacity = cfg.capacity(T)
-    if cfg.dispatch == "gather":
-        y, aux = _moe_gather(params, flat, cfg, capacity, probs)
-        return y.reshape(B, S, D), aux
-    if cfg.dispatch != "einsum":
-        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
-    dispatch, combine, aux = _top_k_dispatch(probs, cfg, capacity)
-    expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), flat)
-    expert_out = _expert_ffn(params, expert_in)
-    y = torch.einsum("tec,ecd->td", combine.to(x.dtype), expert_out)
+    elif cfg.dispatch == "gather":
+        y, aux = _moe_gather(params, flat, cfg, probs, mesh, (B, S))
+    else:
+        y, aux = _moe_einsum(params, flat, cfg, probs, mesh, (B, S))
     return y.reshape(B, S, D), aux
 
 
 __all__ = [
-    "MoEConfig", "init_moe_params", "moe_block", "route_rows",
+    "MoEConfig", "capacity_routes", "init_moe_params", "moe_block", "route_rows",
     "routing_stats",
 ]

@@ -1,7 +1,7 @@
 """Paged block KV cache: a refcounted physical-block pool + per-slot
 indirection tables.
 
-The counterpart of ``tony_tpu/serve/cache.py`` (unquantized pools):
+The counterpart of ``tony_tpu/serve/cache.py``:
 
 - buffers are ``[L, P, Hkv, block, hd]`` head-major: ``P`` physical blocks,
   each holding ``block`` token positions across all layers, so one
@@ -35,6 +35,15 @@ the scale row at allocation. Each write gathers the touched blocks and
 their old scales before it scatters anything back, as the reference's
 functional update does. One-byte payloads move through index ops as raw
 bytes (a ``uint8`` view), so float8 pools need no float8 indexing kernel.
+
+**The blockwise handoff** between engines (a prefill pool's and a decode
+pool's): :func:`export_blocks` copies whole physical blocks, payload and
+scale rows, to the host as a :class:`BlockPayload` of CPU tensors;
+:func:`write_block` stores one into a fresh block of another pool;
+:func:`pack_payload` / :func:`unpack_payload` are the reference's wire
+form (raw bytes, the shape, the dtype's numpy name), so a payload either
+package packs the other unpacks bit for bit. The bytes stay torch tensors
+on the host: no bfloat16 or float8 numpy dtype is needed.
 """
 
 from __future__ import annotations
@@ -285,6 +294,138 @@ def copy_block(cache: PagedKVCache, src: int, dst: int) -> None:
         cache.v_scale[:, dst] = cache.v_scale[:, src]
 
 
+class BlockPayload(NamedTuple):
+    """A host copy of whole physical blocks: the unit of the blockwise KV
+    handoff between engines (a prefill pool's and a decode pool's).
+    ``k``/``v`` are ``[L, n, Hkv, block, hd]`` CPU tensors in the pool's
+    storage dtype (a quantized payload ships as stored, never
+    dequantized); on a quantized pool ``k_scale``/``v_scale`` ``[L, n,
+    Hkv]`` float32 ride along, since a block without its scale rows
+    cannot be decoded."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        parts = [self.k, self.v] + ([self.k_scale, self.v_scale]
+                                    if self.k_scale is not None else [])
+        return sum(t.numel() * t.element_size() for t in parts)
+
+
+def export_blocks(cache: PagedKVCache, pids) -> BlockPayload:
+    """Physical blocks ``pids`` (every layer's K and V, and their scale
+    rows on a quantized pool) copied to the host as a BlockPayload: one
+    gather per pool and one device-to-host copy each, a sync point of the
+    exporting engine's, never of a decode step."""
+    ids = torch.as_tensor(list(pids), dtype=torch.int64, device=cache.k.device)
+
+    def host(pool: torch.Tensor) -> torch.Tensor:
+        return gather_blocks(pool, ids, dim=1).cpu()
+
+    if cache.quantized:
+        return BlockPayload(host(cache.k), host(cache.v), host(cache.k_scale),
+                            host(cache.v_scale))
+    return BlockPayload(host(cache.k), host(cache.v))
+
+
+def write_block(cache: PagedKVCache, pid: int, payload: BlockPayload, i: int) -> None:
+    """Adopt block ``i`` of ``payload`` into physical block ``pid``, in
+    place: a raw store of every layer's K and V, scale rows included, so a
+    shipped quantized block decodes exactly as the block the exporting
+    engine held. The payload must match the pool (the caller checks
+    :func:`payload_compatible`)."""
+    dev = cache.k.device
+    _raw(cache.k)[:, pid] = _raw(payload.k[:, i]).to(dev)
+    _raw(cache.v)[:, pid] = _raw(payload.v[:, i]).to(dev)
+    if cache.quantized:
+        cache.k_scale[:, pid] = payload.k_scale[:, i].to(dev)
+        cache.v_scale[:, pid] = payload.v_scale[:, i].to(dev)
+
+
+def payload_compatible(cache: PagedKVCache, payload: BlockPayload) -> str:
+    """'' when ``payload`` can be adopted into ``cache`` as it is, else
+    why not (a dtype or geometry mismatch: a bf16 pool must not adopt int8
+    blocks and decode garbage)."""
+    want = cache.k.shape[:1] + cache.k.shape[2:]
+    got = payload.k.shape[:1] + payload.k.shape[2:]
+    if tuple(want) != tuple(got):
+        return f"block geometry {tuple(got)} != pool {tuple(want)}"
+    if payload.k.dtype != cache.k.dtype:
+        return (f"payload dtype {_dtype_name(payload.k.dtype)} != pool "
+                f"{_dtype_name(cache.k.dtype)}")
+    if cache.quantized and payload.k_scale is None:
+        return "quantized pool needs scale rows in the payload"
+    if not cache.quantized and payload.k_scale is not None:
+        return "unquantized pool cannot adopt scaled payload"
+    return ""
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The wire name of a storage dtype: numpy's and JAX's (``bfloat16``,
+    ``int8``, ``float8_e4m3fn``, ``float32``), which is torch's less its
+    module prefix."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _wire_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"payload dtype {name!r} is not a storage dtype")
+    return dt
+
+
+def _bytes_of(t: torch.Tensor) -> bytes:
+    return t.contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def pack_payload(payload: BlockPayload) -> dict:
+    """BlockPayload -> the reference's wire fields: raw bytes of ``k`` and
+    ``v``, their shape and the dtype's name, and the float32 scale rows'
+    raw bytes on a quantized pool. Bit-exact for every storage dtype; the
+    bytes are the reference's for the same blocks, so either package
+    unpacks the other's."""
+    d = {"k": _bytes_of(payload.k), "v": _bytes_of(payload.v),
+         "shape": list(payload.k.shape), "dtype": _dtype_name(payload.k.dtype)}
+    if payload.k_scale is not None:
+        d["k_scale"] = _bytes_of(payload.k_scale.float())
+        d["v_scale"] = _bytes_of(payload.v_scale.float())
+    return d
+
+
+def _from_bytes(raw: bytes, dtype: torch.dtype, shape: tuple[int, ...]) -> torch.Tensor:
+    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).view(dtype).reshape(shape)
+
+
+def unpack_payload(k: bytes, v: bytes, shape, dtype: str, k_scale: bytes = b"",
+                   v_scale: bytes = b"") -> BlockPayload:
+    """Wire fields -> BlockPayload (CPU tensors). Raises ValueError on a
+    malformed body, so a caller can answer with an error instead of
+    corrupting a pool."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 5:
+        raise ValueError(f"payload shape {shape} is not [L, n, Hkv, blk, hd]")
+    dt = _wire_dtype(dtype)
+    n = math.prod(shape) * dt.itemsize
+    if len(k) != n or len(v) != n:
+        raise ValueError(f"payload bytes {len(k)}/{len(v)} do not match shape {shape} "
+                         f"dtype {dtype}")
+    ka, va = _from_bytes(k, dt, shape), _from_bytes(v, dt, shape)
+    if not k_scale:
+        return BlockPayload(ka, va)
+    sshape = shape[:3]
+    if len(k_scale) != math.prod(sshape) * 4 or len(v_scale) != math.prod(sshape) * 4:
+        raise ValueError(f"scale bytes do not match shape {sshape}")
+    return BlockPayload(ka, va, _from_bytes(k_scale, torch.float32, sshape),
+                        _from_bytes(v_scale, torch.float32, sshape))
+
+
 def block_bytes(cfg, block: int, dtype=None, quant_kv: str = "") -> int:
     """Device bytes one physical block costs (K + V across all layers).
     With ``quant_kv`` the payload is priced at the stored dtype plus the
@@ -385,8 +526,9 @@ class BlockPool:
 
 
 __all__ = [
-    "KV_QUANT_DTYPES", "SCRATCH_BLOCK", "BlockPool", "PagedKVCache", "block_bytes",
-    "blocks_for", "copy_block", "create_cache", "dequantize_values", "gather_blocks",
-    "grow_cache", "kv_quant_spec", "quant_scatter_span", "quantize_values",
-    "scatter_block_kv", "shrink_cache",
+    "KV_QUANT_DTYPES", "SCRATCH_BLOCK", "BlockPayload", "BlockPool", "PagedKVCache",
+    "block_bytes", "blocks_for", "copy_block", "create_cache", "dequantize_values",
+    "export_blocks", "gather_blocks", "grow_cache", "kv_quant_spec",
+    "pack_payload", "payload_compatible", "quant_scatter_span", "quantize_values",
+    "scatter_block_kv", "shrink_cache", "unpack_payload", "write_block",
 ]

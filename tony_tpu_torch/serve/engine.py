@@ -36,15 +36,29 @@ configuration:
   rows and keeps the longest prefix the model agrees with, plus one token.
   Output is draw-for-draw the one-token engine's. Finished requests also
   register their generated blocks in the prefix store, the drafts' corpus.
+- **Chunked prefill** (``chunk_tokens``): a prompt whose unshared tail is
+  longer than a chunk has every block planned at admission and is
+  prefilled one chunk per engine step, the first chunk on the admission
+  step; each chunk attends the K/V that the slot's earlier chunks wrote,
+  gathered from the pool through its table (dequantized on quantized
+  pools). The slot holds its blocks but stays out of the decode batch
+  until its last chunk samples the first token, so streams already
+  decoding never wait behind a whole prompt. Only the last chunk samples:
+  a request's generator draws what it would unchunked.
+- **Blockwise KV handoff** (:meth:`Engine.export_prefix_blocks`,
+  :meth:`Engine.adopt_blocks`): a prefill engine ships the store's blocks
+  of a prefix (payload and scale rows, ``serve/cache.py``
+  ``BlockPayload``, on the wire ``pack_payload``) and a decode engine
+  adopts them into fresh blocks of its own pool and its prefix store, so
+  a request there prefills only the tail.
 
 What differs from the reference: PyTorch runs eagerly, so there are no jit
 or AOT caches and no compile ledger; prefill runs at the prompt's exact
 length (``prefill_buckets`` only bounds admissible prompt lengths, as in
-the reference). The pools are updated in place. Not ported yet, and
-refused rather than ignored: ``chunk_tokens`` and the blockwise handoff
-between pools (ROADMAP queue 1, item 4), and the observability spine
-(tracing, registry histograms, health, series, profile, SLO; queue 1,
-item 6).
+the reference), and a mid-block prefix match is cut back to its full
+blocks only where the prompt is chunked. The pools are updated in place.
+Not ported yet: the observability spine (tracing, registry histograms,
+health, series, profile, SLO; ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -68,9 +82,10 @@ from tony_tpu_torch.obs.metrics import DecodeMetrics
 from tony_tpu_torch.ops.decode_attention import check_kernel_shape, decode_attention
 from tony_tpu_torch.ops.quant_mm import quant_matmul, quantize_weights
 from tony_tpu_torch.serve.cache import (
-    SCRATCH_BLOCK, BlockPool, block_bytes, blocks_for, copy_block, create_cache,
-    dequantize_values, gather_blocks, grow_cache, kv_quant_spec,
-    quant_scatter_span, scatter_block_kv, shrink_cache,
+    SCRATCH_BLOCK, BlockPayload, BlockPool, block_bytes, blocks_for, copy_block,
+    create_cache, dequantize_values, export_blocks, gather_blocks, grow_cache,
+    kv_quant_spec, payload_compatible, quant_scatter_span, scatter_block_kv, shrink_cache,
+    write_block,
 )
 from tony_tpu_torch.serve.prefix import MatchResult, PrefixStore
 from tony_tpu_torch.serve.spec import (
@@ -117,10 +132,11 @@ class ServeConfig:
     # int8 weight-only decode matmuls (ops/quant_mm.py): an int8 copy of the
     # decode weights made at build; prefill keeps the bf16 masters
     quant_weights: bool = False
-    # chunked prefill: not ported yet (ROADMAP queue 1, item 4)
+    # chunked prefill: a tail longer than this many tokens prefills one chunk
+    # per engine step (0 = whole prompts); a multiple of kv_block
     chunk_tokens: int = 0
-    # pool label ('decode' | 'prefill'); the handoff between pools is not
-    # ported yet (ROADMAP queue 1, item 4)
+    # pool label ('decode' | 'prefill') of a disaggregated deployment, whose
+    # engines hand prefix blocks over (export_prefix_blocks / adopt_blocks)
     pool: str = "decode"
 
 
@@ -154,6 +170,20 @@ class Completion:
     ttft_s: float = 0.0
 
 
+@dataclass
+class _ChunkedPrefill:
+    """Host-side progress of one slot's chunked prefill: the slot owns its
+    blocks (planned at admission) and ``pos`` advances one chunk per engine
+    step until the last chunk samples the first token."""
+
+    rid: int
+    req: Request
+    prompt: np.ndarray
+    pos: int                              # tokens written: the match, then done chunks
+    gen: torch.Generator | None           # drawn from by the last chunk only
+    t0: float                             # admission (TTFT spans every chunk)
+
+
 class _SlotState(NamedTuple):
     """Per-slot device state read by the decode step."""
 
@@ -163,12 +193,6 @@ class _SlotState(NamedTuple):
     top_p: torch.Tensor      # [S] float32
     eos: torch.Tensor        # [S] int64, -1 = none
     live: torch.Tensor       # [S] bool, slot owned by a request
-
-
-# ServeConfig knobs not ported yet: (field, what, ROADMAP queue 1 item)
-_UNPORTED = (
-    ("chunk_tokens", "chunked prefill", 4),
-)
 
 
 def _default_buckets(max_len: int) -> tuple[int, ...]:
@@ -205,12 +229,12 @@ class Engine:
                 "serving MoE configs is not supported (prefill has no expert "
                 "dispatch)"
             )
-        for name, what, item in _UNPORTED:
-            if getattr(serve, name):
-                raise NotImplementedError(
-                    f"ServeConfig.{name}: {what} is not ported yet (ROADMAP "
-                    f"queue 1, item {item})"
-                )
+        if serve.chunk_tokens and serve.chunk_tokens % serve.kv_block:
+            raise ValueError(
+                f"chunk_tokens {serve.chunk_tokens} must be a multiple of "
+                f"kv_block {serve.kv_block} (chunks start block-aligned so "
+                "tail-prefill signatures stay bounded)"
+            )
         if serve.spec_draft_source not in DRAFT_SOURCES:
             raise ValueError(f"spec_draft_source {serve.spec_draft_source!r} not in "
                              f"{DRAFT_SOURCES}")
@@ -279,6 +303,9 @@ class Engine:
         self._table_dev = self._upload_table(1)
         self._table_dirty = False
         self._cow_copies = 0
+        # slots mid-chunked-prefill, and the chunks prefilled so far
+        self._chunking: dict[int, _ChunkedPrefill] = {}
+        self.prefill_chunks = 0
         dev = self.device
         self.state = _SlotState(
             last_tok=torch.zeros(S, dtype=torch.int64, device=dev),
@@ -346,14 +373,28 @@ class Engine:
         return sum(1 for r in self._slot_rid if r is not None)
 
     @property
+    def n_decoding(self) -> int:
+        """Live slots in the decode batch (a slot mid-chunked-prefill holds
+        its blocks but does not decode yet)."""
+        return sum(1 for s, r in enumerate(self._slot_rid)
+                   if r is not None and s not in self._chunking)
+
+    @property
     def attended_positions(self) -> int:
         """Positions the decode step's table covers per slot."""
         return self._attended * self.serve.kv_block
 
     def step(self) -> int:
-        """Admit what fits, run one decode step; returns live-slot count."""
+        """Admit what fits, advance each chunking slot by one chunk, run one
+        decode step; returns the live-slot count (chunking slots too)."""
+        # slots already chunking advance one chunk each; those _admit parks
+        # into chunking ran their first chunk inside admission
+        pending = sorted(self._chunking)
         self._admit()
-        if self.n_live:
+        for slot in pending:
+            if slot in self._chunking:
+                self._prefill_chunk(slot)
+        if self.n_decoding:
             self._decode_once()
         return self.n_live
 
@@ -388,6 +429,9 @@ class Engine:
         if self.serve.quant_kv:
             snap["quant_pool_resident_bytes"] = float(self._pool.n_blocks
                                                       * self._blk_bytes)
+        if self._chunking:
+            # slots mid-chunked-prefill: occupied but not decoding yet
+            snap["chunking_slots"] = float(len(self._chunking))
         if self._store is not None:
             snap.update(self._store.stats())
         return snap
@@ -400,17 +444,73 @@ class Engine:
             s["prefix"]["cow_copies"] = self._cow_copies
         return s
 
-    def export_prefix_blocks(self, tokens: Sequence[int]):
-        raise NotImplementedError(
-            "blockwise KV handoff (export_prefix_blocks) is not ported yet "
-            "(ROADMAP queue 1, item 4)"
-        )
+    # --- blockwise KV handoff between engines ---------------------------------
 
-    def adopt_blocks(self, tokens: Sequence[int], payload):
-        raise NotImplementedError(
-            "blockwise KV handoff (adopt_blocks) is not ported yet (ROADMAP "
-            "queue 1, item 4)"
-        )
+    def export_prefix_blocks(self, tokens: Sequence[int]
+                             ) -> tuple[list[int], BlockPayload] | None:
+        """The exporting side of the handoff: the store-resident full blocks
+        covering ``tokens``, copied to the host as ``(covered_tokens,
+        BlockPayload)``, quantized payload and scale rows together. Each
+        block is pinned (one more pool reference) while it is gathered, so
+        eviction cannot hand it away mid-export. None when nothing is
+        resident."""
+        if self._store is None:
+            return None
+        B = self.serve.kv_block
+        toks = [int(t) for t in tokens]
+        n_full = len(toks) // B
+        if not n_full:
+            return None
+        m = self._store.match(toks, n_full * B)
+        if not m.full:
+            return None
+        for pid in m.full:
+            self._pool.retain(pid)
+        try:
+            payload = export_blocks(self.cache, list(m.full))
+        finally:
+            for pid in m.full:
+                self._pool.release(pid)
+        return toks[:len(m.full) * B], payload
+
+    def adopt_blocks(self, tokens: Sequence[int], payload: BlockPayload) -> tuple[int, int]:
+        """The adopting side: shipped blocks enter this pool through the
+        normal refcount rules. Every adopted block is freshly allocated (an
+        allocation hands out only refcount-zero ids, so a handoff racing a
+        slot's release never writes a block in use), written payload and
+        scale rows together, and inserted into the prefix store, which
+        takes the owning reference; a block whose prefix is already
+        resident is freed instead. Returns ``(adopted, freed)``, which sum
+        to the payload's blocks; raises ValueError on a payload this pool
+        cannot adopt."""
+        B = self.serve.kv_block
+        nb = payload.n_blocks
+        if len(tokens) != nb * B:
+            raise ValueError(f"payload covers {nb} block(s) of {B} but {len(tokens)} "
+                             "tokens were named")
+        why = payload_compatible(self.cache, payload)
+        if why:
+            raise ValueError(f"incompatible handoff payload: {why}")
+        if self._store is None:
+            return 0, nb              # no store to own them: nothing adopts
+        toks = [int(t) for t in tokens]
+        have = len(self._store.match(toks, nb * B).full)
+        new_pids: list[int] = []
+        for bi in range(have, nb):
+            pid = self._alloc_block()
+            if self.cache.quantized:
+                # the adopt write lands the shipped scale rows as they are:
+                # a queued allocation-time zeroing would erase them
+                self._fresh_scale.remove(pid)
+            write_block(self.cache, pid, payload, bi)
+            new_pids.append(pid)
+        phys = list(self._store.match(toks, nb * B).full)[:have] + new_pids
+        created = self._store.insert(toks, phys, self._pool.retain)
+        for pid in new_pids:
+            self._pool.release(pid)
+        if self._store.evict_to_budget(self._pool.release):
+            self._maybe_shrink_pool()
+        return created, nb - created
 
     # --- admission ------------------------------------------------------------
 
@@ -441,23 +541,60 @@ class Engine:
             m = self._store.match(prompt.tolist(), plen - 1)
             if m.full:
                 match, matched = m, m.length
+        ct = self.serve.chunk_tokens
+        chunked = bool(ct) and plen - matched > ct
+        if chunked and match is not None and match.partial is not None:
+            # every chunk starts block-aligned (at matched + i * chunk_tokens):
+            # a mid-block copy-on-write match is cut back to its full blocks
+            match = MatchResult(len(match.full) * self.serve.kv_block, match.full, None)
+            matched = match.length
+        if self._store is not None and plen > 1:
             self._store.record_prompt(plen, matched)
         self.metrics.record_prompt(plen, matched)
         gen = self._generator(req, rid) if req.temperature > 0 else None
         self._plan_blocks(slot, plen, match)
+        if chunked:
+            # the slot holds its blocks and stays out of the decode batch
+            # (state.live False: a decode step steers its row's write to the
+            # scratch block) until its last chunk samples the first token
+            self._slot_rid[slot] = rid
+            self._chunking[slot] = _ChunkedPrefill(rid, req, prompt, matched, gen, t0)
+            self._prefill_chunk(slot)          # the first chunk rides admission
+            return
         tok = self._prefill(slot, prompt, matched, req, gen)
         self._activate_slot(slot, rid, req, prompt, tok, gen, t0)
 
+    def _prefill_chunk(self, slot: int) -> None:
+        """Advance a chunking slot by one chunk (at most ``chunk_tokens``
+        tokens through the restartable prefill); the last chunk samples the
+        first token and activates the slot."""
+        job = self._chunking[slot]
+        plen = len(job.prompt)
+        end = min(job.pos + self.serve.chunk_tokens, plen)
+        tok = self._prefill(slot, job.prompt, job.pos, job.req, job.gen, end=end)
+        self.prefill_chunks += 1
+        if end < plen:
+            job.pos = end
+            return
+        del self._chunking[slot]
+        self._activate_slot(slot, job.rid, job.req, job.prompt, tok, job.gen, job.t0)
+
     def _prefill(self, slot: int, prompt: np.ndarray, matched: int,
-                 req: Request, gen: torch.Generator | None) -> int:
-        """Prefill ``prompt[matched:]`` and sample the first token. With a
-        prefix match, the matched K/V is gathered from the pool (through
-        the slot's own table, COW copy included) into a contiguous context
-        that the tail attends (quantized pools dequantize it to the model
-        dtype through the blocks' scale rows); without one the context is
-        just the prompt. The new K/V is scattered into the slot's blocks."""
+                 req: Request, gen: torch.Generator | None, end: int | None = None
+                 ) -> int | None:
+        """Prefill ``prompt[matched:end]`` (``end`` the prompt's length by
+        default) and, where it ends the prompt, sample the first token. With
+        ``matched`` positions already in the slot's blocks (a prefix match,
+        the COW copy included, or the earlier chunks of a chunked prefill),
+        their K/V is gathered from the pool through the slot's own table
+        into a contiguous context that the tail attends (quantized pools
+        dequantize it to the model dtype through the blocks' scale rows);
+        without one the context is just the prompt. The new K/V is
+        scattered into the slot's blocks. A chunk that does not end the
+        prompt samples nothing, so the request's generator draws only what
+        an unchunked prefill draws; it returns None."""
         cfg, dev, B = self.cfg, self.device, self.serve.kv_block
-        plen = len(prompt)
+        plen = len(prompt) if end is None else end
         if matched:
             n_have = blocks_for(plen, B)
             ids = torch.as_tensor(self._table[slot, :n_have], dtype=torch.int64,
@@ -475,9 +612,13 @@ class Engine:
             ctx = KVCache(gather(c.k, c.k_scale), gather(c.v, c.v_scale))
         else:
             ctx = KVCache.create(cfg, 1, plen, device=dev)
-        tail = torch.as_tensor(prompt[matched:], dtype=torch.int64, device=dev)[None]
+        tail = torch.as_tensor(prompt[matched:plen], dtype=torch.int64, device=dev)[None]
         logits, kv = forward_with_cache(self.params, tail, ctx, matched, cfg,
                                         last_only=True)
+        if plen < len(prompt):
+            self._scatter_prompt(slot, kv.k[:, 0, matched:plen], kv.v[:, 0, matched:plen],
+                                 matched, plen)
+            return None
         tok = sample_tokens(
             logits[:, 0],
             torch.tensor([req.temperature], dtype=torch.float32, device=dev),
@@ -492,9 +633,12 @@ class Engine:
 
     def _scatter_prompt(self, slot: int, k: torch.Tensor, v: torch.Tensor,
                         start: int, plen: int) -> None:
-        """Write prefilled K/V (``[L, W, Hkv, hd]``, positions ``start + i``)
-        into the slot's blocks, in place. Quantized pools quantize the span
-        layer by layer, each touched block's running scale updated once."""
+        """Write prefilled K/V (``[L, W, Hkv, hd]``, positions ``start + i``
+        up to ``plen``) into the slot's blocks, in place. Quantized pools
+        quantize the span layer by layer, each touched block's running
+        scale updated once. The slot's length is set when it activates: a
+        chunking slot's stays 0, so the decode step reads none of its
+        table."""
         B = self.serve.kv_block
         p = np.arange(start, plen)
         pids_np = self._table[slot, p // B]
@@ -515,7 +659,6 @@ class Engine:
             # indexed view is [W, L, Hkv, hd]
             c.k[:, pids, :, offs, :] = k.permute(1, 0, 2, 3)
             c.v[:, pids, :, offs, :] = v.permute(1, 0, 2, 3)
-        c.lengths[slot] = plen
 
     def _activate_slot(self, slot: int, rid: int, req: Request, prompt: np.ndarray,
                        tok: int, gen: torch.Generator | None, t0: float) -> None:
@@ -532,6 +675,7 @@ class Engine:
         st.top_k[slot] = req.top_k
         st.top_p[slot] = req.top_p
         st.live[slot] = True
+        self.cache.lengths[slot] = plen
         eos = -1 if req.eos_id is None else int(req.eos_id)
         st.eos[slot] = eos
         if self.serve.spec:
@@ -713,7 +857,8 @@ class Engine:
         # blocks of every position the step may write: its next position,
         # and with drafts the draft positions after it
         B = self.serve.kv_block
-        live = [s for s, r in enumerate(self._slot_rid) if r is not None]
+        live = [s for s, r in enumerate(self._slot_rid)
+                if r is not None and s not in self._chunking]
         drafts, dlens = self._propose_step_drafts(live)
         spec_step = any(dlens)
         need = 1

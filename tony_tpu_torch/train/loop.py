@@ -28,8 +28,8 @@ this run has.
 The model overrides ``ce_impl``, ``moe_dispatch``, ``moe_group_block``,
 ``overlap_impl``, ``moe_overlap_impl`` and ``moe_overlap_chunk`` apply to
 ``cfg.model`` as in the reference. Not ported yet, and raising when set
-to a non-default: MoE at tp above 1 (ROADMAP queue 1, item 8) and
-elastic training (``elastic_*``, item 9). The reference's observability hooks
+to a non-default: elastic training (``elastic_*``, ROADMAP queue 1, item
+9). The reference's observability hooks
 (``install_from_env``), the metrics push to a job's AM and compile-ahead
 (PyTorch runs eagerly, with nothing to compile) are left out.
 """

@@ -75,10 +75,15 @@ head's is the same on every pp rank (GPipe runs it alike on the
 broadcast outputs; 1F1B broadcasts the last stage's). ``global_norm``
 counts a leaf pp does not split on pp index 0 only.
 
+MoE at tp above 1: each rank holds its ``F / tp`` block of its experts'
+ffn dim (the expert leaves keep their tp block as the trunk projections
+do), and ``moe_block`` sums the expert FFN over tp; the router is whole
+and its gradient whole on every tp rank, so it is summed nowhere over tp
+and the global norm counts it on tp index 0 only.
+
 Pipeline stages refuse the ring, ring_flash and Ulysses attentions, and
-1F1B refuses MoE, with the reference's messages. MoE at tp above 1 and
-the numerics-health monitors are not ported yet and raise (ROADMAP queue
-1, item 8 for the parallelism, item 6 for the monitors).
+1F1B refuses MoE, with the reference's messages. The numerics-health
+monitors are not ported yet and raise (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -241,17 +246,13 @@ def check_1f1b(cfg: llama.LlamaConfig) -> None:
 
 
 def check_model_mesh(cfg: llama.LlamaConfig, shape: dict[str, int]) -> None:
-    """Raise for a model the mesh cannot split: MoE at tp above 1 (not
-    ported), query heads that tp does not split, Ulysses with local heads
-    that sp does not split (the reference's error), and at pp above 1 the
-    reference's pipeline refusals (:func:`_pp_guard`)."""
+    """Raise for a model the mesh cannot split: query heads that tp does
+    not split, Ulysses with local heads that sp does not split (the
+    reference's error), and at pp above 1 the reference's pipeline
+    refusals (:func:`_pp_guard`)."""
     tp, sp, pp = shape.get("tp", 1), shape.get("sp", 1), shape.get("pp", 1)
     if pp > 1:
         _pp_guard(cfg, pp)
-    if cfg.is_moe and tp > 1:
-        raise NotImplementedError(
-            f"MoE at tp={tp}: the expert weights' ffn split over tp is not ported yet "
-            "(ROADMAP queue 1, item 8)")
     if cfg.n_heads % tp:
         raise ValueError(f"n_heads={cfg.n_heads} does not split over tp={tp}")
     if cfg.attention_impl == "ulysses" and (cfg.n_heads // tp) % sp:
@@ -558,7 +559,7 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
     if monitors:
         raise NotImplementedError(
             "the numerics-health monitors are not ported yet (ROADMAP queue 1, "
-            "observability)")
+            "item 6)")
     if cfg.remat:
         llama._remat_policy(cfg.remat_policy)     # an unknown name fails here
     if sharded:

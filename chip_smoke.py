@@ -92,8 +92,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's launches must equal decode steps x 32 (attention) and x 225
    (7 matmuls x 32 layers + lm_head), no plain version and no bf16 decode
    attention on the card, generate() equal to the engine; its profile
-   beside phase 4's. Then (4c) bench.py's speculative trace: a 64-token
-   prompt, 769 new tokens, 15 drafts a step, greedy, prefix store on, at
+   beside phase 4's; then the same with fp8 e4m3 KV pools (held alike,
+   without the profile). Then (4c) bench.py's speculative trace cut to
+   half its length (769 new tokens), to keep the script inside its time
+   limit: a 64-token prompt, 385 new tokens, 15 drafts a step, greedy,
+   prefix store on, at
    batch 1 and at batch 8 (one prompt for every row), spec off and then
    on, the spec-on engine's store seeded with the whole repeat (one
    prefill of the prompt and spec off's tokens) before its timed pass;
@@ -117,7 +120,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    engine of phase 4's config export the shared 256-token prefix's
    blocks, which cross the wire form into a fresh engine: adopted (4, 0)
    then (0, 4), read back byte-equal, and the adopter's greedy tokens on
-   a prompt extending the prefix equal the exporter's;
+   a prompt extending the prefix equal the exporter's; (4f) the slot
+   budget: ``derive_slot_budget`` for phase 4's Llama-3-8B config (max_len
+   2048, kv_block 64) from probe decode steps at 1 and 2 slots on its
+   weights, with int8 and fp8 pools and a 256-token shared prefix, every
+   component printed, the prediction for 8 slots beside phase 4's peak;
+   then phase 13 (below), while the Llama-3-8B weights are resident;
 5. training: ``fit()`` on bench_1b4 at full width and depth (24 layers,
    batch 8 x 2048, the production recipe: flash attention, remat
    ``save_attn_kernel``, scan CE, bf16 Adam first moment), 10 steps from
@@ -130,7 +138,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``ce_impl="pallas"``: step 1 within 2e-2 of phase 5's, ce_fwd once a
    step and ce_dh / ce_dw once per vocab chunk a step, all three on
    their tensor-core instances, no plain version; its profile, and a 2-layer
-   cross-check against the scan head;
+   cross-check against the scan head. (5c) phase 5's fit() for 2 steps
+   under each of ``remat_policy="dots"`` and ``"checkpoint_dots"``: step 1
+   within 1e-3 of phase 5's, the flash forward recomputed in the backward
+   (2 launches a layer and step), peak memory and step time beside phase
+   5's;
 6. MoE training: ``fit()`` on bench_moe at full width and depth (24
    layers, 8 experts top-2, batch 8 x 2048, the same recipe with the
    grouped dispatch through the grouped-matmul kernels), 10 steps from
@@ -213,7 +225,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``fit()`` on bench_moe at full width cut to 2 layers with
    ``moe_dispatch="gather"`` at ``MeshShape(dp=2)``, 2 steps, against the
    same fit() in the main process: losses and aux within 2e-2, each flash
-   kernel once per layer and step, no grouped kernel, payload printed.
+   kernel once per layer and step, no grouped kernel, payload printed;
+13. the observability spine (``spine_phase``; every other phase runs
+   with it disarmed, ``disarm_spine``), under a temporary app dir: bench_1b4
+   at full width for 4 steps over a token file written from the
+   synthetic stream, through the native loader, disarmed and then armed
+   (trace, memory watch, health sentinel and series sampling every
+   step), a profile window on step 2 of each: the journal holds
+   ``train.fit`` and the sampled step spans, the verdict is healthy, the
+   memory watch's peak is ``max_memory_allocated``'s, the profile's
+   Chrome trace names kernels 1-3, and the step thread's device-to-host
+   copies and synchronizing calls in the profiled step are as many armed
+   as disarmed (the armed step's wall and device ms printed beside the
+   disarmed one's); ``TONY_CHAOS_NAN_STEP=2`` on a 4-layer bench_1b4
+   trips the sentinel at step 2 with a forensics bundle; phase 4's
+   traffic through an armed engine at the default strides: the
+   registry's TTFT, TPOT and step histograms count what ``DecodeMetrics``
+   counts.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -227,7 +255,8 @@ The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
-phases 7 and 8 rank 0's, phases 9 to 12 each rank's),
+phases 7 and 8 rank 0's, phases 9 to 12 each rank's, 4b's fp8 run, 5c
+and 13 included),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -238,8 +267,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -841,17 +872,19 @@ def serve_phase(cfg, params) -> dict:
             "ttft_s": [c.ttft_s for c in out.values()]}
 
 
-def quant_serve_phase(cfg, params, bf16: dict) -> dict:
+def quant_serve_phase(cfg, params, bf16: dict, quant_kv: str = "int8",
+                      breakdown: bool = True) -> dict:
     """Phase 4b: the same weights and requests through the quantized engine
-    (int8 KV pools, int8 decode weights). Per decode step the quantized
-    attention runs once per layer and the dequant-matmul 7 x 32 + 1 times;
-    no plain version and no bf16 decode attention on the card; generate()
-    equal to the engine on request 0; the breakdown; and, reported only,
-    the share of greedy tokens equal to phase 4's."""
+    (``quant_kv`` KV pools: int8, then fp8 e4m3; int8 decode weights). Per
+    decode step the quantized attention runs once per layer and the
+    dequant-matmul 7 x 32 + 1 times; no plain version and no bf16 decode
+    attention on the card; generate() equal to the engine on request 0;
+    with ``breakdown`` the decode step's profile; and, reported only, the
+    share of greedy tokens equal to phase 4's."""
     from tony_tpu_torch.models.generate import generate
     from tony_tpu_torch.serve import Engine, ServeConfig
 
-    sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True, quant_kv="int8",
+    sv = dict(slots=8, max_len=2048, kv_block=64, prefix=True, quant_kv=quant_kv,
               quant_weights=True)
     t0 = time.perf_counter()
     engine = Engine(params, cfg, ServeConfig(**sv), device="cuda")
@@ -867,8 +900,11 @@ def quant_serve_phase(cfg, params, bf16: dict) -> dict:
     if steps == 0 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"quantized launches {launches} != {want} "
                              f"({steps} decode steps)")
-    breakdown = decode_breakdown(engine, cfg, rng, {
-        "attention": QUANT_TC_EVENTS, "quant_mm": KERNEL_EVENTS["quant_mm"]})
+    if breakdown:
+        breakdown = decode_breakdown(engine, cfg, rng, {
+            "attention": QUANT_TC_EVENTS, "quant_mm": KERNEL_EVENTS["quant_mm"]})
+    else:
+        breakdown = {}
     del engine
     torch.cuda.empty_cache()
     solo = generate(params, prompts[0][None], cfg, max_new_tokens=64,
@@ -979,7 +1015,7 @@ def quant_crosscheck(card: str) -> dict:
 # blocks and the store holds the entire repeat), 15 draft tokens a step
 SPEC_BLOCK = 64
 SPEC_DRAFT = 15
-SPEC_NEW = 12 * SPEC_BLOCK + 1
+SPEC_NEW = 6 * SPEC_BLOCK + 1     # half bench.py's 769: chip_smoke's time
 # the store's budget: the repeat's 13 blocks of 8 MiB at this width (the
 # default 64 MB holds 8, so the path would end 448 tokens in)
 SPEC_STORE_MB = 128.0
@@ -1073,7 +1109,7 @@ def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
     ``new - 1`` of them registers the whole repeat at admission (the path
     a first pass would register at finish). bench.py seeds with a whole
     spec-on pass and warms again to pay XLA's compiles; eager PyTorch has
-    none, and a pass of 769 tokens would cost as much as the timed one.
+    none, and a whole pass would cost as much as the timed one.
     With ``profile``, then the breakdown of a few verify steps of the same
     requests, cut to as many tokens as those steps may emit."""
     from tony_tpu_torch.serve import Engine, Request, ServeConfig
@@ -2156,11 +2192,11 @@ def contiguous_bench_loop(flush: torch.Tensor) -> dict:
 TRAIN_STEPS = 10
 
 
-def dense_train_config():
-    from tony_tpu_torch.models.llama import LlamaConfig
+def dense_train_config(**kw):
+    """bench_1b4's training recipe (``train/presets.py``), ``kw`` overriding."""
+    from tony_tpu_torch.train.presets import bench_1b4_recipe
 
-    return LlamaConfig.bench_1b4(attention_impl="flash", remat=True,
-                                 remat_policy="save_attn_kernel", ce_impl="scan")
+    return bench_1b4_recipe(**kw)
 
 
 def train_phase(card: str) -> dict:
@@ -2391,14 +2427,11 @@ MOE_LAUNCHES_PER_LAYER_STEP = {"gmm_fwd": 6, "gmm_dx": 3, "gmm_dw": 3,
 
 
 def moe_train_config():
-    from tony_tpu_torch.models.llama import LlamaConfig
+    """bench_moe's training recipe (``train/presets.py``): the reference
+    bench's 'grouped_pallas' variant with the preset's own 8 experts."""
+    from tony_tpu_torch.train.presets import bench_moe_recipe
 
-    # bench.py's moe_bench 'grouped_pallas' variant with the preset's own 8
-    # experts: flash attention, remat save_attn_kernel, scan CE
-    return LlamaConfig.bench_moe(
-        attention_impl="flash", remat=True, remat_policy="save_attn_kernel",
-        ce_impl="scan", moe_dispatch="grouped", moe_gmm_impl="pallas",
-        moe_group_block=128, moe_aux_coef=0.01)
+    return bench_moe_recipe()
 
 
 def train_moe_phase(card: str) -> dict:
@@ -3332,12 +3365,332 @@ def rank_phases() -> list[dict]:
     return ranks
 
 
+# --- phase 4f: the slot budget from a probe of the decode step ------------------------
+
+
+def capacity_probe_phase(cfg, params, bf16: dict) -> dict:
+    """Phase 4f: ``derive_slot_budget`` for Llama-3-8B at max_len 2048 and
+    kv_block 64 (phase 4's engine), from probe decode steps at 1 and 2
+    slots on phase 4's weights: the bf16 budget with int8 and with fp8
+    pools beside it, each with a 256-token shared prefix (phase 4's
+    requests 6 and 7 share one), every component reported; the prediction
+    for phase 4's 8 slots beside phase 4's measured peak."""
+    from tony_tpu_torch.serve.capacity import derive_slot_budget
+
+    out = {}
+    t0 = time.perf_counter()
+    for quant in ("int8", "fp8_e4m3"):
+        b = derive_slot_budget(cfg, max_len=2048, kv_block=64, shared_prefix_tokens=256,
+                               quant_kv=quant, params=params)
+        torch.cuda.empty_cache()
+        if not (b["per_slot_temp_bytes"] > 0 and b["max_slots_native"] > 8
+                and b["max_slots_quant"] > b["max_slots_native"]
+                and b["max_slots_prefix_shared"] >= b["max_slots_native"]):
+            raise AssertionError(f"slot budget {quant} implausible: {b}")
+        out[quant] = b
+    out["probe_s"] = time.perf_counter() - t0
+    # phase 4's bf16 engine at 8 slots: params + fixed temp + 8 x (KV + temp a slot)
+    b = out["int8"]
+    out["predicted_8_gb"] = (b["param_bytes"] + b["fixed_temp_bytes"] + 8 * (
+        b["kv_bytes_per_slot_native"] + b["per_slot_temp_bytes"])) / 1e9
+    out["phase4_peak_gb"] = bf16["peak_allocated_gb"]
+    return out
+
+
+# --- phase 5c: the matmul remat policies ----------------------------------------------
+
+REMAT_POLICY_STEPS = 2
+
+
+def remat_policy_phase(card: str, scan: dict) -> dict:
+    """Phase 5c: phase 5's fit() under ``remat_policy="dots"`` and
+    ``"checkpoint_dots"``, 2 steps each: step 1's loss within 1e-3 of phase
+    5's (the same weights and batch; remat changes what is recomputed, not
+    the arithmetic), the flash forward recomputed in the backward (neither
+    policy saves a kernel's output: 2 launches a layer and step, dq and
+    dkv 1), no plain version; peak memory and step time beside phase 5's."""
+    from tony_tpu_torch.ops import attention
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    out = {}
+    for policy in ("dots", "checkpoint_dots"):
+        cfg = dense_train_config(remat_policy=policy)
+        data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size)
+        steps: list[dict] = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.reset_launches()
+        fit(FitConfig(model=cfg, data=data, steps=REMAT_POLICY_STEPS, log_every=1,
+                      lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
+                      on_metrics=steps.append), device="cuda")
+        launches = dict(attention.LAUNCHES)
+        n = cfg.n_layers * REMAT_POLICY_STEPS
+        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n, "flash_fwd_plain": 0,
+                "flash_dq_plain": 0, "flash_dkv_plain": 0}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{policy}: launches {launches} != {want}")
+        diff = abs(steps[0]["loss"] - scan["losses"][0])
+        if not all(math.isfinite(m["loss"]) for m in steps) or diff > 1e-3:
+            raise AssertionError(f"{policy}: losses {[m['loss'] for m in steps]}, step 1 "
+                                 f"{diff:.3e} from phase 5's")
+        out[policy] = {"losses": [m["loss"] for m in steps], "loss_diff": diff,
+                       "step_ms": steps[-1]["step_time_s"] * 1e3,
+                       "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": launches}
+        torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 13: the observability spine armed --------------------------------------------
+
+SPINE_ENV = ("TONY_OBS_HBM", "TONY_OBS_HEALTH", "TONY_OBS_SERIES", "TONY_OBS_PROFILE")
+SPINE_STEPS = 4
+SPINE_PROC = "chip_smoke"
+
+
+def disarm_spine() -> None:
+    """Every phase but 13 runs with the spine disarmed (it arms by default
+    in fit() and the engine): their numbers stay comparable with earlier
+    runs', and phase 13 measures what arming costs. Rank processes inherit
+    this env."""
+    for key in SPINE_ENV:
+        os.environ[key] = "0"
+    for key in ("TONY_TRACE_DIR", "TONY_APP_DIR", "TONY_CHAOS_NAN_STEP", "TONY_TRACE_PROC"):
+        os.environ.pop(key, None)
+
+
+def _spine_env(app_dir: str, armed: bool, every_step: bool = True, **extra) -> None:
+    """The env of one phase-13 run: the app dir (the profile controller
+    reads its requests there) and, armed, every part; ``every_step``
+    samples each step, else at the default strides (16)."""
+    from tony_tpu_torch.obs import hbm, health, profile, series, slo, trace
+
+    for mod in (trace, hbm, health, series, slo, profile):
+        mod.uninstall()
+    disarm_spine()
+    os.environ.update({"TONY_APP_DIR": app_dir, "TONY_OBS_PROFILE": "1",
+                       "TONY_TRACE_PROC": SPINE_PROC, **extra})
+    strides = ("TONY_TRACE_SAMPLE", "TONY_OBS_HBM_SAMPLE", "TONY_OBS_HEALTH_SAMPLE",
+               "TONY_OBS_SERIES_SAMPLE")
+    for key in strides:
+        os.environ.pop(key, None)
+    if armed:
+        os.environ.update({"TONY_TRACE_DIR": os.path.join(app_dir, "trace"),
+                           "TONY_OBS_HBM": "1", "TONY_OBS_HEALTH": "1",
+                           "TONY_OBS_SERIES": "1"})
+        if every_step:
+            os.environ.update({key: "1" for key in strides})
+
+
+def write_token_file(path: str, cfg, n_batches: int) -> None:
+    """``n_batches`` batches of the synthetic stream (8 x 2048, seed 0), as
+    the flat int32 windows of ``seq_len + 1`` tokens the loader reads."""
+    from tony_tpu_torch.train.data import DataConfig, synthetic_batches
+
+    it = synthetic_batches(DataConfig(global_batch=8, seq_len=2048,
+                                      vocab_size=cfg.vocab_size))
+    with open(path, "wb") as f:
+        for _ in range(n_batches):
+            inputs, targets = next(it)
+            np.concatenate([inputs.numpy(), targets.numpy()[:, -1:]], axis=1) \
+                .astype(np.int32).tofile(f)
+
+
+def trace_counts(path: str) -> dict:
+    """From a Chrome trace of one step: the device-to-host copies and the
+    synchronizing runtime calls issued by the thread that ran the step
+    (the one holding the ``anatomy.step`` region), the device time, and
+    the kernels' names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    main = {e["tid"] for e in events if e.get("name") == "anatomy.step"
+            and e.get("cat") == "user_annotation"}
+    runtime = {e["args"]["correlation"]: e["tid"] for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    d2h = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and e.get("name", "").startswith("Memcpy DtoH")]
+    syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy")
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return {
+        "main_d2h": sum(runtime.get(e["args"].get("correlation")) in main for e in d2h),
+        "other_d2h": sum(runtime.get(e["args"].get("correlation")) not in main for e in d2h),
+        "main_syncs": sum(e.get("cat") == "cuda_runtime" and e.get("name") in syncs
+                          and e.get("tid") in main for e in events),
+        "device_ms": sum(e.get("dur", 0) for e in device) / 1e3,
+        "kernels": {e["name"] for e in events if e.get("cat") == "kernel"},
+        "main_tids": sorted(main),
+    }
+
+
+def spine_train_run(app_dir: str, token_file: str, armed: bool, **fit_kw) -> dict:
+    """bench_1b4 through fit() for 4 steps over the token file through the
+    native loader, a profile window requested for step 2 (from step 1's
+    metrics callback; step 3 then pays the trace's export, so step 4 is
+    the unprofiled one), with the spine armed or not."""
+    from tony_tpu_torch.obs import profile
+    from tony_tpu_torch.ops import attention
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    _spine_env(app_dir, armed)
+    cfg = dense_train_config()
+    data = DataConfig(global_batch=8, seq_len=2048, vocab_size=cfg.vocab_size,
+                      path=token_file)
+    steps: list[dict] = []
+
+    def on_metrics(m: dict) -> None:
+        steps.append(m)
+        if m["step"] == 1:
+            profile.active_controller().trigger(steps=1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launches()
+    final = fit(FitConfig(model=cfg, data=data, steps=SPINE_STEPS, log_every=1, lr=3e-4,
+                          warmup_steps=2, mu_dtype="bfloat16", on_metrics=on_metrics,
+                          **fit_kw), device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    man = profile.read_manifests(app_dir)[SPINE_PROC]
+    if man["steps"] != 1 or not man["artifact"]:
+        raise AssertionError(f"profile window: {man}")
+    return {"final": final, "steps": steps, "peak_bytes": peak,
+            "launches": dict(attention.LAUNCHES), "trace": trace_counts(man["artifact"])}
+
+
+def spine_phase(card: str, cfg8, params8, work_dir: str) -> dict:
+    """Phase 13: the observability spine armed at full width.
+
+    Training: bench_1b4 over a token file the script writes from the
+    synthetic stream, through the native loader, 4 steps disarmed and 4
+    armed (trace, memory watch, health sentinel and series each sampling
+    every step), a profile window on step 2 of each. Held: the loader ran
+    native; the losses armed are the disarmed ones; the journal has
+    ``train.fit`` and the sampled ``train.step`` spans of steps 2-4; the
+    verdict is healthy; the memory watch's
+    peak is ``torch.cuda.max_memory_allocated``'s; the profile's Chrome
+    trace names kernels 1-3; the step thread's device-to-host copies and
+    synchronizing calls in the profiled step are as many armed as
+    disarmed. Then the NaN seam (``TONY_CHAOS_NAN_STEP=2``, bench_1b4 at 4
+    layers, 3 steps): the sentinel trips ``nonfinite`` at step 2 with a
+    forensics bundle. Serving: phase 4's traffic through an armed engine
+    at the default strides; the registry's TTFT, TPOT and step histograms
+    count what ``DecodeMetrics`` counts."""
+    from tony_tpu_torch.obs import health, hbm, profile, series, slo, trace
+    from tony_tpu_torch.ops.decode_attention import LAUNCHES as ATTN_LAUNCHES
+    from tony_tpu_torch.serve import Engine, ServeConfig
+    from tony_tpu_torch.train.native_loader import available
+
+    if not available():
+        raise AssertionError("the native token loader did not build (g++)")
+    token_file = os.path.join(work_dir, "tokens.bin")
+    cfg = dense_train_config()
+    write_token_file(token_file, cfg, SPINE_STEPS + 1)      # an epoch past the run
+    t0 = time.perf_counter()
+    off = spine_train_run(os.path.join(work_dir, "off"), token_file, armed=False)
+    on_dir = os.path.join(work_dir, "on")
+    on = spine_train_run(on_dir, token_file, armed=True)
+    trace.flush()
+    train_s = time.perf_counter() - t0
+    for label, run in (("disarmed", off), ("armed", on)):
+        if run["final"]["loader"] != "native":
+            raise AssertionError(f"{label}: loader {run['final']['loader']}")
+        names = run["trace"]["kernels"]
+        missing = [k for k in ("tc::flash_fwd_kernel", "tc::flash_dq_kernel",
+                               "tc::flash_dkv_kernel") if not any(k in n for n in names)]
+        if missing or len(run["trace"]["main_tids"]) != 1:
+            raise AssertionError(f"{label}: profile trace lacks {missing} or its step "
+                                 f"thread ({run['trace']['main_tids']})")
+    losses = [[m["loss"] for m in r["steps"]] for r in (off, on)]
+    if not np.allclose(losses[0], losses[1], rtol=0, atol=2e-4) or \
+            not all(math.isfinite(x) for x in losses[1]):
+        raise AssertionError(f"armed losses {losses[1]} != disarmed {losses[0]}")
+    recs = [json.loads(line) for line in open(os.path.join(on_dir, "trace",
+                                                           f"{SPINE_PROC}.jsonl"))]
+    spans = sorted((r["name"], r["args"].get("step")) for r in recs if r.get("ph") == "X")
+    want = [("fit.startup.first_batch", None), ("train.fit", None),
+            *(("train.step", i) for i in range(2, SPINE_STEPS + 1))]
+    if spans != want:
+        raise AssertionError(f"journal spans {spans} != {want}")
+    verdicts = health.read_verdicts(on_dir)
+    if on["final"].get("health_verdict") != "healthy" or \
+            verdicts.get(SPINE_PROC, {}).get("verdict") != "healthy":
+        raise AssertionError(f"health verdict {on['final'].get('health_verdict')}, "
+                             f"file {verdicts}")
+    peak_gib = on["peak_bytes"] / 2**30
+    if not on["final"].get("peak_hbm_exact") or \
+            abs(on["final"]["peak_hbm_gb"] - peak_gib) > 6e-4:
+        raise AssertionError(f"hbm peak {on['final'].get('peak_hbm_gb')} GiB "
+                             f"(exact {on['final'].get('peak_hbm_exact')}) != "
+                             f"max_memory_allocated {peak_gib:.4f} GiB")
+    for key in ("main_d2h", "main_syncs"):
+        if on["trace"][key] != off["trace"][key]:
+            raise AssertionError(f"armed step's {key} {on['trace'][key]} != disarmed "
+                                 f"{off['trace'][key]}")
+    for mod in (trace, hbm, health, series, slo, profile):
+        mod.uninstall()
+
+    # the NaN seam: a fresh sentinel, the reported loss NaN from step 2
+    nan_dir = os.path.join(work_dir, "nan")
+    _spine_env(nan_dir, armed=True, TONY_CHAOS_NAN_STEP="2")
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit
+
+    small = dataclasses.replace(dense_train_config(), n_layers=4)
+    nan_final = fit(FitConfig(model=small, data=DataConfig(
+        global_batch=8, seq_len=2048, vocab_size=small.vocab_size), steps=SPINE_STEPS,
+        log_every=1, lr=3e-4, warmup_steps=2, mu_dtype="bfloat16"), device="cuda")
+    bundles = health.forensics_files(nan_dir)
+    if nan_final.get("health_verdict") != "tripped" or \
+            bundles != [f"{SPINE_PROC}_nonfinite_step2.trip.json"]:
+        raise AssertionError(f"NaN seam: verdict {nan_final.get('health_verdict')}, "
+                             f"trips {nan_final.get('health_trips')}, bundles {bundles}")
+    with open(os.path.join(nan_dir, "health", bundles[0])) as f:
+        bundle = json.load(f)
+    for mod in (trace, hbm, health, series, slo, profile):
+        mod.uninstall()
+
+    # serving: phase 4's traffic through an armed engine
+    serve_dir = os.path.join(work_dir, "serve")
+    _spine_env(serve_dir, armed=True, every_step=False)
+    engine = Engine(params8, cfg8, ServeConfig(slots=8, max_len=2048, kv_block=64,
+                                               prefix=True), device="cuda")
+    _, reqs, rng = serve_requests(cfg8)
+    _, launches, figures = serve_run(engine, cfg8, reqs, rng)
+    m = engine.metrics
+    counts = {"ttft": engine._h_ttft.count, "tpot": engine._h_tpot.count,
+              "decode_step": engine._h_step.count,
+              "tokens": int(engine._c_tokens.value), "finished": int(engine._c_finished.value)}
+    want = {"ttft": m.requests_started, "tpot": m.requests_finished,
+            "decode_step": m.decode_steps, "tokens": m.generated_tokens,
+            "finished": m.requests_finished}
+    if counts != want:
+        raise AssertionError(f"engine registry {counts} != DecodeMetrics {want}")
+    summary = engine.close()
+    del engine
+    if summary.get("health_verdict") != "healthy" or \
+            launches["paged_decode_attention"] != m.decode_steps * cfg8.n_layers:
+        raise AssertionError(f"armed serving: verdict {summary.get('health_verdict')}, "
+                             f"launches {launches}")
+    trace.flush()
+    serve_spans = sum(1 for line in open(os.path.join(serve_dir, "trace",
+                                                      f"{SPINE_PROC}.jsonl"))
+                      if '"serve.step"' in line)
+    for mod in (trace, hbm, health, series, slo, profile):
+        mod.uninstall()
+    disarm_spine()
+    torch.cuda.empty_cache()
+    return {"off": off, "on": on, "train_s": train_s, "nan_final": nan_final,
+            "bundle": bundle, "serve": {**figures, **counts, "launches": launches,
+                                        "summary": summary, "step_spans": serve_spans},
+            "peak_gib": peak_gib, "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    disarm_spine()
     from tony_tpu_torch.ops._build import load
 
     card = card_line()
@@ -3689,6 +4042,23 @@ def main() -> int:
         f"{qs['profile_attention_ms']:.2f} ms = {qs['profile_attention_share']:.1%}, "
         f"quant_mm {qs['profile_quant_mm_ms']:.2f} ms = "
         f"{qs['profile_quant_mm_share']:.1%} of device time  [{card}]")
+    qf = quant_serve_phase(cfg, params, s, quant_kv="fp8_e4m3", breakdown=False)
+    fl = qf["launches"]
+    log(f"serve quantized (fp8 e4m3 KV + int8 weights; phase 4 bf16 beside it): "
+        f"{qf['requests']} requests, {qf['decode_steps']} decode steps "
+        f"({s['decode_steps']}); launches paged_decode_attention_quant "
+        f"{fl['paged_decode_attention_quant']}, quant_mm {fl['quant_mm']}; decode "
+        f"{qf['decode_tokens_per_s']:.1f} tok/s ({s['decode_tokens_per_s']:.1f}), "
+        f"mean TTFT {qf['mean_ttft_s'] * 1e3:.1f} ms ({s['mean_ttft_s'] * 1e3:.1f}), "
+        f"mean decode step {qf['mean_decode_step_ms']:.2f} ms "
+        f"({s['mean_decode_step_ms']:.2f}), {qf['kv_bytes_per_token']:.0f} KV "
+        f"bytes/token ({s['kv_bytes_per_token']:.0f}), peak allocated "
+        f"{qf['peak_allocated_gb']:.2f} GB ({s['peak_allocated_gb']:.2f}), prefix hit "
+        f"{qf['prefix_hit_tokens']} tokens, int8 copy built in {qf['build_s']:.1f} s; "
+        f"greedy tokens equal to phase 4's: {qf['greedy_equal_share']:.1%} "
+        f"({qf['greedy_equal_requests']} of 8 requests whole); generate() equal to the "
+        f"engine on request 0  [{card}]")
+    torch.cuda.empty_cache()
     spec_serve_phase(cfg, params, card)
     torch.cuda.empty_cache()
     ch = chunked_serve_phase(cfg, params, s)
@@ -3721,6 +4091,67 @@ def main() -> int:
             f"{x['first']} then {x['second']}; blocks and scale rows read back byte-equal; "
             f"request 7's {HANDOFF_NEW} greedy tokens on the adopter equal the exporter's, "
             f"prefix hits {x['hits']}, decode kernel launches {x['launches']}  [{card}]")
+    cap = capacity_probe_phase(cfg, params, s)
+    for quant in ("int8", "fp8_e4m3"):
+        b = cap[quant]
+        log(f"slot budget (Llama-3-8B, max_len 2048, kv_block 64, probe decode steps at 1 "
+            f"and 2 slots on phase 4's weights, HBM {b['hbm_bytes'] / 1e9:.2f} GB): params "
+            f"{b['param_bytes'] / 1e9:.3f} GB, fixed temp {b['fixed_temp_bytes'] / 1e6:.1f} MB, "
+            f"per-slot temp {b['per_slot_temp_bytes'] / 1e6:.2f} MB, KV per slot "
+            f"{b['kv_bytes_per_slot_native'] / 1e6:.1f} MB bf16 / "
+            f"{b['kv_bytes_per_slot_quant'] / 1e6:.1f} MB {quant} (fixed temp "
+            f"{b['fixed_temp_bytes_quant'] / 1e6:.1f} MB, per-slot temp "
+            f"{b['per_slot_temp_bytes_quant'] / 1e6:.2f} MB); max slots bf16 "
+            f"{b['max_slots_native']} (repeat-expanded KV {b['max_slots_repeat']}), {quant} "
+            f"{b['max_slots_quant']} (x{b['quant_slot_ratio']}); with a 256-token shared "
+            f"prefix bf16 {b['max_slots_prefix_shared']}, {quant} "
+            f"{b['max_slots_quant_prefix_shared']}  [{card}]")
+    log(f"slot budget's prediction for phase 4's 8 slots: {cap['predicted_8_gb']:.2f} GB "
+        f"(params + fixed temp + 8 x (KV + temp) per slot) beside phase 4's measured peak "
+        f"{cap['phase4_peak_gb']:.2f} GB (its pool grown by doubling, plus the prefix "
+        f"store's budget); probes {cap['probe_s']:.1f} s  [{card}]")
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_spine_")
+    try:
+        sp = spine_phase(card, cfg, params, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label in ("off", "on"):
+        x = sp[label]
+        tc_ = x["trace"]
+        log(f"13 train bench_1b4 spine {'armed' if label == 'on' else 'disarmed'} (token "
+            f"file through the {x['final']['loader']} loader, {SPINE_STEPS} steps): losses "
+            + ", ".join(f"{m['loss']:.4f}" for m in x["steps"])
+            + "; step ms " + ", ".join(f"{m['step_time_s'] * 1e3:.1f}" for m in x["steps"])
+            + f"; profiled step 2: device {tc_['device_ms']:.1f} ms, step-thread "
+            f"device-to-host copies {tc_['main_d2h']}, synchronizing calls "
+            f"{tc_['main_syncs']}, other threads' device-to-host copies {tc_['other_d2h']}; "
+            f"peak allocated {x['peak_bytes'] / 2**30:.3f} GiB; flash launches "
+            f"{x['launches']['flash_fwd']}/{x['launches']['flash_dq']}/"
+            f"{x['launches']['flash_dkv']}  [{card}]")
+    on_, off_ = sp["on"], sp["off"]
+    log(f"13 armed vs disarmed: step 4 wall {on_['steps'][3]['step_time_s'] * 1e3:.1f} vs "
+        f"{off_['steps'][3]['step_time_s'] * 1e3:.1f} ms, profiled step 2 device "
+        f"{on_['trace']['device_ms']:.1f} vs {off_['trace']['device_ms']:.1f} ms; journal "
+        f"train.fit + train.step 2-4; verdict {on_['final']['health_verdict']}; memory "
+        f"watch peak {on_['final']['peak_hbm_gb']:.3f} GiB = max_memory_allocated "
+        f"{sp['peak_gib']:.4f} GiB; profile trace names tc::flash_fwd/dq/dkv_kernel  "
+        f"[{card}]")
+    nb = sp["bundle"]
+    log(f"13 NaN seam (TONY_CHAOS_NAN_STEP=2, bench_1b4 at 4 layers): verdict "
+        f"{sp['nan_final']['health_verdict']}, trips {sp['nan_final']['health_trips']}, "
+        f"bundle {nb['rule']} at step {nb['step']} with {len(nb['ring'])} ring entries  "
+        f"[{card}]")
+    sv_ = sp["serve"]
+    log(f"13 serve armed at the default strides (phase 4's traffic): {sv_['requests']} requests, "
+        f"{sv_['decode_steps']} decode steps ({s['decode_steps']}), {sv_['step_spans']} "
+        f"serve.step spans; registry TTFT {sv_['ttft']}, TPOT {sv_['tpot']}, step "
+        f"{sv_['decode_step']} observations, tokens {sv_['tokens']} = DecodeMetrics'; mean "
+        f"decode step {sv_['mean_decode_step_ms']:.2f} ms ({s['mean_decode_step_ms']:.2f}), "
+        f"mean TTFT {sv_['mean_ttft_s'] * 1e3:.1f} ms ({s['mean_ttft_s'] * 1e3:.1f}), "
+        f"decode {sv_['decode_tokens_per_s']:.1f} tok/s ({s['decode_tokens_per_s']:.1f}); "
+        f"verdict {sv_['summary']['health_verdict']}; phase 13 wall {sp['wall_s']:.1f} s  "
+        f"[{card}]")
     del params
     torch.cuda.empty_cache()
     quant_crosscheck(card)
@@ -3747,6 +4178,15 @@ def main() -> int:
         f"{t['profile_ce_head_share']:.1%}  [{card}]")
     model_crosscheck(card, dense_train_config(), "attention_impl", "flash", "dot")
     torch.cuda.empty_cache()
+    rp = remat_policy_phase(card, t)
+    for policy, x in rp.items():
+        log(f"train bench_1b4 remat_policy={policy} (phase 5 save_attn_kernel beside it): "
+            f"{REMAT_POLICY_STEPS} steps, loss " + ", ".join(f"{v:.4f}" for v in x["losses"])
+            + f" (|step 1 - phase 5's| {x['loss_diff']:.2e}); step 2 "
+            f"{x['step_ms']:.1f} ms (phase 5's mean {t['mean_step_ms']:.1f}); peak allocated "
+            f"{x['peak_allocated_gb']:.2f} GB ({t['peak_allocated_gb']:.2f}); flash launches "
+            f"{x['launches']['flash_fwd']}/{x['launches']['flash_dq']}/"
+            f"{x['launches']['flash_dkv']}  [{card}]")
 
     tc = train_ce_phase(card, t)
     lc = tc["launches"]
@@ -3930,7 +4370,9 @@ def main() -> int:
         "source": "tony_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "tony_tpu/ops/decode_attention.py:346",
         "launches": s["launches"], "phases": {"4": s["launches"], "4d": ch["launches"],
-                                              "4e bf16": ho["bf16"]["launches"]},
+                                              "4e bf16": ho["bf16"]["launches"],
+                                              "13 serve": sv_["launches"][
+                                                  "paged_decode_attention"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -3943,6 +4385,7 @@ def main() -> int:
         "replaces": "tony_tpu/ops/decode_attention.py:358",
         "launches": ql["paged_decode_attention_quant"],
         "phases": {"4b": ql["paged_decode_attention_quant"],
+                   "4b fp8": fl["paged_decode_attention_quant"],
                    "4e int8": ho["int8"]["launches"]},
         "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
         "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
@@ -3952,7 +4395,7 @@ def main() -> int:
     kernels.append({
         "name": "quant_mm", "route": "cuda", "source": "tony_tpu_torch/csrc/quant_mm.cu",
         "replaces": "tony_tpu/ops/quant_mm.py:84", "launches": ql["quant_mm"],
-        "phases": {"4b": ql["quant_mm"]},
+        "phases": {"4b": ql["quant_mm"], "4b fp8": fl["quant_mm"]},
         "max_abs_err": step_mm["max_abs_err"], "ms": step_mm["ms"],
         "plain_ms": step_mm["plain_ms"], "bound_ms": step_mm["bound_ms"],
         "bound_by": step_mm["bound_by"], "library_ms": step_mm["library_ms"],
@@ -3970,6 +4413,9 @@ def main() -> int:
             # each path that runs it: its launches there (7 and 8 rank 0's,
             # 9a and 9b each rank's)
             "phases": {"5": t["launches"][name], "5b": tc["launches"][name],
+                       **{f"5c {p}": rp[p]["launches"][name] for p in rp},
+                       "13 disarmed": sp["off"]["launches"][name],
+                       "13 armed": sp["on"]["launches"][name],
                        "6": m["launches"][name], "7": r0["launches"][name],
                        **{f"8 {impl}": e[impl]["launches"][name] for impl in EP_IMPLS},
                        **{f"{label} rank {r}": par[label]["launches"][r][name]

@@ -2,7 +2,7 @@
 """Time the port's bf16 kernels built from two kernel-source trees on one
 card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant|ce|qmm] [--rounds 2]
+    python3 scripts/torch_kernel_ab.py OTHER_CSRC [--cases gmm|flash|moe|decode|quant|ce|qmm|path] [--rounds 2] [--armed]
 
 OTHER_CSRC is the ``tony_tpu_torch/csrc`` of another checkout (a parent
 commit unpacked with ``git archive`` into a git-ignored directory). Each
@@ -36,13 +36,21 @@ against its plain version with its rows bit-equal to calls of 8 rows and
 of one, and each M's cases summed per step (``chip_smoke.quant_mm_step``),
 beside the time the same timing gives a launch of a 16-element add
 (``launch_floor_ms``);
-a package without ``kernel_instance`` there has the scalar body only. The
+a package without ``kernel_instance`` there has the scalar body only.
+``--cases path`` times the main path of each whole tree, through that
+tree's own ``chip_smoke.py``: phase 4 (the bf16 engine's 16 requests on
+Llama-3-8B: mean decode step, the profiled step's wall and device ms,
+TTFT, tokens/s) and phase 6 (bench_moe's 10 ``fit()`` steps: mean and p50
+step, the profiled step's wall and device ms), with the observability
+spine disarmed as chip_smoke disarms it; ``--armed`` adds a third run of
+this checkout with the spine at its defaults (no ``TONY_*`` variable
+set), in the order other, this, this armed, then the reverse. The
 decode and quant_mm entry points grew workspace arguments, and a CE tree
-may differ in the wrapper's chunk width, so for decode, quant, ce and qmm
-the other side imports the whole ``tony_tpu_torch`` package of the other
-checkout (``OTHER_CSRC``'s parent's parent), not its csrc/ alone; a
-decode package without ``kernel_instance`` has the scalar CTA body
-only. Exits non-zero without
+may differ in the wrapper's chunk width, so for decode, quant, ce, qmm
+and path the other side imports the whole ``tony_tpu_torch`` package of
+the other checkout (``OTHER_CSRC``'s parent's parent), not its csrc/
+alone; a decode package without ``kernel_instance`` has the scalar CTA
+body only. Exits non-zero without
 a card, when a process fails or when a case does not hold its plain
 version.
 """
@@ -60,11 +68,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def measure(csrc: str, cases: str) -> dict:
+def measure(csrc: str, cases: str, armed: bool = False) -> dict:
     """This process's measurement, the kernels built from ``csrc`` ("" for
     this checkout's)."""
-    whole_tree = cases in ("decode", "quant", "ce", "qmm") and csrc
-    sys.path.insert(0, str(Path(csrc).resolve().parent.parent if whole_tree else ROOT))
+    whole_tree = cases in ("decode", "quant", "ce", "qmm", "path") and csrc
+    root = Path(csrc).resolve().parent.parent if whole_tree else ROOT
+    sys.path.insert(0, str(root))
     import torch
 
     from tony_tpu_torch.ops import _build
@@ -72,17 +81,23 @@ def measure(csrc: str, cases: str) -> dict:
     if csrc and not whole_tree:
         _build.CSRC = Path(csrc).resolve()
         _build.BUILD_DIR = _build.CSRC / "build"
-    # this checkout's cases, whichever package is on the path
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    # this checkout's cases, whichever package is on the path; the path's
+    # phases are each tree's own
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", (root if cases == "path" else ROOT) / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     source = {"gmm": "grouped_mm", "flash": "flash_attention", "moe": "grouped_mm",
+              "path": "grouped_mm",
               "decode": "paged_decode_attention", "quant": "paged_decode_attention",
               "ce": "fused_ce", "qmm": "quant_mm"}[cases]
     out = {"csrc": csrc or "this checkout", "card": chip_smoke.card_line(),
            "resources": chip_smoke.tensor_core_resources(_build.load(source).log)}
+    if cases == "path":
+        out.update(armed=armed, **path_case(chip_smoke, armed), cases=[])
+        return out
     if cases == "moe":
         from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
@@ -124,6 +139,34 @@ def measure(csrc: str, cases: str) -> dict:
                      **{k: c[k] for k in ("instance", "library_note") if k in c}}
                     for c in found]
     return out
+
+
+def path_case(chip_smoke, armed: bool) -> dict:
+    """Phases 4 and 6 of the tree's ``chip_smoke``: the spine disarmed as
+    its ``main`` disarms it (a tree without one has none), or ``armed`` at
+    its defaults."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from tony_tpu_torch.ops._build import load
+
+    if not armed and hasattr(chip_smoke, "disarm_spine"):
+        chip_smoke.disarm_spine()
+    with ThreadPoolExecutor(len(chip_smoke.KERNEL_SOURCES)) as pool:
+        list(pool.map(load, chip_smoke.KERNEL_SOURCES))
+    cfg, params = chip_smoke.llama_params()
+    s = chip_smoke.serve_phase(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    m = chip_smoke.train_moe_phase(chip_smoke.card_line())
+    return {"serve": {k: s[k] for k in ("mean_decode_step_ms", "profile_step_ms",
+                                        "profile_device_ms", "mean_ttft_s",
+                                        "decode_tokens_per_s")},
+            "moe": {"mean_step_ms": m["mean_step_ms"],
+                    "p50_ms": m["final"]["step_time_p50_s"] * 1e3,
+                    "profile_step_ms": m["profile_step_ms"],
+                    "profile_device_ms": m["profile_device_ms"]}}
 
 
 def _instances_named() -> None:
@@ -215,9 +258,11 @@ def ce_cases(chip_smoke, flush, lib) -> list[dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", default="", help="the other tree's csrc/")
-    ap.add_argument("--cases", choices=("gmm", "flash", "moe", "decode", "quant", "ce", "qmm"),
-                    default="gmm")
+    ap.add_argument("--cases", default="gmm",
+                    choices=("gmm", "flash", "moe", "decode", "quant", "ce", "qmm", "path"))
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--armed", action="store_true",
+                    help="path: also this checkout with the spine at its defaults")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -226,17 +271,19 @@ def main() -> int:
         print("torch_kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     if args.worker is not None:
-        out = measure(args.worker, args.cases)
+        out = measure(args.worker, args.cases, args.armed)
         print(json.dumps(out), flush=True)
         return 0 if all(c["ok"] for c in out["cases"]) else 1
     if not args.other:
         ap.error("give the other tree's csrc/")
     rc = 0
+    runs = [(args.other, False), ("", False)]
+    if args.armed:
+        runs.append(("", True))
     for r in range(args.rounds):
-        order = (args.other, "") if r % 2 == 0 else ("", args.other)
-        for csrc in order:
+        for csrc, armed in (runs if r % 2 == 0 else runs[::-1]):
             proc = subprocess.run([sys.executable, __file__, "--worker", csrc,
-                                   "--cases", args.cases], cwd=ROOT)
+                                   "--cases", args.cases] + ["--armed"] * armed, cwd=ROOT)
             rc = rc or proc.returncode
     return rc
 

@@ -1586,3 +1586,71 @@ def test_kv_handoff_between_engines_on_card(cuda, quant):
     want = src.run([Request(prompt=longer, max_new_tokens=12)])
     assert next(iter(got.values())).tokens == next(iter(want.values())).tokens
     assert dst.metrics.prefix_hit_tokens == src.metrics.prefix_hit_tokens == 256
+
+
+# --- the observability spine on the card --------------------------------------------
+
+
+@pytest.mark.cuda
+def test_health_monitors_staged_through_pinned_memory_on_card(cuda):
+    """The sentinel's path for CUDA monitors: ``sample`` records an event
+    and hands the tensors over uncopied; the worker copies them into
+    pinned host tensors behind the event, and its read equals the
+    monitors computed on the CPU from the same tensors: counts and the fingerprint exact, the float monitors
+    within rtol 1e-5 (the card's sums run in another order). A NaN loss
+    sampled from the card trips the sentinel."""
+    from tony_tpu_torch.obs import health
+
+    rng = np.random.default_rng(11)
+
+    def tree():
+        return {"tok_emb": torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32)),
+                "layers": {"wq": torch.from_numpy(
+                    rng.standard_normal((3, 32, 32)).astype(np.float32))}}
+
+    grads, params, updates = tree(), tree(), tree()
+    grads["layers"]["wq"][1, 0, 0] = float("nan")
+    tokens = torch.from_numpy(rng.integers(0, 128256, (4, 257)).astype(np.int32))
+    loss = torch.tensor(3.5)
+
+    def to(t, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in t.items()}
+
+    want = health.graph_monitors(loss, grads, params, updates, tokens)
+    mon = health.graph_monitors(loss.to(cuda), to(grads, cuda), to(params, cuda),
+                                to(updates, cuda), tokens.to(cuda))
+    staged, event = health._stage({"metrics": mon})
+    assert event is not None and staged["metrics"] is mon   # no copy on this thread
+    pinned = health._copy_to_pinned(staged, event)["metrics"]
+    assert all(t.is_pinned() for t in pinned.values())
+    got = health.HealthSentinel._fetch((staged, event))["metrics"]
+    for key, w in want.items():
+        if key in ("health/update_ratio", "health/layer_grad_rms"):
+            np.testing.assert_allclose(got[key], w.numpy(), rtol=1e-5, err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], w.numpy(), err_msg=key)
+    s = health.HealthSentinel(app_dir="", sample_every=1)
+    try:
+        s.sample(metrics={"step": 1, "loss": torch.tensor(float("nan"), device=cuda),
+                          "grad_norm": torch.tensor(1.0, device=cuda)})
+        assert s.drain(timeout_s=10.0)
+        assert s.trip_counts() == {"nonfinite": 1}
+    finally:
+        s.close()
+
+
+@pytest.mark.cuda
+def test_hbm_stats_read_one_device_on_card(cuda):
+    """``default_stats_fn`` reads the one device this process allocated on:
+    live and peak are the allocator's allocated bytes, the limit the card's
+    total."""
+    from tony_tpu_torch.obs import hbm
+
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    readings = hbm.default_stats_fn()
+    assert [label for label, _ in readings] == [f"dev{cuda.index or 0}"]
+    stats = readings[0][1]
+    assert stats["bytes_in_use"] == torch.cuda.memory_allocated(cuda)
+    assert stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(cuda)
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info(cuda)[1]
+    del x

@@ -285,9 +285,103 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
                       mesh_shape=PortMeshShape(pp=2)), device="cpu")
     # the ep combine's overlap is ported: one device has no ep axis to overlap
     make_train_step(LlamaConfig.tiny_moe(moe_overlap_impl="scan"), opt)
-    with pytest.raises(NotImplementedError, match="dots"):
-        make_train_step(LlamaConfig.tiny(remat=True, remat_policy="dots"), opt)
-    with pytest.raises(NotImplementedError, match="native"):
-        make_batches(DataConfig(path="tokens.bin"), device="cpu")
+    # the matmul remat policies and the native token loader are ported: the
+    # policies build, and a missing token file fails where the loader opens it
+    for policy in ("dots", "checkpoint_dots"):
+        make_train_step(LlamaConfig.tiny(remat=True, remat_policy=policy), opt)
+    with pytest.raises(ValueError, match="tl_open failed"):
+        next(make_batches(DataConfig(path="tokens.bin", prefetch=0), device="cpu"))
     # at pp 1 the microbatch count is not read, as in the reference
     make_train_step(LlamaConfig.tiny(), opt, n_microbatches=2)
+
+
+DOT_KNOBS = dict(attention_impl="dot", remat=True, ce_impl="scan")
+
+
+@pytest.mark.parametrize("policy", ["dots", "checkpoint_dots"])
+def test_matmul_remat_policies_five_steps_match_jax(policy):
+    """Five steps under the reference's matmul remat policies (plain
+    attention, so the batched einsums are in the layer): loss and grad
+    norm within 1e-4 of JAX's ``make_train_step`` with the same policy,
+    float32 on both sides."""
+    knobs = {**DOT_KNOBS, "remat_policy": policy}
+    jcfg = jl.LlamaConfig.tiny(**knobs)
+    mesh = build_mesh(MeshShape(), devices=jax.devices()[:1])
+    jopt = jtrainer.default_optimizer(lr=5e-3, warmup_steps=2, decay_steps=5)
+    jstate = jtrainer.make_train_state(jax.random.key(0), jcfg, mesh, jopt)
+    tree = jax.tree.map(np.asarray, jstate.params)
+    jstep = jtrainer.make_train_step(jcfg, mesh, jopt)
+    cfg = LlamaConfig.tiny(**knobs)
+    opt = default_optimizer(lr=5e-3, warmup_steps=2, decay_steps=5)
+    state = make_train_state(cfg, opt, params=params_from_numpy(tree, cfg, device="cpu"))
+    step = make_train_step(cfg, opt)
+    jb = jdata.synthetic_batches(jdata.DataConfig(**DATA))
+    pb = synthetic_batches(DataConfig(**DATA))
+    for i in range(5):
+        jstate, jm = jstep(jstate, *next(jb))
+        state, m = step(state, *next(pb))
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{policy} step {i} {key}")
+
+
+def _reference_saved(policy: str) -> list[int]:
+    """Element counts of what the reference's policy saves per layer: the
+    scan's stacked residuals under ``policy`` less those under
+    ``nothing`` (the layer input both keep)."""
+    from collections import Counter
+
+    from jax._src.ad_checkpoint import saved_residuals
+
+    def per_layer(name):
+        cfg = jl.LlamaConfig.tiny(**{**DOT_KNOBS, "remat_policy": name})
+        params = jl.init_params(jax.random.key(0), cfg)
+        tokens = jax.numpy.zeros((DATA["global_batch"], DATA["seq_len"]), jax.numpy.int32)
+        res = saved_residuals(lambda p: jl.loss_from_pairs(p, tokens, tokens, cfg), params)
+        return Counter(math.prod(a.shape[1:]) for a, where in res
+                       if "output of scan" in where and a.shape[0] == cfg.n_layers)
+
+    saved = per_layer(policy)
+    saved.subtract(per_layer("nothing"))
+    return sorted(saved.elements())
+
+
+@pytest.mark.parametrize("policy", ["dots", "checkpoint_dots"])
+def test_matmul_remat_policies_save_what_the_reference_saves(policy, monkeypatch):
+    """The products the port's policy stores in the forward (its MUST_SAVE
+    matmuls, read off the policy's decisions) are, layer by layer, the
+    element counts of the residuals the reference's policy saves."""
+    from collections import Counter
+
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from tony_tpu_torch.models import llama as pl
+
+    aten = torch.ops.aten
+    out_numel = {aten.mm.default: lambda a, b: a.shape[0] * b.shape[1],
+                 aten.addmm.default: lambda c, a, b: a.shape[0] * b.shape[1],
+                 aten.bmm.default: lambda a, b: a.shape[0] * a.shape[1] * b.shape[2],
+                 aten.baddbmm.default: lambda c, a, b: a.shape[0] * a.shape[1] * b.shape[2]}
+    saved: list[int] = []
+    real = pl._remat_policy
+
+    def recording(name):
+        policy_fn = real(name)
+
+        def wrapped(ctx, op, *args, **kwargs):
+            decision = policy_fn(ctx, op, *args, **kwargs)
+            if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                saved.append(out_numel[op](*args[:3]))
+            return decision
+
+        return wrapped
+
+    monkeypatch.setattr(pl, "_remat_policy", recording)
+    cfg = LlamaConfig.tiny(**{**DOT_KNOBS, "remat_policy": policy})
+    params = pl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    tokens = torch.zeros((DATA["global_batch"], DATA["seq_len"]), dtype=torch.int64)
+    loss_from_pairs(params, tokens, tokens, cfg).backward()
+    want = Counter(_reference_saved(policy))
+    assert Counter(saved) == Counter({k: v * cfg.n_layers for k, v in want.items()})

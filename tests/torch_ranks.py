@@ -334,7 +334,10 @@ def _train(args: dict, mesh) -> dict:
     """``make_train_step`` from the reference's parameters (cut into this
     rank's blocks) over ``args["steps"]`` synthetic batches: each step's
     loss and grad norm, kernel 14's plain launches per step (and the
-    flash and CE kernels') and the final parameters, unsharded."""
+    flash and CE kernels'), its health monitors (``args["monitors"]``)
+    and the final parameters, unsharded. With ``args["reseed"]`` (one
+    ``{"params", "mu", "nu"}`` of ``.npz`` paths a step) each step starts
+    from that state, cut into this rank's blocks."""
     import dataclasses
 
     import numpy as np
@@ -364,7 +367,8 @@ def _train(args: dict, mesh) -> dict:
     microbatches = (args.get("microbatches") or 2 * pp) if pp > 1 else 0
     step = make_train_step(cfg, opt, mesh=mesh, n_microbatches=microbatches,
                            pp_schedule=args.get("pp_schedule", "gpipe"),
-                           grad_bucket_bytes=args.get("grad_bucket_bytes"))
+                           grad_bucket_bytes=args.get("grad_bucket_bytes"),
+                           monitors=args.get("monitors"))
     batches = make_batches(dataclasses.replace(DataConfig(**args["data"]), prefetch=0),
                            device="cpu", mesh=mesh, microbatches=microbatches)
     # top-k is discrete: the smallest gap between each row's k-th and
@@ -384,8 +388,14 @@ def _train(args: dict, mesh) -> dict:
             return select(probs, mcfg)
 
         pm._top_k_select = recording
-    losses, norms, launches, aux, kernels = [], [], [], [], []
-    for _ in range(args["steps"]):
+    losses, norms, launches, aux, kernels, monitors = [], [], [], [], [], []
+    for i in range(args["steps"]):
+        if args.get("reseed"):
+            files = args["reseed"][i]
+            for dst, part in ((state.params, "params"), (state.opt_state["mu"], "mu"),
+                              (state.opt_state["nu"], "nu")):
+                copy_tree(dst, shards_from_numpy(_load_tree(files[part]), cfg, mesh,
+                                                 device="cpu"))
         ov.reset_launches()
         at.reset_launches()
         fc.reset_launches()
@@ -396,6 +406,9 @@ def _train(args: dict, mesh) -> dict:
         kernels.append({**at.LAUNCHES, **fc.LAUNCHES})
         if "aux" in m:
             aux.append(float(m["aux"]))
+        monitors.append({k: v.detach().numpy() for k, v in m.items()
+                         if k.startswith("health/")})
+
     def flat(node, prefix=""):
         out = {}
         for k, v in node.items():
@@ -409,7 +422,8 @@ def _train(args: dict, mesh) -> dict:
     if cfg.is_moe:
         pm._top_k_select = select
     return {"loss": losses, "grad_norm": norms, "launches": launches, "aux": aux,
-            "kernels": kernels, "margin": min(margins, default=None), "params": flat(full)}
+            "kernels": kernels, "margin": min(margins, default=None), "params": flat(full),
+            "monitors": monitors}
 
 
 def tiny_config(cls, knobs: dict):
@@ -421,6 +435,18 @@ def tiny_config(cls, knobs: dict):
     layers = knobs.pop("n_layers", None)
     cfg = cls.tiny(**knobs)
     return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def copy_tree(dst: dict, src: dict) -> None:
+    """``src``'s tensors copied into ``dst``'s of the same paths, in place."""
+    import torch
+
+    with torch.no_grad():
+        for k, v in dst.items():
+            if isinstance(v, dict):
+                copy_tree(v, src[k])
+            else:
+                v.copy_(src[k])
 
 
 def _load_tree(path: str) -> dict:

@@ -25,6 +25,12 @@ run again but the flash forward kernel never does. MoE layers
 (``n_experts > 0``) run ``parallel/moe.py``'s ``moe_block`` in place of the
 dense FFN (its grouped matmuls recomputed in the backward, as the FFN is)
 and add ``moe_aux_coef`` times the layers' mean aux loss to the loss.
+The reference's two matmul policies select aten ops instead of tags:
+``dots`` (``dots_with_no_batch_dims_saveable``) saves the ``mm`` outputs,
+the trunk projections and the router, and ``checkpoint_dots`` also the
+batched ``bmm`` ones (the plain attention's einsums); both leave out the
+FFN's w2 product, which only feeds the residual add, as JAX's partial
+evaluation does.
 
 Meshes. :func:`logical_axes` names every parameter dimension as the
 reference does; ``parallel/sharding.py`` turns the names into each rank's
@@ -59,6 +65,7 @@ Ulysses hooks never run inside a stage (the trainer refuses them first).
 
 from __future__ import annotations
 
+import contextvars
 import functools
 import math
 from dataclasses import dataclass
@@ -352,18 +359,46 @@ _POLICY_NAMES: dict[str, tuple[str, ...]] = {
 }
 
 
+# the aten matmuls a layer's forward reaches (``x @ w`` over ``[B, S, D]``
+# folds to ``mm``; an einsum with batch dims, as the plain attention's over
+# b and h, to ``bmm``): JAX's dot_general with and without batch dims
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCH_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# the reference's jax.checkpoint_policies that save matmul outputs:
+# 'dots' is dots_with_no_batch_dims_saveable (the trunk projections and
+# the router are products without batch dims, so they are saved; the
+# attention einsums carry b and h and are recomputed, as are the flash
+# and grouped-matmul kernels, which are no dots), 'checkpoint_dots' saves
+# every matmul output
+_DOT_POLICIES: dict[str, tuple] = {
+    "dots": _NO_BATCH_DOTS,
+    "checkpoint_dots": _NO_BATCH_DOTS + _BATCH_DOTS,
+}
+# set around a product the backward never reads (the FFN's w2 output only
+# feeds the residual add): JAX's partial evaluation leaves it out of the
+# saved set, so the matmul policies do too, where a selective-checkpoint
+# policy would otherwise store every product it names
+_RESIDUAL_ONLY: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "residual_only", default=False)
+
+
 def _remat_policy(name: str) -> Callable:
     """The selective-checkpoint policy for ``cfg.remat_policy``: MUST_SAVE
     for the tags it names (and for the flash and ring-flash forward ops
-    under ``flash_res``), recompute for everything else."""
-    if name in ("dots", "checkpoint_dots"):
-        raise NotImplementedError(
-            f"remat_policy={name!r} is not ported yet (ROADMAP); use one of "
-            f"{sorted(_POLICY_NAMES)}"
-        )
+    under ``flash_res``), or under ``dots`` / ``checkpoint_dots`` for the
+    matmul ops that policy saves; recompute for everything else."""
+    if name in _DOT_POLICIES:
+        saved = _DOT_POLICIES[name]
+
+        def dot_policy(ctx, op, *args, **kwargs):
+            if op in saved and not _RESIDUAL_ONLY.get():
+                return CheckpointPolicy.MUST_SAVE
+            return CheckpointPolicy.PREFER_RECOMPUTE
+
+        return dot_policy
     if name not in _POLICY_NAMES:
         raise ValueError(f"unknown remat_policy {name!r} (expected "
-                         f"{sorted(_POLICY_NAMES) + ['checkpoint_dots', 'dots']})")
+                         f"{sorted(_POLICY_NAMES) + sorted(_DOT_POLICIES)})")
     names = frozenset(_POLICY_NAMES[name])
     from tony_tpu_torch.ops.attention import FLASH_FWD_OP
     from tony_tpu_torch.parallel.ring_attention import RING_FLASH_FWD_OP
@@ -494,7 +529,11 @@ def ffn_block(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
         x = pdist.copy_to_tp(x, tp)
     gate = tag(F.silu(_proj(x, lp["w1"], cfg, ("embed", "ffn")))
                * _proj(x, lp["w3"], cfg, ("embed", "ffn")), "ffn_gate")
-    y = _proj(gate, lp["w2"], cfg, ("ffn", "embed"))
+    token = _RESIDUAL_ONLY.set(True)
+    try:
+        y = _proj(gate, lp["w2"], cfg, ("ffn", "embed"))
+    finally:
+        _RESIDUAL_ONLY.reset(token)
     return y if tp is None else pdist.reduce_from_tp(y, tp)
 
 

@@ -57,14 +57,29 @@ or AOT caches and no compile ledger; prefill runs at the prompt's exact
 length (``prefill_buckets`` only bounds admissible prompt lengths, as in
 the reference), and a mid-block prefix match is cut back to its full
 blocks only where the prompt is chunked. The pools are updated in place.
-Not ported yet: the observability spine (tracing, registry histograms,
-health, series, profile, SLO; ROADMAP queue 1, item 6).
+
+Observability, as the reference's engine arms it (``obs/``): the
+constructor arms the trace spine, the memory watch, the health sentinel,
+the series recorder and the profile controller from the env, and keeps a
+per-engine ``Registry`` with the reference's metric names (TTFT, TPOT and
+decode-step histograms, queue depth, token/request/rejection/prefix/
+draft/handoff counters). Requests carry ``serve.queued`` ->
+``serve.prefill`` (``serve.prefill_chunk`` per chunk) -> ``serve.decode``
+spans; the decode step is a sampled ``serve.step`` span. With a sentinel
+armed, the decode and verify steps that it reads (``obs/health.py``
+``due``) also return the per-slot logits nonfinite counts and sampling
+entropy (``decode_monitors``), sampled with the slot -> request map after
+the step's one sync, beside ``hbm.sample`` and ``series.sample``; a disarmed
+engine computes none of it. ``stats_snapshot`` is the series source, and
+``close()`` exports the verdicts and the registry snapshot. There is no
+compile ledger.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Sequence
@@ -78,7 +93,9 @@ from tony_tpu_torch.models.generate import (
     KVCache, forward_with_cache, sample_tokens,
 )
 from tony_tpu_torch.models.llama import LlamaConfig, Params, rms_norm, rope_freqs
+from tony_tpu_torch.obs import hbm, health, profile, series, slo, trace
 from tony_tpu_torch.obs.metrics import DecodeMetrics
+from tony_tpu_torch.obs.registry import HistogramWindow, Registry, snapshot_to_app_dir
 from tony_tpu_torch.ops.decode_attention import check_kernel_shape, decode_attention
 from tony_tpu_torch.ops.quant_mm import quant_matmul, quantize_weights
 from tony_tpu_torch.serve.cache import (
@@ -327,6 +344,29 @@ class Engine:
         self._slot_ctx: list[list[int]] = [[] for _ in range(S)]
         self._submit_t: dict[int, float] = {}
         self._next_rid = 0
+        # the observability spine, armed from the env (each idempotent): a
+        # sentinel armed here puts the decode monitors in the steps it reads
+        trace.install_from_env()
+        hbm.install_from_env()
+        health.install_from_env()
+        self._monitors = health.active_sentinel() is not None
+        series.install_from_env()
+        profile.install_from_env()
+        self._series = series.active_recorder()
+        self._snap_window = HistogramWindow()   # since-last-scrape quantiles
+        self._snap_prev: dict[str, float] = {}  # counter deltas (error rate)
+        self._series_key = f"engine@{id(self):x}"
+        # engine-scoped watermark: close() reports this engine's peak, not
+        # the process's cumulative one
+        watch = hbm.active_watch()
+        self._hbm_mark = watch.mark() if watch is not None else None
+        self._init_registry()
+        self._queued_spans: dict[int, Any] = {}
+        self._decode_spans: dict[int, Any] = {}
+        self._first_tok_t: dict[int, float] = {}
+        if self._series is not None:
+            self._series.attach(self._series_key,
+                                _weak_stats_source(self, self._series, self._series_key))
 
     # --- public API -----------------------------------------------------------
 
@@ -358,6 +398,7 @@ class Engine:
                 f"exceeds max_len {self.serve.max_len}"
             )
         if self.serve.max_queue and len(self._queue) >= self.serve.max_queue:
+            self._c_rejected.inc()
             raise AdmissionRejected(
                 f"admission queue full ({len(self._queue)} >= max_queue "
                 f"{self.serve.max_queue})"
@@ -366,6 +407,11 @@ class Engine:
         self._next_rid += 1
         self._queue.append((rid, req))
         self._submit_t[rid] = time.perf_counter()
+        self._g_queue.set(len(self._queue))
+        tracer = trace.active_tracer()
+        if tracer is not None:
+            # queue-wait span: starts now, ends when the request is slotted
+            self._queued_spans[rid] = tracer.span("serve.queued", rid=rid, prompt_len=plen)
         return rid
 
     @property
@@ -387,6 +433,9 @@ class Engine:
     def step(self) -> int:
         """Admit what fits, advance each chunking slot by one chunk, run one
         decode step; returns the live-slot count (chunking slots too)."""
+        # coordinated-profiling seam: a requested window brackets decode
+        # steps as it does train steps
+        profile.maybe_capture()
         # slots already chunking advance one chunk each; those _admit parks
         # into chunking ran their first chunk inside admission
         pending = sorted(self._chunking)
@@ -401,47 +450,195 @@ class Engine:
     def run(self, requests: Sequence[Request] | None = None) -> dict[int, Completion]:
         """Submit ``requests`` (if given), drain queue and live slots, and
         return (and evict) every completion finished by this call."""
-        for r in requests or ():
-            self.submit(r)
-        while self._queue or self.n_live:
-            self.step()
+        # an out-of-memory error escaping the loop dumps its forensics into
+        # the app dir before it reaches the caller
+        with hbm.oom_guard("engine.run"):
+            for r in requests or ():
+                self.submit(r)
+            while self._queue or self.n_live:
+                self.step()
         done, self._completions = self._completions, {}
         return done
 
+    def _init_registry(self) -> None:
+        reg = self.registry = Registry()
+        self._h_ttft = reg.histogram("tony_ttft_seconds",
+                                     "request submit -> first sampled token")
+        self._h_tpot = reg.histogram("tony_tpot_seconds",
+                                     "mean per-token latency after the first")
+        self._h_step = reg.histogram("tony_decode_step_seconds",
+                                     "one engine decode step (all live slots)")
+        self._g_queue = reg.gauge("tony_queue_depth",
+                                  "requests admitted but not yet slotted")
+        self._c_tokens = reg.counter("tony_generated_tokens_total",
+                                     "tokens sampled (prefill + decode)")
+        self._c_finished = reg.counter("tony_requests_finished_total",
+                                       "requests completed (eos or budget)")
+        self._c_rejected = reg.counter(
+            "tony_serve_rejected_total",
+            "submissions rejected by bounded admission (queue at max_queue)")
+        self._c_prefix_hit = reg.counter(
+            "tony_serve_prefix_hit_tokens_total",
+            "prompt tokens served from the prefix store (no re-prefill)")
+        self._c_prompt_tokens = reg.counter(
+            "tony_serve_prompt_tokens_total",
+            "prompt tokens admitted (the prefix hit-rate denominator)")
+        self._g_prefix_bytes = reg.gauge(
+            "tony_serve_prefix_resident_bytes",
+            "HBM pinned by prefix-store block references")
+        self._g_prefix_nodes = reg.gauge(
+            "tony_serve_prefix_nodes", "radix nodes resident in the store")
+        self._c_draft_prop = reg.counter(
+            "tony_serve_draft_proposed_total",
+            "speculative draft tokens proposed (serve/spec.py)")
+        self._c_draft_acc = reg.counter(
+            "tony_serve_draft_accepted_total",
+            "speculative draft tokens accepted (target sample agreed)")
+        self._g_kv_bpt = reg.gauge(
+            "tony_serve_kv_bytes_per_token",
+            "HBM per cached token (quantized pools store int8/fp8 + scales)")
+        self._g_kv_bpt.set(self._blk_bytes / self.serve.kv_block)
+        self._g_quant_resident = reg.gauge(
+            "tony_serve_quant_pool_resident_bytes",
+            "HBM resident in the quantized KV pool (payload + scale rows)")
+        self._c_handoff_shipped = reg.counter(
+            "tony_serve_handoff_shipped_blocks_total",
+            "physical blocks exported for a blockwise KV handoff")
+        self._c_handoff_adopted = reg.counter(
+            "tony_serve_handoff_adopted_blocks_total",
+            "shipped blocks adopted into this pool (prefix-store owned)")
+        self._c_handoff_freed = reg.counter(
+            "tony_serve_handoff_freed_blocks_total",
+            "shipped blocks freed on arrival (prefix already resident)")
+
     def reset_metrics(self) -> None:
-        """Fresh throughput/latency counters (e.g. after a warm-up)."""
+        """Fresh throughput/latency counters (e.g. after a warm-up); the
+        registry's histograms and counters reset too, so close()'s
+        quantiles and the job-history snapshot leave the warm-up out."""
         self.metrics = DecodeMetrics(
             n_chips=1, kv_bytes_per_token=self.metrics.kv_bytes_per_token
         )
+        self._init_registry()
+        self._snap_prev.clear()
+        self._g_queue.set(len(self._queue))
 
-    def stats_snapshot(self) -> dict[str, float]:
-        """Host-side counters only (no device sync)."""
+    def stats_snapshot(self, windowed: bool = False) -> dict[str, float]:
+        """Host-side stats only (no device sync): queue depth, slot
+        occupancy, token/request counters and TTFT/TPOT/step-time
+        quantiles. ``windowed=True`` reports the quantiles since the
+        previous windowed call (the series recorder's live view) and the
+        window's error rate; the default reports them over the run."""
         snap: dict[str, float] = {
             "queue_depth": float(len(self._queue)),
             "live_slots": float(self.n_live),
             "slots": float(self.serve.slots),
             "occupancy": round(self.n_live / max(self.serve.slots, 1), 4),
-            "generated_tokens": float(self.metrics.generated_tokens),
-            "requests_finished": float(self.metrics.requests_finished),
+            "generated_tokens": float(self._c_tokens.value),
+            "requests_finished": float(self._c_finished.value),
+            "rejected_total": float(self._c_rejected.value),
+            # decode tokens emitted per decode step: 1.0 autoregressive,
+            # > 1 when speculative drafts land
+            "tokens_per_step": round(self.metrics.tokens_per_step, 4),
             "kv_bytes_per_token": round(self.metrics.kv_bytes_per_token, 2),
-            "pool_blocks": float(self._pool.n_blocks),
+            # pool label (disaggregated deployments): a string
+            "pool": self.serve.pool,
         }
-        if self.serve.quant_kv:
-            snap["quant_pool_resident_bytes"] = float(self._pool.n_blocks
-                                                      * self._blk_bytes)
         if self._chunking:
             # slots mid-chunked-prefill: occupied but not decoding yet
             snap["chunking_slots"] = float(len(self._chunking))
+        shipped = float(self._c_handoff_shipped.value)
+        adopted = float(self._c_handoff_adopted.value)
+        freed = float(self._c_handoff_freed.value)
+        if shipped or adopted or freed:
+            snap["handoff_shipped_blocks"] = shipped
+            snap["handoff_adopted_blocks"] = adopted
+            snap["handoff_freed_blocks"] = freed
+        if self.serve.quant_kv:
+            resident = float(self._pool.n_blocks * self._blk_bytes)
+            snap["quant_pool_resident_bytes"] = resident
+            self._g_quant_resident.set(resident)
+        if self.serve.spec:
+            snap["draft_accept_rate"] = round(self.metrics.draft_accept_rate, 4)
+            snap["spec_rollbacks"] = float(self.metrics.spec_rollbacks)
         if self._store is not None:
             snap.update(self._store.stats())
+            snap["pool_blocks"] = float(self._pool.n_blocks)
+        for hist, prefix in ((self._h_ttft, "ttft"), (self._h_tpot, "tpot"),
+                             (self._h_step, "decode_step")):
+            if windowed:
+                d = self._snap_window.delta(hist)
+                if d["count"]:
+                    snap[f"{prefix}_p50_s"] = round(d["p50"], 4)
+                    snap[f"{prefix}_p99_s"] = round(d["p99"], 4)
+                    snap[f"{prefix}_n"] = d["count"]
+            elif hist.count:
+                snap[f"{prefix}_p50_s"] = round(hist.quantile(0.5), 4)
+                snap[f"{prefix}_p99_s"] = round(hist.quantile(0.99), 4)
+                snap[f"{prefix}_n"] = float(hist.count)
+        if windowed:
+            # the window's serve error rate: rejections over requests
+            # resolved in the window (the slo.error_rate input)
+            rej = snap["rejected_total"] - self._snap_prev.get("rejected", 0.0)
+            fin = snap["requests_finished"] - self._snap_prev.get("finished", 0.0)
+            self._snap_prev["rejected"] = snap["rejected_total"]
+            self._snap_prev["finished"] = snap["requests_finished"]
+            if rej + fin > 0:
+                snap["error_rate"] = round(rej / (rej + fin), 4)
         return snap
 
     def close(self) -> dict:
-        """Shutdown summary: the DecodeMetrics summary plus prefix stats."""
+        """Shutdown summary: the DecodeMetrics summary, TTFT/TPOT quantiles
+        from the registry, prefix stats, the health and SLO verdicts and
+        the engine-scoped memory peak; the registry is snapshotted into the
+        job history. Requests still queued or decoding get their spans
+        ended with reason=shutdown."""
+        for spans in (self._queued_spans, self._decode_spans):
+            for sp in spans.values():
+                sp.end(reason="shutdown")
+            spans.clear()
+        self._first_tok_t.clear()
+        # a profile window still open at shutdown finalises here
+        profile.finish_capture()
         s = self.metrics.summary()
+        if self._h_ttft.count:
+            s["ttft_p50_s"] = round(self._h_ttft.quantile(0.5), 4)
+            s["ttft_p99_s"] = round(self._h_ttft.quantile(0.99), 4)
+        if self._h_tpot.count:
+            s["tpot_p50_s"] = round(self._h_tpot.quantile(0.5), 4)
         if self._store is not None:
             s["prefix"] = dict(self._store.stats())
             s["prefix"]["cow_copies"] = self._cow_copies
+        sentinel = health.active_sentinel()
+        if sentinel is not None:
+            # drain so a trip on the final decode steps reaches the summary
+            sentinel.drain()
+            s["health_verdict"] = sentinel.verdict
+            trips = sentinel.trip_counts()
+            if trips:
+                s["health_trips"] = trips
+            sentinel.export(self.registry)
+            sentinel.write_verdict()
+        if self._series is not None:
+            self._series.force_sample()
+            self._series.drain()
+            self._series.detach(self._series_key)
+        slo_engine = slo.active_engine()
+        if slo_engine is not None:
+            s["slo_verdict"] = slo_engine.verdict
+            trips = slo_engine.trip_counts()
+            if trips:
+                s["slo_trips"] = trips
+            slo_engine.export(self.registry)
+            slo_engine.write_verdict()
+        watch = hbm.active_watch()
+        if watch is not None and self._hbm_mark is not None:
+            peak_gb, peak_exact = watch.peak_since(self._hbm_mark)
+            if peak_gb:
+                s["peak_hbm_gb"] = peak_gb
+                s["peak_hbm_exact"] = peak_exact
+            watch.export_gauges(self.registry)
+        # suffixed so a train-then-serve process keeps both snapshots
+        snapshot_to_app_dir(trace.default_proc_name("serve") + "_engine", self.registry)
         return s
 
     # --- blockwise KV handoff between engines ---------------------------------
@@ -471,6 +668,7 @@ class Engine:
         finally:
             for pid in m.full:
                 self._pool.release(pid)
+        self._c_handoff_shipped.inc(len(m.full))
         return toks[:len(m.full) * B], payload
 
     def adopt_blocks(self, tokens: Sequence[int], payload: BlockPayload) -> tuple[int, int]:
@@ -492,6 +690,7 @@ class Engine:
         if why:
             raise ValueError(f"incompatible handoff payload: {why}")
         if self._store is None:
+            self._c_handoff_freed.inc(nb)
             return 0, nb              # no store to own them: nothing adopts
         toks = [int(t) for t in tokens]
         have = len(self._store.match(toks, nb * B).full)
@@ -510,6 +709,10 @@ class Engine:
             self._pool.release(pid)
         if self._store.evict_to_budget(self._pool.release):
             self._maybe_shrink_pool()
+        self._c_handoff_adopted.inc(created)
+        self._c_handoff_freed.inc(nb - created)
+        self._g_prefix_bytes.set(self._store.resident_bytes)
+        self._g_prefix_nodes.set(self._store.n_nodes)
         return created, nb - created
 
     # --- admission ------------------------------------------------------------
@@ -531,6 +734,10 @@ class Engine:
 
     def _admit_one(self, slot: int, rid: int, req: Request) -> None:
         t0 = time.perf_counter()
+        qspan = self._queued_spans.pop(rid, None)
+        if qspan is not None:
+            qspan.end(slot=slot)
+        self._g_queue.set(len(self._queue))
         prompt = req.prompt.cpu() if isinstance(req.prompt, torch.Tensor) else req.prompt
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = len(prompt)
@@ -550,18 +757,27 @@ class Engine:
             matched = match.length
         if self._store is not None and plen > 1:
             self._store.record_prompt(plen, matched)
+            self._c_prompt_tokens.inc(plen)
+            if matched:
+                self._c_prefix_hit.inc(matched)
         self.metrics.record_prompt(plen, matched)
         gen = self._generator(req, rid) if req.temperature > 0 else None
-        self._plan_blocks(slot, plen, match)
+        bucket = next(b for b in self.serve.prefill_buckets if b >= plen)
         if chunked:
             # the slot holds its blocks and stays out of the decode batch
             # (state.live False: a decode step steers its row's write to the
             # scratch block) until its last chunk samples the first token
+            with trace.span("serve.prefill", rid=rid, bucket=bucket, slot=slot,
+                            matched=matched, chunked=1):
+                self._plan_blocks(slot, plen, match)
             self._slot_rid[slot] = rid
             self._chunking[slot] = _ChunkedPrefill(rid, req, prompt, matched, gen, t0)
             self._prefill_chunk(slot)          # the first chunk rides admission
             return
-        tok = self._prefill(slot, prompt, matched, req, gen)
+        with trace.span("serve.prefill", rid=rid, bucket=bucket, slot=slot,
+                        matched=matched):
+            self._plan_blocks(slot, plen, match)
+            tok = self._prefill(slot, prompt, matched, req, gen)
         self._activate_slot(slot, rid, req, prompt, tok, gen, t0)
 
     def _prefill_chunk(self, slot: int) -> None:
@@ -571,7 +787,9 @@ class Engine:
         job = self._chunking[slot]
         plen = len(job.prompt)
         end = min(job.pos + self.serve.chunk_tokens, plen)
-        tok = self._prefill(slot, job.prompt, job.pos, job.req, job.gen, end=end)
+        with trace.span("serve.prefill_chunk", rid=job.rid, slot=slot, start=job.pos,
+                        end=end, final=int(end == plen)):
+            tok = self._prefill(slot, job.prompt, job.pos, job.req, job.gen, end=end)
         self.prefill_chunks += 1
         if end < plen:
             job.pos = end
@@ -669,6 +887,13 @@ class Engine:
         now = time.perf_counter()
         ttft = now - self._submit_t.pop(rid)
         self.metrics.record_prefill(now - t0, ttft)
+        self._h_ttft.observe(ttft)
+        self._c_tokens.inc()
+        self._first_tok_t[rid] = now
+        tracer = trace.active_tracer()
+        if tracer is not None:
+            # decode-lifetime span: first token -> finish
+            self._decode_spans[rid] = tracer.span("serve.decode", rid=rid, slot=slot)
         st = self.state
         st.last_tok[slot] = tok
         st.temp[slot] = req.temperature
@@ -694,7 +919,9 @@ class Engine:
             self._finish(slot, "length")
 
     def _finish(self, slot: int, reason: str) -> None:
-        self._completions[self._slot_rid[slot]].finish_reason = reason
+        rid = self._slot_rid[slot]
+        comp = self._completions[rid]
+        comp.finish_reason = reason
         if self._store is not None and self.serve.spec:
             # the drafts' corpus: the generated tokens' full blocks join the
             # store too (the prompt's joined at admission). The K/V written
@@ -706,8 +933,18 @@ class Engine:
                 self._store.insert(seq[:n_full * B], self._table[slot, :n_full].tolist(),
                                    self._pool.retain)
                 self._store.evict_to_budget(self._pool.release)
+                self._g_prefix_bytes.set(self._store.resident_bytes)
+                self._g_prefix_nodes.set(self._store.n_nodes)
         self._slot_ctx[slot] = []
         self.metrics.requests_finished += 1
+        self._c_finished.inc()
+        t_first = self._first_tok_t.pop(rid, None)
+        if t_first is not None and len(comp.tokens) > 1:
+            # TPOT: decode-token cadence after the prefill-sampled first
+            self._h_tpot.observe((time.perf_counter() - t_first) / (len(comp.tokens) - 1))
+        dspan = self._decode_spans.pop(rid, None)
+        if dspan is not None:
+            dspan.end(tokens=len(comp.tokens), reason=reason)
         self._slot_rid[slot] = None
         self._slot_remaining[slot] = 0
         self._slot_len[slot] = 0
@@ -800,6 +1037,8 @@ class Engine:
                                self._pool.retain)
             if self._store.evict_to_budget(self._pool.release):
                 self._maybe_shrink_pool()
+        self._g_prefix_bytes.set(self._store.resident_bytes)
+        self._g_prefix_nodes.set(self._store.n_nodes)
 
     def _maybe_shrink_pool(self) -> None:
         """Halve the pool while its trailing half is entirely free."""
@@ -872,31 +1111,49 @@ class Engine:
         if self.cache.quantized:
             self._flush_fresh_scales()
         self._set_attended(need)
-        t0 = time.perf_counter()
+        tracer = trace.active_tracer()
+        sp = trace.NOOP_SPAN
+        if tracer is not None:
+            sp = tracer.sampled_span("serve.step", live=len(live))
         common = (self._decode_params, self._layers, self.cache, self._table_dev,
                   self.state, self._slot_gen, self._freqs)
         opts = dict(cfg=self.cfg, kv_block=B, max_top_k=self.serve.max_top_k,
-                    qmax=self._qmax, quant_weights=self.serve.quant_weights)
-        if spec_step:
-            dev = self.device
-            toks, n_emit, rng_saved = _spec_decode_step(
-                *common, torch.as_tensor(drafts, device=dev),
-                torch.as_tensor(dlens, dtype=torch.int64, device=dev), **opts)
-            # the engine's one host sync per decode step
-            both = torch.cat([toks, n_emit[:, None]], dim=1).cpu().numpy()
-            toks_np, emit_np = both[:, :-1], both[:, -1]
-            advance_generators(self._slot_gen, rng_saved, emit_np)
-        else:
-            # no live slot drafted: the one-token step (the only step with
-            # spec off)
-            toks = _decode_step(*common, **opts)
-            toks_np = toks.cpu().numpy()[:, None]     # the one host sync
-            emit_np = np.ones(self.serve.slots, np.int64)
-        dt = time.perf_counter() - t0
+                    qmax=self._qmax, quant_weights=self.serve.quant_weights,
+                    monitors=self._monitors and health.due())
+        with sp:
+            t0 = time.perf_counter()
+            if spec_step:
+                dev = self.device
+                toks, n_emit, rng_saved, hmon = _spec_decode_step(
+                    *common, torch.as_tensor(drafts, device=dev),
+                    torch.as_tensor(dlens, dtype=torch.int64, device=dev), **opts)
+                # the engine's one host sync per decode step
+                both = torch.cat([toks, n_emit[:, None]], dim=1).cpu().numpy()
+                toks_np, emit_np = both[:, :-1], both[:, -1]
+                advance_generators(self._slot_gen, rng_saved, emit_np)
+            else:
+                # no live slot drafted: the one-token step (the only step
+                # with spec off)
+                toks, hmon = _decode_step(*common, **opts)
+                toks_np = toks.cpu().numpy()[:, None]     # the one host sync
+                emit_np = np.ones(self.serve.slots, np.int64)
+            dt = time.perf_counter() - t0
         new_total = int(sum(emit_np[s] for s in live))
         if spec_step:
-            self.metrics.record_spec(sum(dlens[s] for s in live), new_total - len(live))
+            proposed = sum(dlens[s] for s in live)
+            self.metrics.record_spec(proposed, new_total - len(live))
+            self._c_draft_prop.inc(proposed)
+            self._c_draft_acc.inc(new_total - len(live))
         self.metrics.record_decode(dt, new_total, len(live), self.serve.slots)
+        hbm.sample()                 # allocator statistics: no sync
+        if self._monitors:
+            # device references and the slot -> request map on the steps
+            # the sentinel reads (a counter bump on the others); the copies
+            # to the host land on the sentinel's worker, never here
+            health.sample(metrics=hmon, slot_rids=list(self._slot_rid), live_slots=live)
+        series.sample()              # host-side stats only
+        self._h_step.observe(dt)
+        self._c_tokens.inc(new_total)
         for s in live:
             new_toks = [int(t) for t in toks_np[s, :emit_np[s]]]
             self._slot_len[s] += len(new_toks)
@@ -908,6 +1165,23 @@ class Engine:
                 self._finish(s, "eos")
             elif self._slot_remaining[s] <= 0:
                 self._finish(s, "length")
+
+
+def _weak_stats_source(engine: Engine, recorder, key: str):
+    """The engine's series source, holding it weakly: an engine dropped
+    without close() must not be kept alive (params and KV pools) by the
+    process-global recorder. Once the engine is collected the source
+    detaches itself on its next scrape."""
+    ref = weakref.ref(engine)
+
+    def source() -> dict:
+        eng = ref()
+        if eng is None:
+            recorder.detach(key)
+            return {}
+        return eng.stats_snapshot(windowed=True)
+
+    return source
 
 
 _QUANT_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
@@ -1005,14 +1279,15 @@ def _forward_positions(params: Params, layers: list[dict], cache, table: torch.T
 def _decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
                  state: _SlotState, gens: Sequence[torch.Generator | None],
                  freqs: torch.Tensor, *, cfg: LlamaConfig, kv_block: int,
-                 max_top_k: int, qmax: float = 0.0,
-                 quant_weights: bool = False) -> torch.Tensor:
+                 max_top_k: int, qmax: float = 0.0, quant_weights: bool = False,
+                 monitors: bool = False) -> tuple[torch.Tensor, dict]:
     """One token for every slot: write K/V at each row's position (into the
     physical block its table names; dead slots steer to the scratch block),
     attend over its written prefix through the table, sample with its own
     generator. Updates ``cache`` (pools, scales, lengths) and
     ``state.last_tok`` in place; returns the sampled tokens ``[S]`` on the
-    device."""
+    device and, with ``monitors``, the per-slot health monitors over the
+    sampling logits (``obs/health.py`` ``decode_monitors``; else {})."""
     pos = cache.lengths                                    # [S] int32
     # row s writes position pos into block table[s, pos // block]
     bi = (pos // kv_block).long()
@@ -1026,14 +1301,15 @@ def _decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
                         max_k=max_top_k)
     cache.lengths.add_(state.live.to(torch.int32))
     state.last_tok.copy_(nxt)
-    return nxt
+    return nxt, (health.decode_monitors(logits) if monitors else {})
 
 
 def _spec_decode_step(params: Params, layers: list[dict], cache, table: torch.Tensor,
                       state: _SlotState, gens: Sequence[torch.Generator | None],
                       freqs: torch.Tensor, drafts: torch.Tensor,
                       draft_len: torch.Tensor, *, cfg: LlamaConfig, kv_block: int,
-                      max_top_k: int, qmax: float = 0.0, quant_weights: bool = False):
+                      max_top_k: int, qmax: float = 0.0, quant_weights: bool = False,
+                      monitors: bool = False):
     """The speculative verify step: feed every row G = k + 1 tokens (its
     last sampled token and its ``drafts [S, k]``, of which ``draft_len``
     are real), write their K/V at positions ``pos .. pos + k``, attend all
@@ -1041,13 +1317,18 @@ def _spec_decode_step(params: Params, layers: list[dict], cache, table: torch.Te
     the rejection rule (``serve/spec.py``). Dead rows, and a row's padding
     positions past its draft length, write into the scratch block.
 
+    With ``monitors`` the health monitors judge the step by the last
+    emitted position's logits, the frontier the one-token step reports, so
+    accepted drafts cannot trip the entropy or nonfinite rules.
+
     Updates ``cache`` in place (its lengths advance by the emitted count
     only, so rejected positions lie past them and later steps overwrite
     them; on a quantized cache their amaxes stay folded into the block
     scales, which only grow, so a rollback never leaves a payload over its
     scale) and ``state.last_tok``. Returns ``(toks [S, G], n_emit [S],
-    rng_saved)`` with toks and n_emit on the device; the caller brings
-    them to the host and hands ``n_emit`` to ``advance_generators``."""
+    rng_saved, monitors)`` with toks and n_emit on the device; the caller
+    brings them to the host and hands ``n_emit`` to
+    ``advance_generators``."""
     S, k = drafts.shape
     G = k + 1
     dev = drafts.device
@@ -1071,7 +1352,12 @@ def _spec_decode_step(params: Params, layers: list[dict], cache, table: torch.Te
         logits, drafts, draft_len, rows, max_top_k=max_top_k)
     cache.lengths.add_((n_emit * state.live).to(torch.int32))
     state.last_tok.copy_(torch.where(state.live, last_tok, state.last_tok))
-    return toks, n_emit, rng_saved
+    hmon = {}
+    if monitors:
+        last = (n_emit - 1).clamp(min=0)
+        hmon = health.decode_monitors(
+            logits.gather(1, last[:, None, None].expand(-1, 1, logits.shape[-1]))[:, 0])
+    return toks, n_emit, rng_saved, hmon
 
 
 __all__ = [

@@ -19,13 +19,24 @@ of each global microbatch in turn, microbatch i being the global batch's
 rows ``[i * B/M, (i + 1) * B/M)`` as the reference's ``microbatch``
 reshapes them, each cut over the batch axes; not the i-th M-th of a
 contiguous block of rows. A dense CE mean is the same either way; MoE's
-per-microbatch router statistics are not. The C++ prefetching loader the reference routes
-token files through (``native=True``) is not ported yet: a token file with
-``native=True`` raises, and the synthetic default never touches it.
+per-microbatch router statistics are not.
+
+A token file with ``native=True`` (the default) goes through the C++
+prefetching loader (``train/native_loader.py``): each epoch visits every
+window once in a seeded order, ``start_step`` resumes exactly. The
+reference gives each process its own shard of windows; here every rank
+reads the same global batch of windows and keeps its rows as above, so
+the rows a rank trains on follow the mesh's row layout (which ranks share
+rows under tp, sp and pp, and the microbatch order), never the global
+rank. Where the loader cannot be built, one process falls back to the
+mmap windows with a warning, and a run of more than one process raises,
+as the reference does. :func:`loader_kind` says which stream a config
+reads.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -34,6 +45,8 @@ import torch
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, local_shape, shard, spec_for
+
+log = logging.getLogger(__name__)
 
 Batch = tuple[torch.Tensor, torch.Tensor]  # (inputs [B, S], targets [B, S])
 
@@ -45,7 +58,7 @@ class DataConfig:
     vocab_size: int = 32000
     seed: int = 0
     path: str = ""  # empty -> synthetic
-    # token files through the C++ loader (not ported: raises with a path);
+    # token files through the C++ loader (shuffled prefetched windows);
     # False pins the numpy mmap path (sequential windows)
     native: bool = True
     # device-prefetch depth: batches N+1..N+prefetch are made and copied to
@@ -98,16 +111,80 @@ def mmap_batches(cfg: DataConfig, start_step: int = 0) -> Iterator[Batch]:
         yield _pair(chunk)
 
 
-def _make_batches_raw(cfg: DataConfig, start_step: int = 0) -> Iterator[Batch]:
-    if cfg.path:
+def native_batches(cfg: DataConfig, start_step: int = 0) -> Iterator[Batch]:
+    """Shuffled prefetched windows of the global batch through the C++
+    loader: the mmap contract (``[B, S+1]`` windows, ``start_step``
+    resume-exact through ``seek``), but each epoch visits every window once
+    in a seeded order, read on a native thread."""
+    from tony_tpu_torch.train.native_loader import NativeTokenLoader
+
+    loader = NativeTokenLoader(cfg.path, cfg.seq_len, cfg.global_batch, seed=cfg.seed)
+    try:
+        loader.seek(start_step)
+        while True:
+            # a fresh owned contiguous pair per batch, filled by the loader
+            out = (np.empty((cfg.global_batch, cfg.seq_len), np.int32),
+                   np.empty((cfg.global_batch, cfg.seq_len), np.int32))
+            loader.next_into(*out)
+            yield torch.from_numpy(out[0]), torch.from_numpy(out[1])
+    finally:
+        # generator close (PrefetchIterator.close, GC) frees the native
+        # handle and its mmap deterministically
+        loader.close()
+
+
+def loader_kind(cfg: DataConfig) -> str:
+    """Which stream ``cfg`` reads: 'synthetic' without a path, 'native'
+    for a token file with ``native=True`` where the C++ loader builds,
+    else 'mmap'."""
+    if not cfg.path:
+        return "synthetic"
+    if cfg.native:
+        from tony_tpu_torch.train import native_loader
+
+        if native_loader.available():
+            return "native"
+    return "mmap"
+
+
+def _make_batches_raw(cfg: DataConfig, start_step: int = 0,
+                      multi_process: bool = False) -> Iterator[Batch]:
+    kind = loader_kind(cfg)
+    if kind == "native":
+        return native_batches(cfg, start_step)
+    if kind == "mmap":
         if cfg.native:
-            raise NotImplementedError(
-                "the native token loader (train/native_loader) is not ported "
-                "yet (ROADMAP); set DataConfig(native=False) for the mmap "
-                "reader"
-            )
+            if multi_process:
+                # every rank must take the same branch: a rank whose build
+                # failed must not mix sequential windows into the others'
+                # shuffled ones
+                raise RuntimeError(
+                    "native token loader unavailable on this host but "
+                    "data.native=True in a multi-process job: the ranks "
+                    "would mix sampling schemes. Install g++ everywhere or "
+                    "set DataConfig(native=False).")
+            log.warning("native loader unavailable; falling back to sequential "
+                        "mmap windows (different sampling + resume stream)")
         return mmap_batches(cfg, start_step)
     return synthetic_batches(cfg, start_step)
+
+
+def rank_rows(t: torch.Tensor, mesh, rules: Rules = DEFAULT_RULES,
+              microbatches: int = 0) -> torch.Tensor:
+    """This rank's block of a global ``[B, S]`` batch tensor over ``mesh``:
+    its rows by the rules' spec of ``("batch", "seq")``, with
+    ``microbatches`` above 1 its block of each global microbatch in turn
+    (see the module's docstring). Raises where the mesh does not split the
+    batch evenly."""
+    spec = spec_for(("batch", "seq"), rules)
+    M = max(1, microbatches)
+    B, S = t.shape
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by n_microbatches={M}")
+    shape = (M, B // M, S)
+    mb_spec = (None, *spec)
+    _, rows, seq = local_shape(shape, mb_spec, mesh)          # even blocks or raise
+    return shard(t.reshape(shape), mb_spec, mesh).reshape(M * rows, seq)
 
 
 def make_batches(cfg: DataConfig, device: str | torch.device | None = None,
@@ -124,26 +201,19 @@ def make_batches(cfg: DataConfig, device: str | torch.device | None = None,
     from tony_tpu_torch.train.prefetch import PrefetchIterator, to_device
 
     device = resolve_device(device)
-    it = _make_batches_raw(cfg, start_step)
+    multi = torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1
+    it = _make_batches_raw(cfg, start_step, multi_process=multi)
     if mesh is not None and mesh.size > 1:
-        spec = spec_for(("batch", "seq"), rules)
-        M = max(1, microbatches)
-        if cfg.global_batch % M:
-            raise ValueError(f"batch {cfg.global_batch} not divisible by "
-                             f"n_microbatches={M}")
-        shape = (M, cfg.global_batch // M, cfg.seq_len)
-        mb_spec = (None, *spec)
-        _, rows, seq = local_shape(shape, mb_spec, mesh)          # even blocks or raise
-
-        def cut(t: torch.Tensor) -> torch.Tensor:
-            return shard(t.reshape(shape), mb_spec, mesh).reshape(M * rows, seq)
-
-        it = ((cut(i), cut(t)) for i, t in it)
+        rank_rows(torch.empty((cfg.global_batch, cfg.seq_len), dtype=torch.int32), mesh,
+                  rules, microbatches)                   # even blocks or raise
+        it = ((rank_rows(i, mesh, rules, microbatches),
+               rank_rows(t, mesh, rules, microbatches)) for i, t in it)
     if cfg.prefetch > 0:
         return PrefetchIterator(it, depth=cfg.prefetch, device=device)
     return (to_device(batch, device) for batch in it)
 
 
 __all__ = [
-    "Batch", "DataConfig", "make_batches", "mmap_batches", "synthetic_batches",
+    "Batch", "DataConfig", "loader_kind", "make_batches", "mmap_batches",
+    "native_batches", "rank_rows", "synthetic_batches",
 ]

@@ -29,13 +29,29 @@ The model overrides ``ce_impl``, ``moe_dispatch``, ``moe_group_block``,
 ``overlap_impl``, ``moe_overlap_impl`` and ``moe_overlap_chunk`` apply to
 ``cfg.model`` as in the reference. Not ported yet, and raising when set
 to a non-default: elastic training (``elastic_*``, ROADMAP queue 1, item
-9). The reference's observability hooks
-(``install_from_env``), the metrics push to a job's AM and compile-ahead
-(PyTorch runs eagerly, with nothing to compile) are left out.
+9).
+
+Observability, as the reference arms it (``obs/``): ``fit()`` arms the
+trace spine (``TONY_TRACE_DIR``), the memory watch, the health sentinel,
+the series recorder with its SLO engine and the profile controller from
+the env (each ``install_from_env``; the watch, the sentinel and the
+series arm by default, ``TONY_OBS_HBM=0``, ``TONY_OBS_HEALTH=0``,
+``TONY_OBS_SERIES=0`` disarm them), runs under ``diagnostics_context``,
+a ``train.fit`` root span and ``oom_guard``, and in the loop: a sampled
+``train.step`` span (the step's own sync inside it, so no extra one),
+``profile.maybe_capture``, a per-run ``Registry`` whose
+``tony_step_time_seconds`` observes every step after the first, and the
+``hbm``/``health``/``series`` samples after the step's sync. At the end
+the health and SLO verdicts and the registry snapshot are exported, and
+the final report says which batch stream ran (``loader``: 'native',
+'mmap' or 'synthetic'). Left out: the metrics push to a job's AM and
+compile-ahead with its ``fit.startup.compile`` spans (PyTorch runs
+eagerly, with nothing to compile).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass, field, fields, replace
@@ -46,13 +62,17 @@ import torch
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.models.llama import LlamaConfig, train_flops_per_token
+from tony_tpu_torch.obs import hbm, health, profile, series, slo, trace
+from tony_tpu_torch.obs.diagnostics import diagnostics_context
 from tony_tpu_torch.obs.metrics import StepTimer, chip_peak_flops
+from tony_tpu_torch.obs.profiler import annotate
+from tony_tpu_torch.obs.registry import HistogramWindow, Registry, snapshot_to_app_dir
 from tony_tpu_torch.parallel.dist import initialize
 from tony_tpu_torch.parallel.mesh import (
     MESH_AXES, Mesh, MeshShape, build_mesh, get_default_mesh, set_default_mesh,
 )
 from tony_tpu_torch.parallel.sharding import DEFAULT_RULES, Rules, mesh_rules
-from tony_tpu_torch.train.data import DataConfig, make_batches
+from tony_tpu_torch.train.data import DataConfig, loader_kind, make_batches
 from tony_tpu_torch.train.prefetch import close_batches
 from tony_tpu_torch.train.trainer import (
     PP_SCHEDULES, check_1f1b, check_model_mesh, default_optimizer, make_train_state,
@@ -136,6 +156,14 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
     the final metrics."""
     device = resolve_device(device)
     _check_ported(cfg)
+    # the observability spine, armed from the env (each idempotent); the
+    # sentinel before the train step is built, so the steps it reads build
+    # their monitors
+    trace.install_from_env()
+    hbm.install_from_env()
+    health.install_from_env()
+    series.install_from_env()
+    profile.install_from_env()
     initialize(device)
     mesh = build_mesh(cfg.mesh_shape)
     # the model-level hooks (the trunk's tp and sp, attention, overlap_matmul,
@@ -144,7 +172,9 @@ def fit(cfg: FitConfig, device: str | torch.device | None = None) -> dict:
     before = get_default_mesh()
     set_default_mesh(mesh)
     try:
-        return _fit(cfg, device, mesh)
+        with diagnostics_context(), trace.span("train.fit", steps=cfg.steps):
+            with hbm.oom_guard("fit"):
+                return _fit(cfg, device, mesh)
     finally:
         set_default_mesh(before)
 
@@ -192,19 +222,73 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
     timer = StepTimer(flops_per_token=flops_per_token, tokens_per_step=tokens_per_step,
                       n_chips=mesh.size)
 
+    # per-run registry: a second fit() in the process reports this run's
+    # distribution, not a blend with the last one
+    registry = Registry()
+    h_step = registry.histogram(
+        "tony_step_time_seconds",
+        "train step wall time (every step after the first; each ends in a sync)")
+    tracer = trace.active_tracer()
+    recorder = series.active_recorder()
+    watch = hbm.active_watch()
+    hbm_mark = watch.mark() if watch is not None else None
+    step_window = HistogramWindow()
+    steady_t0: float | None = None
+    host_steady_s = 0.0
+    step = start_step
+
+    def _series_source() -> dict:
+        """Host-side locals only: read on a scrape's stride, never a sync."""
+        out = {"step": float(step + 1)}
+        if steady_t0 is not None:
+            elapsed = max(time.perf_counter() - steady_t0, 1e-9)
+            out["host_blocked_frac"] = round(host_steady_s / elapsed, 4)
+            out["goodput_frac"] = round(max(1.0 - host_steady_s / elapsed, 0.0), 4)
+        d = step_window.delta(h_step)
+        if d["count"]:
+            out["step_time_p50_s"] = round(d["p50"], 4)
+            out["step_time_p99_s"] = round(d["p99"], 4)
+            out["step_time_n"] = d["count"]
+        return out
+
+    if recorder is not None:
+        recorder.attach("fit", _series_source)
+
     loss = float("nan")
     step_times: list[float] = []
     try:
         for step in range(start_step, cfg.steps):
             t0 = time.perf_counter()
-            inputs, targets = next(batches)
+            if step == start_step:
+                with trace.span("fit.startup.first_batch"):
+                    inputs, targets = next(batches)
+            else:
+                inputs, targets = next(batches)
             fetch_s = time.perf_counter() - t0
-            state, metrics = step_fn(state, inputs, targets)
-            loss = float(metrics["loss"])            # the step's one host sync
+            if step != start_step:
+                host_steady_s += fetch_s
+            # coordinated-profiling seam: opens/advances a requested window
+            profile.maybe_capture(fetch_s=fetch_s)
+            # the first step (warm-up) is never a sampled span, as in the
+            # reference; every step ends in its one host sync, inside the span
+            sp = trace.NOOP_SPAN
+            if tracer is not None and step != start_step:
+                sp = tracer.sampled_span("train.step", step=step + 1,
+                                         fetch_ms=round(fetch_s * 1e3, 3))
+            with sp, (annotate("train.step") if sp is not trace.NOOP_SPAN
+                      else contextlib.nullcontext()):
+                state, metrics = step_fn(state, inputs, targets)
+                loss = float(metrics["loss"])        # the step's one host sync
             dt = time.perf_counter() - t0
+            hbm.sample()                 # allocator statistics: no sync
+            health.sample(metrics=metrics)   # pinned async copies, read off-thread
+            series.sample()              # host-side locals
             if step != start_step:                   # the first step warms up
                 timer.record(dt, host_blocked_s=fetch_s)
                 step_times.append(dt)
+                h_step.observe(dt)
+            else:
+                steady_t0 = time.perf_counter()
             if (step == start_step or (step + 1) % cfg.log_every == 0
                     or step + 1 == cfg.steps):
                 out = {
@@ -221,13 +305,22 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
             if manager is not None and manager.should_save(step + 1):
                 manager.save(step + 1, state)
     finally:
+        # a profile window still open (requested past the last step, or an
+        # exception mid-capture) finalises here: its partial trace lands
+        profile.finish_capture()
         close_batches(batches)
+        if recorder is not None:
+            # final scrape (the shutdown state lands, a last-window SLO trip
+            # evaluates) before the source whose locals die is detached
+            recorder.force_sample()
+            recorder.drain()
+            recorder.detach("fit")
     if manager is not None:
         if manager.latest_step() != cfg.steps:
             manager.save(cfg.steps, state, force=True)
         manager.close()
 
-    final = {"final_loss": loss, "steps": cfg.steps}
+    final = {"final_loss": loss, "steps": cfg.steps, "loader": loader_kind(cfg.data)}
     if step_times:
         final["tokens_per_sec_per_chip"] = timer.tokens_per_sec_per_chip
         final["host_blocked_ms_per_step"] = timer.host_blocked_ms_per_step
@@ -237,6 +330,34 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh) -> dict:
         final["step_time_p99_s"] = float(np.percentile(step_times, 99))
     if device.type == "cuda":
         final["peak_allocated_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    # the health verdict: drain so a trip on the final steps lands here,
+    # export tony_health_* into this run's registry, persist the verdict
+    sentinel = health.active_sentinel()
+    if sentinel is not None:
+        sentinel.drain()
+        final["health_verdict"] = sentinel.verdict
+        trips = sentinel.trip_counts()
+        if trips:
+            final["health_trips"] = trips
+        sentinel.export(registry)
+        sentinel.write_verdict()
+    slo_engine = slo.active_engine()
+    if slo_engine is not None:
+        final["slo_verdict"] = slo_engine.verdict
+        slo_trips = slo_engine.trip_counts()
+        if slo_trips:
+            final["slo_trips"] = slo_trips
+        slo_engine.export(registry)
+        slo_engine.write_verdict()
+    if watch is not None:
+        watch.export_gauges(registry)
+        peak_gb, peak_exact = watch.peak_since(hbm_mark)
+        if peak_gb:
+            final["peak_hbm_gb"] = peak_gb
+            final["peak_hbm_exact"] = peak_exact
+    # the registry snapshot into the job history (no-op outside a job),
+    # suffixed so a train-then-serve process keeps both
+    snapshot_to_app_dir(trace.default_proc_name("train") + "_fit", registry)
     return final
 
 

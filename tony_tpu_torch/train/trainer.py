@@ -82,12 +82,29 @@ and its gradient whole on every tp rank, so it is summed nowhere over tp
 and the global norm counts it on tp index 0 only.
 
 Pipeline stages refuse the ring, ring_flash and Ulysses attentions, and
-1F1B refuses MoE, with the reference's messages. The numerics-health
-monitors are not ported yet and raise (ROADMAP queue 1, item 6).
+1F1B refuses MoE, with the reference's messages.
+
+Health monitors (``monitors``; None means "on the steps an armed
+sentinel reads", ``obs/health.py`` ``due``, where the reference's None
+means "a sentinel is armed": the other steps' would go unread): the step
+adds the reference's ``health/...`` metrics,
+fresh float32 device tensors (the fingerprint int64). AdamW updates in
+place, so ``|Δθ|²`` is accumulated inside its chunk loop and the
+parameters' norm and nonfinite count are taken after the update. Over a
+mesh every monitor is the global batch's: each leaf's block counted once,
+as the global norm counts it; the grads' nonfinite count and the
+per-layer squares (placed at each pp stage's layers of the whole stack)
+ride the global norm's all-reduce, the batch fingerprint rides the loss
+mean's as two exact 16-bit float32 halves of each rank's positional
+partial sum (positions from ``train/data.py`` ``rank_rows``), and the
+post-update sums take one more all-reduce. ``TONY_CHAOS_NAN_STEP`` adds
+NaN to the reported loss from that step on, monitors or not, as the
+reference does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -97,6 +114,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.models import llama
+from tony_tpu_torch.obs import health
 from tony_tpu_torch.ops.overlap import bucketed_psum
 from tony_tpu_torch.parallel import dist as pdist
 from tony_tpu_torch.parallel.mesh import Mesh, get_default_mesh, manual_region
@@ -105,8 +123,9 @@ from tony_tpu_torch.parallel.pipeline import (
 )
 from tony_tpu_torch.parallel.sharding import (
     DEFAULT_RULES, Rules, entry_axes, local_shape, mesh_rules, pp_rules, shard_tree,
-    tree_specs,
+    spec_for, tree_specs,
 )
+from tony_tpu_torch.train.data import rank_rows
 
 Params = dict[str, Any]
 
@@ -180,9 +199,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor], opt_state: dict, params: Params,
-               grad_norm: torch.Tensor | None = None) -> None:
+               grad_norm: torch.Tensor | None = None,
+               update_sq_of: list[bool] | None = None) -> torch.Tensor | None:
         """One step, in place on ``params`` and ``opt_state``; ``grads`` in
-        ``tree_leaves(params)`` order."""
+        ``tree_leaves(params)`` order. With ``update_sq_of`` (a flag per
+        leaf) it returns the float32 sum of the squared updates ``Δθ =
+        -lr·(u + wd·θ)`` over the flagged leaves, accumulated chunk by chunk
+        as the update folds into the parameters (the health monitors'
+        ``|Δθ|²``, which no later read could recover); else None."""
         if grad_norm is None:
             grad_norm = global_norm(grads)
         clip = torch.where(grad_norm < self.grad_clip, 1.0,
@@ -191,9 +215,13 @@ class AdamW:
         lr = self.learning_rate(count)
         bc1 = 1.0 - self.b1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
-        leaves = zip(tree_leaves(params), grads, tree_leaves(opt_state["mu"]),
-                     tree_leaves(opt_state["nu"]))
-        for p, g, mu, nu in leaves:
+        leaves = tree_leaves(params)
+        upd_sq = None
+        if update_sq_of is not None:
+            upd_sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        flags = update_sq_of or [False] * len(leaves)
+        for p, g, mu, nu, track in zip(leaves, grads, tree_leaves(opt_state["mu"]),
+                                       tree_leaves(opt_state["nu"]), flags):
             for pc, gc, mc, nc in zip(p.view(-1).split(_CHUNK),
                                       g.reshape(-1).split(_CHUNK),
                                       mu.view(-1).split(_CHUNK),
@@ -203,8 +231,12 @@ class AdamW:
                 nc.copy_(self.b2 * nc.float() + (1.0 - self.b2) * g32 * g32)
                 u = (mc.float() / bc1) / (torch.sqrt(nc.float() / bc2) + self.eps)
                 p32 = pc.float()
-                pc.copy_(p32 - lr * (u + self.weight_decay * p32))
+                delta = lr * (u + self.weight_decay * p32)
+                pc.copy_(p32 - delta)
+                if track:
+                    upd_sq += torch.linalg.vector_norm(delta).square()
         opt_state["count"] = count + 1
+        return upd_sq
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
@@ -414,8 +446,29 @@ def pp_1f1b_loss_from_pairs(params: Params, inputs: torch.Tensor, targets: torch
     return loss, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _poison(loss: torch.Tensor, step: int, nan_step: int | None) -> torch.Tensor:
+    """The numerics chaos seam (``TONY_CHAOS_NAN_STEP``): the reported loss
+    plus NaN from step ``nan_step`` on (1-based, persistent like a real
+    NaN'd state); the gradients are untouched."""
+    if nan_step is not None and step + 1 >= nan_step:
+        return loss + float("nan")
+    return loss
+
+
+def _global_positions(inputs: torch.Tensor, mesh: Mesh, rules: Rules,
+                      microbatches: int) -> torch.Tensor:
+    """The flat positions in the global batch of this rank's ``inputs``
+    block, as ``train/data.py`` ``rank_rows`` lays the rows out."""
+    b_entry, s_entry = spec_for(("batch", "seq"), rules)
+    B = inputs.shape[0] * math.prod(mesh.shape[a] for a in entry_axes(b_entry))
+    S = inputs.shape[1] * math.prod(mesh.shape[a] for a in entry_axes(s_entry))
+    flat = torch.arange(B * S, dtype=torch.int64).reshape(B, S)
+    return rank_rows(flat, mesh, rules, microbatches).to(inputs.device)
+
+
 def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: Rules,
-                  grad_bucket_bytes: int, n_microbatches: int, pp_schedule: str) -> Callable:
+                  grad_bucket_bytes: int, n_microbatches: int, pp_schedule: str,
+                  monitors_due: Callable[[], bool], nan_step: int | None) -> Callable:
     """The step over a dp x pp x fsdp x ep x tp x sp mesh (see the
     module's docstring)."""
     fsdp, dp, ep = mesh.axis("fsdp"), mesh.axis("dp"), mesh.axis("ep")
@@ -468,6 +521,7 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
         _check_default_mesh(mesh)
+        monitors = monitors_due()
         paths = _paths(state.params)
         leaves = tree_leaves(state.params)
         plans = [plan(p) for p in paths]
@@ -504,23 +558,75 @@ def _sharded_step(cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Mesh, rules: R
         # squares of the blocks summed across them, each block counted on
         # the first index of every axis it is not split over
         counted = (fsdp, ep, tp, sp, pp)
+        once = [all(a.name in split or a.index == 0 for a in counted)
+                for _, split in plans]
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for g, (_, split) in zip(grads, plans):
-            if all(a.name in split or a.index == 0 for a in counted):
+        for g, c in zip(grads, once):
+            if c:
                 sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32).square()
         sq = sq.reshape(1)
         mean = loss.detach().reshape(1)
+        if monitors:
+            # the grads' monitors ride the global norm's all-reduce, the
+            # fingerprint the loss mean's (batch_monitor_parts)
+            sq = torch.cat([sq, *_grad_monitor_parts(grads, once, paths, plans)])
+            mean = torch.cat([mean, *_fingerprint_parts(inputs)])
         for axis in counted:
             sq = pdist.all_reduce(sq, axis)
         for axis in (fsdp, ep, sp, dp):
-            mean = pdist.all_reduce(mean / axis.size, axis)
+            mean = torch.cat([mean[:1] / axis.size, mean[1:]]) if monitors \
+                else mean / axis.size
+            mean = pdist.all_reduce(mean, axis)
         gnorm = sq[0].sqrt()
-        optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm)
+        upd_sq = optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm,
+                                  update_sq_of=once if monitors else None)
+        loss_out = _poison(mean[0], state.step, nan_step)
         state.step += 1
-        metrics = {"loss": mean[0], "grad_norm": gnorm, "step": state.step}
+        metrics = {"loss": loss_out, "grad_norm": gnorm, "step": state.step}
         if cfg.is_moe:
             metrics["aux"] = aux.detach()       # the global batch's on every rank
+        if monitors:
+            leaves = tree_leaves(state.params)
+            post = torch.stack([
+                health.nonfinite_count([p for p, c in zip(leaves, once) if c], loss.device),
+                health.sq_norm([p for p, c in zip(leaves, once) if c], loss.device),
+                upd_sq])
+            for axis in counted:
+                post = pdist.all_reduce(post, axis)
+            fp = ((mean[1].long() << 16) + mean[2].long()) & 0xFFFFFFFF
+            layer_rms = (torch.sqrt(sq[2:] / float(layer_count))
+                         if sq.numel() > 2 else None)
+            metrics.update(health.monitors_from_sums(
+                loss_out, sq[1], post[0], post[1], post[2], fp, layer_rms))
         return state, metrics
+
+    # the monitors' global sums (module docstring): per-layer squares placed
+    # at the stage's offset of the whole [L] stack, over the reference's
+    # layer-leaf selection and its element count from the global shapes
+    layer_count = sum(math.prod(shape[1:]) or 1
+                      for shape in llama.param_shapes(cfg)["layers"].values()
+                      if len(shape) >= 1)
+    positions: dict[tuple[int, ...], torch.Tensor] = {}
+
+    def _grad_monitor_parts(grads, once, paths, plans) -> list[torch.Tensor]:
+        dev = grads[0].device
+        nf = health.nonfinite_count([g for g, c in zip(grads, once) if c], dev)
+        layer_sq = torch.zeros((cfg.n_layers,), dtype=torch.float32, device=dev)
+        for g, c, path, (_, split) in zip(grads, once, paths, plans):
+            if c and path[0] == "layers" and g.is_floating_point() and g.ndim >= 1:
+                n = g.shape[0]
+                lo = pp.index * n if "pp" in split else 0
+                layer_sq[lo:lo + n] += health.layer_sq(g)
+        return [nf.reshape(1), layer_sq]
+
+    def _fingerprint_parts(inputs: torch.Tensor) -> list[torch.Tensor]:
+        key = tuple(inputs.shape)
+        if key not in positions:
+            positions[key] = _global_positions(inputs, mesh, rules,
+                                               n_microbatches if pp.size > 1 else 0)
+        part = health.fingerprint_sum(inputs, positions[key])
+        # two 16-bit halves: float32 sums of them stay exact over the ranks
+        return [(part >> 16).float().reshape(1), (part & 0xFFFF).float().reshape(1)]
 
     return step
 
@@ -556,27 +662,40 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, mesh: Mesh | No
         check_model_mesh(cfg, mesh.shape)
         if mesh.shape["pp"] > 1 and pp_schedule == "1f1b":
             check_1f1b(cfg)
-    if monitors:
-        raise NotImplementedError(
-            "the numerics-health monitors are not ported yet (ROADMAP queue 1, "
-            "item 6)")
+    # per call: always, never, or (None with a sentinel armed) on the
+    # steps it reads
+    armed = monitors is None and health.active_sentinel() is not None
+    monitors_due = health.due if armed else functools.partial(bool, monitors)
+    nan_step = health.nan_inject_step()
     if cfg.remat:
         llama._remat_policy(cfg.remat_policy)     # an unknown name fails here
     if sharded:
         return _sharded_step(cfg, optimizer, mesh, rules, int(grad_bucket_bytes or 0),
-                             n_microbatches or 2 * mesh.shape["pp"], pp_schedule)
+                             n_microbatches or 2 * mesh.shape["pp"], pp_schedule,
+                             monitors_due, nan_step)
 
     def step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
         _check_default_mesh(None)
+        monitors = monitors_due()
         leaves = tree_leaves(state.params)
         loss, aux = llama.loss_and_aux(state.params, inputs, targets, cfg)
         grads = torch.autograd.grad(loss, leaves)
         gnorm = global_norm(grads)
-        optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm)
+        upd_sq = optimizer.update(grads, state.opt_state, state.params, grad_norm=gnorm,
+                                  update_sq_of=[True] * len(leaves) if monitors else None)
+        loss = _poison(loss.detach(), state.step, nan_step)
         state.step += 1
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "step": state.step}
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step}
         if cfg.is_moe:
             metrics["aux"] = aux.detach()
+        if monitors:
+            it = iter(grads)
+            grad_tree = tree_map(lambda _: next(it), state.params)
+            metrics.update(health.monitors_from_sums(
+                loss, health.nonfinite_count(grads, loss.device),
+                health.nonfinite_count(leaves, loss.device),
+                health.sq_norm(leaves, loss.device), upd_sq,
+                health.batch_fingerprint(inputs), health.layer_grad_rms(grad_tree)))
         return state, metrics
 
     return step

@@ -132,7 +132,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    random weights; every loss finite and the last below the first, and
    each flash kernel launched exactly 24 x 10 times (twice as many forward
    launches would mean remat re-ran the forward kernel), on its
-   tensor-core instance. Then one step
+   tensor-core instance; every push carries the device memory keys
+   (``hbm_mb``, ``hbm_peak_mb``, ``hbm_limit_mb``). Then one step
    under torch.profiler, and a 2-layer cross-check of one train step with
    the kernels against plain attention. Then (5b) the same fit() with
    ``ce_impl="pallas"``: step 1 within 2e-2 of phase 5's, ce_fwd once a
@@ -154,7 +155,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and a 2-layer cross-check of one train step with the kernels against
    the plain grouped matmul;
 7. fsdp training: two rank processes on this one card (``--rank``; phases
-   7-12 share them, one process start and one warm-up for all six),
+   7-12 and 14 share them, one process start and one warm-up for all),
    each bringing up a gloo group over tcp://localhost and calling the
    port's own ``fit()`` on bench_1b4 at full width and depth with
    ``mesh_shape=MeshShape(fsdp=2)`` and ``overlap_impl="pallas"``, phase
@@ -164,7 +165,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    24 layers x 7 projections x 4 x 2 times a step (the ring's forward, its
    recompute under remat, dx and dW, two chunks each) on its tensor-core
    instance, its plain version never, and each flash kernel once per
-   layer and step. The step time is printed beside the transport (gloo,
+   layer and step; each rank's comms ledger (``obs/comms.py``) equals
+   ``dist.BYTES`` by kind, and both are printed with the ledger's rows.
+   The step time is printed beside the transport (gloo,
    host-staged): two ranks on one card, not an NCCL time;
 8. ep training: in the same two rank processes, each
    calling ``fit()`` on bench_moe at full width and depth at
@@ -234,14 +237,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    step), a profile window on step 2 of each: the journal holds
    ``train.fit`` and the sampled step spans, the verdict is healthy, the
    memory watch's peak is ``max_memory_allocated``'s, the profile's
-   Chrome trace names kernels 1-3, and the step thread's device-to-host
+   Chrome trace names kernels 1-3, the window's anatomy budget
+   (``obs/anatomy.py``: compute, exposed collective, input wait,
+   host-blocked) sums to its step time within 10%, every push carries the
+   device memory keys, and the step thread's device-to-host
    copies and synchronizing calls in the profiled step are as many armed
    as disarmed (the armed step's wall and device ms printed beside the
    disarmed one's); ``TONY_CHAOS_NAN_STEP=2`` on a 4-layer bench_1b4
    trips the sentinel at step 2 with a forensics bundle; phase 4's
    traffic through an armed engine at the default strides: the
    registry's TTFT, TPOT and step histograms count what ``DecodeMetrics``
-   counts.
+   counts;
+14. elastic training: in the same two rank processes, after phase 12,
+   ``fit()`` on bench_1b4 at full width cut to 2 layers with 2 members of
+   1 rank (dp 2), 6 steps under the plan ``{2: (0,), 4: (0, 1)}``: member
+   1 leaves the group at step 2 and waits, the group is formed again over
+   rank 0 alone, and at step 4 over both, member 1 receiving the whole
+   state by broadcast. Held: both ranks' summaries (2 reshards,
+   generation 2, members [0, 1]); the journal's skips ``{"1": [2, -1]}``
+   then ``{"1": [2, 4]}``; every step's loss within 2e-2 (phase 7's
+   bound) of a one-process run in the main process fed the same
+   ``reference_batches`` (member 0's rows while member 1 is out); the
+   grown rank's parameters bit-equal to rank 0's after the broadcast
+   (digests); each flash kernel once per layer and step a rank ran, no
+   plain version. Printed: each boundary's seconds and broadcast bytes
+   per rank, the step times, and the cost of the step's generation
+   broadcast (3 int64 from rank 0 over the group).
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -255,8 +276,8 @@ The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
-phases 7 and 8 rank 0's, phases 9 to 12 each rank's, 4b's fp8 run, 5c
-and 13 included),
+phases 7 and 8 rank 0's, phases 9 to 12 and 14 each rank's, 4b's fp8
+run, 5c and 13 included),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2227,6 +2248,7 @@ def train_phase(card: str) -> dict:
         raise AssertionError(f"losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    check_memory_keys("5", steps)
     want = cfg.n_layers * TRAIN_STEPS
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         if launches[name] != want:
@@ -2248,6 +2270,19 @@ def train_phase(card: str) -> dict:
         "ce_matmul": f32_matmul_route("cuda", cfg.dtype),
         **train_profile(cfg, data, FLASH_KERNELS),
     }
+
+
+MEMORY_KEYS = ("hbm_mb", "hbm_peak_mb", "hbm_limit_mb")
+
+
+def check_memory_keys(label: str, pushes: list[dict]) -> None:
+    """fit()'s pushes carry the device memory keys (``obs/device_metrics.py``,
+    the reference's names): allocated <= peak <= the card's total."""
+    for m in pushes:
+        vals = [m.get(k) for k in MEMORY_KEYS]
+        if None in vals or not 0 < vals[0] <= vals[1] <= vals[2]:
+            raise AssertionError(f"phase {label} push of step {m['step']}: memory keys "
+                                 f"{dict(zip(MEMORY_KEYS, vals))}")
 
 
 def train_ce_phase(card: str, scan: dict) -> dict:
@@ -2591,8 +2626,11 @@ def rank_transport() -> str:
 def fsdp_runs(rank: int) -> dict:
     """Phase 7 on this rank of the shared rank processes (``rank_main``):
     the port's own fit() at fsdp 2 with the ring's pallas form; what it
-    saw."""
+    saw, with the payload bytes by kind (``dist.BYTES``) and the comms
+    ledger's totals and rows."""
+    from tony_tpu_torch.obs import comms
     from tony_tpu_torch.ops import attention, overlap
+    from tony_tpu_torch.parallel import dist as pdist
     from tony_tpu_torch.parallel.mesh import MeshShape
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
 
@@ -2600,6 +2638,7 @@ def fsdp_runs(rank: int) -> dict:
     steps: list[dict] = []
     overlap.reset_launches()
     attention.reset_launches()
+    pdist.reset_bytes()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     final = fit(FitConfig(model=cfg, data=DataConfig(global_batch=8, seq_len=2048,
@@ -2610,6 +2649,8 @@ def fsdp_runs(rank: int) -> dict:
     res = {"rank": rank, "metrics": steps, "final": final,
            "wall_s": time.perf_counter() - t0,
            "launches": {**overlap.LAUNCHES, **attention.LAUNCHES},
+           "bytes": dict(pdist.BYTES), "ledger": comms.totals(),
+           "ledger_rows": [(r["name"], r["calls"], r["total_bytes"]) for r in comms.rows()],
            "instance": overlap.kernel_instance(cfg.dtype),
            "transport": rank_transport(),
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2625,7 +2666,8 @@ def fsdp_phase(card: str, dense: dict, shared: list) -> dict:
     model and batches; the ring sums each projection's partial products
     in another order, and the schedule matches phase 5's up to step
     FSDP_STEPS); on each rank kernel 14 launched exactly the count the
-    ring implies and its plain version never."""
+    ring implies and its plain version never; on each rank the comms
+    ledger's totals by kind equal ``dist.BYTES``."""
     ranks = [r["7"] for r in shared]
     wall = max(r["wall_s"] for r in ranks)
     cfg = dense_train_config()
@@ -2644,6 +2686,9 @@ def fsdp_phase(card: str, dense: dict, shared: list) -> dict:
             raise AssertionError(f"rank {r['rank']} launches {got} != {want}")
         if r["instance"] != "tensor cores":
             raise AssertionError(f"kernel 14 ran {r['instance']} in bf16")
+        if r["ledger"] != r["bytes"] or not sum(r["bytes"].values()):
+            raise AssertionError(f"rank {r['rank']}: comms ledger {r['ledger']} != "
+                                 f"dist.BYTES {r['bytes']}")
     metrics = ranks[0]["metrics"]
     losses = [m["loss"] for m in metrics]
     if len(losses) != FSDP_STEPS or not all(math.isfinite(x) for x in losses):
@@ -2658,6 +2703,14 @@ def fsdp_phase(card: str, dense: dict, shared: list) -> dict:
         log(f"train fsdp={FSDP} step {m['step']}: loss {m['loss']:.4f} (phase 5 "
             f"{ref:.4f}) grad_norm {m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms "
             f"over {ranks[0]['transport']}  [{card}]")
+    from tony_tpu_torch.obs.comms import KINDS
+
+    for r in ranks:
+        log(f"train fsdp={FSDP} rank {r['rank']}: comms ledger = dist.BYTES by kind over "
+            f"{FSDP_STEPS} steps: " + ", ".join(f"{KINDS[k]} {v / 1e9:.4f} GB"
+                                               for k, v in r["ledger"].items() if v)
+            + "; rows " + ", ".join(f"{n} {c} calls {b / 1e9:.4f} GB"
+                                    for n, c, b in r["ledger_rows"]) + f"  [{card}]")
     timed = [m["step_time_s"] for m in metrics[2:]]     # 2 warm-up steps
     return {"ranks": ranks, "losses": losses, "loss_diffs": diffs, "wall_s": wall,
             "per_step": per_step, "mean_step_ms": sum(timed) / len(timed) * 1e3,
@@ -3300,17 +3353,184 @@ def capacity_phase(card: str, one: dict, shared: list) -> dict:
             "wall_s": max(r["wall_s"] for r in ranks)}
 
 
-# --- phases 7-12: one pair of rank processes on the card ----------------------------
+# --- phase 14: elastic fit() over a re-formed process group, two ranks on one card -----
+
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 6
+# member 1 leaves at step 2 and grows back at step 4
+ELASTIC_PLAN = {2: (0,), 4: (0, 1)}
+ELASTIC_ATOL = 2e-2     # phase 7's loss bound: the same bf16 model, sums in another order
+AGREE_REPS = 50
+
+
+def elastic_config():
+    """bench_1b4 at full width (dim 2048, 16 heads, vocab 32,000), cut to
+    ELASTIC_LAYERS layers, phase 5's recipe otherwise."""
+    return dataclasses.replace(dense_train_config(), n_layers=ELASTIC_LAYERS)
+
+
+def elastic_data():
+    from tony_tpu_torch.train import DataConfig
+
+    return DataConfig(global_batch=8, seq_len=2048, vocab_size=elastic_config().vocab_size)
+
+
+def elastic_runs(rank: int, work_dir: str) -> dict:
+    """Phase 14 on this rank of the shared rank processes: elastic fit()
+    with 2 members of 1 rank under ELASTIC_PLAN, its generation file and
+    journal under ``work_dir``. The grow boundary's broadcast is followed
+    by a digest of this rank's parameters (both ranks take part in it, the
+    source too); after the run, the per-step agreement broadcast (an int64
+    tensor of 3 from rank 0, what fit() sends a step when it watches a
+    generation file) is timed over the group."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.elastic import journal_path, read_journal
+    from tony_tpu_torch.ops import attention
+    from tony_tpu_torch.parallel import dist as pdist
+    from tony_tpu_torch.train import FitConfig, fit, loop
+
+    cfg = elastic_config()
+    digests: list[str] = []
+    sync = loop._Elastic._sync_grown
+
+    def digesting(self, members, old, state):
+        moved = sync(self, members, old, state)
+        if not moved:                   # no member grew at this boundary
+            return moved
+        h = hashlib.sha1()
+        for t in loop.tree_leaves(state.params):
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+        return moved
+
+    loop._Elastic._sync_grown = digesting
+    steps: list[dict] = []
+    attention.reset_launches()
+    pdist.reset_bytes()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        final = fit(FitConfig(model=cfg, data=elastic_data(), steps=ELASTIC_STEPS, log_every=1,
+                              lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
+                              elastic_members=2, elastic_plan=ELASTIC_PLAN,
+                              elastic_dir=work_dir, elastic_shadow_steps=2,
+                              on_metrics=steps.append), device="cuda")
+    finally:
+        loop._Elastic._sync_grown = sync
+    wall = time.perf_counter() - t0
+    buf = torch.zeros(3, dtype=torch.int64)
+    dist.barrier()
+    t1 = time.perf_counter()
+    for _ in range(AGREE_REPS):
+        dist.broadcast(buf, 0)
+    agree_ms = (time.perf_counter() - t1) / AGREE_REPS * 1e3
+    res = {"rank": rank, "metrics": steps, "final": final, "wall_s": wall,
+           "launches": dict(attention.LAUNCHES), "digests": digests,
+           "bytes": dict(pdist.BYTES), "agree_ms": agree_ms, "transport": rank_transport(),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        res["journal"] = read_journal(journal_path(work_dir, 0))
+    torch.cuda.empty_cache()
+    return res
+
+
+def elastic_twin() -> dict:
+    """The one-process run phase 14 is held to: fit()'s optimizer and
+    initial state (seed 0) on ``elastic_config()``, fed ``reference_batches``
+    (both members' rows at full membership, member 0's while ELASTIC_PLAN
+    has member 1 out), each step's loss and grad norm."""
+    from tony_tpu_torch.elastic import reference_batches
+    from tony_tpu_torch.train.trainer import (
+        default_optimizer, make_train_state, make_train_step,
+    )
+
+    cfg, data = elastic_config(), elastic_data()
+    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=max(ELASTIC_STEPS, 3),
+                            mu_dtype="bfloat16")
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    step_fn = make_train_step(cfg, opt)
+    stream = reference_batches(data, 2, device="cuda")
+    members, out = (0, 1), []
+    try:
+        for i in range(ELASTIC_STEPS):
+            members = ELASTIC_PLAN.get(i, members)
+            x, y = next(stream)
+            rows = data.global_batch // 2 * len(members)
+            state, m = step_fn(state, x[:rows], y[:rows])
+            out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+    finally:
+        stream.close()
+    del state
+    torch.cuda.empty_cache()
+    return {"metrics": out}
+
+
+def elastic_phase(card: str, twin: dict, shared: list) -> dict:
+    """Phase 14, from the shared rank processes' results and ``twin``, the
+    one-process run: the summary (2 reshards, generation 2, members [0,
+    1]) on both ranks; the journal's boundaries and skips ({"1": [2, -1]},
+    then {"1": [2, 4]}); every step's loss within ELASTIC_ATOL of the
+    twin's; the grown rank's parameters bit-equal to rank 0's after the
+    broadcast (their digests); each boundary's seconds and broadcast
+    bytes; each flash kernel once per layer and step a rank ran (rank 1
+    sits steps 2-3 out), no plain version."""
+    ranks = [r["14"] for r in shared]
+    for r in ranks:
+        e = r["final"]["elastic"]
+        if (e["reshards"], e["generation"], e["members"]) != (2, 2, [0, 1]) or \
+                not e["reshard_s"] > 0:
+            raise AssertionError(f"elastic rank {r['rank']}: summary {e}")
+        ran = ELASTIC_STEPS if r["rank"] == 0 else ELASTIC_STEPS - 2
+        want = {n: ELASTIC_LAYERS * ran for n in FLASH_KERNELS}
+        want.update({f"{n}_plain": 0 for n in FLASH_KERNELS})
+        got = {n: r["launches"][n] for n in want}
+        if got != want:
+            raise AssertionError(f"elastic rank {r['rank']}: launches {got} != {want}")
+    reshards = [x for x in ranks[0]["journal"] if x["type"] == "reshard"]
+    skips = [(x["boundary"], x["at_step"], x["skipped"]) for x in reshards]
+    if skips != [("shrink", 2, {"1": [2, -1]}), ("grow", 4, {"1": [2, 4]})]:
+        raise AssertionError(f"elastic journal boundaries {skips}")
+    if len(ranks[0]["digests"]) != 1 or ranks[0]["digests"] != ranks[1]["digests"]:
+        raise AssertionError(f"elastic: parameters after the grow broadcast differ: "
+                             f"{[r['digests'] for r in ranks]}")
+    got, ref = ranks[0]["metrics"], twin["metrics"]
+    diffs = [abs(g["loss"] - w["loss"]) for g, w in zip(got, ref)]
+    if len(got) != ELASTIC_STEPS or max(diffs) > ELASTIC_ATOL or \
+            not all(math.isfinite(g["loss"]) for g in got):
+        raise AssertionError(f"elastic losses {[g['loss'] for g in got]} against the "
+                             f"one-process run's {[w['loss'] for w in ref]}")
+    if ranks[1]["metrics"]:
+        raise AssertionError("elastic: rank 1 reported metrics: rank 0 alone reports")
+    bounds = [r["final"]["elastic_boundaries"] for r in ranks]
+    for m, w in zip(got, ref):
+        log(f"14 elastic step {m['step']}: loss {m['loss']:.4f} (one process "
+            f"{w['loss']:.4f}) grad_norm {m['grad_norm']:.4f} ({w['grad_norm']:.4f}) "
+            f"{m['step_time_s'] * 1e3:.1f} ms over {ranks[0]['transport']}  [{card}]")
+    return {"ranks": ranks, "diffs": diffs, "bounds": bounds, "skips": skips,
+            "launches": [r["launches"] for r in ranks],
+            "step_ms": [m["step_time_s"] * 1e3 for m in got],
+            "agree_ms": [r["agree_ms"] for r in ranks],
+            "peak_gb": [r["peak_allocated_gb"] for r in ranks],
+            "wall_s": max(r["wall_s"] for r in ranks), "transport": ranks[0]["transport"]}
+
+
+# --- phases 7-12 and 14: one pair of rank processes on the card ---------------------
 
 RANKS = 2
 RANK_TIMEOUT_S = 900
 
 
 def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
-    """One of the two rank processes phases 7-12 share: bring up a gloo
-    group over tcp://localhost on this card, then run phase 7's to 12's
-    fit() calls in turn (one process start and one warm-up for all six),
-    and write what each saw to ``out``."""
+    """One of the two rank processes phases 7-12 and 14 share: bring up a
+    gloo group over tcp://localhost on this card, then run phase 7's to
+    12's and 14's fit() calls in turn (one process start and one warm-up
+    for all seven), and write what each saw to ``out``. Phase 14 re-forms
+    the group twice; the group it ends with closes the run."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -3319,7 +3539,8 @@ def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
                             world_size=RANKS)
     res = {"rank": rank, "7": fsdp_runs(rank), "8": ep_runs(rank, ckpt_dir),
            "9": par_runs(rank), "10": pp_runs(), "11": moe_tp_runs(rank),
-           "12": capacity_runs(rank)}
+           "12": capacity_runs(rank),
+           "14": elastic_runs(rank, os.path.join(os.path.dirname(ckpt_dir), "elastic"))}
     dist.barrier()
     dist.destroy_process_group()
     with open(out, "w") as f:
@@ -3328,11 +3549,11 @@ def rank_main(rank: int, port: int, out: str, ckpt_dir: str) -> int:
 
 
 def rank_phases() -> list[dict]:
-    """Start the two rank processes of phases 7-12 (``--rank``), wait for
-    both within RANK_TIMEOUT_S, and return what each rank saw; the phases'
-    checks read it (``fsdp_phase``, ``ep_phase``, ``par_phase``,
-    ``pp_phase``, ``moe_tp_phase``, ``capacity_phase``). A rank that fails
-    fails them all."""
+    """Start the two rank processes of phases 7-12 and 14 (``--rank``),
+    wait for both within RANK_TIMEOUT_S, and return what each rank saw;
+    the phases' checks read it (``fsdp_phase``, ``ep_phase``,
+    ``par_phase``, ``pp_phase``, ``moe_tp_phase``, ``capacity_phase``,
+    ``elastic_phase``). A rank that fails fails them all."""
     import shutil
     import socket
     import tempfile
@@ -3355,13 +3576,13 @@ def rank_phases() -> list[dict]:
                 p.wait()
     if any(codes):
         shutil.rmtree(tmp, ignore_errors=True)
-        raise AssertionError(f"phase 7-12 rank processes exited {codes}")
+        raise AssertionError(f"phase 7-12 and 14 rank processes exited {codes}")
     ranks = []
     for path in outs:
         with open(path) as f:
             ranks.append(json.load(f))
     shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phases 7-12 rank processes: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 7-12 and 14 rank processes: {time.perf_counter() - t0:.1f} s")
     return ranks
 
 
@@ -3553,8 +3774,28 @@ def spine_train_run(app_dir: str, token_file: str, armed: bool, **fit_kw) -> dic
     man = profile.read_manifests(app_dir)[SPINE_PROC]
     if man["steps"] != 1 or not man["artifact"]:
         raise AssertionError(f"profile window: {man}")
+    check_memory_keys("13", steps)
     return {"final": final, "steps": steps, "peak_bytes": peak,
-            "launches": dict(attention.LAUNCHES), "trace": trace_counts(man["artifact"])}
+            "launches": dict(attention.LAUNCHES), "trace": trace_counts(man["artifact"]),
+            "anatomy": window_anatomy(app_dir)}
+
+
+def window_anatomy(app_dir: str) -> dict:
+    """The anatomy report (``obs/anatomy.py``) of the profile window under
+    ``app_dir``: its budget rows must sum to each captured step's time
+    within 10%, as the reference's capture test holds its own, and the
+    trace must show device compute."""
+    from tony_tpu_torch.obs import anatomy
+
+    rep_ = anatomy.build_anatomy(app_dir)["procs"][SPINE_PROC]
+    for row in rep_["table"]:
+        parts = sum(row[k] for k in ("compute_s", "exposed_collective_s", "input_wait_s",
+                                     "host_blocked_s"))
+        if not rep_["device_trace"] or row["compute_s"] <= 0 or \
+                abs(parts - row["step_time_s"]) > 0.10 * row["step_time_s"]:
+            raise AssertionError(f"anatomy budget of the profile window: {rep_['table']} "
+                                 f"(device trace {rep_['device_trace']})")
+    return rep_
 
 
 def spine_phase(card: str, cfg8, params8, work_dir: str) -> dict:
@@ -4128,7 +4369,16 @@ def main() -> int:
             f"{tc_['main_syncs']}, other threads' device-to-host copies {tc_['other_d2h']}; "
             f"peak allocated {x['peak_bytes'] / 2**30:.3f} GiB; flash launches "
             f"{x['launches']['flash_fwd']}/{x['launches']['flash_dq']}/"
-            f"{x['launches']['flash_dkv']}  [{card}]")
+            f"{x['launches']['flash_dkv']}; pushes' hbm_mb "
+            + ", ".join(f"{m['hbm_mb']:.0f}" for m in x["steps"])
+            + f" (peak {x['steps'][-1]['hbm_peak_mb']:.0f}, limit "
+            f"{x['steps'][-1]['hbm_limit_mb']:.0f})  [{card}]")
+        a = x["anatomy"]["table"][0]
+        log(f"13 anatomy of the {'armed' if label == 'on' else 'disarmed'} profile window "
+            f"(step 2): step {a['step_time_s'] * 1e3:.1f} ms = compute "
+            f"{a['compute_s'] * 1e3:.1f} + exposed collective "
+            f"{a['exposed_collective_s'] * 1e3:.1f} + input wait {a['input_wait_s'] * 1e3:.1f} "
+            f"+ host-blocked {a['host_blocked_s'] * 1e3:.1f} ms  [{card}]")
     on_, off_ = sp["on"], sp["off"]
     log(f"13 armed vs disarmed: step 4 wall {on_['steps'][3]['step_time_s'] * 1e3:.1f} vs "
         f"{off_['steps'][3]['step_time_s'] * 1e3:.1f} ms, profiled step 2 device "
@@ -4233,6 +4483,7 @@ def main() -> int:
     model_crosscheck(card, moe_train_config(), "moe_gmm_impl", "pallas", "scan")
     torch.cuda.empty_cache()
     cap_one = capacity_fit(None)            # phase 12's one-process run
+    el_twin = elastic_twin()                # phase 14's one-process run
 
     shared = rank_phases()
     f = fsdp_phase(card, t, shared)
@@ -4353,6 +4604,26 @@ def main() -> int:
         + ", ".join(f"{g:.2f}" for g in cp["peak_gb"])
         + f" GB (one process {cp['one_peak_gb']:.2f}); phase wall {cp['wall_s']:.1f} s  "
         f"[{card}]")
+    el = elastic_phase(card, el_twin, shared)
+    b0 = el["bounds"][0]
+    log(f"14 elastic fit() on bench_1b4 at full width and {ELASTIC_LAYERS} layers (2 members "
+        f"of 1 rank, two rank processes on this one card, the group re-formed over gloo at "
+        f"each boundary, plan {ELASTIC_PLAN}): {ELASTIC_STEPS} steps, max |loss - the "
+        f"one-process run's| {max(el['diffs']):.3e}; summary "
+        f"{el['ranks'][0]['final']['elastic']}; journal {el['skips']}; grown rank's "
+        f"parameters bit-equal to rank 0's after the broadcast (sha1 "
+        f"{el['ranks'][0]['digests'][0][:12]}); boundaries (rank 0, rank 1): "
+        + "; ".join(f"gen {a['generation']} {a['boundary']} at step {a['at_step']} "
+                    f"{a['reshard_s']:.3f} s / {b['reshard_s']:.3f} s, broadcast "
+                    f"{a['broadcast_bytes'] / 1e9:.3f} GB / {b['broadcast_bytes'] / 1e9:.3f} GB"
+                    for a, b in zip(b0, el["bounds"][1]))
+        + "; step ms " + ", ".join(f"{v:.1f}" for v in el["step_ms"])
+        + f" over {el['transport']}; the step's generation broadcast (3 int64 from rank 0) "
+        + ", ".join(f"{v:.3f}" for v in el["agree_ms"]) + " ms per rank; launches per rank "
+        + "; ".join(", ".join(f"{k} {lc[k]}" for k in FLASH_KERNELS) for lc in el["launches"])
+        + ", plain 0; peak allocated per rank "
+        + ", ".join(f"{g:.2f}" for g in el["peak_gb"])
+        + f" GB; phase wall {el['wall_s']:.1f} s  [{card}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     main_case = cases[0]                            # G=1 bf16 at the serving shapes
@@ -4423,7 +4694,8 @@ def main() -> int:
                        **{f"10 {label} rank {r}": pp[label]["launches"][r][name]
                           for label, *_ in PP_RUNS for r in range(PP)},
                        **{f"11 rank {r}": mt["launches"][r][name] for r in range(MOE_TP)},
-                       **{f"12 rank {r}": cp["launches"][r][name] for r in range(2)}},
+                       **{f"12 rank {r}": cp["launches"][r][name] for r in range(2)},
+                       **{f"14 rank {r}": el["launches"][r][name] for r in range(2)}},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -4482,6 +4754,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:           # one rank of phases 7-12, started by main()
+    if sys.argv[1:2] == ["--rank"]:           # one rank of phases 7-12 and 14, started by main()
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch/CUDA port: no module of tony_tpu_torch, not
 chip_smoke.py, not the card's test file, not the gloo ranks' runner
-(tests/torch_ranks.py) and not scripts/torch_kernel_ab.py imports jax or
-anything of the JAX package. Read from
+(tests/torch_ranks.py), not scripts/torch_kernel_ab.py and not
+scripts/torch_phase14.py imports jax or anything of the JAX package. Read from
 the source with ``ast`` (not ``sys.modules``: the interpreter may have
 imported jax before any test runs)."""
 
@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # to the same rule
 FILES = sorted((ROOT / "tony_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests/test_torch_kernels_cuda.py",
-    ROOT / "tests/torch_ranks.py", ROOT / "scripts/torch_kernel_ab.py"]
+    ROOT / "tests/torch_ranks.py", ROOT / "scripts/torch_kernel_ab.py",
+    ROOT / "scripts/torch_phase14.py"]
 
 
 def _banned(name: str) -> bool:

@@ -1654,3 +1654,42 @@ def test_hbm_stats_read_one_device_on_card(cuda):
     assert stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(cuda)
     assert stats["bytes_limit"] == torch.cuda.mem_get_info(cuda)[1]
     del x
+
+
+@pytest.mark.cuda
+def test_device_metrics_keys_on_card(cuda):
+    """``device_metrics_dict`` reads the allocator's allocated bytes (now
+    and peak) and the card's total, in MB, under the reference's keys."""
+    from tony_tpu_torch.obs import device_metrics
+
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    got = device_metrics.device_metrics_dict()
+    suffix = f"_dev{cuda.index or 0}" if torch.cuda.device_count() > 1 else ""
+    assert got[f"hbm_mb{suffix}"] == torch.cuda.memory_allocated(cuda) / 1e6
+    assert got[f"hbm_peak_mb{suffix}"] == torch.cuda.max_memory_allocated(cuda) / 1e6
+    assert got[f"hbm_limit_mb{suffix}"] == torch.cuda.mem_get_info(cuda)[1] / 1e6
+    del x
+
+
+@pytest.mark.cuda
+def test_shadow_copies_on_its_stream_and_drops_while_busy(cuda):
+    """The elastic shadow's stride copy runs on its own stream behind the
+    step's event: a second request while the first transfer is in flight
+    is dropped and counted; the settled shadow is the state at its step,
+    bit for bit, though the live tensor moved on right after the request;
+    the fence capture is exact."""
+    from tony_tpu_torch.elastic import ShadowStore
+
+    w = torch.randn(256 << 20, device=cuda)          # 1 GiB: a transfer in flight
+    want = w.cpu()
+    store = ShadowStore(interval_steps=1)
+    assert store.maybe_update(1, {"w": w, "step": 1})
+    w.add_(1.0)                                       # the next step's in-place update
+    assert not store.maybe_update(2, {"w": w, "step": 2})
+    assert store.dropped == 1
+    store.close()
+    step, host = store.snapshot()
+    assert step == 1 and host["step"] == 1 and host["w"].is_pinned()
+    assert torch.equal(host["w"], want)
+    fenced = store.capture_sync(3, {"w": w})
+    assert torch.equal(fenced["w"], w.cpu()) and store.snapshot()[0] == 3

@@ -166,7 +166,7 @@ def test_refusals_read_as_the_references(case):
     from tony_tpu_torch.parallel.dist import Axis
     from tony_tpu_torch.parallel.mesh import MESH_AXES, Mesh, MeshShape
     from tony_tpu_torch.train import FitConfig
-    from tony_tpu_torch.train.loop import _check_ported
+    from tony_tpu_torch.train.loop import _check_config
     from tony_tpu_torch.train.trainer import default_optimizer, make_train_step
 
     pp, knobs, schedule = 2, {}, "gpipe"
@@ -199,4 +199,4 @@ def test_refusals_read_as_the_references(case):
     assert port == ref
     # fit() refuses the same before it brings a group up
     fit_cfg = FitConfig(model=cfg, mesh_shape=shape, pp_schedule=schedule)
-    assert _refusal(lambda: _check_ported(fit_cfg)) == ref
+    assert _refusal(lambda: _check_config(fit_cfg)) == ref

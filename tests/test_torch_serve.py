@@ -183,9 +183,10 @@ def test_pool_handoff_raises(setup):
 
 
 def test_roadmap_items_the_port_cites_name_their_headings(setup):
-    """The port's refusals point at ROADMAP.md's queue 1 by item number:
-    each number a refusal cites is the queue-1 heading of what it refuses,
-    and every ``queue 1, item N`` in the package's source is a heading."""
+    """The port points at ROADMAP.md's queue 1 by item number: every
+    ``queue 1, item N`` in the package's source is a heading, and no code
+    cites an item that is done. The last refusal, elastic's (item 9), is
+    gone: elastic fit() trains."""
     from tony_tpu_torch.train import FitConfig, fit
 
     root = Path(__file__).resolve().parent.parent
@@ -193,21 +194,18 @@ def test_roadmap_items_the_port_cites_name_their_headings(setup):
     queue1 = text[text.index("### Queue 1"):text.index("### Queue 2")]
     headings = {int(n): h.lower()
                 for n, h in re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue1, re.M)}
-    refusals = [
-        ("elastic", lambda: fit(FitConfig(elastic_members=2), device="cpu")),
-    ]
-    for topic, call in refusals:
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        item = int(re.search(r"queue 1, item (\d+)", str(err.value)).group(1))
-        assert topic in headings[item], (str(err.value), headings.get(item))
+    # elastic (item 9) is ported: it no longer refuses, and in one process
+    # it asks for the process group its ranks run over
+    assert "elastic" in headings[9]
+    with pytest.raises(RuntimeError, match="one process per rank"):
+        fit(FitConfig(elastic_members=2), device="cpu")
     cited = [(path.name, int(n)) for path in (root / "tony_tpu_torch").rglob("*.py")
              for n in re.findall(r"queue 1,?\s+item (\d+)", path.read_text())]
     assert len(cited) >= 3
     assert all(n in headings for _, n in cited), (cited, sorted(headings))
-    # chunked prefill, the handoff and the rest of item 8 serve now, and
-    # items 2 and 7 are done
-    assert not [c for c in cited if c[1] in (2, 4, 7, 8)], cited
+    # chunked prefill, the handoff and the rest of item 8 serve now, items
+    # 2 and 7 are done, and so are the obs package (item 6) and elastic (9)
+    assert not [c for c in cited if c[1] in (2, 4, 6, 7, 8, 9)], cited
 
 
 def test_default_device_is_cuda_and_raises_without_it(setup, monkeypatch):

@@ -253,7 +253,8 @@ def test_checkpoint_falls_back_and_reaps(tmp_path):
 def test_entry_points_need_cuda_or_an_explicit_cpu():
     """With no device, the entry points run on CUDA and raise without it;
     what the port does not port yet raises NotImplementedError citing its
-    ROADMAP item, and pp builds (its refusals are the reference's)."""
+    ROADMAP item, pp builds (its refusals are the reference's), and elastic
+    needs a process group."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs there")
     opt = default_optimizer()
@@ -278,7 +279,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         fit(FitConfig(pp_microbatches=4, mesh_shape=PortMeshShape(pp=2)), device="cpu")
     with pytest.raises(ValueError, match="unknown pp_schedule"):
         fit(FitConfig(pp_schedule="zb"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # elastic fit() is ported (tests/test_torch_elastic.py): one process per
+    # rank, so a run without a process group is refused
+    with pytest.raises(RuntimeError, match="one process per rank"):
         fit(FitConfig(elastic_members=2), device="cpu")
     with pytest.raises(NotImplementedError, match="cannot nest inside pipeline stages"):
         fit(FitConfig(model=LlamaConfig.tiny(attention_impl="ring"),
@@ -385,3 +388,48 @@ def test_matmul_remat_policies_save_what_the_reference_saves(policy, monkeypatch
     loss_from_pairs(params, tokens, tokens, cfg).backward()
     want = Counter(_reference_saved(policy))
     assert Counter(saved) == Counter({k: v * cfg.n_layers for k, v in want.items()})
+
+
+# the reference's push and final keys the port has no counterpart for: the
+# compile count of XLA, and the dropped pushes of a job's metrics reporter
+NO_COUNTERPART = {"xla_compiles", "metrics_dropped"}
+
+
+def test_fit_pushes_and_reports_the_reference_keys(monkeypatch):
+    """Both ``fit()``s on the tiny config from the same parameters and
+    batches, with ``on_metrics``: each push and the final report have the
+    reference's keys (the port may add its own; it may lack only
+    ``NO_COUNTERPART``), ``startup_*`` on the first push only, and each
+    push's step, loss and grad norm within 1e-4."""
+    from tony_tpu.train import FitConfig as JFitConfig, fit as jfit
+    from tony_tpu_torch.train import loop
+
+    data = dict(global_batch=8, seq_len=32, vocab_size=256)
+    mesh = build_mesh(MeshShape(), devices=jax.devices()[:1])
+    jstate = jtrainer.make_train_state(jax.random.key(0), jl.LlamaConfig.tiny(), mesh,
+                                       jtrainer.default_optimizer())
+    tree = jax.tree.map(np.asarray, jstate.params)
+    make_state = loop.make_train_state
+    monkeypatch.setattr(loop, "make_train_state", lambda model, opt, **kw: make_state(
+        model, opt, **{**kw, "params": params_from_numpy(tree, model, device="cpu")}))
+    want: list = []
+    jfinal = jfit(JFitConfig(model=jl.LlamaConfig.tiny(), data=jdata.DataConfig(**data),
+                             steps=4, log_every=2, warmup_steps=2, on_metrics=want.append))
+    got: list = []
+    final = fit(FitConfig(model=LlamaConfig.tiny(), data=DataConfig(**data), steps=4,
+                          log_every=2, warmup_steps=2, on_metrics=got.append), device="cpu")
+    assert [m["step"] for m in got] == [m["step"] for m in want] == [1, 2, 4]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(w) - set(g) <= NO_COUNTERPART, (i, sorted(set(w) - set(g)))
+        startup = {k for k in g if k.startswith("startup_")}
+        assert startup == ({k for k in w if k.startswith("startup_")} if i == 0 else set())
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"push {i} {key}")
+    assert {k for k in got[0] if k.startswith("startup_")} == \
+        {"startup_compile_s", "startup_first_batch_s"}
+    assert set(jfinal) - set(final) <= NO_COUNTERPART, sorted(set(jfinal) - set(final))
+    assert set(final["startup"]) == set(jfinal["startup"])
+    assert final["step_time_p95_s"] > 0 and 0 <= final["host_blocked_frac"] < 1
+    # the keys the port keeps beside the reference's
+    assert {"step_time_s", "host_blocked_s"} <= set(got[0]) and final["loader"] == "synthetic"

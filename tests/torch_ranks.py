@@ -485,6 +485,101 @@ def _fit(args: dict, mesh) -> dict:
     return {"final": final, "metrics": seen}
 
 
+def _anatomy(args: dict, mesh) -> dict:
+    """``fit()`` (the ``fit`` task's run) with a profile controller armed
+    on ``<args["app"]>``, whose broadcast request (written before the ranks
+    start) opens one window on every rank, captured through
+    ``obs/profile.py`` into ``<app>/profile/rank<r>/``; the byte counters
+    and the comms ledger zeroed first. Returns the fit task's results,
+    ``dist.BYTES`` and the ledger's totals after it."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.obs import comms, profile
+    from tony_tpu_torch.parallel import dist as pdist
+
+    app = args["app"]
+    profile.install(profile.ProfileController(
+        profile.profile_dir(app), f"rank{dist.get_rank()}",
+        request_path=profile.request_path(app)))
+    pdist.reset_bytes()
+    try:
+        out = _fit(args, mesh)
+    finally:
+        profile.uninstall()
+    return {**out, "bytes": dict(pdist.BYTES), "totals": comms.totals()}
+
+
+def _elastic(args: dict, mesh) -> dict:
+    """Elastic ``fit()`` on the CPU over the group this rank joined:
+    ``args["fit"]`` holds the ``FitConfig`` fields (``mesh`` the
+    per-member shape, ``plan`` the scripted plan as ``[step, members]``
+    pairs); ``args["params"]`` an ``.npz`` of the initial parameters (the
+    reference's), cut into this rank's blocks; with ``args["poison"]`` a
+    member rejoining a generation starts from a copy of the state filled
+    with NaN. Returns the final report,
+    every push, the steps a poisoned join was made at and this rank's
+    blocks of the parameters after the last step."""
+    import torch
+
+    from tony_tpu_torch.models.llama import LlamaConfig
+    from tony_tpu_torch.parallel.mesh import MeshShape
+    from tony_tpu_torch.train import DataConfig, FitConfig, fit, loop
+
+    join = loop._Elastic._join
+    poisoned: list = []
+
+    def poisoning_join(self, rec, step, host, state, rebuild, t0):
+        if host is None:
+            with torch.no_grad():
+                for tree in (state.params, state.opt_state["mu"], state.opt_state["nu"]):
+                    for t in loop.tree_leaves(tree):
+                        t.fill_(float("nan"))
+            poisoned.append(step)
+        return join(self, rec, step, host, state, rebuild, t0)
+
+    if args.get("poison"):
+        loop._Elastic._join = poisoning_join
+    make_state = loop.make_train_state
+    if args.get("params"):
+        from tony_tpu_torch.models.convert import shards_from_numpy
+
+        tree = _load_tree(args["params"])
+
+        def seeded(model, optimizer, **kw):
+            kw["params"] = shards_from_numpy(tree, model, kw["mesh"], kw["rules"], device="cpu")
+            return make_state(model, optimizer, **kw)
+
+        loop.make_train_state = seeded
+    seen: list = []
+    kw = dict(args["fit"])
+    plan = {int(step): tuple(members) for step, members in kw.pop("plan", [])}
+    cfg = FitConfig(model=tiny_config(LlamaConfig, args["model"]),
+                    data=DataConfig(**args["data"]),
+                    mesh_shape=MeshShape(**kw.pop("mesh")) if "mesh" in kw else None,
+                    log_every=1, on_metrics=seen.append, elastic_plan=plan or None, **kw)
+    last: dict = {}
+    step_fn = loop.make_train_step
+
+    def recording_step(*a, **k):
+        fn = step_fn(*a, **k)
+
+        def step(state, inputs, targets):
+            out = fn(state, inputs, targets)
+            last["params"] = out[0].params
+            return out
+        return step
+
+    loop.make_train_step = recording_step
+    try:
+        final = fit(cfg, device="cpu")
+    finally:
+        loop.make_train_step = step_fn
+        loop.make_train_state = make_state
+        loop._Elastic._join = join
+    return {"final": final, "metrics": seen, "poisoned": poisoned,
+            "params": {"/".join(p): t.detach().numpy() for p, t in _items(last["params"])}}
+
+
 def _moe_block(args: dict, mesh) -> dict:
     """``moe_block`` on this rank's block of ``x`` (rows over dp, fsdp and
     ep, the sequence over sp) with the whole router and this rank's block
@@ -615,6 +710,7 @@ def _killed_save(args: dict, mesh) -> dict:
 
 
 TASKS = {"ring": _ring, "attention": _attention, "train": _train, "fit": _fit,
+         "elastic": _elastic, "anatomy": _anatomy,
          "moe_block": _moe_block, "restore": _restore, "killed_save": _killed_save,
          "pipeline": _pipeline, "pp_memory": _pp_memory, "pp_card": pp_card_run,
          "moe_tp_card": moe_tp_card_run}
@@ -636,13 +732,14 @@ def main(path: str) -> None:
     results = []
     for run in job["args"]["runs"]:
         task = run.get("task", job["task"])
-        if task == "fit":              # fit() builds its own mesh
-            results.append(_fit(run, None))
+        if task in ("fit", "elastic", "anatomy"):     # fit() builds its own mesh
+            results.append(TASKS[task](run, None))
             continue
         mesh = build_mesh(MeshShape(**run["mesh"]))
         results.append(TASKS[task](run, mesh))
     broken = any(isinstance(r, dict) and r.get("group_broken") for r in results)
-    if not broken:
+    # an elastic run re-forms the group; a rank it left out holds none
+    if not broken and dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
     torch.save({"runs": results, "jax_loaded": "jax" in sys.modules,

@@ -68,13 +68,18 @@ def shards_from_numpy(tree: Params, cfg: LlamaConfig, mesh, rules: Rules = DEFAU
     ``device`` (``None`` means CUDA, and raises without it); at pp above 1
     under ``pp_rules``, each stage its block of the layers, as the step
     holds them. Each block is cut on the host, so the whole tree never
-    reaches the device."""
+    reaches the device. A leaf may also be a host tensor (an elastic
+    shadow's, bfloat16 too), cut and copied as it is."""
     device = resolve_device(device)
     _check(tree, param_shapes(cfg), "")
 
     def conv(node, spec):
         if isinstance(node, dict):
             return {k: conv(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            # a host replica of the state (elastic/shadow.py), any dtype:
+            # cut as it is, and copied, so the block never aliases it
+            return shard(node.detach(), spec, mesh).to(device, copy=True)
         return shard(_to_tensor(node, "cpu"), spec, mesh).to(device)
 
     return conv(tree, tree_specs(logical_axes(cfg), mesh_rules(rules, mesh)))

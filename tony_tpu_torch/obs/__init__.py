@@ -4,10 +4,12 @@ Ported: throughput/MFU accounting (``metrics``), the trace spine
 (``trace``), the metrics registry (``registry``), the device-memory watch
 (``hbm``), the numerics health sentinel (``health``), the live series and
 the SLO engine (``series``, ``slo``), the profile controller and its
-capture primitive (``profile``, ``profiler``) and periodic stack traces
-(``diagnostics``). ``fit()`` and the serve ``Engine`` arm them from the
-env. Still to come: ``perf_diff``, ``anatomy``, ``comms``, ``monitor`` and
-``tpu_metrics`` (ROADMAP queue 1, item 6); the modules only a job's
+capture primitive (``profile``, ``profiler``), periodic stack traces
+(``diagnostics``), the cross-run regression verdicts (``perf_diff``), the
+device memory metrics and the process sampler (``device_metrics``, the
+counterpart of ``tpu_metrics``; ``monitor``), the collective ledger
+(``comms``) and the step anatomy (``anatomy``). ``fit()`` and the serve
+``Engine`` arm them from the env. Still to come: the modules only a job's
 application master or CLI reach, ``reporter``, ``portal``, ``top``,
 ``trace_tool``, ``proxy`` and ``trace.install_from_config`` (ROADMAP
 queue 1, item 10). ``compiles`` has no eager counterpart.

@@ -15,7 +15,9 @@ input wait. After N steps (or T seconds) the controller stops the
 capture, which lands as a Chrome trace in
 ``<app_dir>/profile/<proc>/<id>/trace.json``, and writes
 ``manifest.json`` beside it. PyTorch runs eagerly, so there is no compile
-ledger to snapshot with it.
+ledger to snapshot with it; the comms ledger's rows of the window
+(``obs/comms.py``, what the collectives moved) land beside it as
+``comms.json`` instead, which ``obs/anatomy.py`` reads.
 
 :func:`maybe_capture` holds the disarmed-hook contract (the trace, hbm,
 health and series twins): disarmed it is ONE global load + ``None``
@@ -154,6 +156,7 @@ class ProfileController:
         self._t0 = 0.0
         self._boundaries: list[float] = []
         self._waits: list[float] = []
+        self._comms_mark: dict = {}
         self._stop_evt = threading.Event()
         self._thread = None
         if request_path and watch:
@@ -251,6 +254,9 @@ class ProfileController:
                         exc_info=True)
             self._abort_window()
             return
+        from tony_tpu_torch.obs import comms
+
+        self._comms_mark = comms.mark()
         self._req = req
         self._t0_wall = time.time()
         self._t0 = time.perf_counter()
@@ -315,6 +321,9 @@ class ProfileController:
                         exc_info=True)
         self._window = None
         self._handle = None
+        from tony_tpu_torch.obs import comms
+
+        comms.write_window(self._out_dir, self._comms_mark)
         steps = max(len(self._boundaries) - 1, 0)
         manifest = {
             "profile_id": req.id,

@@ -205,7 +205,7 @@ def _ring_contract(x2, w_loc, axis, impl, trans=False):
     n, my = axis.size, axis.index
     w_cur, y = w_loc, None
     for j in range(n):
-        hop = pdist.start_hop(w_cur, axis) if j < n - 1 else None
+        hop = pdist.start_hop(w_cur, axis, op="ring_contract") if j < n - 1 else None
         w = w_cur.T if trans else w_cur
         Dl = w.shape[0]
         idx = (my - j) % n
@@ -223,7 +223,7 @@ def _ring_concat(x2, w_loc, axis, impl, trans=False):
     n, my = axis.size, axis.index
     w_cur, y = w_loc, None
     for j in range(n):
-        hop = pdist.start_hop(w_cur, axis) if j < n - 1 else None
+        hop = pdist.start_hop(w_cur, axis, op="ring_concat") if j < n - 1 else None
         w = w_cur.T if trans else w_cur
         Nl = w.shape[1]
         if y is None:
@@ -245,7 +245,7 @@ def _ring_reduce_scatter(partial_fn, axis):
     n, my = axis.size, axis.index
     acc = partial_fn((my - 1) % n)
     for j in range(1, n):
-        hop = pdist.start_hop(acc, axis)
+        hop = pdist.start_hop(acc, axis, op="ring_reduce_scatter")
         part = partial_fn((my - j - 1) % n)
         acc = hop.wait() + part
     return acc

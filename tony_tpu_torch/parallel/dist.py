@@ -24,11 +24,18 @@ whole table (:func:`gather_whole`), whose backwards do not sum what
 every tp rank computed alike. On a gloo group a CUDA tensor goes through host
 memory, explicitly: copied to the host, sent or reduced there, copied
 back. That copy is never taken on an NCCL group, and its first use is
-logged, so a time measured over gloo is not read as NCCL's.
+logged, so a time measured over gloo is not read as NCCL's. While a
+profiler records, each staged copy is a ``comms.<kind>`` region, so the
+step anatomy (``obs/anatomy.py``) counts it as the collective it serves.
+
+Every collective's payload is counted where it is issued: into
+:data:`BYTES`, and into the comms ledger (``obs/comms.py``) with its axis
+and op name, so the ledger's totals by kind equal :data:`BYTES`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 from dataclasses import dataclass
@@ -36,6 +43,8 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+
+from tony_tpu_torch.obs import comms
 
 log = logging.getLogger(__name__)
 
@@ -51,8 +60,36 @@ BYTES: dict[str, int] = {"hop": 0, "all_gather": 0, "reduce_scatter": 0, "all_re
 
 
 def reset_bytes() -> None:
+    """Zero :data:`BYTES` and the comms ledger with it."""
     for name in BYTES:
         BYTES[name] = 0
+    comms.reset()
+
+
+def _count(kind: str, t: torch.Tensor, axis: "Axis", op: str = "",
+           runs_as: str = "") -> None:
+    """``t``'s bytes as one transfer of ``kind`` over ``axis``: into
+    :data:`BYTES` and the comms ledger."""
+    nbytes = t.numel() * t.element_size()
+    BYTES[kind] += nbytes
+    comms.record(kind, nbytes, axis.name, axis.size, axis.ranks, op, runs_as)
+
+
+def _region(kind: str):
+    """A ``comms.<kind>`` profiler region while a profiler records (the
+    host-staged copies' attribution in the step anatomy), else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(f"comms.{comms.KINDS[kind]}")
+    return contextlib.nullcontext()
+
+
+def _back(t: torch.Tensor, device: torch.device, kind: str) -> torch.Tensor:
+    """A received tensor on ``device``: the copy back from the host where
+    the transfer was staged."""
+    if t.device == device:
+        return t
+    with _region(kind):
+        return t.to(device)
 
 
 @dataclass(frozen=True)
@@ -135,34 +172,39 @@ class Pending:
         return self._finish()
 
 
-def _source(t: torch.Tensor, axis: Axis, kind: str, clone: bool = False) -> torch.Tensor:
+def _source(t: torch.Tensor, axis: Axis, kind: str, clone: bool = False,
+            op: str = "", runs_as: str = "") -> torch.Tensor:
     """``t`` as a transfer of ``kind`` reads it: detached and contiguous (a
     copy when ``clone``, for the collectives that write in place), on the
-    host where the axis stages it; its bytes counted in :data:`BYTES`."""
-    BYTES[kind] += t.numel() * t.element_size()
+    host where the axis stages it; its bytes counted (:func:`_count`)."""
+    _count(kind, t, axis, op, runs_as)
     src = t.detach()
-    src = src.clone(memory_format=torch.contiguous_format) if clone else src.contiguous()
-    return src.cpu() if _staged(src, axis) else src
+    if _staged(src, axis):
+        with _region(kind):
+            return src.contiguous().cpu()     # a copy: in-place collectives may write it
+    return src.clone(memory_format=torch.contiguous_format) if clone else src.contiguous()
 
 
-def start_hop(t: torch.Tensor, axis: Axis, shift: int = 1, tag: int = 0) -> Pending:
+def start_hop(t: torch.Tensor, axis: Axis, shift: int = 1, tag: int = 0,
+              op: str = "") -> Pending:
     """Send ``t`` to the index ``shift`` places on along ``axis`` and
     receive the tensor of the same shape and dtype from the index
     ``shift`` places back (the reference's ``ppermute`` over ``[(i, (i +
     shift) % n)]``; ``shift=-1`` is its transpose). Both transfers are in
     flight when this returns; the caller runs its chunk and then waits.
-    Hops in flight together on one axis carry distinct ``tag``s. At size 1
-    the hop is ``t`` itself."""
+    Hops in flight together on one axis carry distinct ``tag``s; ``op``
+    names the ring in the comms ledger. At size 1 the hop is ``t``
+    itself."""
     n = axis.size
     if n == 1:
         return Pending([], lambda: t)
-    send = _source(t, axis, "hop")
+    send = _source(t, axis, "hop", op=op)
     recv = torch.empty_like(send)
     ops = [dist.P2POp(dist.isend, send, axis.ranks[(axis.index + shift) % n], axis.group,
                       tag),
            dist.P2POp(dist.irecv, recv, axis.ranks[(axis.index - shift) % n], axis.group,
                       tag)]
-    return Pending(dist.batch_isend_irecv(ops), lambda: recv.to(t.device))
+    return Pending(dist.batch_isend_irecv(ops), lambda: _back(recv, t.device, "hop"))
 
 
 def start_stage_hop(send: torch.Tensor | None, recv_like: torch.Tensor | None, axis: Axis,
@@ -191,7 +233,8 @@ def start_stage_hop(send: torch.Tensor | None, recv_like: torch.Tensor | None, a
         ops.append(dist.P2POp(dist.irecv, recv, axis.ranks[axis.index - shift], axis.group,
                               tag))
     works = dist.batch_isend_irecv(ops) if ops else []
-    return Pending(works, lambda: None if recv is None else recv.to(recv_like.device))
+    return Pending(works, lambda: None if recv is None
+                   else _back(recv, recv_like.device, "hop"))
 
 
 def broadcast(t: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
@@ -207,7 +250,7 @@ def broadcast(t: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
         buf = torch.empty(t.shape, dtype=t.dtype,
                           device="cpu" if _staged(t, axis) else t.device)
     dist.broadcast(buf, axis.ranks[src], group=axis.group)
-    return buf.to(t.device)
+    return _back(buf, t.device, "broadcast")
 
 
 def start_all_gather(t: torch.Tensor, axis: Axis, dim: int) -> Pending:
@@ -217,7 +260,7 @@ def start_all_gather(t: torch.Tensor, axis: Axis, dim: int) -> Pending:
     src = _source(t, axis, "all_gather")
     parts = [torch.empty_like(src) for _ in range(axis.size)]
     work = dist.all_gather(parts, src, group=axis.group, async_op=True)
-    return Pending([work], lambda: torch.cat(parts, dim).to(t.device))
+    return Pending([work], lambda: _back(torch.cat(parts, dim), t.device, "all_gather"))
 
 
 def start_reduce_scatter(t: torch.Tensor, axis: Axis, dim: int) -> Pending:
@@ -227,11 +270,11 @@ def start_reduce_scatter(t: torch.Tensor, axis: Axis, dim: int) -> Pending:
     if axis.size == 1:
         return Pending([], lambda: t)
     if dist.get_backend(axis.group) == "gloo":
-        buf = _source(t, axis, "reduce_scatter", clone=True)
+        buf = _source(t, axis, "reduce_scatter", clone=True, runs_as="all_reduce")
         work = dist.all_reduce(buf, group=axis.group, async_op=True)
-        return Pending([work], lambda: buf.chunk(axis.size, dim)[axis.index]
-                       .contiguous().to(t.device))
-    BYTES["reduce_scatter"] += t.numel() * t.element_size()
+        return Pending([work], lambda: _back(buf.chunk(axis.size, dim)[axis.index]
+                                             .contiguous(), t.device, "reduce_scatter"))
+    _count("reduce_scatter", t, axis)
     parts = [p.contiguous() for p in t.detach().chunk(axis.size, dim)]
     out = torch.empty_like(parts[axis.index])
     work = dist.reduce_scatter(out, parts, group=axis.group, async_op=True)
@@ -244,7 +287,7 @@ def start_all_reduce(t: torch.Tensor, axis: Axis) -> Pending:
         return Pending([], lambda: t)
     buf = _source(t, axis, "all_reduce", clone=True)
     work = dist.all_reduce(buf, group=axis.group, async_op=True)
-    return Pending([work], lambda: buf.to(t.device))
+    return Pending([work], lambda: _back(buf, t.device, "all_reduce"))
 
 
 def all_to_all(t: torch.Tensor, axis: Axis, split_dim: int, concat_dim: int) -> torch.Tensor:
@@ -260,7 +303,7 @@ def all_to_all(t: torch.Tensor, axis: Axis, split_dim: int, concat_dim: int) -> 
     src = _source(torch.stack(t.chunk(axis.size, split_dim)), axis, "all_to_all")
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=axis.group)
-    return torch.cat(out.to(t.device).unbind(0), concat_dim)
+    return torch.cat(_back(out, t.device, "all_to_all").unbind(0), concat_dim)
 
 
 def all_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:

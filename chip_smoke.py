@@ -94,13 +94,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    attention on the card, generate() equal to the engine; its profile
    beside phase 4's; then the same with fp8 e4m3 KV pools (held alike,
    without the profile). Then (4c) bench.py's speculative trace cut to
-   half its length (769 new tokens), to keep the script inside its time
-   limit: a 64-token prompt, 385 new tokens, 15 drafts a step, greedy,
+   a third of its length (769 new tokens; half until phase 16), to keep
+   the script inside its time limit: a 64-token prompt, 257 new tokens,
+   15 drafts a step, greedy,
    prefix store on, at
    batch 1 and at batch 8 (one prompt for every row), spec off and then
    on, the spec-on engine's store seeded with the whole repeat (one
    prefill of the prompt and spec off's tokens) before its timed pass;
-   then the quantized engine at batch 8 over 193 new tokens. The decode
+   then the quantized engine at batch 8 over 129 new tokens. The decode
    kernel (its quantized form when quantized) must run once per layer and
    step and the dequant-matmul 225 times a step, with no plain version;
    every run's emitted tokens are fed back through a plain float32
@@ -160,7 +161,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    port's own ``fit()`` on bench_1b4 at full width and depth with
    ``mesh_shape=MeshShape(fsdp=2)`` and ``overlap_impl="pallas"``, phase
    5's recipe, data (global batch 8 x 2048, 4 x 2048 a rank) and initial
-   parameters (each rank its blocks), 3 steps: each loss within 2e-2 of
+   parameters (each rank its blocks), 2 steps: each loss within 2e-2 of
    phase 5's at the same step; on each rank kernel 14 launched exactly
    24 layers x 7 projections x 4 x 2 times a step (the ring's forward, its
    recompute under remat, dx and dW, two chunks each) on its tensor-core
@@ -173,7 +174,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    calling ``fit()`` on bench_moe at full width and depth at
    ``mesh_shape=MeshShape(ep=2)`` (each rank its 4 experts and 4 x 2048
    rows of phase 6's batch), phase 6's recipe, data and initial
-   parameters, 3 steps with the blocking ep combine and 3 with the
+   parameters, 2 steps with the blocking ep combine and 2 with the
    overlapped one (``moe_overlap_impl="pallas"``, the auto split into 4
    token chunks): each step's loss and aux within 2e-2 of phase 6's, and
    the two combines' losses side by side; on each rank the grouped-matmul
@@ -189,7 +190,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    size and the save and restore seconds;
 9. tp and sp training: in the same two rank processes,
    each calling ``fit()`` on bench_1b4 at full width and depth from phase
-   5's initial parameters and batches (8 x 2048), 3 steps each: (9a)
+   5's initial parameters and batches (8 x 2048), 2 steps each: (9a)
    ``mesh_shape=MeshShape(tp=2)``, Megatron's trunk on each rank's 8 of
    the 16 heads and half the FFN, flash attention and ``ce_impl="pallas"``
    over the whole vocab; (9b) ``MeshShape(sp=2)`` with
@@ -206,7 +207,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``fit()`` on bench_1b4 at full width and depth at
    ``MeshShape(pp=2)`` (12 layers a stage) from phase 5's initial
    parameters and batches, flash attention, remat, ``ce_impl="pallas"``:
-   3 steps under ``pp_schedule="gpipe"`` and 3 under ``"1f1b"`` at 4
+   2 steps under ``pp_schedule="gpipe"`` and 2 under ``"1f1b"`` at 4
    microbatches, then one step of each at 8. Each step's loss and grad
    norm held as phase 9 holds them; on each rank the flash and CE kernels
    launched exactly as its stage's schedule implies (GPipe: the flash
@@ -218,7 +219,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 11. MoE at tp: in the same two rank processes, ``fit()`` on bench_moe at
    full width and depth at ``MeshShape(tp=2)`` (each rank every expert's
    1408 of 2816 ffn columns, 8 of the 16 heads, all 8 x 2048 rows), phase
-   6's recipe, data and initial parameters, 3 steps: each step's loss and
+   6's recipe, data and initial parameters, 2 steps: each step's loss and
    aux within 2e-2 of phase 6's and its grad norm within 1e-2 relative;
    kernels 11-13 and the flash kernels launched phase 6's count per layer
    and step on each rank, on their tensor-core instances, no plain
@@ -283,6 +284,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    process, on each rank the flash kernels 2 x 3 and the CE kernels once a
    step (ce_dh, ce_dw once per vocab chunk), no plain version; the step
    times beside the transport.
+16. gang serving, after phase 13 with this process's Llama-3-8B freed:
+   ``tony serve`` driven as ``cmd_serve`` drives it (the port's client
+   stages the job and launches its AM, which gang-schedules the port's
+   decode hosts, ``python -m tony_tpu_torch.serve.gang``, each building
+   Llama-3-8B from seed 0 on the card; the port's ``GangFrontend`` routes
+   in this process; the spine disarmed through the job's config). (16a)
+   two bf16 hosts, 8 slots, max_len 2048, the prefix store on, phase 4's
+   16 requests (each sampled one seeded as phase 4 seeds it): every
+   request finishes with 64 in-vocabulary tokens, requests 6 and 7 land
+   on one host (prefix affinity), each request's tokens against phase
+   4's (any that differ are reported with their first differing
+   position). (16b) the same requests again in the same job under the
+   reference's schedule, ``kill_container`` on decode:0 with an
+   ``on_file`` trigger written once a stream on it has 8 tokens: every
+   request finishes, at least one replay, every replay consistent, the
+   ledger ``write_ledger`` wrote saying the same, decode:0 relaunched
+   alone (attempts 2 and 1). (16c) one prefill and one decode host with
+   int8 KV pools and int8 decode weights: every prompt of 64 tokens or
+   more handed over (Prefill, then ShipBlocks), shipped = adopted + freed
+   blocks, bytes = blocks x ``block_bytes``; the share of greedy tokens
+   equal to phase 4b's reported. Every host logs its kernel counts each
+   time its engine drains and at SIGTERM: each line holds kernel 8 (16a,
+   16b) or kernels 9 and 10 (16c) at its decode steps x 32 and x 225, no
+   plain version. Printed: submit to ready per host, TTFT per request,
+   the frontend's wall, the hosts' decode steps, the replays, the kill to
+   the last request's end and to the relaunched host, the handoffs' bytes
+   and ms.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -296,8 +324,9 @@ The last three lines are the ``kernels`` JSON (fourteen kernels; quant_mm's
 times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
-phases 7 and 8 rank 0's, phases 9 to 12, 14 and 15b each rank's, 4b's
-fp8 run, 5c, 13 and 15a included),
+phases 7 and 8 rank 0's, phases 9 to 12, 14 and 15b each rank's, 16's
+each host incarnation's last count line, 4b's fp8 run, 5c, 13 and 15a
+included),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -809,9 +838,12 @@ def serve_requests(cfg):
     shared = rng.integers(0, cfg.vocab_size, 256)
     prompts[6][:256] = shared
     prompts[7][:256] = shared
+    # request i samples from seed i + 1: the seed a fresh gang frontend with
+    # serve.gang.seed 0 gives its (i + 1)-th request (seed x 1_000_003 + seq),
+    # so phase 16a's gang draws what these requests draw
     reqs = [
         Request(prompt=p, max_new_tokens=64) if i % 2 == 0 else
-        Request(prompt=p, max_new_tokens=64, temperature=0.8, top_k=50, rng=1000 + i)
+        Request(prompt=p, max_new_tokens=64, temperature=0.8, top_k=50, rng=i + 1)
         for i, p in enumerate(prompts)
     ]
     return prompts, reqs, rng
@@ -908,9 +940,44 @@ def serve_phase(cfg, params) -> dict:
                     device="cuda", serve=sv)
     if solo[0, len(prompts[0]):].tolist() != out[0].tokens:
         raise AssertionError("generate() differs from the engine on request 0")
+    figures["prefix_path"] = prefix_path_evidence(cfg, params, prompts, reqs, sv,
+                                                  out[7].tokens)
     return {**figures, **breakdown, "launches": launches["paged_decode_attention"],
             "tokens": [c.tokens for c in out.values()],
             "ttft_s": [c.ttft_s for c in out.values()]}
+
+
+def prefix_path_evidence(cfg, params, prompts, reqs, sv: dict, busy: list[int]) -> dict:
+    """Fault F6's evidence (ROADMAP queue 3; reported, not held): request 7
+    prefilled from position 0, alone in an engine, against phase 4's busy
+    engine, where its first 256 tokens' K/V came from request 6's blocks in
+    the prefix store and only its 44-token tail was prefilled; and the two
+    prefill paths' first-token logits (``forward_with_cache``: the whole
+    prompt at once, against request 6's K/V for the shared 256 positions
+    and the tail on top)."""
+    from tony_tpu_torch.models.generate import KVCache, forward_with_cache
+    from tony_tpu_torch.serve import Engine, ServeConfig
+
+    dev = params["tok_emb"].device
+    engine = Engine(params, cfg, ServeConfig(**sv), device=dev)
+    rid = engine.submit(reqs[7])
+    alone = engine.run()[rid].tokens
+    del engine
+    p6, p7 = (torch.as_tensor(prompts[i], device=dev)[None] for i in (6, 7))
+    with torch.no_grad():
+        c6 = KVCache.create(cfg, 1, p6.shape[1], device=dev)
+        forward_with_cache(params, p6, c6, 0, cfg, last_only=True)
+        ctx = KVCache.create(cfg, 1, p7.shape[1], device=dev)
+        ctx.k[:, :, :256] = c6.k[:, :, :256]
+        ctx.v[:, :, :256] = c6.v[:, :, :256]
+        hit = forward_with_cache(params, p7[:, 256:], ctx, 256, cfg, last_only=True)[0]
+        whole = forward_with_cache(params, p7, KVCache.create(cfg, 1, p7.shape[1],
+                                                              device=dev),
+                                   0, cfg, last_only=True)[0]
+    return {"equal": alone == busy,
+            "first_diff": next((j for j, (x, y) in enumerate(zip(alone, busy)) if x != y),
+                               None),
+            "logit_max_abs_diff": float((hit - whole).abs().max())}
 
 
 def quant_serve_phase(cfg, params, bf16: dict, quant_kv: str = "int8",
@@ -957,6 +1024,7 @@ def quant_serve_phase(cfg, params, bf16: dict, quant_kv: str = "int8",
     same = sum(a == b for i in greedy
                for a, b in zip(out[i].tokens, bf16["tokens"][i]))
     return {**figures, **breakdown, "build_s": build_s, "launches": launches,
+            "tokens": [c.tokens for c in out.values()],
             "greedy_equal_share": same / (64 * len(greedy)),
             "greedy_equal_requests": sum(out[i].tokens == bf16["tokens"][i]
                                          for i in greedy)}
@@ -1056,7 +1124,7 @@ def quant_crosscheck(card: str) -> dict:
 # blocks and the store holds the entire repeat), 15 draft tokens a step
 SPEC_BLOCK = 64
 SPEC_DRAFT = 15
-SPEC_NEW = 6 * SPEC_BLOCK + 1     # half bench.py's 769: chip_smoke's time
+SPEC_NEW = 4 * SPEC_BLOCK + 1     # a third of bench.py's 769 (half until phase 16): the time
 # the store's budget: the repeat's 13 blocks of 8 MiB at this width (the
 # default 64 MB holds 8, so the path would end 448 tokens in)
 SPEC_STORE_MB = 128.0
@@ -1234,7 +1302,7 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
     L = cfg.n_layers
     res = {}
     modes = [(f"b{b}", b, SPEC_NEW, {}) for b in (1, 8)]
-    modes.append(("b8_int8", 8, 3 * SPEC_BLOCK + 1,
+    modes.append(("b8_int8", 8, 2 * SPEC_BLOCK + 1,
                   dict(quant_kv="int8", quant_weights=True)))
     for label, batch, new, quant in modes:
         off = spec_mode(cfg, params, prompt, False, batch, new, **quant)
@@ -2625,7 +2693,9 @@ def chunk_cases(dtype: torch.dtype, flush: torch.Tensor) -> list[dict]:
 # --- phase 7: fit() at fsdp 2, two ranks on one card ------------------------------
 
 FSDP = 2
-FSDP_STEPS = 3      # 4 until phase 10 came: the run's time limit
+# steps of the rank phases (7-9) left out of their mean step time
+RANK_WARMUP_STEPS = 1
+FSDP_STEPS = 2      # 4 until phase 10 came, 3 until phase 16: the run's time limit
 # the trunk projections the fsdp ring takes (models/llama.py _proj)
 RING_PROJECTIONS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
@@ -2731,7 +2801,7 @@ def fsdp_phase(card: str, dense: dict, shared: list) -> dict:
                                                for k, v in r["ledger"].items() if v)
             + "; rows " + ", ".join(f"{n} {c} calls {b / 1e9:.4f} GB"
                                     for n, c, b in r["ledger_rows"]) + f"  [{card}]")
-    timed = [m["step_time_s"] for m in metrics[2:]]     # 2 warm-up steps
+    timed = [m["step_time_s"] for m in metrics[RANK_WARMUP_STEPS:]]
     return {"ranks": ranks, "losses": losses, "loss_diffs": diffs, "wall_s": wall,
             "per_step": per_step, "mean_step_ms": sum(timed) / len(timed) * 1e3,
             "transport": ranks[0]["transport"]}
@@ -2740,7 +2810,7 @@ def fsdp_phase(card: str, dense: dict, shared: list) -> dict:
 # --- phase 8: MoE training at ep 2, two ranks on one card --------------------------
 
 EP = 2
-EP_STEPS = 3        # 4 until phase 10 came: the run's time limit
+EP_STEPS = 2        # 4 until phase 10 came, 3 until phase 16: the run's time limit
 EP_IMPLS = ("off", "pallas")
 # 8b: the sharded checkpoint's round trip at full width, depth cut to 2
 CKPT_LAYERS = 2
@@ -2897,7 +2967,7 @@ def ep_phase(card: str, moe: dict, shared: list) -> dict:
         if max(diffs + aux_diffs) > 2e-2:
             raise AssertionError(f"ep {impl} losses {losses}, aux {aux} against phase 6's "
                                  f"{moe['losses'][:EP_STEPS]}, {moe['aux'][:EP_STEPS]}")
-        timed = [m["step_time_s"] for m in metrics[2:]]      # 2 warm-up steps
+        timed = [m["step_time_s"] for m in metrics[RANK_WARMUP_STEPS:]]
         out[impl] = {"losses": losses, "aux": aux, "loss_diffs": diffs,
                      "aux_diffs": aux_diffs, "mean_step_ms": sum(timed) / len(timed) * 1e3,
                      "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
@@ -2927,7 +2997,7 @@ def ep_phase(card: str, moe: dict, shared: list) -> dict:
 # --- phase 9: tp and sp training, two ranks on one card -----------------------------
 
 PAR = 2
-PAR_STEPS = 3
+PAR_STEPS = 2       # 3 until phase 16: the run's time limit
 # each step's loss (absolute) and grad norm (relative) against phase 5's:
 # about 10x the gaps measured on the H100 (loss 5e-4, grad norm 1.4e-4
 # relative at step 3, where warm-up's end makes the loss jump); a gradient
@@ -3036,7 +3106,7 @@ def par_phase(card: str, dense: dict, shared: list) -> dict:
             raise AssertionError(f"{label} grad norms {norms} against phase 5's "
                                  f"{dense['grad_norms'][:PAR_STEPS]}")
         run0 = ranks[0]["runs"][label]
-        timed = [m["step_time_s"] for m in metrics[2:]]     # 2 warm-up steps
+        timed = [m["step_time_s"] for m in metrics[RANK_WARMUP_STEPS:]]
         out[label] = {"axis": axis, "impl": impl, "losses": losses, "loss_diffs": diffs,
                       "grad_norms": norms, "grad_norm_rel_diffs": norm_diffs,
                       "mean_step_ms": sum(timed) / len(timed) * 1e3,
@@ -3055,8 +3125,8 @@ def par_phase(card: str, dense: dict, shared: list) -> dict:
 # --- phase 10: pipeline parallelism at pp 2, two ranks on one card ------------------
 
 PP = 2
-PP_STEPS = 3
-# (label, schedule, microbatches, steps): 3 steps of each schedule at M 4,
+PP_STEPS = 2        # 3 until phase 16: the run's time limit
+# (label, schedule, microbatches, steps): PP_STEPS steps of each schedule at M 4,
 # then one of each at M 8 beside them for the peak memory
 PP_RUNS = (("gpipe", "gpipe", 4, PP_STEPS), ("1f1b", "1f1b", 4, PP_STEPS),
            ("gpipe M8", "gpipe", 8, 1), ("1f1b M8", "1f1b", 8, 1))
@@ -3126,8 +3196,9 @@ def pp_launches(schedule: str, rank: int, M: int, steps: int, per_stage: int,
 def pp_phase(card: str, dense: dict, shared: list) -> dict:
     """Phase 10, from the shared rank processes' results: fit() on bench_1b4 at full width and depth at pp 2
     (12 layers a stage) from phase 5's initial parameters and batches (8 x
-    2048), flash attention, remat, ``ce_impl="pallas"``: 3 steps under
-    GPipe and 3 under 1F1B at 4 microbatches, then one of each at 8. Each
+    2048), flash attention, remat, ``ce_impl="pallas"``: PP_STEPS steps
+    under GPipe and PP_STEPS under 1F1B at 4 microbatches, then one of each
+    at 8. Each
     step's loss and grad norm within PAR_LOSS_ATOL and PAR_GRAD_NORM_RTOL
     of phase 5's (the same bf16 model and batches; the microbatches sum
     their gradients in another order, and the schedule matches phase 5's
@@ -3182,7 +3253,7 @@ def pp_phase(card: str, dense: dict, shared: list) -> dict:
 # --- phase 11: MoE at tp 2, two ranks on one card ----------------------------------
 
 MOE_TP = 2
-MOE_TP_STEPS = 3
+MOE_TP_STEPS = 2    # 3 until phase 16: the run's time limit
 # each step's loss and aux (absolute) and grad norm (relative) against phase
 # 6's: the bf16 expert FFN's two ffn halves rounded apart and summed over tp
 # move a near-tie route now and then, as phase 8's ep sums do (2e-2 there),
@@ -3537,6 +3608,424 @@ def elastic_phase(card: str, twin: dict, shared: list) -> dict:
             "agree_ms": [r["agree_ms"] for r in ranks],
             "peak_gb": [r["peak_allocated_gb"] for r in ranks],
             "wall_s": max(r["wall_s"] for r in ranks), "transport": ranks[0]["transport"]}
+
+
+# --- phase 16: gang serving --------------------------------------------------------
+
+# a `tony serve` job's settings as phase 4 serves: Llama-3-8B from seed 0 (the
+# weights llama_params() draws), 8 slots, max_len 2048, kv_block 64 (the
+# engine's default), the prefix store on
+GANG_KEYS = {"serve.gang.model": "llama3_8b", "serve.gang.seed": 0,
+             "serve.gang.slots": 8, "serve.gang.max_len": 2048,
+             "serve.prefix.enabled": True}
+GANG_READY_S = 240          # submit to every host's engine built
+GANG_RESULT_S = 300         # one request's end, from its submit
+GANG_KILL_TOKENS = 8        # 16b: tokens a decode:0 stream delivers before the kill
+GANG_KILL_WAIT_S = 60       # 16b: how long a stream on decode:0 may take to get there
+GANG_NEW = 64               # phase 4's max_new_tokens
+GANG_LINE = '{"host"'       # the start of a decode host's kernel-count line
+GANG_COMMAND = f"{sys.executable} -m tony_tpu_torch.serve.gang"   # engines on the card
+
+
+def gang_start(stage: str, **keys) -> dict:
+    """Start one ``tony serve`` job as ``cmd_serve`` does: the port's client
+    stages the job and launches its AM, which gang-schedules the port's
+    decode hosts (``python -m tony_tpu_torch.serve.gang``: engines on the
+    card), and the port's ``GangFrontend`` routes in this process. The
+    spine is disarmed through the job's config, as in phase 15. Returns
+    the client, the frontend and each host's seconds from submit until its
+    engine was built (its DecodeStats reports slots)."""
+    import grpc
+
+    from tony_tpu_torch.cli.client import TonyClient
+    from tony_tpu_torch.config.config import TonyConfig
+    from tony_tpu_torch.config.keys import job_key
+    from tony_tpu_torch.rpc.auth import read_token
+    from tony_tpu_torch.serve.frontend import GangFrontend
+    from tony_tpu_torch.serve.gang import GangSettings
+
+    config = TonyConfig.load(overrides={
+        "application.stage_dir": stage, "application.name": "chip-smoke-gang",
+        "application.framework": "serve", "application.timeout_s": 900,
+        "task.heartbeat_interval_ms": 200, "task.max_missed_heartbeats": 50,
+        **{d.partition("=")[0]: False for d in JOB_SPINE_OFF}, **GANG_KEYS, **keys})
+    settings = GangSettings.from_config(config)
+    for job, n in ((settings.job_type, settings.hosts),
+                   (settings.prefill_job_type, settings.prefill_hosts)):
+        if n > 0:
+            config.set(job_key(job, "instances"), n)
+            config.set(job_key(job, "command"), GANG_COMMAND)
+    t0 = time.perf_counter()
+    client = TonyClient(config)
+    client.stage()
+    client.launch_am()
+    fe = GangFrontend(client.am_address(), settings, app_dir=client.app_dir,
+                      token=read_token(client.app_dir), app_id=client.app_id)
+    gang = {"client": client, "fe": fe, "settings": settings, "t0": t0}
+    want = settings.hosts + settings.prefill_hosts
+    ready: dict[str, float] = {}
+    deadline = time.monotonic() + GANG_READY_S
+    try:
+        while len(ready) < want:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"16: hosts ready {ready} of {want} after "
+                                     f"{GANG_READY_S} s")
+            fe.refresh_hosts()
+            for h in fe._snapshot_hosts():
+                if h.task_id in ready:
+                    continue
+                try:
+                    if h.client.decode_stats(timeout_s=2.0).slots:
+                        ready[h.task_id] = time.perf_counter() - t0
+                except grpc.RpcError:
+                    pass
+            time.sleep(0.1)
+    except BaseException:
+        gang_stop(gang)
+        gang_dump_logs(gang)
+        raise
+    fe.wait_ready(want, timeout_s=30.0)
+    gang["ready_s"] = ready
+    return gang
+
+
+def gang_stop(gang: dict) -> dict:
+    """Close the frontend (its ledger into the app dir), stop the job through
+    its AM, which SIGTERMs the hosts (each logs its kernel-count line), and
+    wait for the client. Returns the ledger, the client's exit code and
+    every host incarnation's count lines by log file."""
+    from tony_tpu_torch.rpc import ApplicationRpcClient
+    from tony_tpu_torch.rpc.auth import read_token
+
+    client = gang["client"]
+    ledger = gang["fe"].close(wait_s=0.0)
+    try:
+        with ApplicationRpcClient(client.am_address(timeout_s=5.0), timeout_s=5.0,
+                                  token=read_token(client.app_dir)) as c:
+            c.stop_application("chip_smoke phase 16 done")
+    except Exception as e:
+        log(f"16: stop_application: {e!r}")
+    rc = client.monitor(quiet=True)
+    logs = os.path.join(client.app_dir, "logs")
+    lines = {}
+    for name in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, name), errors="replace") as f:
+            # a line of another thread's log may follow the JSON on its line
+            found = [json.JSONDecoder().raw_decode(x)[0] for x in f.read().splitlines()
+                     if x.startswith(GANG_LINE)]
+        if name.startswith(("decode_", "prefill_")):
+            lines[name.removesuffix(".log")] = found
+    return {"ledger": ledger, "rc": rc, "lines": lines}
+
+
+def gang_dump_logs(gang: dict, tail: int = 2000) -> None:
+    """A failed phase 16 prints the end of each of its job's task logs and
+    the frontend's ledger to stderr (the stage dir is removed)."""
+    logs = os.path.join(gang["client"].app_dir, "logs")
+    for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        with open(os.path.join(logs, name), errors="replace") as f:
+            print(f"--- 16: {name}\n{f.read()[-tail:]}", file=sys.stderr)
+    print(f"--- 16: ledger {json.dumps(gang['fe'].ledger())[-tail:]}", file=sys.stderr)
+
+
+def gang_relaunched(fe, task: str) -> float:
+    """Wait for ``task``'s next incarnation to be built; the clock when it
+    was."""
+    import grpc
+
+    deadline = time.monotonic() + GANG_READY_S
+    while time.monotonic() < deadline:
+        fe.refresh_hosts()
+        for h in fe._snapshot_hosts():
+            if h.task_id == task and h.attempt > 0:
+                try:
+                    if h.client.decode_stats(timeout_s=2.0).slots:
+                        return time.perf_counter()
+                except grpc.RpcError:
+                    pass
+        time.sleep(0.1)
+    raise AssertionError(f"16b: {task} was not relaunched in {GANG_READY_S} s")
+
+
+def gang_settle(fe, timeout_s: float = 30.0) -> None:
+    """Wait until the frontend's stats poll reads every routable host idle
+    (nothing in flight, no live slot)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        hosts = fe._snapshot_hosts()
+        if hosts and all(h.stats is not None and not (h.stats.in_flight or h.stats.live_slots)
+                         for h in hosts):
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"16: hosts not idle after {timeout_s} s: "
+                         f"{[(h.task_id, h.stats) for h in fe._snapshot_hosts()]}")
+
+
+def gang_submit(fe, prompts: list, reqs: list) -> list[str]:
+    """Phase 4's requests through the frontend, in index order: a fresh
+    frontend seeds the i-th one i + 1, as serve_requests() does."""
+    return [fe.submit([int(t) for t in p], r.max_new_tokens, temperature=r.temperature,
+                      top_k=r.top_k, top_p=r.top_p)
+            for p, r in zip(prompts, reqs)]
+
+
+def gang_results(fe, rids: list[str], label: str, vocab: int) -> list:
+    """Every request's completion; each must finish with GANG_NEW in-vocabulary
+    tokens."""
+    done = [fe.result(rid, timeout_s=GANG_RESULT_S) for rid in rids]
+    bad = [(c.rid, c.finish_reason, len(c.tokens), c.message) for c in done
+           if c.finish_reason != "length" or len(c.tokens) != GANG_NEW
+           or not all(0 <= t < vocab for t in c.tokens)]
+    if bad:
+        raise AssertionError(f"{label}: requests that did not finish: {bad}")
+    return done
+
+
+def gang_counts(label: str, lines: dict, per_step: dict[str, int], pool: str) -> dict:
+    """Hold every count line of every ``pool`` host incarnation: each kernel in
+    ``per_step`` launched that many times a decode step, no plain version.
+    Returns each incarnation's last line."""
+    last = {}
+    for name, found in lines.items():
+        if not name.startswith(pool):
+            continue
+        for line in found:
+            got = line["launches"]
+            want = {k: n * line["decode_steps"] for k, n in per_step.items()}
+            plain = {k: v for k, v in got.items() if k.endswith("_plain") and v}
+            if any(got[k] != v for k, v in want.items()) or plain:
+                raise AssertionError(f"{label} {name} ({line['at']}): launches {got} != "
+                                     f"{want} for {line['decode_steps']} decode steps")
+        if found:
+            last[name] = found[-1]
+    return last
+
+
+def gang_phase(card: str, bf16: dict, int8: dict) -> dict:
+    """Phase 16 (16a, 16b, 16c): gang serving on the card, the hosts holding
+    no weights of this process's (its Llama-3-8B is freed before)."""
+    from tony_tpu_torch.models.llama import LlamaConfig
+    from tony_tpu_torch.serve.cache import block_bytes
+
+    cfg = getattr(LlamaConfig, GANG_KEYS["serve.gang.model"])()
+    prompts, reqs, _ = serve_requests(cfg)
+    greedy = [i for i in range(len(reqs)) if i % 2 == 0]
+    log(f"16 this process while the gang runs: {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved  [{card}]")
+    out = {}
+    stage = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    trigger = os.path.join(stage, "kill-decode-0")
+    try:
+        t_job = time.perf_counter()
+        gang = gang_start(stage, **{
+            "serve.gang.hosts": 2, "chaos.enabled": True,
+            "chaos.faults": json.dumps([{"type": "kill_container", "task": "decode:0",
+                                         "on_file": trigger}])})
+        fe = gang["fe"]
+        try:
+            # 16a: phase 4's requests over two hosts
+            t0 = time.perf_counter()
+            rids = gang_submit(fe, prompts, reqs)
+            a = gang_results(fe, rids, "16a", cfg.vocab_size)
+            a_wall = time.perf_counter() - t0
+            # 16b: the same requests again; decode:0 is killed once one of its
+            # streams has delivered GANG_KILL_TOKENS tokens. First the
+            # frontend's stats poll must see both hosts idle: stats read
+            # during 16a's last steps put each host at 16 (8 streams, 8 live
+            # slots), past the affinity bound (2 x slots), and a burst routed
+            # on them can land on one host alone (it did, on two card runs)
+            gang_settle(fe)
+            t0 = time.perf_counter()
+            rids = gang_submit(fe, prompts, reqs)
+            deadline = time.monotonic() + GANG_KILL_WAIT_S
+            while True:
+                with fe._lock:
+                    live = [f for f in fe._flights.values()
+                            if f.result.hosts and f.result.hosts[-1] == "decode:0"
+                            and len(f.result.tokens) >= GANG_KILL_TOKENS]
+                if live:
+                    break
+                if time.monotonic() > deadline:
+                    with fe._lock:
+                        seen = [(f.rid, f.result.hosts, len(f.result.tokens))
+                                for f in fe._flights.values()]
+                    raise AssertionError(f"16b: no stream on decode:0 reached "
+                                         f"{GANG_KILL_TOKENS} tokens in {GANG_KILL_WAIT_S} "
+                                         f"s; 16a's hosts {[c.hosts for c in a]}, replays "
+                                         f"{[c.replays for c in a]}; in flight {seen}")
+                time.sleep(0.005)
+            with open(trigger, "w"):
+                pass
+            t_kill = time.perf_counter()
+            b = gang_results(fe, rids, "16b", cfg.vocab_size)
+            b_wall = time.perf_counter() - t0
+            kill_to_end = time.perf_counter() - t_kill
+            # the AM relaunches decode:0 alone (restart.policy failed_only)
+            relaunch = gang_relaunched(fe, "decode:0") - t_kill
+        except BaseException:
+            gang_stop(gang)
+            gang_dump_logs(gang)
+            raise
+        stopped = gang_stop(gang)
+        ab_job_s = time.perf_counter() - t_job
+        with open(os.path.join(gang["client"].app_dir, "status.json")) as f:
+            attempts = {t["task"]: t["attempts"] for t in json.load(f)["tasks"]}
+        if attempts != {"decode:0": 2, "decode:1": 1}:
+            raise AssertionError(f"16b: attempts {attempts}")
+        replayed = [c for c in b if c.replays]
+        if not replayed:
+            raise AssertionError("16b: the kill interrupted no request")
+        # a replay that regenerated another prefix than the one delivered is
+        # fault F6 (ROADMAP queue 3): its survivor prefilled the prompt on
+        # another path than the host that died (more or less of it from the
+        # prefix store). It is reported with the tokens' first difference
+        # from 16a's (phase 4's path), not raised
+        parted = {i: next((j for j, (x, y) in enumerate(zip(c.tokens, a[i].tokens))
+                           if x != y), None)
+                  for i, c in enumerate(b) if c.replays and not c.replay_consistent}
+        led = stopped["ledger"]
+        rows = led["requests"]
+        by_rid = {c.rid: c for c in a + b}
+        if (led["pending"] or len(rows) != 2 * len(reqs)
+                or any(e["finish_reason"] != "length" or e["tokens"] != GANG_NEW
+                       or e["replay_consistent"] != by_rid[e["rid"]].replay_consistent
+                       or e["replays"] != by_rid[e["rid"]].replays for e in rows)):
+            raise AssertionError(f"16b: the ledger disagrees: {led}")
+        with open(os.path.join(gang["client"].app_dir, "serve",
+                               "requests_frontend.json")) as f:
+            if json.load(f) != json.loads(json.dumps(led)):
+                raise AssertionError("16b: the ledger file differs from the frontend's")
+        lines = stopped["lines"]
+        last = gang_counts("16a/16b", lines, {"paged_decode_attention": cfg.n_layers,
+                                              "paged_decode_attention_quant": 0,
+                                              "quant_mm": 0}, "decode")
+        if set(last) != {"decode_0_attempt0", "decode_0_attempt1", "decode_1_attempt0"}:
+            raise AssertionError(f"16: host incarnations with a count line: {sorted(last)}")
+        # each host's first line: its engine drained at the end of 16a
+        after_a = {n: lines[n][0]["decode_steps"] for n in ("decode_0_attempt0",
+                                                            "decode_1_attempt0")}
+        hosts_a = [c.hosts for c in a]
+        if hosts_a[6] != hosts_a[7]:
+            raise AssertionError(f"16a: requests 6 and 7 on {hosts_a[6]} and {hosts_a[7]}")
+        differ = [i for i, c in enumerate(a) if c.tokens != bf16["tokens"][i]]
+        out["ab"] = {
+            "ready_s": gang["ready_s"], "a_wall_s": a_wall, "b_wall_s": b_wall,
+            "ttft_s": [c.ttft_s for c in a], "hosts": hosts_a, "differ": differ,
+            "first_diff": {i: next(j for j, (x, y) in enumerate(zip(a[i].tokens,
+                                                                 bf16["tokens"][i]))
+                                   if x != y) for i in differ},
+            "steps_after_a": after_a, "last": last, "rc": stopped["rc"],
+            "replays": [(c.rid, c.replays, c.hosts) for c in replayed], "parted": parted,
+            "kill_to_end_s": kill_to_end, "relaunch_ready_s": relaunch, "job_s": ab_job_s,
+            "b_ttft_s": [c.ttft_s for c in b],
+        }
+        gang_log_ab(card, out["ab"], bf16)
+        # 16c: one prefill host hands every prompt's blocks to one decode host,
+        # both quantized (int8 pools, int8 decode weights)
+        t_job = time.perf_counter()
+        # the prefill host's store must hold every prompt in flight until its
+        # Prefill exports it: at the 64 MB default 16 prompts of 4 MiB int8
+        # blocks evict each other (14 of 16 exports found nothing, the first
+        # card run); 1 GiB holds all 16, on the decode host until adopted too
+        gang = gang_start(stage, **{"serve.gang.hosts": 1, "serve.pool.prefill_hosts": 1,
+                                    "serve.quant.enabled": True,
+                                    "serve.quant.kv_dtype": "int8",
+                                    "serve.quant.weights": True,
+                                    "serve.prefix.budget_mb": 1024.0})
+        try:
+            t0 = time.perf_counter()
+            rids = gang_submit(gang["fe"], prompts, reqs)
+            c_ = gang_results(gang["fe"], rids, "16c", cfg.vocab_size)
+            c_wall = time.perf_counter() - t0
+        except BaseException:
+            gang_stop(gang)
+            gang_dump_logs(gang)
+            raise
+        stopped = gang_stop(gang)
+        c_job_s = time.perf_counter() - t_job
+        hand = stopped["ledger"]["handoffs"]
+        blk = block_bytes(cfg, 64, quant_kv="int8")
+        long_ = sum(len(p) >= gang["settings"].handoff_min_tokens for p in prompts)
+        if (len(hand) != long_ or not all(h["ok"] for h in hand)
+                or any(h["shipped"] != h["adopted"] + h["freed"] or h["shipped"] < 1
+                       or h["bytes"] != h["shipped"] * blk for h in hand)):
+            raise AssertionError(f"16c: handoffs {hand} ({long_} prompts of "
+                                 f"{gang['settings'].handoff_min_tokens}+ tokens, "
+                                 f"{blk} bytes a block)")
+        if any(c.hosts != ["decode:0"] for c in c_):
+            raise AssertionError(f"16c: hosts {[c.hosts for c in c_]}")
+        quant = {"paged_decode_attention_quant": cfg.n_layers,
+                 "quant_mm": 7 * cfg.n_layers + 1, "paged_decode_attention": 0}
+        last = gang_counts("16c decode", stopped["lines"], quant, "decode")
+        plast = gang_counts("16c prefill", stopped["lines"], quant, "prefill")
+        if set(last) != {"decode_0_attempt0"} or set(plast) != {"prefill_0_attempt0"}:
+            raise AssertionError(f"16c: count lines {sorted(stopped['lines'])}")
+        same = sum(x == y for i in greedy for x, y in zip(c_[i].tokens, int8["tokens"][i]))
+        out["c"] = {
+            "ready_s": gang["ready_s"], "wall_s": c_wall, "job_s": c_job_s,
+            "ttft_s": [c.ttft_s for c in c_], "handoffs": hand, "block_bytes": blk,
+            "last": last, "prefill_last": plast, "rc": stopped["rc"],
+            "greedy_equal_share": same / (GANG_NEW * len(greedy)),
+            "greedy_equal_requests": sum(c_[i].tokens == int8["tokens"][i] for i in greedy),
+        }
+        gang_log_c(card, out["c"])
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    return out
+
+
+def gang_log_ab(card: str, ab: dict, bf16: dict) -> None:
+    """Print 16a's and 16b's figures (``bf16`` is phase 4's, whose TTFTs
+    stand beside 16a's)."""
+    s = bf16
+    log(f"16a gang (python -m tony_tpu_torch.serve.gang x 2 under the port's AM, the "
+        f"port's GangFrontend here; Llama-3-8B bf16 from seed 0, 8 slots, max_len 2048, "
+        f"prefix store on; two host processes time-slicing this one card): submit to "
+        f"ready " + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(ab["ready_s"].items()))
+        + f"; 16 requests x {GANG_NEW} tokens in {ab['a_wall_s']:.2f} s at the frontend; "
+        f"TTFT (s) " + ", ".join(f"{v:.3f}" for v in ab["ttft_s"])
+        + f" (phase 4's engine: " + ", ".join(f"{v:.3f}" for v in s["ttft_s"])
+        + f"); hosts " + ", ".join(h[0] for h in ab["hosts"])
+        + f" (requests 6 and 7 on {ab['hosts'][6][0]}); decode steps after 16a "
+        + ", ".join(f"{k} {v}" for k, v in ab["steps_after_a"].items())
+        + f"; requests whose tokens differ from phase 4's: {ab['differ'] or 'none'}"
+        + (f" (first differing token {ab['first_diff']})" if ab["differ"] else "")
+        + f"  [{card}]")
+    log(f"16b decode:0 killed (chaos kill_container on an on_file trigger) once a stream on "
+        f"it had {GANG_KILL_TOKENS} tokens: 16 requests x {GANG_NEW} tokens in "
+        f"{ab['b_wall_s']:.2f} s, every one finished, replays {ab['replays']}, "
+        + ("every replay consistent" if not ab["parted"] else
+           f"FAULT F6 (ROADMAP queue 3): the replays of requests {sorted(ab['parted'])} "
+           f"regenerated another prefix than decode:0 had delivered (their tokens first "
+           f"differ from 16a's at {ab['parted']})")
+        + f", the ledger agreeing; kill to the last request's end "
+        f"{ab['kill_to_end_s']:.2f} s, kill to the relaunched decode:0 built "
+        f"{ab['relaunch_ready_s']:.1f} s; each host's last count line: "
+        + "; ".join(f"{k} {v['decode_steps']} decode steps, paged_decode_attention "
+                    f"{v['launches']['paged_decode_attention']}" for k, v in ab["last"].items())
+        + f", plain 0; job {ab['job_s']:.1f} s, client exit {ab['rc']}  [{card}]")
+
+
+def gang_log_c(card: str, gc: dict) -> None:
+    """Print 16c's figures."""
+    hand = gc["handoffs"]
+    ms = sorted(h["ms"] for h in hand)
+    dl = gc["last"]["decode_0_attempt0"]
+    log(f"16c disaggregated and quantized (1 prefill + 1 decode host, int8 KV pools, int8 "
+        f"decode weights, prefix budget 1 GiB): submit to ready "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(gc["ready_s"].items()))
+        + f"; 16 requests in {gc['wall_s']:.2f} s; {len(hand)} handoffs (Prefill -> "
+        f"ShipBlocks), {sum(h['shipped'] for h in hand)} blocks shipped = "
+        f"{sum(h['adopted'] for h in hand)} adopted + {sum(h['freed'] for h in hand)} freed, "
+        f"{sum(h['bytes'] for h in hand) / 1e6:.1f} MB = blocks x {gc['block_bytes']} "
+        f"bytes; handoff ms (prefill, export, ship, adopt) min {ms[0]:.1f} median "
+        f"{ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}; TTFT (s) "
+        + ", ".join(f"{v:.3f}" for v in gc["ttft_s"])
+        + f"; decode host {dl['decode_steps']} decode steps, paged_decode_attention_quant "
+        f"{dl['launches']['paged_decode_attention_quant']}, quant_mm "
+        f"{dl['launches']['quant_mm']}, plain 0; greedy tokens equal to phase 4b's int8 "
+        f"{gc['greedy_equal_share']:.1%} ({gc['greedy_equal_requests']} of 8 requests); "
+        f"job {gc['job_s']:.1f} s  [{card}]")
 
 
 # --- phases 7-12 and 14: one pair of rank processes on the card ---------------------
@@ -4480,6 +4969,12 @@ def main() -> int:
         f"{s['profile_device_busy']:.1%}), {s['profile_launches_per_step']:.0f} kernel "
         f"launches; decode attention {s['profile_attention_ms']:.2f} ms = "
         f"{s['profile_attention_share']:.1%} of device time  [{card}]")
+    pe = s["prefix_path"]
+    log(f"serve prefill paths (fault F6's evidence, reported): request 7 alone (prefilled "
+        f"from position 0) against the busy engine (256 tokens from request 6's blocks, a "
+        f"44-token tail): tokens {'equal' if pe['equal'] else 'first differ at ' + str(pe['first_diff'])}"
+        f"; first-token logits of the two paths max |difference| "
+        f"{pe['logit_max_abs_diff']:.3e}  [{card}]")
     torch.cuda.empty_cache()
 
     qs = quant_serve_phase(cfg, params, s)
@@ -4626,6 +5121,8 @@ def main() -> int:
         f"[{card}]")
     del params
     torch.cuda.empty_cache()
+    g = gang_phase(card, s, qs)
+    ab, dl = g["ab"], g["c"]["last"]["decode_0_attempt0"]
     quant_crosscheck(card)
     torch.cuda.empty_cache()
 
@@ -4750,7 +5247,8 @@ def main() -> int:
         f"card, overlap_impl=pallas, phase 5's recipe, data and initial parameters): "
         f"{FSDP_STEPS} steps, loss {f['losses'][0]:.4f} -> {f['losses'][-1]:.4f}, max "
         f"|loss - phase 5's| {max(f['loss_diffs']):.3e}; mean step {f['mean_step_ms']:.1f} "
-        f"ms over steps 3-{FSDP_STEPS} with the fsdp ring over {f['transport']} (two ranks "
+        f"ms over steps {RANK_WARMUP_STEPS + 1}-{FSDP_STEPS} with the fsdp ring over "
+        f"{f['transport']} (two ranks "
         f"share the card and the ring's hops go through host memory: not an NCCL time); "
         f"kernel 14 launches per rank {r0['launches']['chunk_mm']} = {f['per_step']} a "
         f"step ({r0['instance']}), plain 0; peak allocated per rank "
@@ -4766,7 +5264,8 @@ def main() -> int:
             f"phase 6's recipe, data and initial parameters): {EP_STEPS} steps, loss "
             f"{x['losses'][0]:.4f} -> {x['losses'][-1]:.4f}, max |loss - phase 6's| "
             f"{max(x['loss_diffs']):.3e}, max |aux - phase 6's| {max(x['aux_diffs']):.3e}; "
-            f"mean step {x['mean_step_ms']:.1f} ms over steps 3-{EP_STEPS} (each "
+            f"mean step {x['mean_step_ms']:.1f} ms over steps "
+            f"{RANK_WARMUP_STEPS + 1}-{EP_STEPS} (each "
             + ", ".join(f"{t:.1f}" for t in x["step_ms"])
             + f" ms) with the ep collectives over {e['transport']} (two ranks share the "
             f"card and every collective goes through host memory: not an NCCL time); "
@@ -4795,7 +5294,7 @@ def main() -> int:
             f"this one card, attention_impl={impl}, ce_impl={head}, phase 5's weights and "
             f"8 x 2048 batches): {PAR_STEPS} steps, loss {x['losses'][0]:.4f} -> "
             f"{x['losses'][-1]:.4f}, max |loss - phase 5's| {max(x['loss_diffs']):.3e}; "
-            f"step 3's time {x['mean_step_ms']:.1f} ms (each "
+            f"step {PAR_STEPS}'s time {x['mean_step_ms']:.1f} ms (each "
             + ", ".join(f"{t:.1f}" for t in x["step_ms"])
             + f" ms) over {x['transport']} (two ranks share the card and every transfer "
             f"goes through host memory: not an NCCL time); payload bytes a rank a step: "
@@ -4901,7 +5400,10 @@ def main() -> int:
         "launches": s["launches"], "phases": {"4": s["launches"], "4d": ch["launches"],
                                               "4e bf16": ho["bf16"]["launches"],
                                               "13 serve": sv_["launches"][
-                                                  "paged_decode_attention"]},
+                                                  "paged_decode_attention"],
+                                              **{f"16ab {k}": v["launches"][
+                                                  "paged_decode_attention"]
+                                                 for k, v in ab["last"].items()}},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -4915,7 +5417,8 @@ def main() -> int:
         "launches": ql["paged_decode_attention_quant"],
         "phases": {"4b": ql["paged_decode_attention_quant"],
                    "4b fp8": fl["paged_decode_attention_quant"],
-                   "4e int8": ho["int8"]["launches"]},
+                   "4e int8": ho["int8"]["launches"],
+                   "16c decode": dl["launches"]["paged_decode_attention_quant"]},
         "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
         "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
         "bound_by": qmain["bound_by"], "library_ms": qmain["library_ms"],
@@ -4924,7 +5427,8 @@ def main() -> int:
     kernels.append({
         "name": "quant_mm", "route": "cuda", "source": "tony_tpu_torch/csrc/quant_mm.cu",
         "replaces": "tony_tpu/ops/quant_mm.py:84", "launches": ql["quant_mm"],
-        "phases": {"4b": ql["quant_mm"], "4b fp8": fl["quant_mm"]},
+        "phases": {"4b": ql["quant_mm"], "4b fp8": fl["quant_mm"],
+                   "16c decode": dl["launches"]["quant_mm"]},
         "max_abs_err": step_mm["max_abs_err"], "ms": step_mm["ms"],
         "plain_ms": step_mm["plain_ms"], "bound_ms": step_mm["bound_ms"],
         "bound_by": step_mm["bound_by"], "library_ms": step_mm["library_ms"],

@@ -468,17 +468,18 @@ def test_build_env_equal_but_the_jax_cache(framework, ckpt, monkeypatch):
 
 def test_runtimes_the_port_refuses():
     """``jax`` is refused with the reference's message for an unknown
-    framework, listing the port's runtimes; ``elastic`` and ``serve`` with
-    the ROADMAP item that will bring them."""
+    framework, listing the port's runtimes; ``elastic`` with the ROADMAP
+    item that will bring it. ``serve`` is the port's since gang serving
+    (tests/test_torch_gang.py holds its env against the reference's)."""
     with pytest.raises(ValueError) as e:
         rrt.make_runtime("caffe")
     with pytest.raises(ValueError) as p:
         prt.make_runtime("jax")
     assert str(p.value) == str(e.value).replace("'caffe'", "'jax'").replace(
-        "'elastic', ", "").replace("'jax', ", "").replace(", 'serve'", "")
-    for fw in ("elastic", "serve"):
-        with pytest.raises(ValueError, match=r"ROADMAP queue 1, item 10"):
-            prt.make_runtime(fw)
+        "'elastic', ", "").replace("'jax', ", "")
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1, item 10"):
+        prt.make_runtime("elastic")
+    assert type(prt.make_runtime("serve")).__name__ == "ServeRuntime"
 
 
 def test_torch_dist_helpers_read_the_job_env(monkeypatch):
@@ -720,17 +721,29 @@ def test_apply_job_env_sets_the_checkpoint_fields_alike(monkeypatch, env, preset
 CONTROL_MODULES = ("obs", "obs.trace", "obs.reporter", "obs.hbm", "obs.health",
                    "obs.profile", "obs.series", "obs.slo", "obs.registry", "obs.monitor",
                    "elastic.protocol", "am.app_master", "executor.task_executor", "cli.main",
-                   "cli.client", "cluster", "rpc", "runtime", "chaos", "config", "utils")
+                   "cli.client", "cluster", "rpc", "runtime", "chaos", "config", "utils",
+                   "serve", "serve.gang", "serve.frontend", "serve.prefix")
 
 
 def test_control_plane_imports_neither_torch_nor_numpy():
     """A fresh process importing the port's obs spine, elastic protocol,
-    AM, executor, CLI, cluster, RPC, runtimes, chaos and config modules
-    loads neither torch nor numpy (nor jax), as the reference's control
-    plane loads neither jax nor numpy."""
+    AM, executor, CLI, cluster, RPC, runtimes, chaos and config modules,
+    and the gang's control plane (the serve package, ``serve.gang``'s
+    settings, the frontend), then building a decode host's env through the
+    ``serve`` runtime as an executor does, loads neither torch nor numpy
+    (nor jax), as the reference's control plane loads neither jax nor numpy
+    (the reference's ``serve.gang`` does load both: its package imports the
+    engine)."""
     code = ("import sys, importlib\n"
             f"for m in {CONTROL_MODULES!r}:\n"
             "    importlib.import_module('tony_tpu_torch.' + m)\n"
+            "from tony_tpu_torch.config.config import TonyConfig\n"
+            "from tony_tpu_torch.runtime import TaskIdentity, make_runtime\n"
+            "env = make_runtime('serve').build_env(TaskIdentity(\n"
+            "    job_name='decode', index=0, cluster_spec={'decode': ['h0:7001']},\n"
+            "    coordinator_address='h0:7001', process_id=0, num_processes=1),\n"
+            "    TonyConfig({'job.decode.instances': 1}))\n"
+            "assert env['TONY_SERVE_PORT'] == '7001' and env['TONY_SERVE_GANG']\n"
             "print(sorted(k for k in ('torch', 'numpy', 'jax', 'tony_tpu') if k in sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120,

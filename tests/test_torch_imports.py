@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch/CUDA port: no module of tony_tpu_torch, not
 chip_smoke.py, not the card's test file, not the gloo ranks' runner
 (tests/torch_ranks.py), not scripts/torch_kernel_ab.py, not
-scripts/torch_phase14.py or 15 and not the job example's train.py imports jax or
+scripts/torch_phase14.py, 15 or 16 and not the job example's train.py imports jax or
 anything of the JAX package. Read from the source with ``ast`` (not
 ``sys.modules``: the interpreter may have imported jax before any test
 runs)."""
@@ -18,6 +18,7 @@ FILES = sorted((ROOT / "tony_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests/test_torch_kernels_cuda.py",
     ROOT / "tests/torch_ranks.py", ROOT / "scripts/torch_kernel_ab.py",
     ROOT / "scripts/torch_phase14.py", ROOT / "scripts/torch_phase15.py",
+    ROOT / "scripts/torch_phase16.py",
     ROOT / "examples/llama_pretrain_torch/train.py"]
 
 

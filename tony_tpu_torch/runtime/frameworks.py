@@ -8,9 +8,10 @@ the reference.
 
 The port's copy of ``tony_tpu/runtime/frameworks.py``, whose first-class
 runtime here is ``pytorch``: ``parallel/dist.py`` forms the default process
-group from the env it exports. The reference's ``ElasticRuntime`` and
-``ServeRuntime`` are not ported yet (ROADMAP queue 1, item 10), and
-:func:`tony_tpu_torch.runtime.make_runtime` refuses their frameworks.
+group from the env it exports. ``ServeRuntime`` exports the gang's env to the
+port's decode hosts (``serve/gang.py``). The reference's ``ElasticRuntime``
+is not ported yet (ROADMAP queue 1, item 10), and
+:func:`tony_tpu_torch.runtime.make_runtime` refuses its framework.
 """
 
 from __future__ import annotations
@@ -158,10 +159,62 @@ class MLGenericRuntime(Runtime):
         return True
 
 
+class ServeRuntime(Runtime):
+    """`tony serve` gang workers (serve/gang.py; docs/SERVE.md).
+
+    The serving job type's contract: every decode host LISTENS on the
+    data port the executor reserved and registered (the frontend
+    discovers hosts at exactly those cluster-spec addresses through the
+    AM task table), so the port is exported explicitly as
+    TONY_SERVE_PORT; the ``serve.gang.*`` key group rides along as JSON
+    (TONY_SERVE_GANG) — the AM -> executor -> worker export path every
+    obs.* key group uses — so the worker needs no config-file reparse.
+    """
+
+    name = "serve"
+
+    def validate(self, config: TonyConfig) -> None:
+        from tony_tpu_torch.config.keys import Keys
+
+        gang_type = config.get_str(Keys.SERVE_GANG_JOB_TYPE, "decode")
+        if gang_type not in config.job_types():
+            raise ValueError(
+                f"serve jobs need a [job.{gang_type}] section (or set "
+                "serve.gang.job_type to the decode-host task type)"
+            )
+        if config.get_int(Keys.SERVE_POOL_PREFILL_HOSTS, 0) > 0:
+            ptype = config.get_str(Keys.SERVE_POOL_PREFILL_JOB_TYPE, "prefill")
+            if ptype not in config.job_types():
+                raise ValueError(
+                    f"disaggregated serve jobs need a [job.{ptype}] section "
+                    "for the prefill pool (serve.pool.prefill_hosts > 0)"
+                )
+            if ptype == gang_type:
+                raise ValueError(
+                    "serve.pool.prefill_job_type must differ from "
+                    "serve.gang.job_type (the pools are distinct task types)"
+                )
+
+    def needs_data_port(self) -> bool:
+        return True
+
+    def build_env(self, identity: TaskIdentity, config: TonyConfig) -> dict[str, str]:
+        # import-light on purpose: gang.py defers its engine (and torch)
+        # imports, and the serve package exports its engine lazily, so the
+        # executor process stays a pure control-plane one
+        from tony_tpu_torch.serve.gang import ENV_SERVE_GANG, ENV_SERVE_PORT, GangSettings
+
+        env = super().build_env(identity, config)
+        env[ENV_SERVE_PORT] = identity.own_address.rpartition(":")[2]
+        env[ENV_SERVE_GANG] = GangSettings.from_config(config).to_json()
+        return env
+
+
 __all__ = [
     "HorovodRuntime",
     "MLGenericRuntime",
     "MXNetRuntime",
     "PyTorchRuntime",
+    "ServeRuntime",
     "TFRuntime",
 ]

@@ -426,6 +426,17 @@ class Engine:
                    if r is not None and s not in self._chunking)
 
     @property
+    def queue_depth(self) -> int:
+        """Requests admitted but not yet slotted."""
+        return len(self._queue)
+
+    @property
+    def rejected_total(self) -> int:
+        """Submissions refused by bounded admission since the last
+        reset_metrics()."""
+        return int(self._c_rejected.value)
+
+    @property
     def attended_positions(self) -> int:
         """Positions the decode step's table covers per slot."""
         return self._attended * self.serve.kv_block
@@ -446,6 +457,19 @@ class Engine:
         if self.n_decoding:
             self._decode_once()
         return self.n_live
+
+    def completion_of(self, rid: int) -> Completion | None:
+        """Live view of a request's completion: ``tokens`` grows in place
+        as the engine decodes and ``finish_reason`` lands when it ends.
+        The gang worker's streaming seam (serve/gang.py); callers must not
+        mutate the returned object."""
+        return self._completions.get(rid)
+
+    def take_completion(self, rid: int) -> Completion | None:
+        """Pop one finished completion (the incremental form of what run()
+        does wholesale, so a long-lived streaming driver never accumulates
+        every Completion)."""
+        return self._completions.pop(rid, None)
 
     def run(self, requests: Sequence[Request] | None = None) -> dict[int, Completion]:
         """Submit ``requests`` (if given), drain queue and live slots, and

@@ -84,7 +84,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    repeat-expanded cache for the decode kernels);
 4. serving: Llama-3-8B at full width (32 layers, random weights from a
    seed) through the engine, 16 requests with prefix sharing; the kernel's
-   launch count must equal decode steps x layers. Then a few decode steps
+   launch count must equal decode steps x layers. The prefill is
+   match-invariant (fault F6, closed): request 7 served alone gives the
+   busy engine's tokens exactly (there 256 of its tokens came from request
+   6's blocks), and its first-token logits are bit-equal whether request 6
+   was served before it or not. Then a few decode steps
    under torch.profiler: the device's busy share, the kernel's share of
    device time, the kernel launches a step enqueues and the host ops that
    take the most CPU time. Then (4b) the same weights and requests through the
@@ -94,22 +98,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    attention on the card, generate() equal to the engine; its profile
    beside phase 4's; then the same with fp8 e4m3 KV pools (held alike,
    without the profile). Then (4c) bench.py's speculative trace cut to
-   a third of its length (769 new tokens; half until phase 16), to keep
-   the script inside its time limit: a 64-token prompt, 257 new tokens,
-   15 drafts a step, greedy,
+   a sixth of its length (769 new tokens; half until phase 16, a third
+   until phase 17), to keep the script inside its time limit: a 64-token
+   prompt, 129 new tokens, 15 drafts a step, greedy,
    prefix store on, at
    batch 1 and at batch 8 (one prompt for every row), spec off and then
    on, the spec-on engine's store seeded with the whole repeat (one
    prefill of the prompt and spec off's tokens) before its timed pass;
-   then the quantized engine at batch 8 over 129 new tokens. The decode
+   then the quantized engine at batch 8 over 65 new tokens. The decode
    kernel (its quantized form when quantized) must run once per layer and
    step and the dequant-matmul 225 times a step, with no plain version;
    every run's emitted tokens are fed back through a plain float32
    forward, and each must be within a limit of that reference's top logit
    (the limit from the bf16 noise and the spec-off run's own trail,
    ``spec_serve_phase``); tokens/s per slot, tokens per step, accept rate
-   and the on/off ratio are printed, and the batch-8 verify step's
-   breakdown, bf16 and quantized (the dequant-matmul's ms a step). Then a
+   and the on/off ratio are printed, and the bf16 batch-8 verify step's
+   breakdown (the quantized one's was profiled until phase 17). Then a
    2-layer
    cross-check of the quantized engine on the card against the same
    engine on the CPU (plain versions). Then (4d) phase 4's engine and 16
@@ -300,7 +304,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``on_file`` trigger written once a stream on it has 8 tokens: every
    request finishes, at least one replay, every replay consistent, the
    ledger ``write_ledger`` wrote saying the same, decode:0 relaunched
-   alone (attempts 2 and 1). (16c) one prefill and one decode host with
+   alone (attempts 2 and 1), and the port's ``check_invariants`` clean
+   over the job's app dir (``serve-no-request-lost`` included). (16c) one prefill and one decode host with
    int8 KV pools and int8 decode weights: every prompt of 64 tokens or
    more handed over (Prefill, then ShipBlocks), shipped = adopted + freed
    blocks, bytes = blocks x ``block_bytes``; the share of greedy tokens
@@ -311,6 +316,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the frontend's wall, the hosts' decode steps, the replays, the kill to
    the last request's end and to the relaunched host, the handoffs' bytes
    and ms.
+17. the operator's tools, after phase 15 (the example job of 15a): (17a)
+   ``python -m tony_tpu_torch.cli chaos`` runs it with ``checkpoint.dir``
+   set (a checkpoint every 5 steps) under ``kill_container`` on worker:0
+   with an ``on_file`` trigger on step 5's checkpoint, the trace (every
+   step) and the health sentinel armed: exit 0 with ``--expect
+   SUCCEEDED`` and a clean invariant report (the lease store's
+   invariants included), worker:0 at 2 attempts, the resumed attempt
+   starting at step 6 with each loss within 1e-3 relative of 15a's same
+   step, kernels 1-6 launched by it at its 5 steps' counts, no plain
+   version; (17b) on 17a's app dir ``tony trace`` (exit 0, fit's step and
+   fit spans, the killed attempt's begin-only spans), ``health`` (exit 0,
+   healthy), ``elastic`` (exit 2), ``top --once`` (one row, worker 0),
+   ``rm-status`` (no app holds a lease), and the portal (``python -m
+   tony_tpu_torch.obs.portal``: the app list and 17a's page, both 200);
+   (17c) ``tony profile <app> --steps 2`` against the example job live
+   on the card: the anatomy report's capture holds the flash and CE
+   kernels' events; the job is then stopped.
 
 Every profile traces one warm-up step first; a window holding fewer
 events of a kernel than the launch counters say it launched is traced
@@ -325,8 +347,8 @@ times are one decode step's 225 launches at their five shapes, summed;
 chunk_mm's are the w1/w3 forward chunk's, its launches rank 0's in phase 7;
 each kernel's ``phases`` holds its launches on every path that runs it,
 phases 7 and 8 rank 0's, phases 9 to 12, 14 and 15b each rank's, 16's
-each host incarnation's last count line, 4b's fp8 run, 5c, 13 and 15a
-included),
+each host incarnation's last count line, 4b's fp8 run, 5c, 13, 15a and
+17a's resumed worker included),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -940,44 +962,57 @@ def serve_phase(cfg, params) -> dict:
                     device="cuda", serve=sv)
     if solo[0, len(prompts[0]):].tolist() != out[0].tokens:
         raise AssertionError("generate() differs from the engine on request 0")
-    figures["prefix_path"] = prefix_path_evidence(cfg, params, prompts, reqs, sv,
-                                                  out[7].tokens)
+    figures["prefix_path"] = prefix_path_evidence(cfg, params, reqs, sv, out[7].tokens)
     return {**figures, **breakdown, "launches": launches["paged_decode_attention"],
             "tokens": [c.tokens for c in out.values()],
             "ttft_s": [c.ttft_s for c in out.values()]}
 
 
-def prefix_path_evidence(cfg, params, prompts, reqs, sv: dict, busy: list[int]) -> dict:
-    """Fault F6's evidence (ROADMAP queue 3; reported, not held): request 7
-    prefilled from position 0, alone in an engine, against phase 4's busy
-    engine, where its first 256 tokens' K/V came from request 6's blocks in
-    the prefix store and only its 44-token tail was prefilled; and the two
-    prefill paths' first-token logits (``forward_with_cache``: the whole
-    prompt at once, against request 6's K/V for the shared 256 positions
-    and the tail on top)."""
-    from tony_tpu_torch.models.generate import KVCache, forward_with_cache
-    from tony_tpu_torch.serve import Engine, ServeConfig
+def prefix_path_evidence(cfg, params, reqs, sv: dict, busy: list[int]) -> dict:
+    """Fault F6, held (closed): request 7 served alone, prefilled from
+    position 0, gives the tokens it gave in phase 4's busy engine, where
+    its first 256 tokens' K/V came from request 6's blocks in the prefix
+    store and only its 44-token tail was prefilled; and the engine's own
+    prefill paths give bit-equal first-token logits, request 7 after
+    request 6 (a 256-token hit; both served to their first token) against
+    request 7 alone (the last prefill piece's logits, read through a spy on
+    ``forward_with_cache``)."""
+    from unittest import mock
 
-    dev = params["tok_emb"].device
-    engine = Engine(params, cfg, ServeConfig(**sv), device=dev)
-    rid = engine.submit(reqs[7])
-    alone = engine.run()[rid].tokens
-    del engine
-    p6, p7 = (torch.as_tensor(prompts[i], device=dev)[None] for i in (6, 7))
-    with torch.no_grad():
-        c6 = KVCache.create(cfg, 1, p6.shape[1], device=dev)
-        forward_with_cache(params, p6, c6, 0, cfg, last_only=True)
-        ctx = KVCache.create(cfg, 1, p7.shape[1], device=dev)
-        ctx.k[:, :, :256] = c6.k[:, :, :256]
-        ctx.v[:, :, :256] = c6.v[:, :, :256]
-        hit = forward_with_cache(params, p7[:, 256:], ctx, 256, cfg, last_only=True)[0]
-        whole = forward_with_cache(params, p7, KVCache.create(cfg, 1, p7.shape[1],
-                                                              device=dev),
-                                   0, cfg, last_only=True)[0]
-    return {"equal": alone == busy,
-            "first_diff": next((j for j, (x, y) in enumerate(zip(alone, busy)) if x != y),
-                               None),
-            "logit_max_abs_diff": float((hit - whole).abs().max())}
+    from tony_tpu_torch.serve import Engine, ServeConfig
+    from tony_tpu_torch.serve import engine as engine_mod
+
+    real = engine_mod.forward_with_cache
+    last: dict = {}
+
+    def spy(*args, **kw):
+        logits, kv = real(*args, **kw)
+        last["logits"] = logits.clone()
+        return logits, kv
+
+    runs = {}
+    one = dataclasses.replace(reqs[7], max_new_tokens=1)
+    for label, donors, req in (("hit", [reqs[6]], one), ("alone", [], reqs[7])):
+        engine = Engine(params, cfg, ServeConfig(**sv), device=params["tok_emb"].device)
+        for d in donors:
+            engine.run([dataclasses.replace(d, max_new_tokens=1)])
+        hit0 = engine.metrics.prefix_hit_tokens
+        with mock.patch.object(engine_mod, "forward_with_cache", spy):
+            rid = engine.submit(req)
+            tokens = engine.run()[rid].tokens
+        runs[label] = {"tokens": tokens, "logits": last["logits"],
+                       "hit": engine.metrics.prefix_hit_tokens - hit0}
+        del engine
+    hit, alone = runs["hit"], runs["alone"]
+    diff = float((hit["logits"] - alone["logits"]).abs().max())
+    out = {"hit_tokens": hit["hit"], "logit_max_abs_diff": diff,
+           "bits_equal": bits_equal(hit["logits"], alone["logits"]),
+           "first_diff": next((j for j, (x, y) in enumerate(zip(alone["tokens"], busy))
+                               if x != y), None)}
+    if (hit["hit"] != 256 or alone["hit"] != 0 or not out["bits_equal"]
+            or alone["tokens"] != busy or hit["tokens"] != busy[:1]):
+        raise AssertionError(f"4: the prefill is not match-invariant (fault F6): {out}")
+    return out
 
 
 def quant_serve_phase(cfg, params, bf16: dict, quant_kv: str = "int8",
@@ -1124,7 +1159,8 @@ def quant_crosscheck(card: str) -> dict:
 # blocks and the store holds the entire repeat), 15 draft tokens a step
 SPEC_BLOCK = 64
 SPEC_DRAFT = 15
-SPEC_NEW = 4 * SPEC_BLOCK + 1     # a third of bench.py's 769 (half until phase 16): the time
+SPEC_NEW = 2 * SPEC_BLOCK + 1     # a sixth of bench.py's 769 (a third until phase 17): the
+#                                   run's time limit
 # the store's budget: the repeat's 13 blocks of 8 MiB at this width (the
 # default 64 MB holds 8, so the path would end 448 tokens in)
 SPEC_STORE_MB = 128.0
@@ -1272,7 +1308,7 @@ def spec_mode(cfg, params, prompt: np.ndarray, on: bool, batch: int, new: int,
 def spec_serve_phase(cfg, params, card: str) -> dict:
     """Phase 4c: bench.py's speculative trace on Llama-3-8B at full width,
     batch 1 and batch 8 (every row the same prompt), spec on and off; then
-    the quantized engine (int8 KV, int8 weights) at batch 8 over 3 blocks +
+    the quantized engine (int8 KV, int8 weights) at batch 8 over 1 block +
     1 new tokens. Held: the paged kernel (kernel 9 when quantized) launched
     once per layer and decode step, the dequant-matmul 7 x 32 + 1 times a
     step, no plain version; and every emitted token, teacher-forced
@@ -1296,18 +1332,20 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
 
     Reported: tokens/s per slot, tokens per step, accept rate, the on/off
     ratio, tokens equal on/off, the share of emitted tokens that are the
-    reference's argmax, the largest trail on and off, and the batch-8
-    verify step's breakdown, bf16 and quantized."""
+    reference's argmax, the largest trail on and off, and the bf16 batch-8
+    verify step's breakdown (the quantized one's 30,267 launches a step
+    took about 90 s of profile windows and reading, and it is no longer
+    profiled: the run's time limit)."""
     prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, SPEC_BLOCK)
     L = cfg.n_layers
     res = {}
     modes = [(f"b{b}", b, SPEC_NEW, {}) for b in (1, 8)]
-    modes.append(("b8_int8", 8, 2 * SPEC_BLOCK + 1,
+    modes.append(("b8_int8", 8, SPEC_BLOCK + 1,
                   dict(quant_kv="int8", quant_weights=True)))
     for label, batch, new, quant in modes:
         off = spec_mode(cfg, params, prompt, False, batch, new, **quant)
         on = spec_mode(cfg, params, prompt, True, batch, new, seed=off["tokens"][0],
-                       profile=label in ("b8", "b8_int8"), **quant)
+                       profile=label == "b8", **quant)
         for r in (on, off):
             la, steps = r["launches"], r["steps"]
             if quant:
@@ -1359,15 +1397,12 @@ def spec_serve_phase(cfg, params, card: str) -> dict:
                                  f"top logit by {trail_on:.4e}, over the limit {limit:.4e}")
         r.update(trail_on=trail_on, trail_off=trail_off, limit=limit, noise=noise)
     log(f"teacher-forced references: {ref_s:.1f} s")
-    for label in ("b8", "b8_int8"):
-        r = res[label]["on"]
-        qmm = (f", quant_mm {r['profile_quant_mm_ms']:.2f} ms = "
-               f"{r['profile_quant_mm_share']:.1%}" if "profile_quant_mm_ms" in r else "")
-        log(f"verify step {label} (batch 8, G {SPEC_DRAFT + 1}, store warm): "
-            f"{r['profile_step_ms']:.2f} ms wall, {r['profile_device_ms']:.2f} ms device "
-            f"(busy {r['profile_device_busy']:.1%}), {r['profile_launches_per_step']:.0f} "
-            f"kernel launches; decode attention {r['profile_attention_ms']:.2f} ms = "
-            f"{r['profile_attention_share']:.1%}{qmm} of device time  [{card}]")
+    r = res["b8"]["on"]
+    log(f"verify step b8 (batch 8, G {SPEC_DRAFT + 1}, store warm): "
+        f"{r['profile_step_ms']:.2f} ms wall, {r['profile_device_ms']:.2f} ms device "
+        f"(busy {r['profile_device_busy']:.1%}), {r['profile_launches_per_step']:.0f} "
+        f"kernel launches; decode attention {r['profile_attention_ms']:.2f} ms = "
+        f"{r['profile_attention_share']:.1%} of device time  [{card}]")
     return res
 
 
@@ -3804,6 +3839,7 @@ def gang_counts(label: str, lines: dict, per_step: dict[str, int], pool: str) ->
 def gang_phase(card: str, bf16: dict, int8: dict) -> dict:
     """Phase 16 (16a, 16b, 16c): gang serving on the card, the hosts holding
     no weights of this process's (its Llama-3-8B is freed before)."""
+    from tony_tpu_torch.chaos.invariants import check_invariants
     from tony_tpu_torch.models.llama import LlamaConfig
     from tony_tpu_torch.serve.cache import block_bytes
 
@@ -3875,14 +3911,16 @@ def gang_phase(card: str, bf16: dict, int8: dict) -> dict:
         replayed = [c for c in b if c.replays]
         if not replayed:
             raise AssertionError("16b: the kill interrupted no request")
-        # a replay that regenerated another prefix than the one delivered is
-        # fault F6 (ROADMAP queue 3): its survivor prefilled the prompt on
-        # another path than the host that died (more or less of it from the
-        # prefix store). It is reported with the tokens' first difference
-        # from 16a's (phase 4's path), not raised
+        # a replay regenerates the prefix it delivered, draw for draw, on a
+        # survivor whose prefix store held more or less of the prompt than
+        # the dead host's did (fault F6, closed: the prefill is
+        # match-invariant)
         parted = {i: next((j for j, (x, y) in enumerate(zip(c.tokens, a[i].tokens))
                            if x != y), None)
                   for i, c in enumerate(b) if c.replays and not c.replay_consistent}
+        if parted:
+            raise AssertionError(f"16b: replays regenerated another prefix than the one "
+                                 f"delivered (first differing token by request {parted})")
         led = stopped["ledger"]
         rows = led["requests"]
         by_rid = {c.rid: c for c in a + b}
@@ -3895,6 +3933,10 @@ def gang_phase(card: str, bf16: dict, int8: dict) -> dict:
                                "requests_frontend.json")) as f:
             if json.load(f) != json.loads(json.dumps(led)):
                 raise AssertionError("16b: the ledger file differs from the frontend's")
+        report = check_invariants([gang["client"].app_dir])
+        if not report.ok:
+            raise AssertionError(f"16b: the invariant report is not clean: "
+                                 f"{report.to_json()}")
         lines = stopped["lines"]
         last = gang_counts("16a/16b", lines, {"paged_decode_attention": cfg.n_layers,
                                               "paged_decode_attention_quant": 0,
@@ -3915,9 +3957,9 @@ def gang_phase(card: str, bf16: dict, int8: dict) -> dict:
                                                                  bf16["tokens"][i]))
                                    if x != y) for i in differ},
             "steps_after_a": after_a, "last": last, "rc": stopped["rc"],
-            "replays": [(c.rid, c.replays, c.hosts) for c in replayed], "parted": parted,
+            "replays": [(c.rid, c.replays, c.hosts) for c in replayed],
             "kill_to_end_s": kill_to_end, "relaunch_ready_s": relaunch, "job_s": ab_job_s,
-            "b_ttft_s": [c.ttft_s for c in b],
+            "b_ttft_s": [c.ttft_s for c in b], "checked": report.checked_apps,
         }
         gang_log_ab(card, out["ab"], bf16)
         # 16c: one prefill host hands every prompt's blocks to one decode host,
@@ -3993,12 +4035,9 @@ def gang_log_ab(card: str, ab: dict, bf16: dict) -> None:
         + f"  [{card}]")
     log(f"16b decode:0 killed (chaos kill_container on an on_file trigger) once a stream on "
         f"it had {GANG_KILL_TOKENS} tokens: 16 requests x {GANG_NEW} tokens in "
-        f"{ab['b_wall_s']:.2f} s, every one finished, replays {ab['replays']}, "
-        + ("every replay consistent" if not ab["parted"] else
-           f"FAULT F6 (ROADMAP queue 3): the replays of requests {sorted(ab['parted'])} "
-           f"regenerated another prefix than decode:0 had delivered (their tokens first "
-           f"differ from 16a's at {ab['parted']})")
-        + f", the ledger agreeing; kill to the last request's end "
+        f"{ab['b_wall_s']:.2f} s, every one finished, replays {ab['replays']}, every "
+        f"replay consistent, the ledger agreeing, the port's check_invariants clean over "
+        f"{ab['checked']}; kill to the last request's end "
         f"{ab['kill_to_end_s']:.2f} s, kill to the relaunched decode:0 built "
         f"{ab['relaunch_ready_s']:.1f} s; each host's last count line: "
         + "; ".join(f"{k} {v['decode_steps']} decode steps, paged_decode_attention "
@@ -4230,6 +4269,287 @@ def job_gloo_phase(card: str) -> dict:
     finals = [w["result"]["final"] for w in job["workers"]]
     return {"job": job, "launches": launches, "losses": losses, "twin": twin,
             "diffs": diffs, "finals": finals, "transport": "gloo, host-staged"}
+
+
+
+# --- phase 17: the operator's tools -------------------------------------------------
+
+CHAOS_CKPT_EVERY = 5        # 17a: a checkpoint every 5 steps; worker 0 dies once step 5's landed
+TOOL_TIMEOUT_S = 120        # one read-side tool's run
+PROFILE_STEPS = 2           # 17c: the live capture window
+PROFILE_JOB_STEPS = 400     # 17c: the live job's length; it is stopped once the capture landed
+PROFILE_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "ce_fwd", "ce_dh", "ce_dw")
+
+
+def tony(*argv: str, timeout: float = TOOL_TIMEOUT_S) -> subprocess.CompletedProcess:
+    """``python -m tony_tpu_torch.cli <argv>`` from the checkout's root, as
+    a user runs it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    return subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli", *argv], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def tool_failed(label: str, r: subprocess.CompletedProcess, app_dir: str = "") -> str:
+    logs = ""
+    if app_dir and os.path.isdir(os.path.join(app_dir, "logs")):
+        for name in sorted(os.listdir(os.path.join(app_dir, "logs"))):
+            with open(os.path.join(app_dir, "logs", name), errors="replace") as f:
+                logs += f"\n--- {name}\n" + f.read()[-3000:]
+    return (f"{label}: exit {r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}{logs}")
+
+
+def attempt_losses(app_dir: str, attempt: int) -> dict[int, float]:
+    with open(os.path.join(app_dir, "logs", f"worker_0_attempt{attempt}.log")) as f:
+        return {int(m.group(1)): float(m.group(2))
+                for x in f.read().splitlines() if (m := _STEP_LINE.search(x))}
+
+
+def chaos_job_phase(card: str, job: dict, ce: dict, work: str) -> dict:
+    """Phase 17a: ``tony chaos`` over phase 15a's example job (``train.py
+    --preset bench_1b4 --ce-impl pallas --steps 10``) with a checkpoint
+    every CHAOS_CKPT_EVERY steps and a lease store, worker:0 killed once
+    step 5's checkpoint is published (an ``on_file`` trigger on its
+    directory, attempt 0 only), the trace journaling every step and the
+    rest of the spine at its defaults. Held: exit 0 with ``--expect
+    SUCCEEDED`` and a clean report; worker:0 at 2 attempts; the resumed
+    attempt starting at step 6, its losses within JOB_REL_TOL of 15a's same
+    steps (the killed attempt's too); kernels 1-6 launched by it at 5
+    steps' counts (phase 5b's over 10 steps, halved), no plain version."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(root, JOB_EXAMPLE)
+    stage, ckpt, rm = (os.path.join(work, d) for d in ("apps", "ckpt", "rm"))
+    faults = json.dumps([{"type": "kill_container", "task": "worker:0",
+                          "on_file": os.path.join(ckpt, str(CHAOS_CKPT_EVERY))}])
+    t0 = time.perf_counter()
+    r = tony("chaos", "--quiet", "--conf", os.path.join(ex, "tony.toml"), "--src-dir", ex,
+             "-D", f"application.stage_dir={stage}", "-D", f"checkpoint.dir={ckpt}",
+             "-D", f"checkpoint.interval_steps={CHAOS_CKPT_EVERY}", "-D", "checkpoint.keep=1",
+             "-D", f"cluster.rm_root={rm}", "-D", "task.heartbeat_interval_ms=200",
+             "-D", "trace.sample_steps=1", "--faults", faults, "--expect", "SUCCEEDED",
+             timeout=JOB_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    apps = os.listdir(stage) if os.path.isdir(stage) else []
+    app_dir = os.path.join(stage, apps[0]) if len(apps) == 1 else ""
+    if r.returncode != 0:
+        raise AssertionError(tool_failed("17a tony chaos", r, app_dir))
+    res = json.loads(r.stdout[r.stdout.index("{"):])
+    if res["state"] != "SUCCEEDED" or not res["report"]["ok"] or res["app_dir"] != app_dir:
+        raise AssertionError(tool_failed("17a report", r, app_dir))
+    with open(os.path.join(app_dir, "status.json")) as f:
+        attempts = {t["task"]: t["attempts"] for t in json.load(f)["tasks"]}
+    if attempts != {"worker:0": 2}:
+        raise AssertionError(f"17a: attempts {attempts}")
+    killed, resumed = (attempt_losses(app_dir, a) for a in (0, 1))
+    steps = TRAIN_STEPS - CHAOS_CKPT_EVERY
+    if (sorted(resumed) != list(range(CHAOS_CKPT_EVERY + 1, TRAIN_STEPS + 1))
+            or not set(range(1, CHAOS_CKPT_EVERY + 1)) <= set(killed)):
+        raise AssertionError(f"17a: the killed attempt logged steps {sorted(killed)}, the "
+                             f"resumed one {sorted(resumed)}")
+    gaps = {f"{a}:{k}": abs(v - job["losses"][k - 1]) / abs(job["losses"][k - 1])
+            for a, d in (("killed", killed), ("resumed", resumed)) for k, v in d.items()}
+    if max(gaps.values()) > JOB_REL_TOL:
+        raise AssertionError(f"17a: losses {killed} / {resumed} against 15a's "
+                             f"{job['losses']}: relative gaps {gaps}")
+    with open(os.path.join(app_dir, "logs", "worker_0_attempt1.log")) as f:
+        lines = f.read().splitlines()
+    result = next(json.loads(x) for x in reversed(lines) if x.startswith('{"rank"'))
+    launches = result["launches"]
+    want = {k: ce["launches"][k] // TRAIN_STEPS * steps for k in PROFILE_KERNELS}
+    off = {k: v for k, v in launches.items() if v and k not in want}
+    if any(launches[k] != v for k, v in want.items()) or off:
+        raise AssertionError(f"17a: the resumed worker's launches {launches} != {want}")
+    if f"resumed from checkpoint step {CHAOS_CKPT_EVERY}" not in "\n".join(lines):
+        raise AssertionError("17a: the relaunched worker did not resume from step 5")
+    return {"app_dir": app_dir, "stage": stage, "rm": rm, "wall_s": wall, "report": res,
+            "killed": killed, "resumed": resumed, "gaps": gaps, "launches": launches,
+            "final": result["final"]}
+
+
+def tools_phase(card: str, a: dict) -> dict:
+    """Phase 17b: the read-side tools on 17a's app dir, each a process as
+    a user runs it: ``trace`` (exit 0, events, fit's ``train.fit`` and
+    ``train.step`` spans, the killed attempt's begin-only spans),
+    ``health`` (exit 0, healthy), ``elastic`` (exit 2: not an elastic
+    job), ``top --once`` (one row: worker 0), ``rm-status`` (exit 0, no
+    app holding a lease) and the portal (``python -m
+    tony_tpu_torch.obs.portal`` over the stage dir: the app list and
+    17a's page, both 200)."""
+    import urllib.request
+
+    from tony_tpu_torch.utils.net import find_free_port
+
+    app, out = a["app_dir"], {}
+    t0 = time.perf_counter()
+    r = tony("trace", app)
+    if r.returncode != 0:
+        raise AssertionError(tool_failed("17b tony trace", r))
+    summary = json.loads(r.stdout)
+    with open(summary["out"]) as f:
+        merged = json.load(f)["traceEvents"]
+    names = {e["pid"]: e["args"]["name"] for e in merged
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    spans = {(names.get(e.get("pid"), ""), e.get("ph"), e.get("name")) for e in merged}
+    begin_only = sorted({(p, n) for p, ph, n in spans if ph == "B"})
+    fit_spans = sorted(n for p, ph, n in spans if ph == "X" and n in ("train.fit",
+                                                                      "train.step"))
+    if (summary["events"] <= 0 or set(fit_spans) != {"train.fit", "train.step"}
+            or not any(p.endswith("_a0") for p, _ in begin_only)):
+        raise AssertionError(f"17b trace: {summary}; fit spans {fit_spans}, begin-only "
+                             f"{begin_only}")
+    steps = sum(1 for e in merged if e.get("name") == "train.step" and e.get("ph") == "X")
+    out["trace"] = {"events": summary["events"], "goodput": summary["goodput"],
+                    "begin_only": begin_only, "step_spans": steps}
+    r = tony("health", app)
+    if r.returncode != 0 or json.loads(r.stdout)["verdict"] != "healthy":
+        raise AssertionError(tool_failed("17b tony health", r))
+    out["health"] = json.loads(r.stdout)["procs"]
+    r = tony("elastic", app)
+    if r.returncode != 2:
+        raise AssertionError(tool_failed("17b tony elastic", r))
+    r = tony("top", app, "--once")
+    rows = [ln.split()[0] for ln in r.stdout.splitlines() if ln.startswith("worker_")]
+    if r.returncode != 0 or len(rows) != 1 or not rows[0].startswith("worker_0"):
+        raise AssertionError(tool_failed("17b tony top --once", r))
+    out["top"] = r.stdout.splitlines()
+    r = tony("rm-status", "--rm-root", a["rm"])
+    if r.returncode != 0 or json.loads(r.stdout)["apps"]:
+        raise AssertionError(tool_failed("17b tony rm-status", r))
+    out["rm"] = json.loads(r.stdout)
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = find_free_port()
+    portal = subprocess.Popen([sys.executable, "-m", "tony_tpu_torch.obs.portal", "--port",
+                               str(port), "--apps-root", a["stage"]], cwd=root,
+                              env={**os.environ, "PYTHONPATH": root},
+                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        codes, deadline = {}, time.monotonic() + 30
+        for path in ("/", f"/job/{os.path.basename(app)}", "/api/jobs"):
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                                timeout=10) as resp:
+                        codes[path], body = resp.status, resp.read().decode()
+                    break
+                except OSError:
+                    if time.monotonic() > deadline or portal.poll() is not None:
+                        raise
+                    time.sleep(0.2)
+            if os.path.basename(app) not in body:
+                raise AssertionError(f"17b portal {path}: the app is not on the page")
+    finally:
+        portal.terminate()
+        portal.wait(timeout=30)
+    if set(codes.values()) != {200}:
+        raise AssertionError(f"17b portal: {codes}")
+    out["portal"] = codes
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def live_profile_phase(card: str, work: str) -> dict:
+    """Phase 17c: ``tony profile <app> --steps 2`` against the example job
+    running on the card (``train.py --preset bench_1b4 --ce-impl pallas``,
+    submitted ``--detach``): the AM broadcasts the window, the worker's
+    profiler captures two steps, and the anatomy report's capture (its
+    ``artifact``, a Chrome trace) holds at least one event of each of
+    kernels 1-6 (their tensor-core names). The job is then stopped through
+    its AM and must end KILLED."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(root, JOB_EXAMPLE)
+    stage = os.path.join(work, "live")
+    r = tony("submit", "--detach", "--quiet", "--conf", os.path.join(ex, "tony.toml"),
+             "--src-dir", ex, "-D", f"application.stage_dir={stage}",
+             "-D", f"job.worker.command=python train.py --preset bench_1b4 --ce-impl pallas "
+                   f"--steps {PROFILE_JOB_STEPS}")
+    if r.returncode != 0:
+        raise AssertionError(tool_failed("17c tony submit --detach", r))
+    app = os.path.join(stage, r.stdout.strip().splitlines()[-1])
+    log_path = os.path.join(app, "logs", "worker_0_attempt0.log")
+    t0 = time.perf_counter()
+    try:
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        while True:
+            text = open(log_path, errors="replace").read() if os.path.exists(log_path) else ""
+            if _STEP_LINE.search(text):
+                break
+            if time.monotonic() > deadline or os.path.exists(os.path.join(app, "status.json")):
+                raise AssertionError(f"17c: the live job never logged a step:\n{text[-3000:]}")
+            time.sleep(0.5)
+        first_step = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        r = tony("profile", app, "--steps", str(PROFILE_STEPS), "--wait", "120", timeout=240)
+        profile_s = time.perf_counter() - t1
+    finally:
+        stop = tony("stop", app)
+        deadline = time.monotonic() + 120
+        while not os.path.exists(os.path.join(app, "status.json")):
+            if time.monotonic() > deadline:
+                raise AssertionError(tool_failed("17c: the job did not end after tony stop",
+                                                 stop, app))
+            time.sleep(0.5)
+    if r.returncode != 0:
+        raise AssertionError(tool_failed("17c tony profile", r, app))
+    report = json.loads(r.stdout)
+    procs = report["procs"]
+    if list(procs) != ["worker_0_user_a0"] or procs["worker_0_user_a0"]["steps"] != PROFILE_STEPS:
+        raise AssertionError(f"17c: the report's processes {list(procs)}: {report}")
+    with open(procs["worker_0_user_a0"]["artifact"]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    events = {k: sum(any(has_kernel(n, t) for t in KERNEL_EVENTS[k]) for n in names)
+              for k in PROFILE_KERNELS}
+    if not all(events.values()):
+        raise AssertionError(f"17c: the capture's kernel events {events}")
+    with open(os.path.join(app, "status.json")) as f:
+        state = json.load(f)["state"]
+    if state != "KILLED":
+        raise AssertionError(f"17c: the stopped job ended {state}")
+    return {"events": events, "per_step_ms": procs["worker_0_user_a0"]["per_step_ms"],
+            "first_step_s": first_step, "profile_s": profile_s,
+            "wall_s": time.perf_counter() - t0, "profile_id": report["profile_id"]}
+
+
+def operator_phase(card: str, job: dict, ce: dict) -> dict:
+    """Phase 17 (17a, 17b, 17c) in a scratch directory it removes; logs
+    each part and returns 17a's figures (its resumed worker's launches
+    join the kernels line). ``job`` is phase 15a's, ``ce`` phase 5b's."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        t17 = time.perf_counter()
+        ca = chaos_job_phase(card, job, ce, work)
+        rep = ca["report"]
+        log(f"17a tony chaos (python -m tony_tpu_torch.cli chaos of {JOB_EXAMPLE}, phase 15a's "
+            f"job, checkpoint every {CHAOS_CKPT_EVERY} steps, kill_container on worker:0 once "
+            f"step {CHAOS_CKPT_EVERY}'s checkpoint landed, the trace every step and the health "
+            f"sentinel armed): exit 0, {rep['state']}, report ok {rep['report']['ok']} "
+            f"(violations {len(rep['report']['violations'])}, notes "
+            f"{rep['report']['notes']}); worker:0 attempts 2; killed attempt's losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ca["killed"].items()))
+            + "; resumed " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ca["resumed"].items()))
+            + f"; largest relative gap to 15a's same steps {max(ca['gaps'].values()):.3e} "
+            f"(limit {JOB_REL_TOL}); the resumed worker's launches "
+            + ", ".join(f"{k} {ca['launches'][k]}" for k in PROFILE_KERNELS)
+            + f", plain 0; its p50 step {ca['final']['step_time_p50_s'] * 1e3:.1f} ms; "
+            f"chaos run wall {ca['wall_s']:.1f} s  [{card}]")
+        tb = tools_phase(card, ca)
+        tr = tb["trace"]
+        log(f"17b tools on 17a's app dir: tony trace exit 0, {tr['events']} events, "
+            f"{tr['step_spans']} train.step spans, begin-only spans {tr['begin_only']}, "
+            f"goodput {tr['goodput']}; tony health exit 0, healthy ({sorted(tb['health'])}); "
+            f"tony elastic exit 2; tony top --once: {tb['top'][-1].split()[0]}; tony "
+            f"rm-status exit 0, no app leased, hosts {sorted(tb['rm']['hosts'])}; the portal "
+            f"{tb['portal']}; tools wall {tb['wall_s']:.1f} s  [{card}]")
+        lp = live_profile_phase(card, work)
+        log(f"17c tony profile --steps {PROFILE_STEPS} against the example job live on the "
+            f"card (bench_1b4, ce_impl=pallas): submit to first step {lp['first_step_s']:.1f} "
+            f"s, profile broadcast to report {lp['profile_s']:.1f} s; the capture's kernel "
+            f"events " + ", ".join(f"{k} {v}" for k, v in lp["events"].items())
+            + f"; anatomy per step (ms) {lp['per_step_ms']}; the job stopped, KILLED; phase "
+            f"wall {lp['wall_s']:.1f} s; phase 17 wall {time.perf_counter() - t17:.1f} s  "
+            f"[{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ca
 
 
 RANKS = 2
@@ -4970,11 +5290,10 @@ def main() -> int:
         f"launches; decode attention {s['profile_attention_ms']:.2f} ms = "
         f"{s['profile_attention_share']:.1%} of device time  [{card}]")
     pe = s["prefix_path"]
-    log(f"serve prefill paths (fault F6's evidence, reported): request 7 alone (prefilled "
-        f"from position 0) against the busy engine (256 tokens from request 6's blocks, a "
-        f"44-token tail): tokens {'equal' if pe['equal'] else 'first differ at ' + str(pe['first_diff'])}"
-        f"; first-token logits of the two paths max |difference| "
-        f"{pe['logit_max_abs_diff']:.3e}  [{card}]")
+    log(f"serve prefill paths (fault F6, held): request 7 alone (prefilled from position "
+        f"0) gives the busy engine's 64 tokens (256 of its tokens from request 6's blocks "
+        f"there); its first-token logits after request 6 ({pe['hit_tokens']}-token hit) "
+        f"and alone bit-equal, max |difference| {pe['logit_max_abs_diff']}  [{card}]")
     torch.cuda.empty_cache()
 
     qs = quant_serve_phase(cfg, params, s)
@@ -5214,6 +5533,8 @@ def main() -> int:
                     for lc in jb["launches"])
         + f", plain 0; submit latency {jbl}; job wall {jb['job']['wall_s']:.1f} s  "
         f"[{card}]")
+
+    ca = operator_phase(card, ja, tc)
 
     m = train_moe_phase(card)
     log(f"train bench_moe ({m['n_params']:,} params, {m['n_active_params']:,} active; "
@@ -5459,7 +5780,8 @@ def main() -> int:
                        **{f"12 rank {r}": cp["launches"][r][name] for r in range(2)},
                        **{f"14 rank {r}": el["launches"][r][name] for r in range(2)},
                        "15a": ja["launches"][name],
-                       **{f"15b rank {r}": jb["launches"][r][name] for r in range(2)}},
+                       **{f"15b rank {r}": jb["launches"][r][name] for r in range(2)},
+                       "17a resumed": ca["launches"][name]},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -5495,7 +5817,8 @@ def main() -> int:
                        **{f"10 {label} rank {r}": pp[label]["launches"][r][name]
                           for label, *_ in PP_RUNS for r in range(PP)},
                        "15a": ja["launches"][name],
-                       **{f"15b rank {r}": jb["launches"][r][name] for r in range(2)}},
+                       **{f"15b rank {r}": jb["launches"][r][name] for r in range(2)},
+                       "17a resumed": ca["launches"][name]},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -47,7 +47,7 @@ def main() -> int:
     qs = cs.quant_serve_phase(cfg, params, s, breakdown=False)
     cs.log(f"phases 4 and 4b: {s['decode_steps']} and {qs['decode_steps']} decode steps, "
            f"mean TTFT {s['mean_ttft_s'] * 1e3:.1f} and {qs['mean_ttft_s'] * 1e3:.1f} ms; "
-           f"F6's evidence {s['prefix_path']}  [{card}]")
+           f"the prefill paths (fault F6) {s['prefix_path']}  [{card}]")
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

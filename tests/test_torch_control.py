@@ -722,12 +722,16 @@ CONTROL_MODULES = ("obs", "obs.trace", "obs.reporter", "obs.hbm", "obs.health",
                    "obs.profile", "obs.series", "obs.slo", "obs.registry", "obs.monitor",
                    "elastic.protocol", "am.app_master", "executor.task_executor", "cli.main",
                    "cli.client", "cluster", "rpc", "runtime", "chaos", "config", "utils",
-                   "serve", "serve.gang", "serve.frontend", "serve.prefix")
+                   "serve", "serve.gang", "serve.frontend", "serve.prefix",
+                   "chaos.invariants", "chaos.runner", "obs.trace_tool", "obs.top",
+                   "obs.proxy", "obs.portal", "cli.notebook")
 
 
 def test_control_plane_imports_neither_torch_nor_numpy():
     """A fresh process importing the port's obs spine, elastic protocol,
-    AM, executor, CLI, cluster, RPC, runtimes, chaos and config modules,
+    AM, executor, CLI, cluster, RPC, runtimes, chaos (the invariant checker
+    and runner too), config modules and operator tools (trace tool, top,
+    proxy, portal, notebook),
     and the gang's control plane (the serve package, ``serve.gang``'s
     settings, the frontend), then building a decode host's env through the
     ``serve`` runtime as an executor does, loads neither torch nor numpy

@@ -17,7 +17,7 @@ and whose grow from the plan ``{6: (0, 1)}``. Both start from the
 reference's parameters. Each step's loss and grad norm are held within
 1e-4 (only the order of float32 sums differs), the summaries (all but the
 measured ``reshard_s``) and the journals' boundaries and skips equal, and
-the port's journal passes the reference's invariant checker. Every grown
+the port's journal passes both packages' invariant checkers alike. Every grown
 member rejoins from a copy of the state poisoned with NaN: the broadcast
 overwrites all of it.
 """
@@ -30,7 +30,6 @@ import numpy as np
 import pytest
 
 from tony_tpu import elastic as jel
-from tony_tpu.chaos.invariants import check_invariants
 from tony_tpu.models import llama as jl
 from tony_tpu.parallel.mesh import MeshShape as JMeshShape, build_mesh
 from tony_tpu.train import FitConfig as JFitConfig, fit as jfit
@@ -39,6 +38,7 @@ from tony_tpu.train import trainer as jtrainer
 from tony_tpu_torch import elastic as pel
 from tony_tpu_torch.parallel.mesh import MeshShape
 from tony_tpu_torch.train.data import DataConfig
+from torch_jobs import check_both
 from torch_ranks import spawn
 
 DATA = dict(global_batch=8, seq_len=32, vocab_size=128)
@@ -321,8 +321,8 @@ def test_elastic_fit_matches_reference(elastic_runs, name):
 def test_grown_members_overwritten_and_journal_audited(elastic_runs, name, tmp_path):
     """Each grown rank joined from a NaN-poisoned state and ends with its
     survivor's parameters bit for bit (the same blocks, the same steps
-    since); the port's journal in a terminal app dir passes the
-    reference's ``check_invariants``."""
+    since); the port's journal in a terminal app dir passes both
+    packages' ``check_invariants`` alike."""
     from test_elastic import _mk_terminal_app
 
     _, ports = elastic_runs
@@ -342,7 +342,7 @@ def test_grown_members_overwritten_and_journal_audited(elastic_runs, name, tmp_p
     with open(jel.journal_path(ports[name]["app"], 0)) as f, \
             open(jel.journal_path(str(app), 0), "w") as g:
         g.write(f.read())
-    report = check_invariants(str(app))
+    report = check_both(str(app))
     assert report.ok, report.to_json()
     assert all(r["lost_steps"] == 0 for r in ports[name]["journal"] if r["type"] == "reshard")
 

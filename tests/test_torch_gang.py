@@ -60,9 +60,9 @@ import tony_tpu_torch.runtime.base as prtbase
 import tony_tpu_torch.serve.engine as pengine
 import tony_tpu_torch.serve.frontend as pfront
 import tony_tpu_torch.serve.gang as pgang
-from tony_tpu.chaos.invariants import check_invariants
 from tony_tpu.models import llama as jl
 from tony_tpu_torch.models.convert import params_from_numpy
+from torch_jobs import check_both
 
 ROOT = Path(__file__).resolve().parent.parent
 PKGS = {
@@ -536,8 +536,8 @@ def _prefill_kill_mid_handoff(pkg: str, tmp_path) -> dict:
     """The reference's ``test_pooled_frontend_prefill_kill_mid_handoff`` in
     ``pkg``: a clean handoff, then the prefill host killed inside a chaos
     delay at the ``serve.handoff`` seam; the request completes by
-    re-prefilling on the decode host, and the reference's invariants hold
-    over the ledger."""
+    re-prefilling on the decode host, and both packages' invariant
+    checkers hold over the ledger alike."""
     m = PKGS[pkg]
     settings = m["gang"].GangSettings(model="tiny", slots=2, max_len=128, max_queue=8,
                                       prefill_hosts=1, handoff_min_tokens=64)
@@ -581,7 +581,7 @@ def _prefill_kill_mid_handoff(pkg: str, tmp_path) -> dict:
         out["h2"] = (h2["ok"], "prefill host lost" in h2["message"])
         ledger = fe.close()
         out["ledger"] = (ledger["pending"], len(ledger["handoffs"]))
-        report = check_invariants([_app_with_ledger(tmp_path, f"pooled-{pkg}", ledger)])
+        report = check_both([_app_with_ledger(tmp_path, f"pooled-{pkg}", ledger)])
         assert report.ok, report.to_json()
     finally:
         m["chaos"].uninstall()

@@ -5,8 +5,8 @@ executor and ``serve`` runtime, the decode hosts real processes on the CPU
 - the reference's ``test_gang_serve_e2e_kill_container_midstream`` in both
   packages at once: two hosts, speculative decoding on, chaos SIGKILLs
   decode:0 once a stream is mid-flight on it; every request completes with
-  a consistent replay, the AM relaunches decode:0 alone, the reference's
-  post-mortem invariants are clean on both app dirs, and the journaled
+  a consistent replay, the AM relaunches decode:0 alone, both packages'
+  post-mortem invariant checkers are clean and equal on both app dirs, and the journaled
   ``serve.reprefill`` span hangs off its request's ``serve.request`` span.
 
 ``python -m tony_tpu_torch.cli serve --demo 4`` is held in
@@ -35,7 +35,7 @@ import tony_tpu_torch.obs.trace as ptrace
 import tony_tpu_torch.rpc as prpc
 import tony_tpu_torch.serve.frontend as pfront
 import tony_tpu_torch.serve.gang as pgang
-from tony_tpu.chaos.invariants import check_invariants
+from torch_jobs import check_both
 
 ROOT = Path(__file__).resolve().parent.parent
 PKGS = {
@@ -126,7 +126,7 @@ def _kill_midstream(pkg: str, tmp_path) -> dict:
     attempts = {t["task"]: t["attempts"] for t in status["tasks"]}
     out.update(code=code, state=status["state"],
                attempts=(attempts["decode:0"] >= 2, attempts["decode:1"]))
-    report = check_invariants([app_dir])
+    report = check_both([app_dir])
     assert report.ok, (pkg, report.to_json())
     with open(os.path.join(app_dir, "serve", "requests_frontend.json")) as f:
         ledger = json.load(f)

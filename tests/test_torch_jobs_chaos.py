@@ -1,16 +1,15 @@
 """Jobs under the reference's chaos schedules (``tests/test_chaos.py``'s
 scenarios), through both packages' client, AM, local backend and executor
 at once: the same exit code, final state, task states and event types
-(``tests/torch_jobs.py``), and the reference's post-mortem invariant
-checker (``tony_tpu/chaos/invariants.py``, not ported yet) clean on both
-packages' artifacts, which share their formats."""
+(``tests/torch_jobs.py``), and the post-mortem invariant checkers of both
+packages (``chaos/invariants.py``) clean and equal on both packages'
+artifacts, which share their formats."""
 
 import json
 import time
 
-from tony_tpu.chaos.invariants import check_invariants
 from tony_tpu.cluster.lease import LeaseStore
-from torch_jobs import assert_same, status, submit_both
+from torch_jobs import assert_same, check_both, status, submit_both
 
 
 def chaos_both(tmp_path, overrides: dict, faults: list, **per_pkg):
@@ -19,7 +18,7 @@ def chaos_both(tmp_path, overrides: dict, faults: list, **per_pkg):
                                   **overrides}, **per_pkg)
     for pkg, (_, app_dir) in runs.items():
         rm_root = per_pkg.get(pkg, {}).get("cluster.rm_root", "")
-        report = check_invariants([app_dir], rm_root=rm_root)
+        report = check_both([app_dir], rm_root=rm_root)
         assert report.ok, (pkg, report.to_json())
     return runs
 

@@ -1588,6 +1588,39 @@ def test_kv_handoff_between_engines_on_card(cuda, quant):
     assert dst.metrics.prefix_hit_tokens == src.metrics.prefix_hit_tokens == 256
 
 
+# --- the match-invariant prefill on the card ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [128, 140], ids=["full_blocks", "mid_block"])
+def test_prefill_after_a_donor_is_bit_equal_to_alone_on_card(cuda, shared):
+    """bf16 on the card, kv_block 64: a 300-token request served after a
+    donor sharing ``shared`` of its tokens (140: cut to its two full
+    blocks) and the same request alone make the same prefill calls past
+    the match, and give bit-equal first-token logits, pool blocks and
+    greedy tokens (the GEMMs and softmax reductions run at the same shapes
+    whatever the match)."""
+    from torch_prefill import same_bits, serve_recorded
+
+    from tony_tpu_torch.models.llama import LlamaConfig, init_params
+    from tony_tpu_torch.serve import ServeConfig
+
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, max_seq_len=512)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    sv = ServeConfig(slots=2, max_len=512, kv_block=64)
+    rng = np.random.default_rng(9)
+    donor = rng.integers(0, 512, 150)
+    req = np.concatenate([donor[:shared], rng.integers(0, 512, 300 - shared)])
+    hit = serve_recorded(params, cfg, sv, [donor], req, 16, cuda)
+    miss = serve_recorded(params, cfg, sv, [], req, 16, cuda)
+    assert (hit["matched"], miss["matched"], hit["cow_copies"]) == (128, 0, 0)
+    assert hit["calls"] == [c for c in miss["calls"] if c[0] >= 128]
+    assert same_bits(hit["logits"], miss["logits"])
+    assert same_bits(hit["k"], miss["k"]) and same_bits(hit["v"], miss["v"])
+    assert hit["tokens"] == miss["tokens"]
+
+
 # --- the observability spine on the card --------------------------------------------
 
 

@@ -3,7 +3,8 @@ package's, on the tiny float32 config with the reference's weights:
 
 - greedy tokens equal the JAX engine's (decode through its Pallas kernel in
   interpret mode) exactly, with slot churn, an EOS that frees a slot, and
-  prefix reuse with a copy-on-write block live;
+  prefix reuse over a mid-block match (the reference copies the block on
+  write, the port cuts the match to its full blocks);
 - the port's engine equals the port's generate(), greedy and sampled, and a
   request samples the same alone and in a busy engine;
 - chunked prefill serves as unchunked prefill does, the handoff refuses
@@ -47,7 +48,8 @@ def _traffic(seed=0):
     """Prompts of lengths 3/7/25/12/22/5; the 22-token prompt shares its
     first 19 tokens with the 25-token one, which registers three full
     blocks: a match of two full blocks plus three tokens into the third,
-    so admission copies that block (COW)."""
+    so the reference's admission copies that block (COW) and the port's
+    cuts the match to the two full blocks."""
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 256, 25)
     shared = np.concatenate([base[:19], rng.integers(0, 256, 3)])
@@ -87,8 +89,10 @@ def test_engine_greedy_tokens_equal_jax_engine(setup):
         assert c.tokens == jout[jid].tokens, i
         assert c.finish_reason == jout[jid].finish_reason, i
     assert ours[1].finish_reason == "eos" and len(ours[1].tokens) == 2
-    assert eng._cow_copies == jeng._cow_copies == 1
-    assert eng.metrics.prefix_hit_tokens == jeng.metrics.prefix_hit_tokens == 19
+    # over a float32 pool the port cuts the mid-block match to its full
+    # blocks (its prefill runs block-aligned pieces); the reference keeps it
+    assert (eng._cow_copies, jeng._cow_copies) == (0, 1)
+    assert (eng.metrics.prefix_hit_tokens, jeng.metrics.prefix_hit_tokens) == (16, 19)
 
 
 def test_engine_matches_generate_greedy(setup):

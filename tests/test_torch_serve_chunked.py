@@ -110,8 +110,9 @@ def test_chunking_cuts_a_cow_match_back_as_the_reference_does(setup):
     its first 19 tokens matches two blocks and three tokens into the
     third, and, its tail longer than a chunk, is cut back to the two full
     blocks (no copy-on-write) and chunked from position 16: tokens, prefix
-    hits and copies equal the JAX engine's. Unchunked, the port keeps the
-    mid-block match (its exact-length prefill needs no cut)."""
+    hits and copies equal the JAX engine's. Unchunked, the port cuts it
+    too (its prefill runs block-aligned pieces), where the reference keeps
+    it."""
     sv = dict(slots=2, max_len=64, kv_block=8, chunk_tokens=8, prefix=True)
     ours, theirs = _pair(setup, **sv)
     first = _prompt(24, seed=5)
@@ -126,7 +127,7 @@ def test_chunking_cuts_a_cow_match_back_as_the_reference_does(setup):
                    device="cpu")
     for p in (first, second):
         _serve(plain, Request, [p], 5)
-    assert plain.metrics.prefix_hit_tokens == 19 and plain._cow_copies == 1
+    assert plain.metrics.prefix_hit_tokens == 16 and plain._cow_copies == 0
 
 
 def test_sampled_tokens_are_the_unchunked_engines_draw_for_draw(setup):

@@ -19,9 +19,11 @@ import threading
 from collections import defaultdict
 
 from tony_tpu.am.events import read_history as ref_read_history
+from tony_tpu.chaos.invariants import check_invariants as ref_check_invariants
 from tony_tpu.cli.client import TonyClient as RefClient
 from tony_tpu.config.config import TonyConfig as RefConfig
 from tony_tpu_torch.am.events import read_history
+from tony_tpu_torch.chaos.invariants import check_invariants
 from tony_tpu_torch.cli.client import TonyClient
 from tony_tpu_torch.config.config import TonyConfig
 
@@ -105,11 +107,22 @@ def assert_same(runs: dict, racy: tuple[str, ...] = ()) -> dict:
     return port
 
 
+def check_both(app_dirs, rm_root: str = ""):
+    """The post-mortem invariant report over ``app_dirs`` (and the lease
+    store at ``rm_root``) from the reference's checker and from the port's:
+    held equal, the port's returned."""
+    ref = ref_check_invariants(app_dirs, rm_root=rm_root)
+    port = check_invariants(app_dirs, rm_root=rm_root)
+    assert port.to_dict() == ref.to_dict(), (ref.to_json(), port.to_json())
+    return port
+
+
 def log_tails(app_dir: str, n: int = 3000) -> str:
     logs = os.path.join(app_dir, "logs")
     return "\n".join(f"===== {f}\n" + open(os.path.join(logs, f), errors="replace").read()[-n:]
                      for f in sorted(os.listdir(logs)))
 
 
-__all__ = ["FAST", "PACKAGES", "assert_same", "client", "events", "log_tails", "outcome",
+__all__ = ["FAST", "PACKAGES", "assert_same", "check_both", "client", "events",
+           "log_tails", "outcome",
            "status", "submit", "submit_both"]

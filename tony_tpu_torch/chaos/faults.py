@@ -37,8 +37,7 @@ type                  point              effect
                                          e.g. ``backend.allocate``
 ====================  =================  =======================================
 
-The port's copy of ``tony_tpu/chaos/faults.py``. The ``serve.handoff``
-point stays in ``POINTS`` for the gang serving still to be ported.
+The port's copy of ``tony_tpu/chaos/faults.py``.
 """
 
 from __future__ import annotations

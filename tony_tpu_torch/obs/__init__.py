@@ -8,11 +8,12 @@ capture primitive (``profile``, ``profiler``), periodic stack traces
 (``diagnostics``), the cross-run regression verdicts (``perf_diff``), the
 device memory metrics and the process sampler (``device_metrics``, the
 counterpart of ``tpu_metrics``; ``monitor``), the collective ledger
-(``comms``), the step anatomy (``anatomy``) and the pusher from a job's
-user process to its AM (``reporter``). ``fit()`` and the serve ``Engine``
-arm them from the env, the AM from the job's config. Still to come:
-``portal``, ``top``, ``trace_tool`` and ``proxy`` (ROADMAP queue 1, item
-10). ``compiles`` has no eager counterpart.
+(``comms``), the step anatomy (``anatomy``), the pusher from a job's
+user process to its AM (``reporter``), and the operator's read side: the
+trace merge (``trace_tool``), ``tony top`` (``top``), the job-history
+portal (``portal``) and the port-forwarding proxy (``proxy``). ``fit()``
+and the serve ``Engine`` arm them from the env, the AM from the job's
+config. ``compiles`` has no eager counterpart.
 
 As in the reference, only the stdlib ``TaskMonitor`` is exported here:
 ``metrics`` imports torch, and the control-plane processes (AM, executor,

@@ -774,9 +774,14 @@ class Engine:
                 match, matched = m, m.length
         ct = self.serve.chunk_tokens
         chunked = bool(ct) and plen - matched > ct
-        if chunked and match is not None and match.partial is not None:
-            # every chunk starts block-aligned (at matched + i * chunk_tokens):
-            # a mid-block copy-on-write match is cut back to its full blocks
+        if match is not None and match.partial is not None and (
+                chunked or not self.cache.quantized):
+            # a mid-block copy-on-write match is cut back to its full
+            # blocks, so the tail's prefill pieces start block-aligned
+            # (_prefill: in a pool of the model dtype a hit is then
+            # bit-equal to a miss; every chunk starts block-aligned too).
+            # Quantized pools keep it unchunked, as the reference does: a
+            # hit attends a dequantized prefix, which no cut makes equal
             match = MatchResult(len(match.full) * self.serve.kv_block, match.full, None)
             matched = match.length
         if self._store is not None and plen > 1:
@@ -825,41 +830,56 @@ class Engine:
                  req: Request, gen: torch.Generator | None, end: int | None = None
                  ) -> int | None:
         """Prefill ``prompt[matched:end]`` (``end`` the prompt's length by
-        default) and, where it ends the prompt, sample the first token. With
-        ``matched`` positions already in the slot's blocks (a prefix match,
-        the COW copy included, or the earlier chunks of a chunked prefill),
-        their K/V is gathered from the pool through the slot's own table
-        into a contiguous context that the tail attends (quantized pools
-        dequantize it to the model dtype through the blocks' scale rows);
-        without one the context is just the prompt. The new K/V is
-        scattered into the slot's blocks. A chunk that does not end the
-        prompt samples nothing, so the request's generator draws only what
-        an unchunked prefill draws; it returns None."""
+        default) and, where it ends the prompt, sample the first token.
+
+        The tail runs through ``forward_with_cache`` in pieces that end on
+        ``kv_block`` boundaries (the last may end short of one), each
+        attending a contiguous context of exactly ``blocks_for(piece_end) *
+        kv_block`` positions. The ``matched`` positions (a prefix match, the
+        COW copy included, or the earlier chunks of a chunked prefill) have
+        their K/V gathered from the pool through the slot's own table into
+        the context's head (quantized pools dequantize it to the model dtype
+        through the blocks' scale rows). In a pool of the model dtype
+        ``matched`` is a multiple of ``kv_block`` (admission cuts a mid-block
+        match), so every position's K/V and the first token's logits come
+        from the same sequence of (start, rows, context length) calls
+        whatever the match, and a hit is bit-equal to a miss. Each piece's
+        K/V stays in the context for the next; the new K/V is scattered into
+        the slot's blocks at the end. A chunk that does not end the prompt
+        samples nothing, so the request's generator draws only what an
+        unchunked prefill draws; it returns None."""
         cfg, dev, B = self.cfg, self.device, self.serve.kv_block
         plen = len(prompt) if end is None else end
+        n = blocks_for(plen, B) * B
+        ctx = KVCache.create(cfg, 1, n, device=dev)
         if matched:
-            n_have = blocks_for(plen, B)
-            ids = torch.as_tensor(self._table[slot, :n_have], dtype=torch.int64,
-                                  device=dev)
+            ids = torch.as_tensor(self._table[slot, :blocks_for(matched, B)],
+                                  dtype=torch.int64, device=dev)
 
             def gather(pool: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
                 g = gather_blocks(pool, ids, dim=1)    # [L, n, Hkv, blk, hd]
                 if scale is not None:
                     sc = scale.index_select(1, ids)    # [L, n, Hkv]
                     g = dequantize_values(g, sc[..., None, None], cfg.dtype)
-                L, n, Hkv, blk, hd = g.shape
-                return g.permute(0, 1, 3, 2, 4).reshape(L, 1, n * blk, Hkv, hd)
+                L, nb, Hkv, blk, hd = g.shape
+                g = g.permute(0, 1, 3, 2, 4).reshape(L, 1, nb * blk, Hkv, hd)
+                return g[:, :, :matched]
 
             c = self.cache
-            ctx = KVCache(gather(c.k, c.k_scale), gather(c.v, c.v_scale))
-        else:
-            ctx = KVCache.create(cfg, 1, plen, device=dev)
+            ctx.k[:, :, :matched] = gather(c.k, c.k_scale)
+            ctx.v[:, :, :matched] = gather(c.v, c.v_scale)
         tail = torch.as_tensor(prompt[matched:plen], dtype=torch.int64, device=dev)[None]
-        logits, kv = forward_with_cache(self.params, tail, ctx, matched, cfg,
-                                        last_only=True)
+        bounds = [matched, *range((matched // B + 1) * B, plen, B), plen]
+        for s, e in zip(bounds, bounds[1:]):
+            m = blocks_for(e, B) * B
+            piece = KVCache(ctx.k[:, :, :m].contiguous(), ctx.v[:, :, :m].contiguous())
+            logits, _ = forward_with_cache(self.params, tail[:, s - matched:e - matched],
+                                           piece, s, cfg, last_only=True)
+            ctx.k[:, :, s:e] = piece.k[:, :, s:e]
+            ctx.v[:, :, s:e] = piece.v[:, :, s:e]
+        self._scatter_prompt(slot, ctx.k[:, 0, matched:plen], ctx.v[:, 0, matched:plen],
+                             matched, plen)
         if plen < len(prompt):
-            self._scatter_prompt(slot, kv.k[:, 0, matched:plen], kv.v[:, 0, matched:plen],
-                                 matched, plen)
             return None
         tok = sample_tokens(
             logits[:, 0],
@@ -868,8 +888,6 @@ class Engine:
             torch.tensor([req.top_p], dtype=torch.float32, device=dev),
             [gen], max_k=self.serve.max_top_k,
         )
-        self._scatter_prompt(slot, kv.k[:, 0, matched:plen],
-                             kv.v[:, 0, matched:plen], matched, plen)
         # explicit sync: the first token steers admission on the host
         return int(tok[0])
 

@@ -3032,16 +3032,17 @@ def ep_phase(card: str, moe: dict, shared: list) -> dict:
 # --- phase 9: tp and sp training, two ranks on one card -----------------------------
 
 PAR = 2
-PAR_STEPS = 2       # 3 until phase 16: the run's time limit
 # each step's loss (absolute) and grad norm (relative) against phase 5's:
 # about 10x the gaps measured on the H100 (loss 5e-4, grad norm 1.4e-4
 # relative at step 3, where warm-up's end makes the loss jump); a gradient
 # counted twice over tp or missing its 1/sp moves the norm far past it
 PAR_LOSS_ATOL = 5e-3
 PAR_GRAD_NORM_RTOL = 2e-3
-# (label, mesh axis, attention_impl, ce_impl): 9a Megatron tp on the flash
-# and CE kernels, 9b sp through ring_flash on the flash kernels
-PAR_RUNS = (("9a", "tp", "flash", "pallas"), ("9b", "sp", "ring_flash", "scan"))
+# (label, mesh axis, attention_impl, ce_impl, steps): 9a Megatron tp on the
+# flash and CE kernels, 9b sp through ring_flash on the flash kernels; 3
+# steps each until phase 16, 2 until phase 18 (9b: about 20 s a step): the
+# run's time limit
+PAR_RUNS = (("9a", "tp", "flash", "pallas", 2), ("9b", "sp", "ring_flash", "scan", 1))
 
 
 def par_runs(rank: int) -> dict:
@@ -3056,7 +3057,7 @@ def par_runs(rank: int) -> dict:
     base = dense_train_config()
     data = DataConfig(global_batch=8, seq_len=2048, vocab_size=base.vocab_size)
     runs = {}
-    for label, axis, impl, head in PAR_RUNS:
+    for label, axis, impl, head, n_steps in PAR_RUNS:
         cfg = dataclasses.replace(base, attention_impl=impl, ce_impl=head)
         steps: list[dict] = []
         attention.reset_launches()
@@ -3066,11 +3067,11 @@ def par_runs(rank: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         final = fit(FitConfig(model=cfg, data=data, mesh_shape=MeshShape(**{axis: PAR}),
-                              steps=PAR_STEPS, log_every=1, lr=3e-4, warmup_steps=2,
+                              steps=n_steps, log_every=1, lr=3e-4, warmup_steps=2,
                               mu_dtype="bfloat16", on_metrics=steps.append), device="cuda")
         runs[label] = {"metrics": steps, "final": final, "wall_s": time.perf_counter() - t0,
                        "launches": {**attention.LAUNCHES, **fused_ce.LAUNCHES},
-                       "bytes_per_step": {k: v / PAR_STEPS for k, v in pdist.BYTES.items()},
+                       "bytes_per_step": {k: v / n_steps for k, v in pdist.BYTES.items()},
                        "transport": rank_transport(),
                        "instances": check_tensor_core_path(cfg),
                        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3080,17 +3081,18 @@ def par_runs(rank: int) -> dict:
 
 def par_launches(label: str, rank: int, layers: int, chunks: int) -> dict[str, int]:
     """The launches phase 9's run ``label`` implies on ``rank`` over
-    PAR_STEPS steps. 9a: each flash kernel once per layer and step on the
+    its steps. 9a: each flash kernel once per layer and step on the
     rank's heads (remat keeps the forward), ce_fwd once a step, ce_dh and
     ce_dw once per vocab chunk a step, on the whole vocabulary. 9b: sp
     rank r runs r + 1 chunk pairs a layer (the diagonal causal, the
     earlier ones full; none for keys after its queries), forward, dq and
     dk/dv alike; the scan head runs no CE kernel. No plain version."""
+    n = next(r[4] for r in PAR_RUNS if r[0] == label)
     if label == "9a":
-        want = {**{n: layers * PAR_STEPS for n in FLASH_KERNELS}, "ce_fwd": PAR_STEPS,
-                "ce_dh": PAR_STEPS * chunks, "ce_dw": PAR_STEPS * chunks}
+        want = {**{k: layers * n for k in FLASH_KERNELS}, "ce_fwd": n,
+                "ce_dh": n * chunks, "ce_dw": n * chunks}
     else:
-        want = {**{n: layers * (rank + 1) * PAR_STEPS for n in FLASH_KERNELS},
+        want = {**{k: layers * (rank + 1) * n for k in FLASH_KERNELS},
                 **{n: 0 for n in CE_KERNELS}}
     want.update({f"{n}_plain": 0 for n in list(want)})
     return want
@@ -3105,7 +3107,7 @@ def par_phase(card: str, dense: dict, shared: list) -> dict:
     step's loss and grad norm within PAR_LOSS_ATOL and PAR_GRAD_NORM_RTOL
     of phase 5's (the same bf16 model and batches; the tp all-reduces, the
     ring's merges and the CE head sum in another order, and the schedule
-    matches phase 5's up to step PAR_STEPS); on each rank the kernels
+    matches phase 5's up to the run's last step); on each rank the kernels
     launched exactly the count the path implies (``par_launches``), on
     their tensor-core instances, no plain version."""
     from tony_tpu_torch.ops import fused_ce
@@ -3115,7 +3117,7 @@ def par_phase(card: str, dense: dict, shared: list) -> dict:
     cfg = dense_train_config()
     chunks = len(fused_ce.dlogits_chunks(cfg.vocab_size))
     out = {"wall_s": wall, "ranks": ranks}
-    for label, axis, impl, _ in PAR_RUNS:
+    for label, axis, impl, _, n_steps in PAR_RUNS:
         for r in ranks:
             run = r["runs"][label]
             want = par_launches(label, r["rank"], cfg.n_layers, chunks)
@@ -3129,19 +3131,20 @@ def par_phase(card: str, dense: dict, shared: list) -> dict:
             raise AssertionError(f"{label}: rank 1 reported metrics: rank 0 alone reports")
         metrics = ranks[0]["runs"][label]["metrics"]
         losses = [m["loss"] for m in metrics]
-        if len(losses) != PAR_STEPS or not all(math.isfinite(x) for x in losses):
+        if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{label} losses {losses}")
         diffs = [abs(a - b) for a, b in zip(losses, dense["losses"])]
         if max(diffs) > PAR_LOSS_ATOL:
             raise AssertionError(f"{label} losses {losses} against phase 5's "
-                                 f"{dense['losses'][:PAR_STEPS]}")
+                                 f"{dense['losses'][:n_steps]}")
         norms = [m["grad_norm"] for m in metrics]
         norm_diffs = [abs(a - b) / b for a, b in zip(norms, dense["grad_norms"])]
         if not all(math.isfinite(x) for x in norms) or max(norm_diffs) > PAR_GRAD_NORM_RTOL:
             raise AssertionError(f"{label} grad norms {norms} against phase 5's "
-                                 f"{dense['grad_norms'][:PAR_STEPS]}")
+                                 f"{dense['grad_norms'][:n_steps]}")
         run0 = ranks[0]["runs"][label]
-        timed = [m["step_time_s"] for m in metrics[RANK_WARMUP_STEPS:]]
+        # a one-step run has no step past the warm-up: its one step is read
+        timed = [m["step_time_s"] for m in metrics[RANK_WARMUP_STEPS:] or metrics]
         out[label] = {"axis": axis, "impl": impl, "losses": losses, "loss_diffs": diffs,
                       "grad_norms": norms, "grad_norm_rel_diffs": norm_diffs,
                       "mean_step_ms": sum(timed) / len(timed) * 1e3,
@@ -3565,26 +3568,28 @@ def elastic_runs(rank: int, work_dir: str) -> dict:
     return res
 
 
-def elastic_twin() -> dict:
-    """The one-process run phase 14 is held to: fit()'s optimizer and
-    initial state (seed 0) on ``elastic_config()``, fed ``reference_batches``
-    (both members' rows at full membership, member 0's while ELASTIC_PLAN
-    has member 1 out), each step's loss and grad norm."""
+def elastic_twin(cfg=None, steps: int = ELASTIC_STEPS, plan: dict | None = None) -> dict:
+    """The one-process run an elastic run is held to: fit()'s optimizer
+    and initial state (seed 0) on ``cfg`` (``elastic_config()``), fed
+    ``reference_batches`` (both members' rows at full membership, member
+    0's while ``plan`` (ELASTIC_PLAN) has member 1 out) for ``steps``
+    steps, each step's loss and grad norm."""
     from tony_tpu_torch.elastic import reference_batches
     from tony_tpu_torch.train.trainer import (
         default_optimizer, make_train_state, make_train_step,
     )
 
-    cfg, data = elastic_config(), elastic_data()
-    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=max(ELASTIC_STEPS, 3),
+    cfg, data = cfg or elastic_config(), elastic_data()
+    plan = ELASTIC_PLAN if plan is None else plan
+    opt = default_optimizer(lr=3e-4, warmup_steps=2, decay_steps=max(steps, 3),
                             mu_dtype="bfloat16")
     state = make_train_state(cfg, opt, seed=0, device="cuda")
     step_fn = make_train_step(cfg, opt)
     stream = reference_batches(data, 2, device="cuda")
     members, out = (0, 1), []
     try:
-        for i in range(ELASTIC_STEPS):
-            members = ELASTIC_PLAN.get(i, members)
+        for i in range(steps):
+            members = plan.get(i, members)
             x, y = next(stream)
             rows = data.global_batch // 2 * len(members)
             state, m = step_fn(state, x[:rows], y[:rows])
@@ -4242,8 +4247,6 @@ def job_gloo_phase(card: str) -> dict:
     process; on each rank the flash kernels once per layer and step and
     the CE kernels once a step (ce_dh and ce_dw once per vocab chunk), no
     plain version."""
-    from tony_tpu_torch.ops import fused_ce
-
     twin = job_gloo_twin()
     stage = tempfile.mkdtemp(prefix="chip_smoke_job_")
     cmd = (f"python train.py --preset bench_1b4 --layers {JOB_GLOO_LAYERS} --ce-impl "
@@ -4253,15 +4256,9 @@ def job_gloo_phase(card: str) -> dict:
     finally:
         shutil.rmtree(stage, ignore_errors=True)
     check_job("15b", job, 2)
-    chunks = len(fused_ce.dlogits_chunks(job_gloo_config().vocab_size))
-    want = {"ce_fwd": JOB_GLOO_STEPS, "ce_dh": JOB_GLOO_STEPS * chunks,
-            "ce_dw": JOB_GLOO_STEPS * chunks,
-            **{n: JOB_GLOO_LAYERS * JOB_GLOO_STEPS for n in FLASH_KERNELS}}
-    want.update({f"{n}_plain": 0 for n in list(want)})
     launches = [w["result"]["launches"] for w in job["workers"]]
     for r, lc in enumerate(launches):
-        if any(lc[k] != v for k, v in want.items()):
-            raise AssertionError(f"15b rank {r} launches {lc} != {want}")
+        check_train_launches(f"15b rank {r}", lc, JOB_GLOO_LAYERS, JOB_GLOO_STEPS)
     losses = job["workers"][0]["losses"]
     diffs = [abs(a - b) for a, b in zip(losses, twin)]
     if len(losses) != JOB_GLOO_STEPS or max(diffs) > JOB_GLOO_ATOL:
@@ -4550,6 +4547,159 @@ def operator_phase(card: str, job: dict, ce: dict) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return ca
+
+
+# --- phase 18: an elastic job that survives a dead member ---------------------------
+
+ELASTIC_JOB_STEPS = 24      # the chief's; the relaunched member joins within them
+# the chief's pause after each step while it trains alone: 23 steps of
+# about 1.1 s leave the relaunch 25 s (10.1 s to its join on the card,
+# the phase's probe)
+ELASTIC_JOB_PACE_S = 1.0
+ELASTIC_MEMBER_CMD = "python -m tony_tpu_torch.elastic.member"
+
+
+def result_of(app_dir: str, log_name: str) -> tuple[dict, dict[int, float]]:
+    """The JSON line the example prints last in a task's log, and its
+    rank-0 step lines' losses by step."""
+    with open(os.path.join(app_dir, "logs", log_name), errors="replace") as f:
+        lines = f.read().splitlines()
+    result = next((json.loads(x) for x in reversed(lines) if x.startswith('{"rank"')), None)
+    if result is None:
+        raise AssertionError(f"{log_name} holds no result line:\n" + "\n".join(lines[-40:]))
+    return result, {int(m.group(1)): float(m.group(2))
+                    for x in lines if (m := _STEP_LINE.search(x))}
+
+
+def check_train_launches(label: str, launches: dict, layers: int, steps: int) -> None:
+    """Kernels 1-6 at ``steps`` steps of a ``layers``-layer bench_1b4 with
+    the pallas CE head (the CE kernels once a step, ce_dh and ce_dw once a
+    vocab chunk), no plain version; raises otherwise."""
+    from tony_tpu_torch.ops import fused_ce
+
+    chunks = len(fused_ce.dlogits_chunks(job_gloo_config().vocab_size))
+    want = {"ce_fwd": steps, "ce_dh": steps * chunks, "ce_dw": steps * chunks,
+            **{n: layers * steps for n in FLASH_KERNELS}}
+    want.update({f"{n}_plain": 0 for n in list(want)})
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label} launches {got} != {want}")
+
+
+def elastic_job_phase(card: str) -> dict:
+    """Phase 18: an elastic job through the port's client, AM, local
+    backend, executor and ``elastic`` runtime, driven by ``tony chaos``: a
+    chief (``train.py --backend gloo``, bench_1b4 at full width and
+    ELASTIC_LAYERS layers, ``ce_impl=pallas``, 8 x 2048, ELASTIC_JOB_STEPS
+    steps) and one member (``python -m tony_tpu_torch.elastic.member``,
+    which runs the chief's command as rank 1), both ranks on this card.
+    The member's container is killed once the chief has finished a step
+    (``on_file`` on the marker the example touches after each step); the
+    chief's next collective fails, the AM declares the shrink, the chief
+    re-forms its group alone and redoes the step, the AM relaunches the
+    member, which joins at the grow. Held: exit 0 and a clean report from
+    the port's ``check_invariants``; generations start, shrink (dead 1),
+    grow (added 1); every reshard record with 0 lost steps; kernels 1-6 on
+    each rank at the steps it ran (the chief's redone step counted once
+    more), no plain version; the chief's losses within ELASTIC_ATOL of a
+    one-process twin fed the journal's boundaries."""
+    from tony_tpu_torch.am.events import read_history as read_events
+    from tony_tpu_torch.chaos.invariants import check_invariants
+    from tony_tpu_torch.elastic import journal_path, read_history, read_journal
+    from tony_tpu_torch.obs import trace_tool
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(root, JOB_EXAMPLE)
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    stage, marker = os.path.join(work, "apps"), os.path.join(work, "underway")
+    cmd = (f"python train.py --preset bench_1b4 --layers {ELASTIC_LAYERS} --ce-impl pallas "
+           f"--steps {ELASTIC_JOB_STEPS} --backend gloo --marker {marker} "
+           f"--pace {ELASTIC_JOB_PACE_S}")
+    faults = json.dumps([{"type": "kill_container", "task": "worker:0", "from_count": 1,
+                          "on_file": marker}])
+    t0 = time.perf_counter()
+    try:
+        r = tony("chaos", "--quiet", "--conf", os.path.join(ex, "tony.toml"), "--src-dir", ex,
+                 "-D", f"application.stage_dir={stage}", "-D", "application.framework=elastic",
+                 "-D", "job.chief.instances=1", "-D", f"job.chief.command={cmd}",
+                 "-D", "job.chief.tpu_chips=0", "-D", "job.worker.instances=1",
+                 "-D", f"job.worker.command={ELASTIC_MEMBER_CMD}",
+                 "-D", "elastic.grow_retry_s=0.5", "-D", "elastic.poll_interval_s=0.1",
+                 "--faults", faults, "--expect", "SUCCEEDED", timeout=JOB_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        apps = os.listdir(stage) if os.path.isdir(stage) else []
+        app_dir = os.path.join(stage, apps[0]) if len(apps) == 1 else ""
+        if r.returncode != 0:
+            raise AssertionError(tool_failed("18 tony chaos", r, app_dir))
+        res = json.loads(r.stdout[r.stdout.index("{"):])
+        report = check_invariants(app_dir)
+        if res["state"] != "SUCCEEDED" or not res["report"]["ok"] or not report.ok:
+            raise AssertionError(tool_failed(f"18 report {report.to_json()}", r, app_dir))
+        hist = [(g.boundary, g.members, g.dead, g.added) for g in read_history(app_dir)]
+        if hist != [("start", (0, 1), (), ()), ("shrink", (0,), (1,), ()),
+                    ("grow", (0, 1), (), (1,))]:
+            raise AssertionError(tool_failed(f"18 generations {hist}", r, app_dir))
+        reshards = [x for x in read_journal(journal_path(app_dir, 0)) if x["type"] == "reshard"]
+        if [x["boundary"] for x in reshards] != ["shrink", "grow"] or \
+                any(x["lost_steps"] for x in reshards):
+            raise AssertionError(f"18 journal reshards {reshards}")
+        chief, losses = result_of(app_dir, "chief_0_attempt0.log")
+        member, _ = result_of(app_dir, "worker_0_attempt1.log")
+        plan = {x["at_step"]: tuple(x["members"]) for x in reshards}
+        bounds, joined = chief["final"]["elastic_boundaries"], member["final"]["elastic_boundaries"]
+        # kernels 1-6 at the steps each rank ran: a step redone after a failed
+        # collective had run its forward and backward once already
+        grow_at = reshards[1]["at_step"]
+        for label, res_, ran in (("chief", chief, ELASTIC_JOB_STEPS
+                                  + (bounds[0].get("failed_in") == "step")),
+                                 ("member", member, ELASTIC_JOB_STEPS - grow_at)):
+            check_train_launches(f"18 {label}", res_["launches"], ELASTIC_LAYERS, ran)
+        twin = elastic_twin(job_gloo_config(), ELASTIC_JOB_STEPS, plan)["metrics"]
+        diffs = [abs(losses[i + 1] - w["loss"]) for i, w in enumerate(twin) if i + 1 in losses]
+        if sorted(losses) != list(range(1, ELASTIC_JOB_STEPS + 1)) or \
+                max(diffs) > ELASTIC_ATOL:
+            raise AssertionError(f"18 chief losses {losses} against the one-process run's "
+                                 f"{[w['loss'] for w in twin]}")
+        procs = trace_tool.load_journals(os.path.join(app_dir, "trace"))
+        ts = {i["name"]: i["ts"] for p in procs for i in p["instants"]
+              if i["name"] in ("chaos.kill_container", "am.elastic_shrink")}
+        starts = [e["ts"] for e in read_events(os.path.join(
+            app_dir, "events", os.listdir(os.path.join(app_dir, "events"))[0]))
+            if e["type"] == "TASK_STARTED" and e.get("task") == "worker:0"]
+        goodput = trace_tool.goodput(app_dir, procs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"wall_s": wall, "plan": plan, "reshards": reshards, "bounds": bounds,
+            "joined": joined[0], "diffs": diffs, "losses": losses,
+            "launches": [chief["launches"], member["launches"]],
+            "kill_to_shrink_s": (ts["am.elastic_shrink"] - ts["chaos.kill_container"]) / 1e6,
+            "start_to_join_s": joined[0]["wall"] - starts[1], "goodput": goodput,
+            "finals": [chief["final"], member["final"]]}
+
+
+def elastic_job_log(card: str, ej: dict) -> None:
+    shrink, grow = ej["bounds"]
+    log(f"18 elastic job (tony chaos of {JOB_EXAMPLE} under the elastic runtime: a chief, "
+        f"train.py --backend gloo, bench_1b4 at full width and {ELASTIC_LAYERS} layers, "
+        f"ce_impl=pallas, 8 x 2048, {ELASTIC_JOB_STEPS} steps, {ELASTIC_JOB_PACE_S} s a step "
+        f"paced while alone; one member, {ELASTIC_MEMBER_CMD}; both ranks on this card over gloo; "
+        f"kill_container on the member after the chief's first step): exit 0, the port's "
+        f"check_invariants clean; boundaries {ej['plan']} (lost_steps 0); kill to shrink "
+        f"declared {ej['kill_to_shrink_s']:.3f} s; the chief's failed collective "
+        f"({shrink.get('failed_in')}) of step {shrink['at_step']} to its re-formed group "
+        f"{shrink['failure_to_group_s']:.3f} s; reshard_s shrink {shrink['reshard_s']:.3f} s, "
+        f"grow {grow['reshard_s']:.3f} s (the member's join {ej['joined']['reshard_s']:.3f} "
+        f"s); the grow's broadcast {grow['broadcast_bytes'] / 1e9:.3f} GB in "
+        f"{grow['broadcast_s']:.3f} s (received {ej['joined']['broadcast_bytes'] / 1e9:.3f} "
+        f"GB in {ej['joined']['broadcast_s']:.3f} s); the relaunched member's start to its "
+        f"join {ej['start_to_join_s']:.3f} s; max |loss - the one-process run's| "
+        f"{max(ej['diffs']):.3e} (limit {ELASTIC_ATOL}); launches chief, member "
+        + "; ".join(", ".join(f"{k} {lc[k]}" for k in (*FLASH_KERNELS, *CE_KERNELS))
+                    for lc in ej["launches"])
+        + f", plain 0; goodput restart_s {ej['goodput']['restart_s']} over "
+        f"{ej['goodput']['generation_changes']} generation changes; p50 step "
+        + ", ".join(f"{f_['step_time_p50_s'] * 1e3:.1f}" for f_ in ej["finals"])
+        + f" ms per rank; phase wall {ej['wall_s']:.1f} s  [{card}]")
 
 
 RANKS = 2
@@ -5535,6 +5685,9 @@ def main() -> int:
         f"[{card}]")
 
     ca = operator_phase(card, ja, tc)
+    ej = elastic_job_phase(card)
+    elastic_job_log(card, ej)
+    torch.cuda.empty_cache()
 
     m = train_moe_phase(card)
     log(f"train bench_moe ({m['n_params']:,} params, {m['n_active_params']:,} active; "
@@ -5609,13 +5762,13 @@ def main() -> int:
         + ", ".join(f"{c['save_s']:.2f}" for c in ck["ranks"]) + " s, restore "
         + ", ".join(f"{c['restore_s']:.2f}" for c in ck["ranks"]) + f" s  [{card}]")
     par = par_phase(card, t, shared)
-    for label, axis, impl, head in PAR_RUNS:
+    for label, axis, impl, head, n_steps in PAR_RUNS:
         x = par[label]
         log(f"train bench_1b4 {label} at {axis}={PAR} through fit() (two rank processes on "
             f"this one card, attention_impl={impl}, ce_impl={head}, phase 5's weights and "
-            f"8 x 2048 batches): {PAR_STEPS} steps, loss {x['losses'][0]:.4f} -> "
+            f"8 x 2048 batches): {n_steps} steps, loss {x['losses'][0]:.4f} -> "
             f"{x['losses'][-1]:.4f}, max |loss - phase 5's| {max(x['loss_diffs']):.3e}; "
-            f"step {PAR_STEPS}'s time {x['mean_step_ms']:.1f} ms (each "
+            f"step {n_steps}'s time {x['mean_step_ms']:.1f} ms (each "
             + ", ".join(f"{t:.1f}" for t in x["step_ms"])
             + f" ms) over {x['transport']} (two ranks share the card and every transfer "
             f"goes through host memory: not an NCCL time); payload bytes a rank a step: "
@@ -5781,7 +5934,9 @@ def main() -> int:
                        **{f"14 rank {r}": el["launches"][r][name] for r in range(2)},
                        "15a": ja["launches"][name],
                        **{f"15b rank {r}": jb["launches"][r][name] for r in range(2)},
-                       "17a resumed": ca["launches"][name]},
+                       "17a resumed": ca["launches"][name],
+                       "18 chief": ej["launches"][0][name],
+                       "18 member": ej["launches"][1][name]},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -5818,7 +5973,9 @@ def main() -> int:
                           for label, *_ in PP_RUNS for r in range(PP)},
                        "15a": ja["launches"][name],
                        **{f"15b rank {r}": jb["launches"][r][name] for r in range(2)},
-                       "17a resumed": ca["launches"][name]},
+                       "17a resumed": ca["launches"][name],
+                       "18 chief": ej["launches"][0][name],
+                       "18 member": ej["launches"][1][name]},
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

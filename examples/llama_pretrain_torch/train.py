@@ -15,6 +15,11 @@ gloo on the CPU). ``--backend gloo`` forms it on gloo here first, which
 runtime gives every rank ``LOCAL_RANK`` 0. ``fit()`` pushes its metrics
 to the job's AM and reads the ``checkpoint.*`` keys from the env.
 
+Under the ``elastic`` runtime the script is the chief's command, and each
+other member runs it as its rank through ``python -m
+tony_tpu_torch.elastic.member``; a relaunched member joins the running
+gang instead of forming a group (``parallel/dist.py`` ``initialize``).
+
 At the end each rank prints one JSON line: the final report and every
 kernel module's launch counts.
 
@@ -31,6 +36,7 @@ import importlib
 import json
 import logging
 import os
+import time
 from dataclasses import replace
 
 
@@ -47,31 +53,44 @@ def main() -> None:
     p.add_argument("--device", default=None, help="cuda (default) | cpu")
     p.add_argument("--backend", default="", choices=["", "gloo"],
                    help="form the default group on gloo before fit()")
+    p.add_argument("--marker", default="",
+                   help="touch this file after every step, on rank 0 (a chaos fault's "
+                        "on_file arms on it); in a job it takes the place of the "
+                        "metric pushes")
+    p.add_argument("--pace", type=float, default=0.0,
+                   help="with --marker, sleep this many seconds after a step while the "
+                        "group is smaller than the launch's world (an elastic job short "
+                        "of a member: the relaunch's window)")
     args = p.parse_args()
 
     import torch
     import torch.distributed as dist
 
     from tony_tpu_torch.models.llama import LlamaConfig
+    from tony_tpu_torch.parallel.dist import initialize
     from tony_tpu_torch.train import DataConfig, FitConfig, fit
     from tony_tpu_torch.train.presets import bench_1b4_recipe
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.backend == "gloo" and world > 1 and not dist.is_initialized():
-        if args.device in (None, "cuda"):
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        dist.init_process_group("gloo", init_method="env://",
-                                rank=int(os.environ["RANK"]), world_size=world)
+    if args.backend == "gloo":
+        initialize(torch.device(args.device or "cuda"), backend="gloo")
     model = bench_1b4_recipe() if args.preset == "bench_1b4" else LlamaConfig.tiny()
     if args.layers:
         model = replace(model, n_layers=args.layers)
+    on_metrics = None
+    if args.marker:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+
+        def on_metrics(m: dict) -> None:
+            open(args.marker, "a").close()
+            if dist.is_initialized() and dist.get_world_size() < world:
+                time.sleep(args.pace)
     final = fit(FitConfig(
         model=model,
         data=DataConfig(global_batch=args.global_batch, seq_len=args.seq_len,
                         vocab_size=model.vocab_size, seed=args.seed),
         steps=args.steps, log_every=1, lr=3e-4, warmup_steps=2, mu_dtype="bfloat16",
-        ce_impl=args.ce_impl,
+        ce_impl=args.ce_impl, on_metrics=on_metrics,
     ), device=args.device)
     launches = {}
     for name in ("attention", "fused_ce", "decode_attention", "grouped_mm", "quant_mm",

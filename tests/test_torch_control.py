@@ -468,17 +468,16 @@ def test_build_env_equal_but_the_jax_cache(framework, ckpt, monkeypatch):
 
 def test_runtimes_the_port_refuses():
     """``jax`` is refused with the reference's message for an unknown
-    framework, listing the port's runtimes; ``elastic`` with the ROADMAP
-    item that will bring it. ``serve`` is the port's since gang serving
-    (tests/test_torch_gang.py holds its env against the reference's)."""
+    framework, listing the port's runtimes. ``serve`` is the port's since
+    gang serving (tests/test_torch_gang.py holds its env against the
+    reference's), ``elastic`` since the elastic runtime for one process per
+    rank (tests/test_torch_elastic_job.py)."""
     with pytest.raises(ValueError) as e:
         rrt.make_runtime("caffe")
     with pytest.raises(ValueError) as p:
         prt.make_runtime("jax")
-    assert str(p.value) == str(e.value).replace("'caffe'", "'jax'").replace(
-        "'elastic', ", "").replace("'jax', ", "")
-    with pytest.raises(ValueError, match=r"ROADMAP queue 1, item 10"):
-        prt.make_runtime("elastic")
+    assert str(p.value) == str(e.value).replace("'caffe'", "'jax'").replace("'jax', ", "")
+    assert type(prt.make_runtime("elastic")).__name__ == "ElasticRuntime"
     assert type(prt.make_runtime("serve")).__name__ == "ServeRuntime"
 
 

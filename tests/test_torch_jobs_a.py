@@ -4,7 +4,7 @@ state, task states and event types (``tests/torch_jobs.py``)."""
 
 import sys
 
-from torch_jobs import assert_same, submit_both
+from torch_jobs import assert_same, events, status, submit_both
 
 
 def test_two_generic_workers(tmp_path):
@@ -109,6 +109,20 @@ def test_gang_restart_restarts_every_worker(tmp_path):
     runs = submit_both(tmp_path, base, **{
         pkg: {"job.worker.command": script(tmp_path / f"{pkg}.marker")}
         for pkg in ("ref", "port")})
-    out = assert_same(runs)
-    assert out["code"] == 0 and all(a == 2 for _, a in out["tasks"].values())
+    # worker 1's first attempt ends after its 3 s sleep unless the restart
+    # kills it first: under load either comes first, in either package, so
+    # that one event is left out; the rest of its list and its status are held
+    out = assert_same(runs, racy=("worker:1",))
+    assert out["code"] == 0 and out["tasks"] == {"worker:0": ("SUCCEEDED", 2)}
     assert out["global"] == ["APPLICATION_INITED", "GANG_RESTART", "APPLICATION_FINISHED"]
+    for code, app_dir in runs.values():
+        tasks = {t["task"]: (t["state"], t["attempts"]) for t in status(app_dir)["tasks"]}
+        assert tasks["worker:1"] == ("SUCCEEDED", 2)
+        ev = [e["type"] + (f":{e['state']}" if "state" in e else "")
+              for e in events(app_dir) if e.get("task") == "worker:1"
+              and e["type"] != "METRICS"]
+        first = ev[:ev.index("TASK_STARTED", 1)]
+        assert first in (["TASK_STARTED", "TASK_REGISTERED"],
+                         ["TASK_STARTED", "TASK_REGISTERED", "TASK_FINISHED:SUCCEEDED"]), ev
+        assert ev[len(first):] == ["TASK_STARTED", "TASK_REGISTERED",
+                                   "TASK_FINISHED:SUCCEEDED"], ev

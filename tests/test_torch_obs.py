@@ -252,7 +252,9 @@ def test_diagnostics_dumps_stacks_periodically(tmp_path, monkeypatch):
 # --- fit() and the engine, armed in both packages ---------------------------------
 
 
-def _fit_spans(tmp_path, name):
+def _fit_spans(tmp_path, name, resume: bool = False):
+    """One armed 4-step ``fit()`` of the package ``name`` ("port" or "ref");
+    with ``resume``, resumed from a step-2 checkpoint an unarmed run wrote."""
     from tony_tpu.models import llama as jl
     from tony_tpu.train import data as jdata
     from tony_tpu.train import loop as jloop
@@ -264,16 +266,25 @@ def _fit_spans(tmp_path, name):
     loop, lm, dm, tr, hm = ((ploop, pl, pdata, trace, health) if port
                             else (jloop, jl, jdata, jtrace, jhealth))
     app = tmp_path / name
+
+    def config(steps: int, **kw):
+        return loop.FitConfig(
+            model=lm.LlamaConfig.tiny(attention_impl="dot", remat=False),
+            data=dm.DataConfig(global_batch=8, seq_len=16, vocab_size=256, prefetch=0),
+            steps=steps, log_every=4, warmup_steps=1, **kw)
+
+    ckpt = {}
+    if resume:
+        ckpt = {"checkpoint_dir": str(tmp_path / f"{name}-ckpt"), "checkpoint_every": 2}
+        cfg = config(2, **ckpt)
+        loop.fit(cfg, device="cpu") if port else loop.fit(cfg)
     env = {"TONY_APP_DIR": str(app), "TONY_TRACE_DIR": str(app / "trace"),
            "TONY_TRACE_PROC": "worker_0_user", "TONY_TRACE_SAMPLE": "1",
            "TONY_OBS_SERIES": "0", "TONY_OBS_HEALTH_SAMPLE": "1"}
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        cfg = loop.FitConfig(
-            model=lm.LlamaConfig.tiny(attention_impl="dot", remat=False),
-            data=dm.DataConfig(global_batch=8, seq_len=16, vocab_size=256, prefetch=0),
-            steps=4, log_every=4, warmup_steps=1)
+        cfg = config(4, **ckpt)
         final = loop.fit(cfg, device="cpu") if port else loop.fit(cfg)
         tr.flush()
         tr.uninstall()
@@ -313,6 +324,25 @@ def test_fit_armed_spans_and_verdict_like_reference(tmp_path):
                 if m["name"] == "tony_step_time_seconds"]
 
     assert count(got_snap) == [3]
+
+
+def test_fit_resumed_opens_the_restore_span_like_reference(tmp_path):
+    """Both packages' armed ``fit()`` resumed from a checkpoint: the same
+    span names and parents (less the compile spans), a
+    ``fit.startup.restore`` span under ``train.fit`` among them, and a
+    restore time above 0 in each package's ``tony trace`` goodput."""
+    from tony_tpu.obs import trace_tool as jtrace_tool
+    from tony_tpu_torch.obs import trace_tool
+
+    got, got_spans, _, _ = _fit_spans(tmp_path, "port", resume=True)
+    want, want_spans, _, _ = _fit_spans(tmp_path, "ref", resume=True)
+    assert [s[:2] for s in got_spans] == [s[:2] for s in want_spans]
+    assert ("fit.startup.restore", "train.fit", None) in got_spans
+    assert got["startup"]["restore_s"] >= 0 and "restore_s" in want["startup"]
+    for name, tool in (("port", trace_tool), ("ref", jtrace_tool)):
+        app = str(tmp_path / name)
+        assert tool.report(app, tool.load_journals(os.path.join(app, "trace"))
+                           )["goodput"]["restore_s"] > 0
 
 
 def _engine_run(tmp_path, port: bool):

@@ -92,7 +92,8 @@ WHICH = ["port", "ref"]
 def _mask(obj):
     """Ages, timestamps and clocks read from the wall clock, masked."""
     text = json.dumps(obj, sort_keys=True) if not isinstance(obj, str) else obj
-    text = re.sub(r'("(?:age_s|ts|now|generated_at|freshness_s)": )[-0-9.e]+', r"\1T", text)
+    text = re.sub(r'("(?:age_s|rollup_age_s|ts|now|generated_at|freshness_s)": )[-0-9.e]+',
+                  r"\1T", text)
     text = re.sub(r"\b\d\d:\d\d:\d\d\b", "HH:MM:SS", text)
     text = re.sub(r"\b\d+(\.\d+)?s\b", "Ns", text)
     text = re.sub(r"(tony_snapshot_age_seconds\{[^}]*\}) [-0-9.e+]+", r"\1 T", text)

@@ -516,7 +516,8 @@ def _elastic(args: dict, mesh) -> dict:
     pairs); ``args["params"]`` an ``.npz`` of the initial parameters (the
     reference's), cut into this rank's blocks; with ``args["poison"]`` a
     member rejoining a generation starts from a copy of the state filled
-    with NaN. Returns the final report,
+    with NaN; with ``args["kill"]`` a rank dies mid-step (:func:`_arm_kill`).
+    Returns the final report,
     every push, the steps a poisoned join was made at and this rank's
     blocks of the parameters after the last step."""
     import torch
@@ -539,6 +540,8 @@ def _elastic(args: dict, mesh) -> dict:
 
     if args.get("poison"):
         loop._Elastic._join = poisoning_join
+    if args.get("kill"):
+        _arm_kill(args["kill"], args["fit"]["elastic_dir"])
     make_state = loop.make_train_state
     if args.get("params"):
         from tony_tpu_torch.models.convert import shards_from_numpy
@@ -578,6 +581,38 @@ def _elastic(args: dict, mesh) -> dict:
         loop._Elastic._join = join
     return {"final": final, "metrics": seen, "poisoned": poisoned,
             "params": {"/".join(p): t.detach().numpy() for p, t in _items(last["params"])}}
+
+
+def _arm_kill(kill: dict, elastic_dir: str) -> None:
+    """Rank ``kill["rank"]`` (one rank a member) dies by SIGKILL right after
+    its dp gradient sum of step ``kill["step"]``, before the step's loss
+    mean and the update, once it has declared its own loss in the
+    generation file as a job's AM would: a shrink to the other members."""
+    import signal
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch import elastic
+    from tony_tpu_torch.train import trainer
+
+    me = dist.get_rank()
+    if me != kill["rank"]:
+        return
+    psum, calls = trainer.bucketed_psum, []
+
+    def dying(grads, axis, **kw):
+        out = psum(grads, axis, **kw)
+        if axis == "dp":
+            calls.append(axis)
+            if len(calls) == kill["step"] + 1:
+                survivors = tuple(m for m in range(dist.get_world_size()) if m != me)
+                elastic.write_generation(elastic_dir, elastic.GenerationRecord(
+                    generation=1, members=survivors, boundary="shrink", dead=(me,),
+                    reason="killed after its gradient sum"))
+                os.kill(os.getpid(), signal.SIGKILL)
+        return out
+
+    trainer.bucketed_psum = dying
 
 
 def _moe_block(args: dict, mesh) -> dict:

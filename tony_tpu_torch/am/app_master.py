@@ -17,9 +17,9 @@ The port's copy of ``tony_tpu/am/app_master.py``. It launches the port's
 executor (``python -m tony_tpu_torch.executor``), validates the job against
 the port's runtimes (``pytorch`` by default) and arms the port's spine
 from the job's config. The elastic and serve branches are the reference's
-as they are; no job reaches them yet, since the port's ``make_runtime``
-refuses the ``elastic`` and ``serve`` frameworks (ROADMAP queue 1, item
-10).
+as they are: an ``elastic`` job's lost member becomes a shrink generation
+in the app dir, which the chief's ``fit()`` reads, and grow-back
+relaunches the member, whose executor's registration declares the grow.
 """
 
 from __future__ import annotations

@@ -12,10 +12,14 @@ A member that grows back receives the whole state by broadcast from a
 survivor. The reference is one controller process owning every member's
 devices; the port runs one process per rank (``train/loop.py``).
 
-The reference's seat-holder agent (``elastic/member.py``) and the
-dead-member path (a member lost in the middle of a collective, which the
-job's AM detects) wait for the elastic runtime of one process per rank
-(ROADMAP queue 1, item 10).
+In a job (the ``elastic`` runtime) every member is a rank of one group:
+the chief trains as member 0, and every other member's user process is
+``python -m tony_tpu_torch.elastic.member``, which runs the chief's
+command as its rank (``member.py``). A member lost in the middle of a
+step breaks that step's collectives on every survivor: the survivors wait
+for the AM's shrink generation, re-form their group without it and redo
+the step from the state they held; the relaunched member joins the
+running gang at the grow boundary (``train/loop.py`` ``_Elastic``).
 
 The protocol layer (generation records, controller, journals) is
 stdlib-only so a control-plane process imports it without torch; the

@@ -43,6 +43,9 @@ ENV_MEMBERS = "TONY_ELASTIC_MEMBERS"          # gang size at full strength
 ENV_MEMBER = "TONY_ELASTIC_MEMBER"            # this process's member id
 ENV_POLL = "TONY_ELASTIC_POLL_S"              # generation-file poll cadence
 ENV_SHADOW = "TONY_ELASTIC_SHADOW_STEPS"      # checkpoint-shadow stride
+# the port's: the job's detection time in seconds (heartbeat interval x
+# missed heartbeats), which times fit()'s collectives and its shrink wait
+ENV_DETECT = "TONY_ELASTIC_DETECT_S"
 
 GENERATION_FILE = "generation.json"
 HISTORY_FILE = "generations.jsonl"
@@ -430,6 +433,7 @@ def install_from_env() -> ElasticController | None:
 
 __all__ = [
     "DEFAULT_TOLERANCE",
+    "ENV_DETECT",
     "ENV_ENABLED",
     "ENV_MEMBER",
     "ENV_MEMBERS",

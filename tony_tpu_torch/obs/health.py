@@ -410,6 +410,17 @@ class HealthSentinel:
         the step about to run is one whose values are read."""
         return (self._n + 1) % self.sample_every == 0
 
+    @property
+    def steps_seen(self) -> int:
+        """The seam's stride count. Every rank of a mesh reads the same
+        steps only while their counts agree: a member that joins a
+        running elastic gang takes the survivors' (``train/loop.py``)."""
+        return self._n
+
+    @steps_seen.setter
+    def steps_seen(self, n: int) -> None:
+        self._n = int(n)
+
     def observe_async(self, args: dict[str, Any]) -> None:
         try:
             with self._lock:

@@ -8,7 +8,18 @@ contract as ``tony_tpu/runtime/frameworks.py:52-63`` writes it
 (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``) and picks NCCL for CUDA, gloo for the CPU. A default group
 that already exists is used as it is: that is how a caller runs gloo on a
-CUDA device (two ranks on one card, which NCCL refuses) without a knob.
+CUDA device (two ranks on one card, which NCCL refuses) without a knob,
+or ``backend="gloo"`` asks for it.
+
+In an elastic job (the ``elastic`` runtime) :func:`initialize` gives the
+group the timeout the job's detection time implies
+(:func:`elastic_timeout`), and a relaunched member that finds its gang
+still training on the run's store does not rendezvous at the world size
+it was launched with, which no longer exists: it keeps a client of that
+store (:func:`elastic_rejoin`) and ``fit()`` joins the gang through it.
+Every wait on a collective raises torch.distributed's
+``DistBackendError`` when the transport fails (:func:`wait_work`), which
+is what an elastic ``fit()`` catches.
 
 This module is also the one place where a mesh axis's communication
 happens: the ring hop (:func:`start_hop`, the reference's
@@ -52,6 +63,15 @@ log = logging.getLogger(__name__)
 ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
 
 _staged_logged = False
+
+# the fixed store key under which an elastic run's coordinator leaves its
+# run key, where a relaunched member reads it
+ELASTIC_RUN_KEY = "elastic/run"
+# an elastic run's collective timeout: this many detection times, and no
+# less than the floor (a first step's kernel loads differ across ranks)
+ELASTIC_TIMEOUT_DETECTIONS = 2
+ELASTIC_TIMEOUT_FLOOR_S = 60.0
+_rejoin: tuple[Any, str] | None = None
 
 # the payload bytes this rank hands to each kind of transfer (a tensor's
 # size once per call, whatever the transport's algorithm moves on the wire)
@@ -105,17 +125,24 @@ class Axis:
     group: Any = None
 
 
-def initialize(device: torch.device) -> bool:
+def initialize(device: torch.device, backend: str = "") -> bool:
     """Join the default process group; True when one is up.
 
     An existing default group is kept as it is. Otherwise, with
     ``WORLD_SIZE`` above 1 in the environment, the group comes up from the
-    env contract (``init_method="env://"``), NCCL for a CUDA ``device``
-    (``LOCAL_RANK`` its card) and gloo otherwise. Without ``WORLD_SIZE``
-    (or at 1) this is a one-process run and nothing is brought up, as the
-    reference's bootstrap is a no-op outside a job."""
+    env contract (``init_method="env://"``), on ``backend`` or else NCCL
+    for a CUDA ``device`` (``LOCAL_RANK`` its card) and gloo otherwise.
+    Without ``WORLD_SIZE`` (or at 1) this is a one-process run and nothing
+    is brought up, as the reference's bootstrap is a no-op outside a job.
+    A relaunched elastic member whose gang is still training brings up no
+    group either (:func:`elastic_rejoin`), and a later call keeps the
+    backend the first one found (``fit()`` calls this after a script that
+    asked for gloo)."""
+    global _rejoin
     if dist.is_initialized():
         return True
+    if _rejoin is not None:
+        return False
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
         return False
@@ -124,10 +151,54 @@ def initialize(device: torch.device) -> bool:
         raise RuntimeError(f"WORLD_SIZE={world} but the env contract lacks {missing}")
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method="env://", rank=int(os.environ["RANK"]),
-                            world_size=world)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    timeout = elastic_timeout()
+    rank = int(os.environ["RANK"])
+    if timeout is not None and rank > 0 and int(os.environ.get("TONY_ATTEMPT", "0")) > 0:
+        # a relaunched member: rank 0's store outlives every generation
+        store = dist.TCPStore(os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"]),
+                              is_master=False, timeout=timeout, wait_for_workers=False)
+        if store.check([ELASTIC_RUN_KEY]):
+            log.warning("elastic member relaunched into a running gang: joining it "
+                        "through the run's store, not at world size %d", world)
+            _rejoin = (store, backend)
+            return False
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            **({"timeout": timeout} if timeout is not None else {}))
     return True
+
+
+def elastic_timeout():
+    """An elastic job's collective timeout (a ``timedelta``) from the
+    detection time its runtime exports; None outside one."""
+    from datetime import timedelta
+
+    from tony_tpu_torch.elastic.protocol import ENV_DETECT, ENV_ENABLED
+
+    detect_s = float(os.environ.get(ENV_DETECT, "0") or 0)
+    if os.environ.get(ENV_ENABLED) != "1" or detect_s <= 0:
+        return None
+    return timedelta(seconds=max(ELASTIC_TIMEOUT_DETECTIONS * detect_s,
+                                 ELASTIC_TIMEOUT_FLOOR_S))
+
+
+def elastic_rejoin() -> tuple[Any, str] | None:
+    """``(store, backend)`` when :func:`initialize` found this relaunched
+    elastic member's gang still training: a client of the run's store
+    (rank 0's, which no generation drops) and the backend to join on."""
+    return _rejoin
+
+
+def wait_work(work) -> None:
+    """Wait for an issued collective. A failed transport (a peer gone, a
+    timeout) raises ``DistBackendError``, as NCCL's does; gloo raises a
+    plain RuntimeError, which this wraps."""
+    try:
+        work.wait()
+    except dist.DistError:
+        raise
+    except RuntimeError as e:
+        raise dist.DistBackendError(str(e)) from e
 
 
 def world() -> tuple[int, int]:
@@ -168,7 +239,7 @@ class Pending:
 
     def wait(self) -> torch.Tensor:
         for w in self._works:
-            w.wait()
+            wait_work(w)
         return self._finish()
 
 
@@ -249,7 +320,7 @@ def broadcast(t: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
     else:
         buf = torch.empty(t.shape, dtype=t.dtype,
                           device="cpu" if _staged(t, axis) else t.device)
-    dist.broadcast(buf, axis.ranks[src], group=axis.group)
+    wait_work(dist.broadcast(buf, axis.ranks[src], group=axis.group, async_op=True))
     return _back(buf, t.device, "broadcast")
 
 
@@ -302,7 +373,7 @@ def all_to_all(t: torch.Tensor, axis: Axis, split_dim: int, concat_dim: int) -> 
                          f"{axis.name}={axis.size}")
     src = _source(torch.stack(t.chunk(axis.size, split_dim)), axis, "all_to_all")
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=axis.group)
+    wait_work(dist.all_to_all_single(out, src, group=axis.group, async_op=True))
     return torch.cat(_back(out, t.device, "all_to_all").unbind(0), concat_dim)
 
 

@@ -22,7 +22,7 @@ from typing import Iterator
 import numpy as np
 import torch.distributed as dist
 
-from tony_tpu_torch.parallel.dist import Axis, world
+from tony_tpu_torch.parallel.dist import Axis, elastic_timeout, world
 
 # Canonical axis order: slice-crossing / outermost first.
 MESH_AXES = ("dp", "pp", "fsdp", "ep", "tp", "sp")
@@ -102,7 +102,7 @@ def build_mesh(shape: MeshShape | None = None) -> Mesh:
         # one group per line along the axis: every other coordinate fixed
         for line in np.moveaxis(grid, i, -1).reshape(-1, n):
             ranks = tuple(int(r) for r in line)
-            group = dist.new_group(list(ranks))
+            group = dist.new_group(list(ranks), timeout=elastic_timeout())
             if rank in ranks:
                 axes[name] = Axis(name, n, int(coords[i]), ranks, group)
     return Mesh(shape, rank, axes)

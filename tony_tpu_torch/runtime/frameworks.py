@@ -9,9 +9,9 @@ the reference.
 The port's copy of ``tony_tpu/runtime/frameworks.py``, whose first-class
 runtime here is ``pytorch``: ``parallel/dist.py`` forms the default process
 group from the env it exports. ``ServeRuntime`` exports the gang's env to the
-port's decode hosts (``serve/gang.py``). The reference's ``ElasticRuntime``
-is not ported yet (ROADMAP queue 1, item 10), and
-:func:`tony_tpu_torch.runtime.make_runtime` refuses its framework.
+port's decode hosts (``serve/gang.py``). ``ElasticRuntime`` exports the
+``pytorch`` contract to every member, each a rank of one group, with the
+reference's ``TONY_ELASTIC*`` keys beside it.
 """
 
 from __future__ import annotations
@@ -159,6 +159,90 @@ class MLGenericRuntime(Runtime):
         return True
 
 
+class ElasticRuntime(Runtime):
+    """Elastic training gangs (tony_tpu_torch/elastic/; docs/ELASTIC.md).
+
+    The reference's gang is one single-controller trainer (the chief,
+    member 0) plus member agents that hold seats and own no devices. The
+    port runs one process per rank, so every member is a rank of ONE
+    process group: each task gets the ``pytorch`` runtime's contract
+    (``MASTER_ADDR``/``MASTER_PORT`` of rank 0's task, ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``) in place of the reference's
+    single-process ``TONY_NUM_PROCESSES=1`` and ``JAX_*`` keys, and the
+    reference's ``TONY_ELASTIC*`` keys, which ``fit()`` arms on. A member's
+    user process (``python -m tony_tpu_torch.elastic.member``) runs the
+    chief's command as its rank. ``TONY_ELASTIC_DETECT_S`` is the job's
+    detection time (``task.heartbeat_interval_ms`` x
+    ``task.max_missed_heartbeats``), from which ``fit()`` times its
+    groups' collectives and its wait for the AM's shrink.
+    """
+
+    name = "elastic"
+
+    def validate(self, config: TonyConfig) -> None:
+        from tony_tpu_torch.config.keys import Keys
+
+        specs = {
+            name: config.task_spec(name) for name in config.job_types()
+        }
+        # the coordinator must be the chief: job completion follows the
+        # trainer, and the rank table puts "chief" first so it is member 0
+        if "chief" not in specs or specs["chief"].instances != 1:
+            raise ValueError(
+                "elastic jobs need a [job.chief] trainer with instances = 1 "
+                "(member agents run python -m tony_tpu_torch.elastic.member)"
+            )
+        tracked_types = sorted(
+            name for name, s in specs.items() if not s.untracked
+        )
+        if tracked_types and tracked_types[0] != "chief":
+            # member ranks come from the sorted-type rank table; the AM's
+            # elastic path treats rank 0 as the trainer, so a member type
+            # sorting before "chief" would silently swap those roles
+            raise ValueError(
+                f"elastic member type {tracked_types[0]!r} sorts before "
+                "'chief': the trainer must be member 0 (rank table is "
+                "sorted-type order) — rename the member type"
+            )
+        tracked = sum(
+            s.instances for s in specs.values() if not s.untracked
+        )
+        min_members = config.get_int(Keys.ELASTIC_MIN_MEMBERS, 1)
+        if tracked < 2:
+            raise ValueError(
+                "elastic jobs need >= 2 tracked member instances "
+                f"(got {tracked}); a 1-member gang has nothing to shrink"
+            )
+        if not 1 <= min_members < tracked:
+            raise ValueError(
+                f"elastic.min_members={min_members} must be in "
+                f"[1, {tracked - 1}] for a {tracked}-member gang"
+            )
+
+    def build_env(self, identity: TaskIdentity, config: TonyConfig) -> dict[str, str]:
+        from tony_tpu_torch.config.keys import Keys
+        from tony_tpu_torch.elastic.protocol import (
+            ENV_DETECT, ENV_ENABLED, ENV_MEMBER, ENV_MEMBERS, ENV_POLL, ENV_SHADOW,
+        )
+
+        env = PyTorchRuntime().build_env(identity, config)
+        detect_s = (config.get_int(Keys.TASK_HEARTBEAT_INTERVAL_MS, 1000) / 1000
+                    * config.get_int(Keys.TASK_MAX_MISSED_HEARTBEATS, 25))
+        env.update(
+            {
+                ENV_ENABLED: "1",
+                ENV_MEMBERS: str(identity.num_processes),
+                ENV_MEMBER: str(max(identity.process_id, 0)),
+                ENV_POLL: str(config.get_float(Keys.ELASTIC_POLL_S, 0.5)),
+                ENV_SHADOW: str(
+                    config.get_int(Keys.ELASTIC_SHADOW_STEPS, 16)
+                ),
+                ENV_DETECT: str(detect_s),
+            }
+        )
+        return env
+
+
 class ServeRuntime(Runtime):
     """`tony serve` gang workers (serve/gang.py; docs/SERVE.md).
 
@@ -211,6 +295,7 @@ class ServeRuntime(Runtime):
 
 
 __all__ = [
+    "ElasticRuntime",
     "HorovodRuntime",
     "MLGenericRuntime",
     "MXNetRuntime",

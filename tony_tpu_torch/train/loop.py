@@ -59,7 +59,10 @@ each (dp 1 inside a member; None: fsdp over the member's ranks), the
 members on dp. At a generation boundary (the ``elastic_plan``, which
 outranks the broadcast file ``generation.json`` under ``elastic_dir`` or
 the job's app dir) the process group is formed again over the live
-members' ranks; see :class:`_Elastic`.
+members' ranks; see :class:`_Elastic`. A member lost in the middle of a
+step (a collective raises ``DistError``) is the AM's to declare: the
+survivors wait for its shrink, re-form the group and redo the step from
+the state they held; a relaunched member joins the running gang.
 
 Observability, as the reference arms it (``obs/``): ``fit()`` arms the
 trace spine (``TONY_TRACE_DIR``), the memory watch, the health sentinel,
@@ -241,6 +244,11 @@ def _state_tree(state: TrainState) -> dict:
     return {"step": state.step, "params": state.params, "opt_state": state.opt_state}
 
 
+# the boundary a left-out member reports when the run ended before a
+# generation named it again
+_ENDED = "ended"
+
+
 class _Elastic:
     """fit()'s elastic runtime: the member topology, the generation
     watcher, the host shadow and the membership-aware batch stream, over
@@ -253,15 +261,33 @@ class _Elastic:
     rank reads the same scripted plan; a file-broadcast generation reaches
     the other ranks by one small broadcast a step from rank 0 (an int64
     tensor of ``n_members + 1``: the generation and a live flag a member),
-    made only when the run has an elastic dir to watch. :meth:`reshard` is
-    the generation boundary; a member left out of a generation leaves the
-    group and waits (:meth:`_wait`) for one that names it.
+    made only when the run has an elastic dir to watch. A generation that
+    adds a member is held back until every rank of it waits on the run's
+    store. :meth:`reshard` is the generation boundary; a member left out
+    of a generation leaves the group and waits (:meth:`_wait`) for one
+    that names it.
+
+    The dead member. A member killed in the middle of a step breaks that
+    step's collectives on every survivor, and every collective across
+    members (the per-step broadcast, the dp gradient sum, the loss mean)
+    comes before the optimizer's update, so a survivor whose collective
+    raised (``DistError``, :func:`~tony_tpu_torch.parallel.dist.wait_work`)
+    still holds the state the step started from. :meth:`failed` then waits
+    for the shrink, without the broken group: the coordinator reads the
+    AM's declaration from the generation history, the other survivors the
+    coordinator's announcement on the run's store; the boundary is the
+    failed step, which is redone over the re-formed group, the dead
+    member's rows from it skipped and declared. A relaunched member
+    (``pdist.elastic_rejoin``) joins the running gang from the store: it
+    adopts the last announced generation and waits for the one that
+    names it, receiving the whole state by broadcast.
     """
 
     def __init__(self, cfg: FitConfig, device: torch.device):
         from tony_tpu_torch import elastic
 
-        if not dist.is_initialized():
+        rejoin = pdist.elastic_rejoin()
+        if not dist.is_initialized() and rejoin is None:
             raise RuntimeError(
                 "elastic fit() runs one process per rank of every member: bring "
                 "up the default process group (the env contract, or "
@@ -276,23 +302,51 @@ class _Elastic:
         self.app_dir = cfg.elastic_dir or settings.app_dir or os.environ.get("TONY_APP_DIR", "")
         if cfg.elastic_shadow_steps:
             settings.shadow_interval_steps = cfg.elastic_shadow_steps
-        rank, world = pdist.world()
+        if rejoin is None:
+            rank, world = pdist.world()
+        else:
+            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         self.topology = elastic.ElasticTopology(cfg.elastic_members, per_member=cfg.mesh_shape,
                                                 world=world)
         self.member, self.local = self.topology.member_of(rank)
+        self.rank = rank                       # at full strength
         self.coordinator = rank == 0
         settings.member = self.member
         settings.app_dir = self.app_dir if self.coordinator else ""
         self.controller = elastic.ElasticController(settings, watch=bool(settings.app_dir))
         self.shadow = elastic.ShadowStore(interval_steps=settings.shadow_interval_steps)
-        self.backend = dist.get_backend()
-        # the store the run started with: every generation's group forms on
-        # a prefix of it, and a waiting member reads announcements there
-        self.base_store = dist.distributed_c10d._get_default_store()
-        key = [f"{os.getpid()}-{time.time_ns()}"]
-        dist.broadcast_object_list(key, src=0)
-        self.run_key = f"elastic/{key[0]}"
-        self.mesh = build_mesh(self.topology.shape_for(self.controller.members))
+        # an elastic job's collectives time out after its detection time
+        # implies; how long a survivor waits for the shrink, too
+        self.timeout = pdist.elastic_timeout()
+        self.failure = None           # the shrink a failed collective waits on
+        self._failed: tuple[float, str] | None = None     # (when, "step" | "agree")
+        self.rejoining = rejoin is not None
+        if rejoin is None:
+            self.backend = dist.get_backend()
+            # the store the run started with, under the default group's
+            # prefix: every generation's group forms on a prefix of it,
+            # and a waiting or relaunched member reads announcements there
+            store = dist.distributed_c10d._get_default_store()
+            while isinstance(store, dist.PrefixStore):
+                store = store.underlying_store
+            self.base_store = store
+            key = [f"{os.getpid()}-{time.time_ns()}"]
+            dist.broadcast_object_list(key, src=0)
+            self.run_key = f"elastic/{key[0]}"
+            if self.coordinator:
+                self.base_store.set(pdist.ELASTIC_RUN_KEY, self.run_key)
+            self.mesh = build_mesh(self.topology.shape_for(self.controller.members))
+        else:
+            if self.topology.ranks_per_member != 1:
+                raise NotImplementedError(
+                    "a relaunched elastic member rejoins as one rank; this gang's members "
+                    f"are {self.topology.ranks_per_member} ranks each")
+            self.base_store, self.backend = rejoin
+            self.run_key = self.base_store.get(pdist.ELASTIC_RUN_KEY).decode()
+            latest = self._latest()
+            if latest:
+                self.controller.applied(self._announced(latest)[0])
+            self.mesh = build_mesh()          # one rank, until the join
         self.stream = None
         self.plan = {int(k): tuple(v) for k, v in (cfg.elastic_plan or {}).items()}
         self.reshards = 0
@@ -321,27 +375,49 @@ class _Elastic:
             boundary="shrink" if old - new else "grow",
             dead=tuple(sorted(old - new)), added=tuple(sorted(new - old)), reason=reason)
 
+    def _key(self, *parts) -> str:
+        return "/".join((self.run_key, *(str(p) for p in parts)))
+
+    def _ready(self, rec) -> bool:
+        """Whether every rank ``rec`` adds waits on the store, caught up
+        with this generation (:meth:`_wait`)."""
+        for m in rec.members:
+            if m in self.controller.members:
+                continue
+            for local in range(self.topology.ranks_per_member):
+                key = self._key("ready", self.topology.rank_of(m, local))
+                if not self.base_store.check([key]) or \
+                        int(self.base_store.get(key)) < self.controller.generation:
+                    return False
+        return True
+
     def _agree(self):
         """Rank 0's pending broadcast record on every live rank."""
         n = self.topology.n_members
         buf = torch.zeros(n + 1, dtype=torch.int64,
                           device=self.device if self.backend == "nccl" else "cpu")
         rec = self.controller.pending() if self.coordinator else None
+        if rec is not None and not self._ready(rec):
+            rec = None              # a member it adds is not waiting yet
         if rec is not None:
             buf[0] = rec.generation
             buf[1 + torch.tensor(rec.members, dtype=torch.int64)] = 1
-        dist.broadcast(buf, 0)
+        pdist.wait_work(dist.broadcast(buf, 0, async_op=True))
         gen, *flags = buf.tolist()
         if self.coordinator or not gen:
             return rec
         return self._record(gen, [m for m in range(n) if flags[m]], "file broadcast")
 
     def pending(self, step: int):
-        """The membership change to apply at this boundary, if any: the
-        scripted plan outranks the file broadcast. A record whose
-        membership already matches is adopted here without a reshard."""
-        members = self.plan.pop(step, None)
+        """The membership change to apply at this boundary, if any: a
+        failed collective's shrink first, then the scripted plan, which
+        outranks the file broadcast. A record whose membership already
+        matches is adopted here without a reshard."""
+        if self.failure is not None:
+            rec, self.failure = self.failure, None
+            return rec
         rec_file = self._agree() if self.app_dir else None
+        members = self.plan.pop(step, None)
         rec = None
         if members is not None and set(members) != set(self.controller.members):
             rec = self._record(self.controller.generation + 1, members, "scripted plan")
@@ -355,16 +431,67 @@ class _Elastic:
                              "holds the coordinator (the reference's chief)")
         return rec
 
+    def failed(self, err: Exception, step: int, where: str = "step") -> None:
+        """A collective of ``step`` raised ``err`` on this rank: a member is
+        gone. ``where`` says which: the train step's (``"step"``, the step
+        is redone) or the per-step broadcast before it (``"agree"``).
+        Waits for the shrink generation (the coordinator: the AM's
+        declaration in the history that leaves out a current member; the
+        other ranks: the coordinator's announcement on the store) and keeps
+        it as the next boundary, at ``step``. Raises ``err`` without an
+        elastic dir to read the declaration from, or when none comes
+        within the group timeout (or 60 s)."""
+        self._failed = (time.perf_counter(), where)
+        log.warning("elastic member %d: a collective of step %d failed (%s); waiting for "
+                    "the shrink generation", self.member, step, str(err).splitlines()[0])
+        if not self.app_dir:
+            raise err
+        wait_s = self.timeout.total_seconds() if self.timeout is not None else 60.0
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            if self.coordinator:
+                old = set(self.controller.members)
+                rec = next((r for r in self._elastic.read_history(self.app_dir)
+                            if r.generation > self.controller.generation
+                            and not old <= set(r.members)), None)
+                if rec is not None:
+                    self.failure = self._record(rec.generation, rec.members,
+                                                rec.reason or "member lost")
+                    return
+            else:
+                latest = self._latest()
+                if latest > self.controller.generation:
+                    self.failure = self._announced(latest)[0]
+                    return
+                if self.base_store.check([self._key("done")]):
+                    break
+            time.sleep(0.05)
+        raise err
+
     def note_step(self, step: int) -> None:
         if self.journal is not None:
             self.journal.step(step, self.controller.generation, self.controller.members)
 
     # --- the generation boundary ---------------------------------------------
 
+    def boundary(self, step: int, state: TrainState, rebuild: Callable):
+        """The generation boundary due at ``step``: None when there is none,
+        else what :meth:`reshard` returns. A relaunched member joins the
+        running gang here, at its first call."""
+        if self.rejoining:
+            self.rejoining = False
+            return self._enter(self._wait(step), state, rebuild)
+        try:
+            rec = self.pending(step)
+        except dist.DistError as e:     # the per-step broadcast
+            self.failed(e, step, "agree")
+            rec = self.pending(step)
+        return None if rec is None else self.reshard(rec, step, state, rebuild)
+
     def reshard(self, rec, step: int, state: TrainState, rebuild: Callable):
         """One generation boundary at ``step``: returns ``(state, step_fn,
-        mesh, rules, step)`` on the new generation's group, or None when
-        this rank was left out and the run ended before it was named
+        mesh, rules, step)`` on the new generation's group, or ``_ENDED``
+        when this rank was left out and the run ended before it was named
         again. ``rebuild(mesh)`` gives ``(rules, microbatches, step_fn)``.
 
         In order: synchronize and take the fenced state (the member's
@@ -388,15 +515,22 @@ class _Elastic:
                 self._done(rec, step, self.stream.reshard(rec.members, None), t0, 0)
             else:
                 return (*self._join(rec, step, host, state, rebuild, t0), step)
-        got = self._wait(step)
+        return self._enter(self._wait(step), state, rebuild)
+
+    def _enter(self, got, state: TrainState, rebuild: Callable):
+        """Join the generation :meth:`_wait` returned, from outside any group."""
         if got is None:
-            return None
+            return _ENDED
         rec, step = got
         with self._span(rec, step):
             return (*self._join(rec, step, None, state, rebuild, time.perf_counter()), step)
 
     def _span(self, rec, step: int):
-        return trace.span("elastic.reshard", generation=rec.generation,
+        # the coordinator's span is the generation change ``tony trace``
+        # counts (restart_s, generation_changes), one a boundary as the
+        # reference's trainer journals it; every other rank's is its own
+        name = "elastic.reshard" if self.coordinator else "elastic.rank_reshard"
+        return trace.span(name, generation=rec.generation,
                           boundary=rec.boundary, at_step=step,
                           members=",".join(str(m) for m in sorted(rec.members)),
                           dead=",".join(str(m) for m in rec.dead))
@@ -411,16 +545,29 @@ class _Elastic:
         return self.shadow.capture_sync(step, whole)
 
     def _announce(self, rec, step: int) -> None:
-        """The coordinator's word to members waiting on the store."""
+        """The coordinator's word to members waiting on the store: the
+        record, then the generation number that points at it."""
         if self.coordinator:
-            self.base_store.set(f"{self.run_key}/announce/{rec.generation}",
+            self.base_store.set(self._key("announce", rec.generation),
                                 json.dumps({**rec.to_dict(), "at_step": step}))
+            self.base_store.set(self._key("generation"), str(rec.generation))
+
+    def _latest(self) -> int:
+        """The last generation the coordinator announced (0: none)."""
+        key = self._key("generation")
+        return int(self.base_store.get(key)) if self.base_store.check([key]) else 0
+
+    def _announced(self, generation: int):
+        """(record, boundary step) of an announced generation."""
+        d = json.loads(self.base_store.get(self._key("announce", generation)))
+        return self._elastic.GenerationRecord.from_dict(d), int(d["at_step"])
 
     def _form(self, members: tuple[int, ...], generation: int) -> None:
         rank = self.topology.rank_of(self.member, self.local, members)
         world = len(members) * self.topology.ranks_per_member
-        store = dist.PrefixStore(f"{self.run_key}/gen{generation}", self.base_store)
-        dist.init_process_group(self.backend, store=store, rank=rank, world_size=world)
+        store = dist.PrefixStore(self._key(f"gen{generation}"), self.base_store)
+        dist.init_process_group(self.backend, store=store, rank=rank, world_size=world,
+                                **({"timeout": self.timeout} if self.timeout else {}))
 
     def _join(self, rec, step: int, host, state: TrainState, rebuild: Callable, t0: float):
         """Steps 3-8 of the boundary for a rank of ``rec``'s membership:
@@ -429,6 +576,7 @@ class _Elastic:
         members = tuple(sorted(rec.members))
         old = self.controller.members
         self._form(members, rec.generation)
+        formed = time.perf_counter()
         self.mesh = build_mesh(self.topology.shape_for(members))
         set_default_mesh(self.mesh)
         rules, microbatches, step_fn = rebuild(self.mesh)
@@ -436,19 +584,23 @@ class _Elastic:
         if host is not None:
             state = self._elastic.reshard_state(host, self.mesh, rules, model=self.model,
                                                 device=self.device)
+        tb = time.perf_counter()
         sent = self._sync_grown(members, old, state)
+        broadcast_s = time.perf_counter() - tb
         self.stream.step = step
         skipped = self.stream.reshard(members, self.mesh)
-        self._done(rec, step, skipped, t0, sent)
+        self._done(rec, step, skipped, t0, sent, broadcast_s=broadcast_s, formed=formed)
         return state, step_fn, self.mesh, rules
 
     def _sync_grown(self, members: tuple[int, ...], old: tuple[int, ...],
                     state: TrainState) -> int:
         """Grown members receive the whole state from the same local rank
         of the first surviving member (parameters, AdamW moments, the step
-        counts; the port's clip is stateless and it keeps no loss scaler);
-        survivors keep theirs. Returns the payload bytes this rank sent or
-        received."""
+        counts; the port's clip is stateless and it keeps no loss scaler)
+        and its health sentinel's stride count, so every rank builds the
+        step's monitors on the same steps (their sums share the step's
+        all-reduces); survivors keep theirs. Returns the payload bytes this
+        rank sent or received."""
         grown = [m for m in members if m not in old]
         if not grown:
             return 0
@@ -457,14 +609,16 @@ class _Elastic:
         moved = 0
         for local in range(self.topology.ranks_per_member):
             ranks = tuple(self.topology.rank_of(m, local, members) for m in [src, *grown])
-            group = dist.new_group(list(ranks))
+            group = dist.new_group(list(ranks), timeout=self.timeout)
             if rank not in ranks:
                 continue
             axis = pdist.Axis("elastic", len(ranks), ranks.index(rank), ranks, group)
             leaves = [*tree_leaves(state.params), *tree_leaves(state.opt_state["mu"]),
                       *tree_leaves(state.opt_state["nu"])]
-            counts = torch.tensor([state.step, state.opt_state["count"]], dtype=torch.int64,
-                                  device=leaves[0].device)
+            sentinel = health.active_sentinel()
+            counts = torch.tensor([state.step, state.opt_state["count"],
+                                   sentinel.steps_seen if sentinel is not None else -1],
+                                  dtype=torch.int64, device=leaves[0].device)
             with torch.no_grad():
                 for t in [*leaves, counts]:
                     got = pdist.broadcast(t, axis, 0)
@@ -472,16 +626,25 @@ class _Elastic:
                         t.copy_(got)
             nbytes = sum(t.numel() * t.element_size() for t in [*leaves, counts])
             moved = nbytes * (len(ranks) - 1) if axis.index == 0 else nbytes
-            state.step, state.opt_state["count"] = (int(c) for c in counts.tolist())
+            state.step, state.opt_state["count"], seen = (int(c) for c in counts.tolist())
+            if sentinel is not None and seen >= 0:
+                sentinel.steps_seen = seen
         return moved
 
-    def _done(self, rec, step: int, skipped: dict, t0: float, moved: int) -> None:
+    def _done(self, rec, step: int, skipped: dict, t0: float, moved: int,
+              broadcast_s: float = 0.0, formed: float | None = None) -> None:
         dt = time.perf_counter() - t0
         self.reshards += 1
         self.reshard_s += dt
-        self.boundaries.append({"generation": rec.generation, "at_step": step,
-                                "boundary": rec.boundary, "reshard_s": dt,
-                                "broadcast_bytes": moved})
+        entry = {"generation": rec.generation, "at_step": step, "boundary": rec.boundary,
+                 "reshard_s": dt, "broadcast_bytes": moved, "broadcast_s": broadcast_s,
+                 "wall": time.time()}
+        if self._failed is not None and formed is not None:
+            # from the collective that failed to the group re-formed without it
+            entry["failure_to_group_s"] = formed - self._failed[0]
+            entry["failed_in"] = self._failed[1]
+            self._failed = None
+        self.boundaries.append(entry)
         if self.journal is not None:
             self.journal.reshard(
                 generation=rec.generation, at_step=step, boundary=rec.boundary,
@@ -494,25 +657,27 @@ class _Elastic:
                         list(rec.members), self.stream.global_batch)
 
     def _wait(self, step: int):
-        """Out of the group: wait on the run's store (and the generation
-        file, when the run has an elastic dir) for a generation that names
-        this member; each one that does not is adopted as it comes.
-        Returns (record, boundary step), or None when the run ended."""
+        """Out of the group: wait on the run's store for a generation that
+        names this member, adopting each announced one that does not, and
+        say on the store (``<run>/ready/<rank>``) which generation this
+        rank has caught up with. Returns (record, boundary step), or None
+        when the run ended."""
         named = 0
+        self.base_store.set(self._key("ready", self.rank), str(self.controller.generation))
         while True:
-            key = f"{self.run_key}/announce/{self.controller.generation + 1}"
-            if self.base_store.check([key]):
-                d = json.loads(self.base_store.get(key))
-                rec = self._elastic.GenerationRecord.from_dict(d)
-                at = int(d["at_step"])
+            for g in range(self.controller.generation + 1, self._latest() + 1):
+                if not self.base_store.check([self._key("announce", g)]):
+                    continue          # adopted without a boundary: nothing to do
+                rec, at = self._announced(g)
                 if self.member in rec.members:
                     self.plan = {k: v for k, v in self.plan.items() if k > at}
                     return rec, at
                 self.stream.step = at
                 self._done(rec, at, self.stream.reshard(rec.members, None),
                            time.perf_counter(), 0)
-                continue
-            if self.base_store.check([f"{self.run_key}/done"]):
+                self.base_store.set(self._key("ready", self.rank),
+                                    str(self.controller.generation))
+            if self.base_store.check([self._key("done")]):
                 return None
             if self.app_dir:
                 rec = self._elastic.read_generation(self.app_dir)
@@ -533,7 +698,7 @@ class _Elastic:
 
     def close(self) -> None:
         if self.coordinator:
-            self.base_store.set(f"{self.run_key}/done", "1")
+            self.base_store.set(self._key("done"), "1")
         self.shadow.close()
         if self.stream is not None:
             self.stream.close()
@@ -582,9 +747,11 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh, el: _Elastic | None) 
         manager = CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
                                     save_interval_steps=cfg.checkpoint_every, mesh=mesh,
                                     specs=state_specs(model, rules).params)
-        if cfg.resume:
+        # a relaunched elastic member receives the state by broadcast
+        if cfg.resume and not (el is not None and el.rejoining):
             t0 = time.perf_counter()
-            state, restored = manager.restore(state)
+            with trace.span("fit.startup.restore"):
+                state, restored = manager.restore(state)
             startup["restore_s"] = round(time.perf_counter() - t0, 3)
             if restored >= 0:
                 start_step = restored
@@ -653,11 +820,10 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh, el: _Elastic | None) 
     try:
         while step < cfg.steps:
             if el is not None:
-                rec = el.pending(step)
-                if rec is not None:
-                    moved = el.reshard(rec, step, state, build_step)
-                    if moved is None:     # left out, and the run ended meanwhile
-                        break
+                moved = el.boundary(step, state, build_step)
+                if moved is _ENDED:       # left out, and the run ended meanwhile
+                    break
+                if moved is not None:
                     state, step_fn, mesh, rules, step = moved
                     batches = el.stream
                     lead = mesh.rank == 0
@@ -683,10 +849,18 @@ def _fit(cfg: FitConfig, device: torch.device, mesh: Mesh, el: _Elastic | None) 
             if tracer is not None and step != start_step:
                 sp = tracer.sampled_span("train.step", step=step + 1,
                                          fetch_ms=round(fetch_s * 1e3, 3))
-            with sp, (annotate("train.step") if sp is not trace.NOOP_SPAN
-                      else contextlib.nullcontext()):
-                state, metrics = step_fn(state, inputs, targets)
-                loss = float(metrics["loss"])        # the step's one host sync
+            try:
+                with sp, (annotate("train.step") if sp is not trace.NOOP_SPAN
+                          else contextlib.nullcontext()):
+                    state, metrics = step_fn(state, inputs, targets)
+                    loss = float(metrics["loss"])        # the step's one host sync
+            except dist.DistError as e:
+                if el is None:
+                    raise
+                # a member is gone: the state is still this step's start
+                # (_Elastic); the step is redone at the shrink's boundary
+                el.failed(e, step)
+                continue
             dt = time.perf_counter() - t0
             hbm.sample()                 # allocator statistics: no sync
             health.sample(metrics=metrics)   # pinned async copies, read off-thread
